@@ -1,0 +1,20 @@
+"""lightglue_tpu_torch: the LightGlue matcher in PyTorch with hand-written
+CUDA kernels for NVIDIA Hopper (sm_90a).
+
+The JAX package ``lightglue_tpu`` is the reference; this package imports
+neither it nor JAX. Ops run their CUDA kernels on CUDA tensors (built from
+``csrc/`` at first use, see ``_build.py``) and their plain PyTorch versions
+on CPU tensors.
+"""
+
+from .configs import FEATURES, LightGlueConfig, lightglue_config
+from .pipeline import LightGlue, compact_matches, rbd
+
+__all__ = [
+    "FEATURES",
+    "LightGlue",
+    "LightGlueConfig",
+    "compact_matches",
+    "lightglue_config",
+    "rbd",
+]

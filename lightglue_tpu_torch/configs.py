@@ -1,0 +1,103 @@
+"""Matcher configuration (counterpart of lightglue_tpu/configs.py:16-117).
+
+The same frozen dataclass with the same fields, so one set of keyword
+arguments configures both packages. Options whose kernels the port does not
+have yet are refused at construction with the ROADMAP entry that adds them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+_ROADMAP = "ROADMAP.md, Queue B (still to be ported)"
+
+
+@dataclasses.dataclass(frozen=True)
+class LightGlueConfig:
+    """Matcher configuration (reference: lightglue/lightglue.py:322-335).
+
+    ``depth_confidence``/``width_confidence`` < 0 disable adaptive depth /
+    width. ``fused_self``/``fused_cross`` default to False here: the
+    whole-block kernels are not ported yet, and the matcher runs the
+    composed blocks (attention, cross attention and FFN kernels).
+    """
+
+    name: str = "lightglue"
+    input_dim: int = 256
+    descriptor_dim: int = 256
+    add_scale_ori: bool = False
+    n_layers: int = 9
+    num_heads: int = 4
+    flash: bool = True  # attention/assignment kernels (False: composed ops)
+    mp: bool = False
+    depth_confidence: float = 0.95
+    width_confidence: float = 0.99
+    filter_threshold: float = 0.1
+    weights: Optional[str] = None
+    pruning_min_kpts: int = 512
+    compaction_bucket: int = 0
+    compaction_prefix: int = 3
+    cross_softmax_shift: Optional[float] = None
+    self_softmax_shift: Optional[float] = None
+    fused_ffn: bool = True  # FFN kernel (False: composed FFN)
+    fused_self: bool = False
+    fused_cross: bool = False
+
+    def __post_init__(self):
+        if self.descriptor_dim % self.num_heads != 0:
+            raise ValueError(
+                f"descriptor_dim {self.descriptor_dim} must be divisible by "
+                f"num_heads {self.num_heads}"
+            )
+        if self.n_layers < 1:
+            raise ValueError("n_layers must be >= 1")
+        unported = {
+            "fused_self=True (whole-SelfBlock kernel B5)": self.fused_self,
+            "fused_cross=True (whole-CrossBlock kernel B6)": self.fused_cross,
+            "mp=True (bf16 compute)": self.mp,
+            "self_softmax_shift (constant-shift attention kernel)":
+                self.self_softmax_shift is not None,
+            "cross_softmax_shift (single-pass cross attention kernel)":
+                self.cross_softmax_shift is not None,
+            "compaction_bucket > 0 (two-stage compaction)":
+                self.compaction_bucket > 0,
+        }
+        for what, asked in unported.items():
+            if asked:
+                raise NotImplementedError(
+                    f"{what} is not ported to lightglue_tpu_torch yet; see "
+                    f"{_ROADMAP}."
+                )
+
+    @property
+    def head_dim(self) -> int:
+        return self.descriptor_dim // self.num_heads
+
+    def replace(self, **kw) -> "LightGlueConfig":
+        return dataclasses.replace(self, **kw)
+
+
+# Per-feature presets (reference: lightglue/lightglue.py:351-374).
+FEATURES = {
+    "superpoint": dict(weights="superpoint_lightglue", input_dim=256),
+    "disk": dict(weights="disk_lightglue", input_dim=128),
+    "aliked": dict(weights="aliked_lightglue", input_dim=128),
+    "sift": dict(weights="sift_lightglue", input_dim=128, add_scale_ori=True),
+    "doghardnet": dict(
+        weights="doghardnet_lightglue", input_dim=128, add_scale_ori=True
+    ),
+}
+
+
+def lightglue_config(
+    features: Optional[str] = "superpoint", **conf
+) -> LightGlueConfig:
+    """A LightGlueConfig with a feature preset overlaid (lightglue.py:376-386)."""
+    if features is not None:
+        if features not in FEATURES:
+            raise ValueError(
+                f"Unsupported features: {features} not in {{{','.join(FEATURES)}}}"
+            )
+        conf = {**FEATURES[features], **conf}
+    return LightGlueConfig(**conf)

@@ -1,0 +1,82 @@
+"""Layer functions over nested parameter dicts (counterpart of
+lightglue_tpu/nn.py:40-70, 351-371).
+
+Parameters keep the JAX package's layout: linear weights are ``(in, out)``
+so a layer is ``x @ w + b``, and the matcher's transformer layers are
+stacked along a leading axis.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+Params = dict
+
+
+def linear_init(
+    in_dim: int, out_dim: int, generator: torch.Generator, bias: bool = True
+) -> Params:
+    """U(-1/sqrt(in), 1/sqrt(in)) weights and bias, torch's Linear default."""
+    bound = 1.0 / math.sqrt(in_dim)
+
+    def uniform(*shape):
+        return (torch.rand(*shape, generator=generator) * 2 - 1) * bound
+
+    p = {"w": uniform(in_dim, out_dim)}
+    if bias:
+        p["b"] = uniform(out_dim)
+    return p
+
+
+def linear(p: Params, x: torch.Tensor) -> torch.Tensor:
+    y = x @ p["w"]
+    if "b" in p:
+        y = y + p["b"]
+    return y
+
+
+def layer_norm_init(dim: int) -> Params:
+    return {"scale": torch.ones(dim), "bias": torch.zeros(dim)}
+
+
+def layer_norm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """fp32 LayerNorm over the last axis (biased variance, as jnp.var)."""
+    xf = x.float()
+    mean = xf.mean(-1, keepdim=True)
+    var = xf.var(-1, unbiased=False, keepdim=True)
+    y = (xf - mean) * torch.rsqrt(var + eps)
+    return (y * p["scale"] + p["bias"]).to(x.dtype)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """The exact erf GELU (torch nn.GELU default)."""
+    return F.gelu(x, approximate="none")
+
+
+def stack_params(params_list) -> Params:
+    """Stack identically structured trees along a new leading axis."""
+    first = params_list[0]
+    if isinstance(first, dict):
+        return {k: stack_params([p[k] for p in params_list]) for k in first}
+    return torch.stack(params_list, 0)
+
+
+def index_params(p: Params, i: int) -> Params:
+    """Layer ``i`` of stacked params."""
+    return map_params(p, lambda x: x[i])
+
+
+def map_params(p: Params, fn) -> Params:
+    """Apply ``fn`` to every tensor of a nested parameter dict."""
+    if isinstance(p, dict):
+        return {k: map_params(v, fn) for k, v in p.items()}
+    return fn(p)
+
+
+def params_to(p: Params, device: Optional[torch.device] = None) -> Params:
+    """Every tensor as float32 on ``device``."""
+    return map_params(p, lambda x: x.to(device=device, dtype=torch.float32))

@@ -1,0 +1,69 @@
+"""Masked scaled dot-product attention: kernel K1 and its plain version.
+
+Counterpart of lightglue_tpu/ops/flash.py::flash_sdpa (exact variant,
+``_attn_kernel_4d``, flash.py:94-217). On a CUDA tensor ``flash_sdpa``
+launches ``csrc/flash_sdpa.cu`` or raises; on a CPU tensor it runs
+``flash_sdpa_plain``, the same function in plain PyTorch.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from .. import _build
+
+NEG_INF = -1e30  # additive bias of a masked key
+HEAD_DIM = 64  # the only head_dim the attention kernels take
+
+
+def key_bias(valid: torch.Tensor) -> torch.Tensor:
+    """(B, N) bool -> float32 additive bias: 0 valid, -1e30 masked."""
+    return (valid.float() - 1.0) * -NEG_INF
+
+
+def flash_sdpa_plain(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    k_valid: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """softmax((q / sqrt(d)) k^T + key bias) v with an fp32 softmax; rows
+    of a batch entry whose keys are all masked come out as 0.
+    q (B, H, Nq, d); k, v (B, H, Nk, d); k_valid (B, Nk) bool."""
+    s = (q * q.shape[-1] ** -0.5) @ k.transpose(-1, -2)
+    if k_valid is not None:
+        s = s + key_bias(k_valid)[:, None, None, :]
+    e = torch.exp(s - s.amax(-1, keepdim=True))
+    o = (e @ v) / torch.clamp(e.sum(-1, keepdim=True), min=1e-30)
+    if k_valid is not None:
+        o = torch.where(k_valid.any(-1)[:, None, None, None], o,
+                        torch.zeros_like(o))
+    return o
+
+
+def flash_sdpa(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    k_valid: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """K1 on CUDA tensors, the plain version on CPU tensors."""
+    if q.device.type == "cpu":
+        return flash_sdpa_plain(q, k, v, k_valid)
+    kbias = None if k_valid is None else key_bias(k_valid).contiguous()
+    dev = _build.check_cuda(q=q, k=k, v=v, k_bias=kbias)
+    b, h, nq, d = q.shape
+    nk = k.shape[2]
+    if d != HEAD_DIM:
+        raise ValueError(f"flash_sdpa kernel takes head_dim {HEAD_DIM}, got {d}")
+    if k.shape != (b, h, nk, d) or v.shape != k.shape or nk < 1:
+        raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k.shape)} "
+                         f"v {tuple(v.shape)}")
+    if kbias is not None and kbias.shape != (b, nk):
+        raise ValueError(f"k_valid must be ({b}, {nk}), got {tuple(kbias.shape)}")
+    o = torch.empty_like(q)
+    _build.launch("lg_flash_sdpa", dev, q, k, v, kbias, o, b, h, nq, nk)
+    _build.count("flash_sdpa")
+    return o

@@ -1,0 +1,90 @@
+"""Matcher parameters from the JAX package's flat checkpoints (counterpart of
+lightglue_tpu/weights.py:148-181).
+
+A checkpoint is a flat ``"a/b/c" -> array`` dict, as
+``lightglue_tpu.weights.flatten_tree`` writes it and the npz files hold:
+linear weights ``(in, out)``, transformer layers stacked on axis 0. The port
+keeps that layout, so conversion is a key-for-key copy into float32 tensors
+with every key and shape checked against the configuration.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from . import nn
+from .configs import LightGlueConfig
+
+
+def expected_shapes(conf: LightGlueConfig) -> Dict[str, tuple]:
+    """Every parameter key of a matcher with ``conf``, with its shape."""
+    d, L = conf.descriptor_dim, conf.n_layers
+    lin = lambda key, i, o, *lead: {f"{key}/w": (*lead, i, o),
+                                    f"{key}/b": (*lead, o)}
+    ln = lambda key, n, *lead: {f"{key}/scale": (*lead, n),
+                                f"{key}/bias": (*lead, n)}
+    shapes = {}
+    if conf.input_dim != d:
+        shapes.update(lin("input_proj", conf.input_dim, d))
+    shapes["posenc/Wr/w"] = (2 + 2 * int(conf.add_scale_ori), conf.head_dim // 2)
+    for block, projs in (
+        ("self_attn", (("Wqkv", d, 3 * d), ("out_proj", d, d))),
+        ("cross_attn", (("to_qk", d, d), ("to_v", d, d), ("to_out", d, d))),
+    ):
+        pre = f"transformers/{block}"
+        for name, i, o in projs:
+            shapes.update(lin(f"{pre}/{name}", i, o, L))
+        shapes.update(lin(f"{pre}/ffn/lin1", 2 * d, 2 * d, L))
+        shapes.update(ln(f"{pre}/ffn/ln", 2 * d, L))
+        shapes.update(lin(f"{pre}/ffn/lin2", 2 * d, d, L))
+    shapes.update(lin("log_assignment/matchability", d, 1, L))
+    shapes.update(lin("log_assignment/final_proj", d, d, L))
+    shapes.update(lin("token_confidence/token", d, 1, L - 1))
+    return shapes
+
+
+def from_jax_params(
+    flat: Dict[str, np.ndarray], conf: Optional[LightGlueConfig] = None
+) -> nn.Params:
+    """The port's parameter tree from a flat JAX checkpoint. Raises on any
+    missing or unexpected key and on any shape that does not fit ``conf``
+    (default: the superpoint matcher at full width)."""
+    conf = conf or LightGlueConfig()
+    want = expected_shapes(conf)
+    missing = sorted(set(want) - set(flat))
+    extra = sorted(set(flat) - set(want))
+    if missing or extra:
+        raise KeyError(f"checkpoint keys do not fit the config: missing "
+                       f"{missing}, unexpected {extra}")
+    tree: dict = {}
+    for key, shape in want.items():
+        arr = np.asarray(flat[key])
+        if arr.shape != shape:
+            raise ValueError(f"{key}: shape {arr.shape}, expected {shape}")
+        node = tree
+        *path, leaf = key.split("/")
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = torch.from_numpy(np.array(arr, np.float32))
+    return tree
+
+
+def load_params(path: str, conf: Optional[LightGlueConfig] = None) -> nn.Params:
+    """Read a flat npz with numpy (float16 storage is upcast to float32)
+    and convert it with ``from_jax_params``."""
+    with np.load(path) as f:
+        flat = {k: f[k] for k in f.files}
+    return from_jax_params(flat, conf)
+
+
+def flatten_params(tree: nn.Params, prefix: str = "") -> Dict[str, np.ndarray]:
+    """Inverse of ``from_jax_params``: the flat ``"a/b/c"`` numpy dict."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(flatten_params(v, f"{prefix}{k}/"))
+        return out
+    return {prefix[:-1]: tree.detach().cpu().numpy()}
