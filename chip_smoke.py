@@ -3,17 +3,30 @@
     python3 chip_smoke.py
 
 Phases, any failure raising (non-zero exit, no result line):
-  0. device: the card's name and power limit, versions; TF32 off;
-  1. build: nvcc compiles csrc/*.cu into _build/ (timed);
-  2. each kernel against its plain PyTorch version at the main path's shapes,
-     then at tiny and ragged shapes;
-  3. the main path: pipeline.LightGlue with the trained matcher weights on
-     planted pairs at 1024 keypoints (single pairs, one through padding
-     buckets, and a batch of 8; fixed and adaptive), with every kernel's
-     launch count read around it, and one pair held against the same call
-     on CPU tensors;
-  4. timing with CUDA events: each kernel beside its plain version, and
-     end-to-end pairs/s.
+  0. device: the card's name and power limit, versions; the TF32 flags
+     stay at torch's defaults (cuDNN's on), so the checks below hold the
+     library's own fp32 scoping of its convs;
+  1. build: nvcc compiles csrc/*.cu into _build/, one process per source
+     (timed);
+  2. each kernel against its plain PyTorch version at the main paths'
+     shapes, then at tiny and ragged shapes and, for the matcher's kernels,
+     at 2048 keypoints;
+  3. the two main paths, each with the kernels' launch counts set to 0 just
+     before it and read just after:
+     a. pipeline.LightGlue with the trained matcher weights on planted pairs
+        at 1024 keypoints (single pairs, one through padding buckets, and a
+        batch of 8; fixed and adaptive), one pair held against the same call
+        on CPU tensors;
+     b. images to matches: pipeline.match_pair(SuperPoint, LightGlue) on
+        generated 768 x 1024 pairs (one needing padding, one a 2x area
+        downscale) and end_to_end.make_end_to_end at B 4, SuperPoint at its
+        published widths with seeded random weights (conv weights times 3,
+        see models.superpoint.init_params), one pair held against the CPU
+        port; then the same matcher on a planted pair at 2048 keypoints,
+        where it has matches to find, held against the CPU port;
+  4. timing with CUDA events and host clocks: each kernel beside its plain
+     version, extraction ms per image, end-to-end pairs/s and match_pair
+     ms per pair.
 The line before the last is a JSON object of the kernels; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -31,11 +44,16 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from lightglue_tpu_torch import LightGlue, _build  # noqa: E402
+from lightglue_tpu_torch import (  # noqa: E402
+    LightGlue, SuperPoint, SuperPointConfig, _build, lightglue_config,
+    match_pair)
+from lightglue_tpu_torch import end_to_end  # noqa: E402
 from lightglue_tpu_torch import weights as weights_lib  # noqa: E402
+from lightglue_tpu_torch.models import superpoint as sp  # noqa: E402
 from lightglue_tpu_torch.ops import assignment_fused as af  # noqa: E402
 from lightglue_tpu_torch.ops import ffn, flash, flash_cross  # noqa: E402
-from lightglue_tpu_torch.synthetic import planted_pairs  # noqa: E402
+from lightglue_tpu_torch.ops import nms, stem, stem2  # noqa: E402
+from lightglue_tpu_torch.synthetic import image_pair, planted_pairs  # noqa: E402
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WEIGHTS = os.path.join(ROOT, "weights", "synthetic_superpoint_lightglue.npz")
@@ -51,7 +69,20 @@ KERNELS = {
                            "lightglue_tpu/ops/ffn.py:40"),
     "fused_filter_matches": ("lightglue_tpu_torch/csrc/assignment_fused.cu",
                              "lightglue_tpu/ops/assignment_fused.py:39"),
+    "fused_stem": ("lightglue_tpu_torch/csrc/stem.cu",
+                   "lightglue_tpu/ops/stem.py:77"),
+    "fused_block2": ("lightglue_tpu_torch/csrc/stem2.cu",
+                     "lightglue_tpu/ops/stem2.py:46"),
+    "simple_nms": ("lightglue_tpu_torch/csrc/nms.cu",
+                   "lightglue_tpu/ops/nms.py:77"),
 }
+MATCHER_KERNELS = ("flash_sdpa", "fused_cross_attention", "fused_ffn_residual",
+                   "fused_filter_matches")
+# The conv kernels sum each output over (input channel, tap) in another
+# order than cuDNN may: held to a bound relative to the output's size.
+CONV_TOL = 1e-4
+H, W = 768, 1024  # the extraction path's image size
+MIN_KEYPOINTS = 500  # per image at H x W: a floor that catches a dead detector
 
 
 def phase(name):
@@ -81,10 +112,13 @@ def device_phase():
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    # TF32 flags stay at torch's defaults (matmul off, cuDNN on): the
+    # library keeps its own convs in fp32 (nn.fp32_convs), and this run
+    # shows that it does
     print(f"  torch {torch.__version__} cuda {torch.version.cuda} "
-          f"python {sys.version.split()[0]}")
+          f"python {sys.version.split()[0]}; TF32 matmul "
+          f"{torch.backends.cuda.matmul.allow_tf32}, cuDNN "
+          f"{torch.backends.cudnn.allow_tf32}")
     print(f"  {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}", flush=True)
     return smi
 
@@ -111,11 +145,7 @@ def kernel_inputs():
     b, h, n = 4, 4, 1024
     mask1000 = torch.rand(b, 1000, generator=g, device="cuda") < 0.8
     mask1000[1] = False  # one batch row with every key masked
-    p = {
-        "lin1": {"w": rand(g, 512, 512) / 512**0.5, "b": rand(g, 512) * 0.1},
-        "ln": {"scale": 1 + rand(g, 512) * 0.1, "bias": rand(g, 512) * 0.1},
-        "lin2": {"w": rand(g, 512, 256) / 512**0.5, "b": rand(g, 256) * 0.1},
-    }
+    p = kernel_inputs_ffn(g)
     pairs = planted_pairs(np.random.default_rng(1), b, n)
     mdesc = [torch.from_numpy(pairs[f"descriptors{i}"]).cuda() * 3.0
              for i in (0, 1)]
@@ -268,10 +298,262 @@ def edge_phase():
         errs["fused_filter_matches"] = max(
             errs["fused_filter_matches"], max_err(kv0, pv0, mk0),
             max_err(kv1, pv1, mk1))
-    for name, err in errs.items():
-        check(f"{name} edge shapes", err)
+    # the matcher's kernels at 2048 keypoints, match_pair's default
+    n = 2048
+    q, k, v = rand(g, 1, 4, n, 64), rand(g, 1, 4, n, 64), rand(g, 1, 4, n, 64)
+    valid = mask(1, n)
+    errs["flash_sdpa"] = max(errs["flash_sdpa"], max_err(
+        flash.flash_sdpa(q, k, v, valid), flash.flash_sdpa_plain(q, k, v, valid)))
+    va0, va1 = mask(1, n), mask(1, n)
+    got = flash_cross.fused_cross_attention(q, k, v, q, va0, va1)
+    ref = flash_cross.fused_cross_attention_plain(q, k, v, q, va0, va1)
+    errs["fused_cross_attention"] = max(
+        errs["fused_cross_attention"],
+        max_err(got[0], ref[0], va0[:, None, :].expand(-1, 4, -1)),
+        max_err(got[1], ref[1]))
+    x, msg, p = rand(g, 1, n, 256), rand(g, 1, n, 256), kernel_inputs_ffn(g)
+    errs["fused_ffn_residual"] = max(errs["fused_ffn_residual"], max_err(
+        ffn.fused_ffn_residual(x, msg, p), ffn.fused_ffn_residual_plain(x, msg, p)))
+    d0, d1 = rand(g, 1, n, 256) * 0.2, rand(g, 1, n, 256) * 0.2
+    ls0 = torch.nn.functional.logsigmoid(rand(g, 1, n))
+    ls1 = torch.nn.functional.logsigmoid(rand(g, 1, n))
+    km0, kv0, km1, kv1 = af._filter_reductions_kernel(d0, d1, ls0, ls1, va0, va1)
+    pm0, pv0, pm1, pv1 = af.filter_reductions_plain(d0, d1, ls0, ls1, va0, va1)
+    sure0, sure1 = k4_margin_rows(d0, d1, ls0, ls1, va0, va1)
+    if not (bool((km0.long() == pm0)[sure0].all())
+            and bool((km1.long() == pm1)[sure1].all())):
+        raise AssertionError("fused_filter_matches argmax at 2048 keypoints")
+    errs["fused_filter_matches"] = max(
+        errs["fused_filter_matches"], max_err(kv0, pv0, va0),
+        max_err(kv1, pv1, va1))
+    print(f"  matcher kernels at {n} keypoints: done")
+
+    # the extractor's kernels at tiny and ragged sizes (multiples of 8)
+    params = superpoint_params()
+    for h, w in ((8, 8), (24, 40), (72, 136)):
+        img = torch.rand(2, 1, h, w, generator=g, device="cuda")
+        e1, e2 = conv_pair_errors(params, img)
+        errs["fused_stem"] = max(errs["fused_stem"], e1)
+        errs["fused_block2"] = max(errs["fused_block2"], e2)
+        print(f"  stem / block2 at {h}x{w}: max_abs_err {e1:.3e} / {e2:.3e} "
+              f"(tol {CONV_TOL:g} x max(1, max|plain|))")
+    for r in (1, 2, 4):
+        s = torch.rand(2, 61, 83, generator=g, device="cuda")
+        s[0, 10:25, 20:50] = 0.75  # a plateau of tied scores
+        s[0, 40, 40] = 1.0
+        s[1] = -s[1]  # all negative
+        s[1, 30:, :10] = -0.25
+        if not torch.equal(nms.simple_nms_kernel(s, r), nms.simple_nms_plain(s, r)):
+            raise AssertionError(f"simple_nms differs at radius {r}")
+    print("  simple_nms at radii 1, 2, 4 (plateau, negative scores): equal")
+    for name in MATCHER_KERNELS:
+        check(f"{name} edge shapes", errs[name])
     torch.cuda.synchronize()
     return errs
+
+
+def kernel_inputs_ffn(g):
+    return {
+        "lin1": {"w": rand(g, 512, 512) / 512**0.5, "b": rand(g, 512) * 0.1},
+        "ln": {"scale": 1 + rand(g, 512) * 0.1, "bias": rand(g, 512) * 0.1},
+        "lin2": {"w": rand(g, 512, 256) / 512**0.5, "b": rand(g, 256) * 0.1},
+    }
+
+
+def superpoint_params(device="cuda"):
+    """SuperPoint at its published widths, seeded random weights with the
+    conv weights times 3, the stand-in for the release weights (not in the
+    repository; models.superpoint.init_params says why 3)."""
+    params = sp.init_params(SuperPointConfig(), torch.Generator().manual_seed(0))
+    return {k: {"w": v["w"].to(device) * 3.0, "b": v["b"].to(device)}
+            for k, v in params.items()}
+
+
+def conv_pair_errors(params, img):
+    """(stem, block 2) kernel-vs-plain max-abs errors, each checked against
+    CONV_TOL * max(1, max |plain|); block 2 runs on the plain stem's output."""
+    p1 = {"conv1a": params["conv1a"], "conv1b": params["conv1b"]}
+    p2 = {"conv2a": params["conv2a"], "conv2b": params["conv2b"]}
+    errs = []
+    x = img
+    for name, kern, plain, p in (
+            ("fused_stem", stem.fused_stem, stem.fused_stem_plain, p1),
+            ("fused_block2", stem2.fused_block2, stem2.fused_block2_plain, p2)):
+        ref = plain(p, x)
+        err = max_err(kern(p, x), ref)
+        bound = CONV_TOL * max(1.0, float(ref.abs().max()))
+        if not err <= bound:
+            raise AssertionError(f"{name} at {tuple(x.shape)}: {err} > {bound}")
+        errs.append(err)
+        x = ref
+    return tuple(errs)
+
+
+def sp_kernel_phase(sp_params):
+    """B7, B8, B9 at the extraction path's shapes: two 768 x 1024 images,
+    block 2 on the stem's output, NMS (r 4) on their SuperPoint score maps.
+    Returns (errors, the inputs for timing)."""
+    phase("2b extraction kernels against their plain versions")
+    rng = np.random.default_rng(5)
+    img = torch.from_numpy(np.stack([image_pair(rng, H, W)[0] for _ in range(2)])
+                           ).cuda()[:, None]
+    e_stem, e_b2 = conv_pair_errors(sp_params, img)
+    print(f"  fused_stem (2,1,{H},{W}): max_abs_err {e_stem:.3e}; fused_block2 "
+          f"(2,64,{H // 2},{W // 2}): {e_b2:.3e} (tol {CONV_TOL:g} x "
+          "max(1, max|plain|))")
+    scores, _ = sp.dense_forward(sp_params, img.permute(0, 2, 3, 1))
+    got = nms.simple_nms_kernel(scores, 4)
+    if not torch.equal(got, nms.simple_nms_plain(scores, 4)):
+        raise AssertionError("simple_nms differs from its plain version")
+    print(f"  simple_nms (2,{H},{W}) r 4: equal to the plain version, "
+          f"{int((got > 0).sum())} maxima")
+    p1 = {"conv1a": sp_params["conv1a"], "conv1b": sp_params["conv1b"]}
+    torch.cuda.synchronize()
+    return ({"fused_stem": e_stem, "fused_block2": e_b2, "simple_nms": 0.0},
+            {"img": img, "stem_out": stem.fused_stem_plain(p1, img),
+             "scores": scores})
+
+
+def common_keypoints(fa, fb):
+    """(i, j) index pairs of the valid keypoints of feats fa and fb (batch
+    dims removed) at the same location."""
+    at = {tuple(k): i for i, k in enumerate(fa["keypoints"]) if fa["valid"][i]}
+    pairs = [(at[tuple(k)], j) for j, k in enumerate(fb["keypoints"])
+             if fb["valid"][j] and tuple(k) in at]
+    return np.array(pairs, np.int64).reshape(-1, 2)
+
+
+def check_pair_output(name, f0, f1, m, size0, size1):
+    for f, (w, h) in ((f0, size0), (f1, size1)):
+        k, v = f["keypoints"], f["valid"]
+        if not (np.isfinite(k).all() and np.isfinite(f["descriptors"]).all()):
+            raise AssertionError(f"{name}: keypoints or descriptors not finite")
+        kv = k[v]
+        if not ((kv >= -0.5).all() and (kv[:, 0] <= w - 0.5).all()
+                and (kv[:, 1] <= h - 0.5).all()):
+            raise AssertionError(f"{name}: a keypoint outside the image")
+        norms = np.linalg.norm(f["descriptors"][v], axis=-1)
+        if not np.allclose(norms, 1.0, atol=1e-4):
+            raise AssertionError(f"{name}: descriptors not unit length")
+        if v.sum() < MIN_KEYPOINTS:
+            raise AssertionError(f"{name}: only {v.sum()} keypoints")
+    m0, m1 = m["matches0"], m["matches1"]
+    idx = np.nonzero(m0 >= 0)[0]
+    if not (m1[m0[idx]] == idx).all() or not np.isfinite(
+            m["matching_scores0"]).all():
+        raise AssertionError(f"{name}: matches not mutual or scores not finite")
+    if not (f0["valid"][idx].all() and f1["valid"][m0[idx]].all()):
+        raise AssertionError(f"{name}: a match on an invalid keypoint")
+    print(f"  {name}: {int(f0['valid'].sum())} + {int(f1['valid'].sum())} "
+          f"keypoints, {len(idx)} matches, stop {m['stop']}")
+
+
+def extraction_path_phase(mparams, sp_params):
+    phase("3b main path: images -> SuperPoint -> LightGlue (match_pair, "
+          "make_end_to_end), 2048 keypoints")
+    rng = np.random.default_rng(21)
+    pairs = {
+        f"{H}x{W}": image_pair(rng, H, W),
+        "760x1000 (padded)": image_pair(rng, 760, 1000),
+        f"{2 * H}x{2 * W} (2x area downscale)": image_pair(rng, 2 * H, 2 * W),
+    }
+    e2e_pairs = [pairs[f"{H}x{W}"]] + [image_pair(rng, H, W) for _ in range(3)]
+    ext = SuperPoint(params=sp_params, device="cuda")
+    matcher = LightGlue("superpoint", params=mparams, device="cuda")
+    run = end_to_end.make_end_to_end(sp.forward, ext.params, ext.conf,
+                                     matcher.params, matcher.conf)
+    im0, im1 = (torch.from_numpy(np.stack([p[i] for p in e2e_pairs]))[..., None]
+                .cuda() for i in (0, 1))
+    sizes = torch.tensor([[W, H]] * 4, dtype=torch.float32, device="cuda")
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    outs = {name: match_pair(ext, matcher, a, b)
+            for name, (a, b, _) in pairs.items()}
+    e2e = run(im0, im1, sizes, sizes)
+    torch.cuda.synchronize()
+    counts = _build.launch_counts()
+    print(f"  launch counts: {counts}")
+    for kname, c in counts.items():
+        if c < 1:
+            raise AssertionError(f"{kname} was not launched on the main path")
+
+    for name, (a, b, _) in pairs.items():
+        check_pair_output(name, *outs[name], a.shape[::-1], b.shape[::-1])
+    for i in range(4):
+        f = [{"keypoints": getattr(e2e, f"feats{s}").keypoints[i].cpu().numpy(),
+              "descriptors": getattr(e2e, f"feats{s}").descriptors[i].cpu().numpy(),
+              "valid": getattr(e2e, f"feats{s}").valid[i].cpu().numpy()}
+             for s in (0, 1)]
+        m = {"matches0": e2e.matches.matches0[i].cpu().numpy(),
+             "matches1": e2e.matches.matches1[i].cpu().numpy(),
+             "matching_scores0": e2e.matches.matching_scores0[i].cpu().numpy(),
+             "stop": e2e.matches.stop}
+        check_pair_output(f"make_end_to_end B 4, pair {i}", *f, m, (W, H), (W, H))
+        if i == 0:  # the same pair as match_pair's first, batched with others
+            g0 = outs[f"{H}x{W}"][0]
+            share = len(common_keypoints(g0, f[0])) / g0["valid"].sum()
+            print(f"    keypoints shared with match_pair's: {share:.6f}")
+            if share < 0.99:
+                raise AssertionError("make_end_to_end and match_pair disagree")
+
+    # the same pair through the CPU port (plain versions, oneDNN convs)
+    a, b, _ = pairs[f"{H}x{W}"]
+    cpu_ext = SuperPoint(params={k: {kk: vv.cpu() for kk, vv in v.items()}
+                                 for k, v in sp_params.items()}, device="cpu")
+    cpu_matcher = LightGlue("superpoint", params=mparams)
+    cpu = match_pair(cpu_ext, cpu_matcher, a, b)
+    gpu = outs[f"{H}x{W}"]
+    shares, derr, common = [], 0.0, []
+    for s in (0, 1):
+        c = common_keypoints(gpu[s], cpu[s])
+        common.append(c)
+        shares.append(len(c) / gpu[s]["valid"].sum())
+        derr = max(derr, float(np.abs(gpu[s]["descriptors"][c[:, 0]]
+                                      - cpu[s]["descriptors"][c[:, 1]]).max()))
+    differ = matches_differ(gpu, cpu, common)
+    print(f"  against the CPU port: keypoints shared {shares[0]:.6f} / "
+          f"{shares[1]:.6f}, descriptor max_abs_err at shared keypoints "
+          f"{derr:.3e}, {int((gpu[2]['matches0'] >= 0).sum())} vs "
+          f"{int((cpu[2]['matches0'] >= 0).sum())} matches, {differ} shared "
+          f"keypoints whose match or prune differs, stop {gpu[2]['stop']} vs "
+          f"{cpu[2]['stop']}")
+    if (min(shares) < 0.99 or derr > 1e-3 or differ
+            or gpu[2]["stop"] != cpu[2]["stop"]):
+        raise AssertionError("the card disagrees with the CPU port")
+    if torch.backends.cudnn.allow_tf32 is not True:
+        raise AssertionError("the library changed cuDNN's global TF32 flag")
+
+    # With random SuperPoint weights the descriptors are near-parallel and
+    # the trained matcher finds nothing, so the same matcher also takes a
+    # planted pair at match_pair's 2048 keypoints, where it must match
+    pr = planted_pairs(np.random.default_rng(23), 1, 2048)
+    data = {"image0": feats(pr, 0), "image1": feats(pr, 1)}
+    got, ref = matcher(data), cpu_matcher(data)
+    k, prec = precision(got, pr["gt_matches0"])
+    print(f"  planted pair at 2048 keypoints: {k} matches, precision "
+          f"{prec:.3f}, stop {got['stop']} vs {ref['stop']} on the CPU port")
+    if prec < 0.8 or got["stop"] != ref["stop"] or not all(
+            np.array_equal(got[f], ref[f]) for f in
+            ("matches0", "matches1", "prune0", "prune1")):
+        raise AssertionError("planted pair at 2048 keypoints: precision low "
+                             "or the card disagrees with the CPU port")
+    return counts
+
+
+def matches_differ(gpu, cpu, common):
+    """Number of keypoints shared by the card's and the CPU port's
+    (feats0, feats1, matches) whose match (by the partner's location) or
+    prune count differs; keypoints are paired by location, as the two
+    sides may order near-equal scores differently."""
+    n = 0
+    for s, o in ((0, 1), (1, 0)):
+        gm, cm = gpu[2][f"matches{s}"], cpu[2][f"matches{s}"]
+        gp, cp = gpu[2][f"prune{s}"], cpu[2][f"prune{s}"]
+        for i, j in common[s]:
+            at_g = None if gm[i] < 0 else tuple(gpu[o]["keypoints"][gm[i]])
+            at_c = None if cm[j] < 0 else tuple(cpu[o]["keypoints"][cm[j]])
+            n += at_g != at_c or gp[i] != cp[j]
+    return n
 
 
 def feats(pairs, i):
@@ -292,7 +574,7 @@ def precision(out, gt):
 
 
 def main_path_phase(params):
-    phase("3 main path: pipeline.LightGlue, trained weights, 1024 keypoints")
+    phase("3a main path: pipeline.LightGlue, trained weights, 1024 keypoints")
     rng = np.random.default_rng(7)
     singles = [planted_pairs(rng, 1, 1024) for _ in range(3)]
     singles.append(planted_pairs(rng, 1, 900, 1024))  # unequal counts
@@ -323,8 +605,8 @@ def main_path_phase(params):
     torch.cuda.synchronize()
     counts = _build.launch_counts()
     print(f"  launch counts: {counts}")
-    for kname, c in counts.items():
-        if c < 1:
+    for kname in MATCHER_KERNELS:
+        if counts[kname] < 1:
             raise AssertionError(f"{kname} was not launched on the main path")
 
     for (name, i), out in outs.items():
@@ -370,7 +652,7 @@ def time_cuda(fn, iters=20, warmup=3):
 
 
 def timing_phase(x, params):
-    phase("4 timing (CUDA events; plain = the same function in plain PyTorch)")
+    phase("4a timing (CUDA events; plain = the same function in plain PyTorch)")
     q, k, v = x["k1"]
     qk0, qk1, v0, v1, va0, va1 = x["k2"]
     xx, msg, p = x["k3"]
@@ -425,16 +707,95 @@ def timing_phase(x, params):
     return times
 
 
+def sp_timing_phase(sx, mparams, sp_params):
+    phase("4b timing: extraction kernels, SuperPoint, end to end")
+    img, x2, scores = sx["img"], sx["stem_out"], sx["scores"]
+    p1 = {"conv1a": sp_params["conv1a"], "conv1b": sp_params["conv1b"]}
+    p2 = {"conv2a": sp_params["conv2a"], "conv2b": sp_params["conv2b"]}
+    pairs = {
+        "fused_stem": (lambda: stem.fused_stem(p1, img),
+                       lambda: stem.fused_stem_plain(p1, img)),
+        "fused_block2": (lambda: stem2.fused_block2(p2, x2),
+                         lambda: stem2.fused_block2_plain(p2, x2)),
+        "simple_nms": (lambda: nms.simple_nms_kernel(scores, 4),
+                       lambda: nms.simple_nms_plain(scores, 4)),
+    }
+    times = {}
+    for name, (kern, plain) in pairs.items():
+        a, b, c, d = (time_cuda(f, iters=10) for f in (plain, kern, kern, plain))
+        times[name] = ((b + c) / 2, (a + d) / 2)
+        print(f"  {name} (B 2, {H}x{W}): kernel {times[name][0]:.4f} ms, "
+              f"plain {times[name][1]:.4f} ms (runs {b:.4f}/{c:.4f}, "
+              f"{a:.4f}/{d:.4f})", flush=True)
+
+    rng = np.random.default_rng(31)
+    pool = [image_pair(rng, H, W) for _ in range(8)]
+    imgs = torch.from_numpy(np.stack([p[0] for p in pool]))[..., None].cuda()
+    for fused in (True, False):
+        conf = SuperPointConfig(fused_stem=fused)
+        for bsz in (1, 8):
+            ms = time_cuda(lambda: sp.forward(sp_params, conf, imgs[:bsz]),
+                           iters=10) / bsz
+            print(f"  SuperPoint extraction, fused_stem={fused}, B {bsz}: "
+                  f"{ms:.3f} ms per {H}x{W} image (2048 keypoints)", flush=True)
+
+    # end to end at the JAX bench's e2e shape: both images extracted and
+    # matched in one call, host clock around calls that end in a sync
+    conf = SuperPointConfig(max_num_keypoints=1024)
+    im1 = torch.from_numpy(np.stack([p[1] for p in pool]))[..., None].cuda()
+    sizes = torch.tensor([[W, H]] * 8, dtype=torch.float32, device="cuda")
+    mp = LightGlue("superpoint", params=mparams, device="cuda").params
+    for name, c in (("fixed", dict(depth_confidence=-1.0,
+                                   width_confidence=-1.0)), ("adaptive", {})):
+        run = end_to_end.make_end_to_end(sp.forward, sp_params, conf, mp,
+                                         lightglue_config("superpoint", **c))
+        for _ in range(2):
+            run(imgs, im1, sizes, sizes)
+        torch.cuda.synchronize()
+        ms = []
+        for _ in range(8):
+            t0 = time.perf_counter()
+            out = run(imgs, im1, sizes, sizes)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        q1, med, q3 = np.percentile(ms, [25, 50, 75])
+        print(f"  make_end_to_end {name} B 8, {H}x{W}, 1024 keypoints: "
+              f"{8 * 1e3 / med:.1f} pairs/s (median {med:.2f} ms per call, "
+              f"quartiles {q1:.2f}-{q3:.2f}, 8 calls, stop "
+              f"{out.matches.stop})", flush=True)
+
+    ext = SuperPoint(params=sp_params, device="cuda")
+    matcher = LightGlue("superpoint", params=mparams, device="cuda")
+    a, b, _ = pool[0]
+    for _ in range(2):
+        match_pair(ext, matcher, a, b)
+    ms = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        match_pair(ext, matcher, a, b)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    q1, med, q3 = np.percentile(ms, [25, 50, 75])
+    print(f"  match_pair B 1, {H}x{W}, 2048 keypoints, adaptive: median "
+          f"{med:.2f} ms per pair (quartiles {q1:.2f}-{q3:.2f}, 10 calls)",
+          flush=True)
+    return times
+
+
 def main():
     smi = device_phase()
     build_phase()
     x = kernel_inputs()
     errs = kernel_phase(x)
+    sp_params = superpoint_params()
+    sp_errs, sx = sp_kernel_phase(sp_params)
+    errs.update(sp_errs)
     for name, err in edge_phase().items():
         errs[name] = max(errs[name], err)
     params = weights_lib.load_params(WEIGHTS)
-    counts = main_path_phase(params)
+    main_path_phase(params)
+    counts = extraction_path_phase(params, sp_params)
     times = timing_phase(x, params)
+    times.update(sp_timing_phase(sx, params, sp_params))
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": counts[name], "max_abs_err": errs[name],

@@ -1,7 +1,8 @@
 """Build the CUDA kernels in ``csrc/`` and load them with ctypes.
 
-``nvcc`` compiles every ``csrc/*.cu`` for sm_90a into one shared library with
-a plain C interface, written to ``_build/`` under a name that carries a hash
+``nvcc`` compiles every ``csrc/*.cu`` for sm_90a, one process per source, all
+started together, and links the objects into one shared library with a
+plain C interface, written to ``_build/`` under a name that carries a hash
 of the sources and flags, so an edited source builds anew. Nothing here runs
 at import: the first kernel launch (or ``build()``) compiles. Each C entry
 point returns a ``cudaError_t``, and ``launch`` raises if it is not 0.
@@ -25,9 +26,9 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    *ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -38,12 +39,15 @@ SIGNATURES = {
     "lg_ffn_residual": [_P] * 9 + [_I] * 2 + [_P],
     "lg_assign_lse": [_P] * 5 + [_I] * 4 + [_P],
     "lg_assign_argmax": [_P] * 8 + [_I] * 4 + [_P],
+    "lg_simple_nms": [_P] * 2 + [_I] * 4 + [_P],
+    "lg_fused_stem": [_P] * 6 + [_I] * 3 + [_P],
+    "lg_fused_block2": [_P] * 6 + [_I] * 3 + [_P],
 }
 
 # Op wrapper -> launches since the last reset.
 KERNELS = (
     "flash_sdpa", "fused_cross_attention", "fused_ffn_residual",
-    "fused_filter_matches",
+    "fused_filter_matches", "fused_stem", "fused_block2", "simple_nms",
 )
 _launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 _lib: Optional[ctypes.CDLL] = None
@@ -97,15 +101,36 @@ def build() -> Tuple[Path, str]:
     if out.exists():
         return out, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
-    res = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
-    os.replace(tmp, out)
-    return out, res.stdout + res.stderr
+    nvcc, tag = _nvcc(), f"{out.stem}.{os.getpid()}"
+    jobs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = BUILD_DIR / f"{src.stem}.{tag}.o"
+        jobs.append((src, obj, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    logs, failed = [], []
+    for src, _, proc in jobs:
+        log = proc.communicate(timeout=900)[0]
+        logs.append(log)
+        if proc.returncode != 0:
+            failed.append(f"{src.name} ({proc.returncode}):\n{log}")
+    objs = [obj for _, obj, _ in jobs]
+    try:
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        res = subprocess.run(
+            [nvcc, *ARCH, "-shared", "-o", str(tmp), *map(str, objs)],
+            capture_output=True, text=True, timeout=300)
+        if res.returncode != 0:
+            raise RuntimeError(
+                f"nvcc link failed ({res.returncode}):\n{res.stdout}\n"
+                f"{res.stderr}")
+        os.replace(tmp, out)
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    return out, "".join(logs)
 
 
 def library() -> ctypes.CDLL:

@@ -1,6 +1,7 @@
-"""Matcher configuration (counterpart of lightglue_tpu/configs.py:16-117).
+"""Matcher, SuperPoint and preprocessing configuration (counterpart of
+lightglue_tpu/configs.py:16-162).
 
-The same frozen dataclass with the same fields, so one set of keyword
+The same frozen dataclasses with the same fields, so one set of keyword
 arguments configures both packages. Options whose kernels the port does not
 have yet are refused at construction with the ROADMAP entry that adds them.
 """
@@ -101,3 +102,51 @@ def lightglue_config(
             )
         conf = {**FEATURES[features], **conf}
     return LightGlueConfig(**conf)
+
+
+@dataclasses.dataclass(frozen=True)
+class PreprocessConfig:
+    """Image preprocessing (reference: lightglue/utils.py:12-24)."""
+
+    resize: Optional[int] = None  # target edge length; None = no resize
+    side: str = "long"  # which edge `resize` refers to
+    interpolation: str = "bilinear"
+    antialias: bool = True
+    grayscale: bool = False
+
+    def replace(self, **kw) -> "PreprocessConfig":
+        return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class SuperPointConfig:
+    """SuperPoint (reference: lightglue/superpoint.py:107-117).
+
+    ``max_num_keypoints=None`` keeps every point above the threshold, as the
+    reference does: the pipeline derives a static capacity from the image
+    area and the NMS spacing (``pipeline._auto_kpts_bucket``).
+    ``approx_topk > 0`` and ``twolevel_topk`` select keypoints faster on a
+    TPU; the port always selects exactly and says so once
+    (``ops.sampling.top_k_keypoints``). ``fused_stem`` switches between the
+    conv1/conv2 kernels (B7, B8) and the plain cuDNN conv chain.
+    """
+
+    descriptor_dim: int = 256
+    nms_radius: int = 4
+    max_num_keypoints: Optional[int] = 2048
+    detection_threshold: float = 0.0005
+    remove_borders: int = 4
+    resize: int = 1024
+    mp: bool = False
+    approx_topk: float = 0.0
+    twolevel_topk: bool = False
+    fused_stem: bool = True
+
+    def __post_init__(self):
+        if self.mp:
+            raise NotImplementedError(
+                "mp=True (bf16 compute) is not ported to lightglue_tpu_torch "
+                "yet; see ROADMAP.md, Queue B.3.")
+
+    def replace(self, **kw) -> "SuperPointConfig":
+        return dataclasses.replace(self, **kw)

@@ -1,13 +1,16 @@
 """Layer functions over nested parameter dicts (counterpart of
-lightglue_tpu/nn.py:40-70, 351-371).
+lightglue_tpu/nn.py:40-124, 297-307, 351-371).
 
-Parameters keep the JAX package's layout: linear weights are ``(in, out)``
-so a layer is ``x @ w + b``, and the matcher's transformer layers are
-stacked along a leading axis.
+Linear weights keep the JAX package's layout, ``(in, out)``, so a layer is
+``x @ w + b``, and the matcher's transformer layers are stacked along a
+leading axis. Convolutions are PyTorch's own: NCHW activations and OIHW
+weights (the JAX package's are NHWC and HWIO; ``weights.py`` transposes
+once at load).
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional
 
@@ -55,6 +58,49 @@ def layer_norm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
 def gelu(x: torch.Tensor) -> torch.Tensor:
     """The exact erf GELU (torch nn.GELU default)."""
     return F.gelu(x, approximate="none")
+
+
+def conv2d_init(
+    in_ch: int, out_ch: int, kernel: int, generator: torch.Generator
+) -> Params:
+    """OIHW weight and bias, U(-1/sqrt(fan_in), 1/sqrt(fan_in)), the JAX
+    package's conv2d_init (torch's Conv2d default)."""
+    bound = 1.0 / math.sqrt(in_ch * kernel * kernel)
+
+    def uniform(*shape):
+        return (torch.rand(*shape, generator=generator) * 2 - 1) * bound
+
+    return {"w": uniform(out_ch, in_ch, kernel, kernel), "b": uniform(out_ch)}
+
+
+@contextlib.contextmanager
+def fp32_convs():
+    """cuDNN convolutions in full fp32 inside the block. cuDNN defaults to
+    TF32 for fp32 convs, which moves SuperPoint's scores by ~1e-3 and
+    changes which keypoints NMS and top-k select. (``cudnn.flags()`` is not
+    used: its defaults switch cuDNN off altogether.)"""
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+
+
+def conv2d(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """Stride-1 SAME convolution, NCHW with an OIHW weight (odd kernels)."""
+    return F.conv2d(x, p["w"], p.get("b"), padding=p["w"].shape[-1] // 2)
+
+
+def max_pool(x: torch.Tensor, window: int) -> torch.Tensor:
+    """NCHW max pooling, stride = window, VALID."""
+    return F.max_pool2d(x, window, window)
+
+
+def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Tensor:
+    """x / max(||x||, eps), torch F.normalize(p=2)."""
+    n = torch.linalg.vector_norm(x, dim=dim, keepdim=True)
+    return x / torch.clamp(n, min=eps)
 
 
 def stack_params(params_list) -> Params:

@@ -1,0 +1,94 @@
+"""Bilinear point sampling and keypoint detection helpers (counterpart of
+lightglue_tpu/ops/sampling.py).
+
+The reference uses ``grid_sample`` for descriptor lookup and a dynamic
+``torch.where`` threshold for detection (superpoint.py:78-95, 188-207). As in
+the JAX package, sampling is four gathers and a lerp (the same order of
+operations), and detection is a static-shape top-k with a validity mask.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from ..utils import diagnostics
+from . import nms
+
+
+def bilinear_sample(
+    fmap: torch.Tensor, pts: torch.Tensor, align_corners: bool = True
+) -> torch.Tensor:
+    """Sample ``fmap`` (B, H, W, C) at normalized points ``pts`` (B, K, 2)
+    in [-1, 1] as (x, y): grid_sample(mode='bilinear') with zero padding.
+    Returns (B, K, C)."""
+    b, h, w, c = fmap.shape
+    x, y = pts[..., 0], pts[..., 1]
+    if align_corners:
+        fx = (x + 1.0) * 0.5 * (w - 1)
+        fy = (y + 1.0) * 0.5 * (h - 1)
+    else:
+        fx = (x + 1.0) * 0.5 * w - 0.5
+        fy = (y + 1.0) * 0.5 * h - 0.5
+    x0 = torch.floor(fx)
+    y0 = torch.floor(fy)
+    wx = (fx - x0)[..., None]
+    wy = (fy - y0)[..., None]
+    flat = fmap.reshape(b, h * w, c)
+
+    def gather(yi, xi):
+        inside = (xi >= 0) & (xi <= w - 1) & (yi >= 0) & (yi <= h - 1)
+        xc = torch.clamp(xi, 0, w - 1).long()
+        yc = torch.clamp(yi, 0, h - 1).long()
+        idx = (yc * w + xc)[..., None].expand(-1, -1, c)
+        vals = torch.gather(flat, 1, idx)
+        return torch.where(inside[..., None], vals, torch.zeros_like(vals))
+
+    v00 = gather(y0, x0)
+    v01 = gather(y0, x0 + 1)
+    v10 = gather(y0 + 1, x0)
+    v11 = gather(y0 + 1, x0 + 1)
+    top = v00 * (1 - wx) + v01 * wx
+    bot = v10 * (1 - wx) + v11 * wx
+    return top * (1 - wy) + bot * wy
+
+
+def simple_nms(scores: torch.Tensor, nms_radius: int) -> torch.Tensor:
+    """Iterative max-pool NMS over (B, H, W) score maps (reference
+    superpoint.py:52-68): B9 on CUDA tensors, the plain version on CPU
+    tensors; the two agree bitwise."""
+    if nms_radius < 0:
+        raise ValueError("nms_radius must be >= 0")
+    if scores.device.type == "cpu":
+        return nms.simple_nms_plain(scores, nms_radius)
+    return nms.simple_nms_kernel(scores, nms_radius)
+
+
+def top_k_keypoints(
+    scores: torch.Tensor, k: int, threshold: float,
+    approx_recall: float = 0.0, twolevel: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Static-shape keypoint selection: the k highest scores of each (H, W)
+    map, ties broken toward the lower flat index as ``jax.lax.top_k`` does
+    (``torch.topk`` promises no order on ties; most of a map after NMS is
+    tied at 0 or at the border's -1, and the invalid slots are part of the
+    output). Returns (keypoints (B, k, 2) as (x, y) fp32, scores (B, k),
+    valid (B, k) = score > threshold).
+
+    ``approx_recall > 0`` and ``twolevel`` pick faster selections on a TPU;
+    here the selection is always exact, and asking for them warns once."""
+    if approx_recall > 0 or twolevel:
+        diagnostics.warn_once(
+            "exact-topk",
+            "approx_topk / twolevel_topk select keypoints faster on a TPU; "
+            "lightglue_tpu_torch always selects the exact top-k.",
+        )
+    b, h, w = scores.shape
+    if not 0 < k <= h * w:
+        raise ValueError(f"k must be in 1..{h * w}, got {k}")
+    flat = scores.reshape(b, h * w)
+    kscores, idx = torch.sort(flat, dim=1, descending=True, stable=True)
+    kscores, idx = kscores[:, :k], idx[:, :k]
+    kpts = torch.stack([(idx % w).float(), (idx // w).float()], -1)
+    return kpts, kscores, kscores > threshold

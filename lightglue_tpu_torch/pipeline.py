@@ -1,22 +1,28 @@
-"""User-facing matcher wrapper (counterpart of lightglue_tpu/pipeline.py:
-59-75, 442-568; reference lightglue.py:439-479).
+"""User-facing API (counterpart of lightglue_tpu/pipeline.py:59-218,
+442-583; reference lightglue.py:439-479, utils.py:131-165).
 
+``SuperPoint(...).extract(image)`` returns a feats dict of numpy arrays;
 ``LightGlue(...)`` is called on ``{"image0": feats0, "image1": feats1}``
 with numpy or torch feature arrays and returns numpy outputs plus the ragged
-``matches``/``scores`` lists, built on the host in numpy.
+``matches``/``scores`` lists, built on the host in numpy; ``match_pair``
+does both for two images.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple, Union
+from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from . import nn
 from . import weights as weights_lib
-from .configs import LightGlueConfig, lightglue_config
+from .configs import (
+    LightGlueConfig, PreprocessConfig, SuperPointConfig, lightglue_config)
 from .models import lightglue as lg
+from .models import superpoint as sp
+from .utils import diagnostics
+from .utils.image import ImagePreprocessor, numpy_image_to_array, pad_to_multiple
 
 
 def rbd(data: dict) -> dict:
@@ -41,6 +47,139 @@ def compact_matches(
         out_m.append(np.stack([idx, row[idx]], -1).astype(np.int32))
         out_s.append(scores[idx])
     return out_m, out_s
+
+
+_AUTO_KPTS_CAP = 16384
+
+
+def _auto_kpts_bucket(conf, h: int, w: int) -> int:
+    """Static capacity for ``max_num_keypoints=None`` (the reference keeps
+    every point above the threshold, superpoint.py:108-117, 189-207).
+
+    Radius-r NMS survivors are at least r + 1 apart on some axis, so at most
+    one lies in each (r+1) x (r+1) tile. That bound, rounded up to a step of
+    2048 (few distinct shapes across image sizes), makes the validity mask
+    exactly the reference's threshold selection while it fits the 16384
+    cap; beyond the cap a warning says that the weakest points are cut."""
+    r = max(int(conf.nms_radius), 0)
+    bound = -(-h // (r + 1)) * (-(-w // (r + 1)))
+    k = min(-(-bound // 2048) * 2048, _AUTO_KPTS_CAP, h * w)
+    if bound > _AUTO_KPTS_CAP:
+        diagnostics.warn_once(
+            f"auto-kpts-cap-{type(conf).__name__}",
+            f"max_num_keypoints=None: NMS capacity bound {bound} at "
+            f"{w}x{h} exceeds the {_AUTO_KPTS_CAP} static cap; keypoints "
+            "beyond the cap (weakest first) would be dropped. Pass an "
+            "explicit max_num_keypoints to silence.",
+        )
+    return k
+
+
+def _numpy_feats(feats: sp.Features, kpts: torch.Tensor, sizes) -> dict:
+    return {
+        "keypoints": kpts.cpu().numpy().astype(np.float32),
+        "keypoint_scores": feats.keypoint_scores.cpu().numpy(),
+        "descriptors": feats.descriptors.cpu().numpy(),
+        "valid": feats.valid.cpu().numpy(),
+        "image_size": np.asarray(sizes, np.float32),
+    }
+
+
+class Extractor:
+    """Base wrapper: preprocessing, the forward pass and the rescale of the
+    keypoints to the original image (reference Extractor.extract,
+    utils.py:136-147). Subclasses set ``conf``, ``preprocess_conf``,
+    ``params``, ``device`` and ``_forward_fn``."""
+
+    stride = 8  # pad input H/W to this multiple
+
+    def _effective_conf(self, h: int, w: int):
+        """``max_num_keypoints=None`` resolved to an area-derived bucket."""
+        if self.conf.max_num_keypoints is not None:
+            return self.conf
+        return self.conf.replace(
+            max_num_keypoints=_auto_kpts_bucket(self.conf, h, w))
+
+    def _image(self, image) -> torch.Tensor:
+        img = torch.as_tensor(image)
+        if img.dtype == torch.uint8:
+            img = numpy_image_to_array(img.to(self.device))
+        if img.dim() == 2:
+            img = img[..., None]
+        return img.to(self.device, torch.float32)
+
+    @torch.inference_mode()
+    def extract(self, image, **preprocess_overrides) -> Dict[str, np.ndarray]:
+        """image: (H, W, C) or (H, W), numpy or torch, float [0, 1] or uint8.
+        Returns a feats dict with a leading batch dim: keypoints (1, K, 2)
+        in ORIGINAL image pixels, keypoint_scores, descriptors, valid,
+        image_size (1, 2) = the original (w, h)."""
+        img = self._image(image)
+        if img.dim() == 4:
+            if img.shape[0] != 1:
+                raise ValueError("extract() takes a single unbatched image")
+            img = img[0]
+        orig_h, orig_w = img.shape[:2]
+        pp = ImagePreprocessor(self.preprocess_conf, **preprocess_overrides)
+        img, scales = pp(img)
+        img, (vh, vw) = pad_to_multiple(img, self.stride)
+        feats = self._forward_fn(
+            self.params, self._effective_conf(img.shape[0], img.shape[1]),
+            img[None], torch.tensor([[vw, vh]], dtype=torch.float32,
+                                    device=self.device))
+        kpts = (feats.keypoints + 0.5) / torch.from_numpy(scales).to(
+            self.device) - 0.5
+        return _numpy_feats(feats, kpts, [[orig_w, orig_h]])
+
+    @torch.inference_mode()
+    def extract_batch(self, images) -> Dict[str, np.ndarray]:
+        """Same-size images (B, H, W, C) float [0, 1] in one forward pass,
+        without resizing; H and W are padded to the stride."""
+        imgs = self._image(images)
+        if imgs.dim() == 3:
+            imgs = imgs[..., None]
+        b = imgs.shape[0]
+        imgs, (h, w) = pad_to_multiple(imgs, self.stride)
+        sizes = torch.tensor([[w, h]] * b, dtype=torch.float32,
+                             device=self.device)
+        feats = self._forward_fn(
+            self.params, self._effective_conf(imgs.shape[1], imgs.shape[2]),
+            imgs, sizes)
+        return _numpy_feats(feats, feats.keypoints, sizes.cpu().numpy())
+
+
+class SuperPoint(Extractor):
+    """SuperPoint wrapper (reference superpoint.py:98-148). ``params``: the
+    port's parameter tree, or the path of a flat npz in the JAX package's
+    layout; None draws random weights from ``seed``."""
+
+    def __init__(
+        self,
+        params: Union[None, str, nn.Params] = None,
+        conf: Optional[SuperPointConfig] = None,
+        seed: int = 0,
+        pretrained: bool = False,
+        device: Union[str, torch.device, None] = None,
+        **conf_overrides,
+    ):
+        self.conf = (conf or SuperPointConfig()).replace(**conf_overrides)
+        self.preprocess_conf = PreprocessConfig(resize=self.conf.resize)
+        if params is None and pretrained:
+            raise FileNotFoundError(
+                "pretrained=True: the release SuperPoint weights "
+                "(superpoint_v1.pth) are not in this repository and nothing "
+                "is downloaded; convert a state dict with "
+                "weights.superpoint_from_state_dict and pass params=.")
+        if params is None:
+            params = sp.init_params(self.conf,
+                                    torch.Generator().manual_seed(seed))
+        elif isinstance(params, str):
+            with np.load(params) as f:
+                params = weights_lib.superpoint_from_jax_params(
+                    {k: f[k] for k in f.files}, self.conf)
+        self.device = torch.device(device or "cpu")
+        self.params = nn.params_to(params, self.device)
+        self._forward_fn = sp.forward
 
 
 class LightGlue:
@@ -145,3 +284,18 @@ class LightGlue:
             "prune0": out.prune0[:, :m_orig].cpu().numpy(),
             "prune1": out.prune1[:, :n_orig].cpu().numpy(),
         }
+
+
+def match_pair(
+    extractor: Extractor,
+    matcher: LightGlue,
+    image0,
+    image1,
+    **preprocess,
+) -> Tuple[dict, dict, dict]:
+    """Extract and match a pair of images (reference utils.py:150-165).
+    Returns (feats0, feats1, matches01) with batch dims removed."""
+    feats0 = extractor.extract(image0, **preprocess)
+    feats1 = extractor.extract(image1, **preprocess)
+    matches01 = matcher({"image0": feats0, "image1": feats1})
+    return rbd(feats0), rbd(feats1), rbd(matches01)

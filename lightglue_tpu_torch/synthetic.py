@@ -1,11 +1,15 @@
-"""Planted-correspondence image pairs in numpy, in the manner of
-lightglue_tpu/train.py::synthetic_batch (train.py:67-171).
+"""Seeded synthetic inputs in numpy, so the JAX package, the CPU port and
+the card see the same data.
 
-Matched point i of image 0 lands at slot ``perm[i]`` of image 1 under a
-random similarity transform, with a noisy copy of its unit descriptor.
-Unmatched slots hold distractors, some of them lookalikes of another image-0
-point (confusers) that only geometry can reject. The generator is seeded
-numpy, so the JAX package, the CPU port and the card see the same inputs.
+``planted_pairs``: feature pairs with planted correspondences, in the manner
+of lightglue_tpu/train.py::synthetic_batch (train.py:67-171). Matched point
+i of image 0 lands at slot ``perm[i]`` of image 1 under a random similarity
+transform, with a noisy copy of its unit descriptor. Unmatched slots hold
+distractors, some of them lookalikes of another image-0 point (confusers)
+that only geometry can reject.
+
+``image_pair``: a procedural grayscale texture and its warp under a known
+homography, with bilinear sampling, for the extractor (no OpenCV needed).
 """
 
 from __future__ import annotations
@@ -78,3 +82,82 @@ def planted_pairs(
         "image_size": np.tile(np.array([[w, h]], np.float32), (batch, 1)),
         "gt_matches0": np.where(matched, perm, -1).astype(np.int32),
     }
+
+
+def _bilinear(img: np.ndarray, x: np.ndarray, y: np.ndarray) -> np.ndarray:
+    """img (H, W) at float pixel coordinates; 0 outside the image."""
+    h, w = img.shape
+    x0, y0 = np.floor(x).astype(np.int64), np.floor(y).astype(np.int64)
+    fx, fy = x - x0, y - y0
+    out = np.zeros(x.shape, np.float64)
+    for dy, wy in ((0, 1 - fy), (1, fy)):
+        for dx, wx in ((0, 1 - fx), (1, fx)):
+            yy, xx = y0 + dy, x0 + dx
+            ok = (yy >= 0) & (yy < h) & (xx >= 0) & (xx < w)
+            out += np.where(ok, img[np.clip(yy, 0, h - 1),
+                                    np.clip(xx, 0, w - 1)], 0.0) * wx * wy
+    return out
+
+
+def texture(rng: np.random.Generator, h: int, w: int) -> np.ndarray:
+    """(h, w) float32 in [0, 1]: value noise at three scales plus discs and
+    rectangles with sharp edges and corners, their count proportional to
+    the area."""
+    img = np.zeros((h, w))
+    for cell, amp in ((96, 0.35), (24, 0.2), (6, 0.1)):
+        grid = rng.uniform(size=(h // cell + 2, w // cell + 2))
+        y, x = np.meshgrid(np.arange(h) / cell, np.arange(w) / cell,
+                           indexing="ij")
+        img += amp * _bilinear(grid, x, y)
+    for _ in range(max(4, h * w // 4000)):
+        r = int(rng.integers(3, max(4, min(h, w) // 12)))
+        cy, cx = int(rng.integers(0, h)), int(rng.integers(0, w))
+        ys = slice(max(cy - r, 0), min(cy + r + 1, h))
+        xs = slice(max(cx - r, 0), min(cx + r + 1, w))
+        if rng.uniform() < 0.5:  # disc
+            yy, xx = np.mgrid[ys, xs]
+            inside = (yy - cy) ** 2 + (xx - cx) ** 2 <= r * r
+        else:  # rectangle of random aspect
+            inside = np.ones((ys.stop - ys.start, xs.stop - xs.start), bool)
+            inside[:, int(rng.integers(1, inside.shape[1] + 1)):] = False
+        patch = img[ys, xs]
+        patch[inside] = patch[inside] * 0.3 + rng.uniform(0.0, 0.7)
+    img -= img.min()
+    return (img / max(img.max(), 1e-6)).astype(np.float32)
+
+
+def random_homography(rng: np.random.Generator, h: int, w: int) -> np.ndarray:
+    """A mild 3x3 homography about the image centre: rotation up to 0.25
+    rad, scale 0.85-1.15, shift up to 5 % and a small perspective term."""
+    theta = rng.uniform(-0.25, 0.25)
+    s = np.exp(rng.uniform(-0.16, 0.14))
+    c, si = np.cos(theta) * s, np.sin(theta) * s
+    cx, cy = w / 2, h / 2
+    tx, ty = rng.uniform(-0.05, 0.05, 2) * (w, h)
+    sim = np.array([[c, -si, cx - c * cx + si * cy + tx],
+                    [si, c, cy - si * cx - c * cy + ty],
+                    [0.0, 0.0, 1.0]])
+    persp = np.eye(3)
+    persp[2, :2] = rng.uniform(-0.1, 0.1, 2) / (w, h)
+    return persp @ sim
+
+
+def warp_points(hom: np.ndarray, pts: np.ndarray) -> np.ndarray:
+    """(N, 2) (x, y) points through a 3x3 homography."""
+    ph = np.concatenate([pts, np.ones_like(pts[:, :1])], 1) @ hom.T
+    return ph[:, :2] / ph[:, 2:]
+
+
+def image_pair(
+    rng: np.random.Generator, h: int, w: int
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(image0, image1, hom): two (h, w) float32 grayscale images in
+    [0, 1], image1 the warp of image0 under ``hom`` (image-0 pixel ->
+    image-1 pixel), 0 where it maps from outside image 0."""
+    img0 = texture(rng, h, w)
+    hom = random_homography(rng, h, w)
+    y, x = np.meshgrid(np.arange(h, dtype=np.float64),
+                       np.arange(w, dtype=np.float64), indexing="ij")
+    src = warp_points(np.linalg.inv(hom), np.stack([x.ravel(), y.ravel()], 1))
+    img1 = _bilinear(img0.astype(np.float64), src[:, 0], src[:, 1])
+    return img0, img1.reshape(h, w).astype(np.float32), hom

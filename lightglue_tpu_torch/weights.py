@@ -1,11 +1,14 @@
-"""Matcher parameters from the JAX package's flat checkpoints (counterpart of
-lightglue_tpu/weights.py:148-181).
+"""Parameters from the JAX package's flat checkpoints and from reference
+state dicts (counterpart of lightglue_tpu/weights.py:45-50, 133-181).
 
 A checkpoint is a flat ``"a/b/c" -> array`` dict, as
-``lightglue_tpu.weights.flatten_tree`` writes it and the npz files hold:
-linear weights ``(in, out)``, transformer layers stacked on axis 0. The port
-keeps that layout, so conversion is a key-for-key copy into float32 tensors
-with every key and shape checked against the configuration.
+``lightglue_tpu.weights.flatten_tree`` writes it and the npz files hold.
+Matcher: linear weights ``(in, out)``, transformer layers stacked on axis 0;
+the port keeps that layout, so conversion is a key-for-key copy into float32
+tensors with every key and shape checked against the configuration.
+SuperPoint: conv weights are HWIO in the JAX package and OIHW in the port
+and in the reference's state dict (``conv1a.weight``, ``conv1a.bias``, ...),
+so they are transposed once here.
 """
 
 from __future__ import annotations
@@ -16,7 +19,7 @@ import numpy as np
 import torch
 
 from . import nn
-from .configs import LightGlueConfig
+from .configs import LightGlueConfig, SuperPointConfig
 
 
 def expected_shapes(conf: LightGlueConfig) -> Dict[str, tuple]:
@@ -46,6 +49,14 @@ def expected_shapes(conf: LightGlueConfig) -> Dict[str, tuple]:
     return shapes
 
 
+def _check_keys(flat, want) -> None:
+    missing = sorted(set(want) - set(flat))
+    extra = sorted(set(flat) - set(want))
+    if missing or extra:
+        raise KeyError(f"checkpoint keys do not fit the config: missing "
+                       f"{missing}, unexpected {extra}")
+
+
 def from_jax_params(
     flat: Dict[str, np.ndarray], conf: Optional[LightGlueConfig] = None
 ) -> nn.Params:
@@ -54,11 +65,7 @@ def from_jax_params(
     (default: the superpoint matcher at full width)."""
     conf = conf or LightGlueConfig()
     want = expected_shapes(conf)
-    missing = sorted(set(want) - set(flat))
-    extra = sorted(set(flat) - set(want))
-    if missing or extra:
-        raise KeyError(f"checkpoint keys do not fit the config: missing "
-                       f"{missing}, unexpected {extra}")
+    _check_keys(flat, want)
     tree: dict = {}
     for key, shape in want.items():
         arr = np.asarray(flat[key])
@@ -88,3 +95,61 @@ def flatten_params(tree: nn.Params, prefix: str = "") -> Dict[str, np.ndarray]:
             out.update(flatten_params(v, f"{prefix}{k}/"))
         return out
     return {prefix[:-1]: tree.detach().cpu().numpy()}
+
+
+def superpoint_shapes(conf: Optional[SuperPointConfig] = None) -> Dict[str, tuple]:
+    """Every SuperPoint conv of ``conf``: name -> OIHW weight shape."""
+    from .models.superpoint import layer_shapes
+
+    return {n: (o, i, k, k)
+            for n, (i, o, k) in layer_shapes(conf or SuperPointConfig()).items()}
+
+
+def _superpoint_tree(get_w, get_b, conf) -> nn.Params:
+    """Every conv from ``get_w(name)`` (OIHW) and ``get_b(name)``, shapes
+    checked against ``conf``."""
+    shapes = superpoint_shapes(conf)
+    tree = {}
+    for name, shape in shapes.items():
+        w, b = np.asarray(get_w(name)), np.asarray(get_b(name))
+        if w.shape != shape or b.shape != shape[:1]:
+            raise ValueError(f"{name}: weight {w.shape} and bias {b.shape}, "
+                             f"expected {shape} and {shape[:1]}")
+        tree[name] = {"w": torch.from_numpy(np.array(w, np.float32)),
+                      "b": torch.from_numpy(np.array(b, np.float32))}
+    return tree
+
+
+def superpoint_from_jax_params(
+    flat: Dict[str, np.ndarray], conf: Optional[SuperPointConfig] = None
+) -> nn.Params:
+    """The port's SuperPoint parameters from the JAX package's flat dict
+    (``conv1a/w`` HWIO, ``conv1a/b``, ...). Raises on any missing or
+    unexpected key and on any shape that does not fit ``conf``."""
+    names = superpoint_shapes(conf)
+    _check_keys(flat, [f"{n}/{k}" for n in names for k in ("w", "b")])
+    return _superpoint_tree(
+        lambda n: np.transpose(np.asarray(flat[f"{n}/w"]), (3, 2, 0, 1)),
+        lambda n: flat[f"{n}/b"], conf)
+
+
+def superpoint_from_state_dict(
+    sd: Dict[str, np.ndarray], conf: Optional[SuperPointConfig] = None
+) -> nn.Params:
+    """The port's SuperPoint parameters from a reference state dict
+    (``conv1a.weight`` OIHW, ``conv1a.bias``, ...; superpoint.py:121-145),
+    every key and shape checked."""
+    names = superpoint_shapes(conf)
+    sd = {k: np.asarray(v) for k, v in sd.items()}
+    _check_keys(sd, [f"{n}.{k}" for n in names for k in ("weight", "bias")])
+    return _superpoint_tree(lambda n: sd[f"{n}.weight"],
+                            lambda n: sd[f"{n}.bias"], conf)
+
+
+def superpoint_to_state_dict(params: nn.Params) -> Dict[str, np.ndarray]:
+    """Inverse of ``superpoint_from_state_dict``."""
+    out = {}
+    for name, p in params.items():
+        out[f"{name}.weight"] = p["w"].detach().cpu().numpy()
+        out[f"{name}.bias"] = p["b"].detach().cpu().numpy()
+    return out

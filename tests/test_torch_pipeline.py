@@ -98,7 +98,14 @@ def test_missing_image_raises(matcher):
 
 
 def test_import_leaves_jax_out():
-    code = ("import sys, lightglue_tpu_torch, lightglue_tpu_torch.pipeline; "
+    """Every module of the port imports without JAX, OpenCV or PIL."""
+    code = ("import sys; sys.modules['cv2'] = None; sys.modules['PIL'] = None; "
+            "import lightglue_tpu_torch, lightglue_tpu_torch.pipeline, "
+            "lightglue_tpu_torch.end_to_end, lightglue_tpu_torch.utils.image, "
+            "lightglue_tpu_torch.models.superpoint, "
+            "lightglue_tpu_torch.ops.sampling, lightglue_tpu_torch.ops.nms, "
+            "lightglue_tpu_torch.ops.stem, lightglue_tpu_torch.ops.stem2, "
+            "lightglue_tpu_torch.synthetic; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'lightglue_tpu')]; assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
