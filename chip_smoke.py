@@ -1,6 +1,7 @@
 """Smoke run of lightglue_tpu_torch on one NVIDIA GPU (H100, sm_90a).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py             # the smoke run below
+    python3 chip_smoke.py --profile   # only the matcher profile (phase P)
 
 Phases, any failure raising (non-zero exit, no result line):
   0. device: the card's name and power limit, versions; the TF32 flags
@@ -10,25 +11,39 @@ Phases, any failure raising (non-zero exit, no result line):
      (timed);
   2. each kernel against its plain PyTorch version at the main paths'
      shapes, then at tiny and ragged shapes and, for the matcher's kernels,
-     at 2048 keypoints;
-  3. the two main paths, each with the kernels' launch counts set to 0 just
+     at 2048 keypoints; the whole-block kernels (B5, B6) and the
+     constant-shift variants (B1s, B3s) exact and with shift 12;
+  3. the main paths, each with the kernels' launch counts set to 0 just
      before it and read just after:
      a. pipeline.LightGlue with the trained matcher weights on planted pairs
-        at 1024 keypoints (single pairs, one through padding buckets, and a
-        batch of 8; fixed and adaptive), one pair held against the same call
-        on CPU tensors;
-     b. images to matches: pipeline.match_pair(SuperPoint, LightGlue) on
-        generated 768 x 1024 pairs (one needing padding, one a 2x area
-        downscale) and end_to_end.make_end_to_end at B 4, SuperPoint at its
-        published widths with seeded random weights (conv weights times 3,
-        see models.superpoint.init_params), one pair held against the CPU
-        port; then the same matcher on a planted pair at 2048 keypoints,
-        where it has matches to find, held against the CPU port;
+        (single pairs, one through padding buckets, and a batch of 8; fixed
+        and adaptive), one pair of each held against the same call on CPU
+        tensors, in five block configurations: the composed blocks, exact
+        (B1, B3, B4); the default, exact (B5, B6); the default with shift
+        12 at 1024 keypoints (B5, B6) and at 2048 (B5, B3s); the composed
+        blocks with shift 12 (B1s, B3s);
+     b. images to matches at the default configuration:
+        pipeline.match_pair(SuperPoint, LightGlue) on generated 768 x 1024
+        pairs (one needing padding, one a 2x area downscale) and
+        end_to_end.make_end_to_end at B 4, SuperPoint at its published
+        widths with seeded random weights (conv weights times 3, see
+        models.superpoint.init_params), one pair held against the CPU port;
+        then the same matcher on a planted pair at 2048 keypoints, where it
+        has matches to find, held against the CPU port;
   4. timing with CUDA events and host clocks: each kernel beside its plain
-     version, extraction ms per image, end-to-end pairs/s and match_pair
-     ms per pair.
-The line before the last is a JSON object of the kernels; the last line is
+     version (and the one PyTorch call that computes the same function,
+     where there is one), extraction ms per image, the matcher in its
+     default and composed configurations, end-to-end pairs/s and
+     match_pair ms per pair.
+A JSON object of the kernels (with each one's bound, from its shapes) and
+the card's name and power limit come before the last line,
 {"ok": true, "device": {...}}.
+
+Phase P (``--profile``, after phases 0 and 1): torch.profiler over the
+matcher at 1024 keypoints (planted pairs, trained weights; B 1 and B 16,
+fixed and adaptive, default and composed blocks): wall and device ms per
+call, the device's busy share, device ops per call and the largest device
+items.
 """
 
 from __future__ import annotations
@@ -47,11 +62,12 @@ import torch  # noqa: E402
 from lightglue_tpu_torch import (  # noqa: E402
     LightGlue, SuperPoint, SuperPointConfig, _build, lightglue_config,
     match_pair)
-from lightglue_tpu_torch import end_to_end  # noqa: E402
+from lightglue_tpu_torch import end_to_end, nn  # noqa: E402
 from lightglue_tpu_torch import weights as weights_lib  # noqa: E402
 from lightglue_tpu_torch.models import superpoint as sp  # noqa: E402
 from lightglue_tpu_torch.ops import assignment_fused as af  # noqa: E402
 from lightglue_tpu_torch.ops import ffn, flash, flash_cross  # noqa: E402
+from lightglue_tpu_torch.ops import flash_cross_block, flash_self  # noqa: E402
 from lightglue_tpu_torch.ops import nms, stem, stem2  # noqa: E402
 from lightglue_tpu_torch.synthetic import image_pair, planted_pairs  # noqa: E402
 
@@ -75,9 +91,41 @@ KERNELS = {
                      "lightglue_tpu/ops/stem2.py:46"),
     "simple_nms": ("lightglue_tpu_torch/csrc/nms.cu",
                    "lightglue_tpu/ops/nms.py:77"),
+    "fused_self_block": ("lightglue_tpu_torch/csrc/blocks.cu",
+                         "lightglue_tpu/ops/flash_self.py:84"),
+    "fused_cross_block": ("lightglue_tpu_torch/csrc/blocks.cu",
+                          "lightglue_tpu/ops/flash_cross_block.py:94"),
+    "flash_sdpa_shift": ("lightglue_tpu_torch/csrc/flash_sdpa.cu",
+                         "lightglue_tpu/ops/flash.py:63"),
+    "fused_cross_attention_shift": ("lightglue_tpu_torch/csrc/flash_cross.cu",
+                                    "lightglue_tpu/ops/flash_cross.py:116"),
 }
 MATCHER_KERNELS = ("flash_sdpa", "fused_cross_attention", "fused_ffn_residual",
                    "fused_filter_matches")
+SHIFT = 12.0  # the JAX bench's self_ and cross_softmax_shift (bench.py:279)
+COMPOSED = dict(fused_self=False, fused_cross=False)
+SHIFTED = dict(self_softmax_shift=SHIFT, cross_softmax_shift=SHIFT)
+# Matcher paths of phase 3a: (name, config, keypoints, kernels it must launch)
+MATCHER_PATHS = (
+    ("composed, exact", COMPOSED, 1024, MATCHER_KERNELS),
+    ("default, exact", {}, 1024,
+     ("fused_self_block", "fused_cross_block", "fused_filter_matches")),
+    ("default, shift 12", SHIFTED, 1024,
+     ("fused_self_block", "fused_cross_block", "fused_filter_matches")),
+    ("default, shift 12", SHIFTED, 2048,
+     ("fused_self_block", "fused_cross_attention_shift", "fused_ffn_residual",
+      "fused_filter_matches")),
+    ("composed, shift 12", dict(COMPOSED, **SHIFTED), 1024,
+     ("flash_sdpa_shift", "fused_cross_attention_shift", "fused_ffn_residual",
+      "fused_filter_matches")),
+)
+# Images to matches at the default configuration and 2048 keypoints: B5 for
+# the self blocks, the composed cross block (max(M, N) > 1024)
+EXTRACTION_KERNELS = ("fused_stem", "fused_block2", "simple_nms",
+                      "fused_self_block", "fused_cross_attention",
+                      "fused_ffn_residual", "fused_filter_matches")
+# H100 SXM peaks (NVIDIA's data sheet): fp32 CUDA cores and HBM3
+PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
 # The conv kernels sum each output over (input channel, tap) in another
 # order than cuDNN may: held to a bound relative to the output's size.
 CONV_TOL = 1e-4
@@ -252,6 +300,96 @@ def kernel_phase(x):
     return errs
 
 
+def block_inputs(params):
+    """Inputs of B5, B6, B1s and B3s: layer 0 of the trained matcher, B 4
+    at 1024 keypoints (768 in image 1 of B6) with one batch entry that has
+    no valid point (image 1 for B6), and one image at 2048 keypoints."""
+    g = torch.Generator(device="cuda").manual_seed(4)
+    layer = nn.index_params(nn.params_to(params["transformers"], "cuda"), 0)
+
+    def enc(b, n):  # rotary tables (2, B, 1, N, 32)
+        ang = torch.rand(b, 1, n, 32, generator=g, device="cuda") * 6 - 3
+        return torch.stack([ang.cos(), ang.sin()])
+
+    def mask(b, n, p=0.85):
+        return torch.rand(b, n, generator=g, device="cuda") < p
+
+    valid = mask(4, 1024)
+    valid[1] = False
+    va1 = mask(4, 768, 0.9)
+    va1[1] = False
+    return {
+        "layer": layer,
+        "b5": (rand(g, 4, 1024, 256), enc(4, 1024), valid),
+        "b5_2048": (rand(g, 1, 2048, 256), enc(1, 2048), mask(1, 2048)),
+        "b6": (rand(g, 4, 1024, 256), rand(g, 4, 768, 256), mask(4, 1024, 0.9),
+               va1),
+        "k_2048": (rand(g, 1, 4, 2048, 64), rand(g, 1, 4, 2048, 64),
+                   rand(g, 1, 4, 2048, 64), mask(1, 2048), mask(1, 2048)),
+    }
+
+
+def block_weights(bx, shift):
+    layer = bx["layer"]
+    return (flash_self.prepare(layer["self_attn"], 4, shift),
+            flash_cross_block.prepare(layer["cross_attn"], 4, shift))
+
+
+def block_phase(x, bx):
+    """B5 and B6 (exact and shift 12) and B1s and B3s against their plain
+    versions at the main paths' shapes and at 2048 keypoints."""
+    phase("2c whole-block kernels and constant-shift variants against their "
+          "plain versions")
+    errs = {}
+    for shift in (None, SHIFT):
+        w5, w6 = block_weights(bx, shift)
+        for key in ("b5", "b5_2048"):
+            xx, enc, valid = bx[key]
+            for mk in (None, valid):
+                errs["fused_self_block"] = max(errs.get("fused_self_block", 0.0), check(
+                    f"fused_self_block {tuple(xx.shape)} shift {shift}"
+                    f"{' masked' if mk is not None else ''}",
+                    max_err(flash_self.fused_self_block(w5, xx, enc, mk),
+                            flash_self.fused_self_block_plain(w5, xx, enc, mk))))
+        x0, x1, va0, va1 = bx["b6"]
+        got = flash_cross_block.fused_cross_block(w6, x0, x1, va0, va1)
+        ref = flash_cross_block.fused_cross_block_plain(w6, x0, x1, va0, va1)
+        errs["fused_cross_block"] = max(errs.get("fused_cross_block", 0.0), check(
+            f"fused_cross_block B 4, M 1024 / N 768 masked (image 1 of entry 1 "
+            f"empty), shift {shift}, valid rows",
+            max(max_err(got[0], ref[0], va0), max_err(got[1], ref[1], va1))))
+
+    q, k, v = x["k1"]
+    e1 = check("flash_sdpa_shift (4,4,1024,64)",
+               max_err(flash.flash_sdpa(q, k, v, shift=SHIFT),
+                       flash.flash_sdpa_plain(q, k, v, shift=SHIFT)))
+    q, k, v, valid = x["k1_ragged"]
+    got = flash.flash_sdpa(q, k, v, valid, shift=SHIFT)
+    e2 = check("flash_sdpa_shift (4,4,1000,64) masked",
+               max_err(got, flash.flash_sdpa_plain(q, k, v, valid, SHIFT)))
+    if not bool((got[1] == 0).all()):
+        raise AssertionError("flash_sdpa_shift: the all-masked row is not 0")
+    q, k, v, va0, va1 = bx["k_2048"]
+    e3 = check("flash_sdpa_shift (1,4,2048,64) masked",
+               max_err(flash.flash_sdpa(q, k, v, va0, shift=SHIFT),
+                       flash.flash_sdpa_plain(q, k, v, va0, SHIFT)))
+    errs["flash_sdpa_shift"] = max(e1, e2, e3)
+
+    ce = []
+    for name, (qk0, qk1, v0, v1, a0, a1) in (
+            ("B 4, M 1024 / N 768", x["k2"]),
+            ("B 1, M = N = 2048", (q, k, v, q, va0, va1))):
+        got = flash_cross.fused_cross_attention(qk0, qk1, v0, v1, a0, a1,
+                                                shift=SHIFT)
+        ref = flash_cross.fused_cross_attention_plain(qk0, qk1, v0, v1, a0,
+                                                      a1, SHIFT)
+        ce.append(check(f"fused_cross_attention_shift {name} masked, all rows",
+                        max(max_err(got[0], ref[0]), max_err(got[1], ref[1]))))
+    errs["fused_cross_attention_shift"] = max(ce)
+    torch.cuda.synchronize()
+    return errs
+
+
 def edge_phase():
     """Tiny and ragged shapes: single rows, partial tiles, D 128."""
     g = torch.Generator(device="cuda").manual_seed(2)
@@ -346,7 +484,31 @@ def edge_phase():
         if not torch.equal(nms.simple_nms_kernel(s, r), nms.simple_nms_plain(s, r)):
             raise AssertionError(f"simple_nms differs at radius {r}")
     print("  simple_nms at radii 1, 2, 4 (plateau, negative scores): equal")
-    for name in MATCHER_KERNELS:
+    # the block kernels at D 128 (2 heads) and ragged lengths
+    for shift in (None, SHIFT):
+        for n, m in ((70, 130), (1, 65)):
+            lin = lambda i, o: {"w": rand(g, i, o) / i ** 0.5, "b": rand(g, o) * 0.1}
+            ffn_p = {"lin1": lin(256, 256), "ln": {"scale": 1 + rand(g, 256) * 0.1,
+                                                   "bias": rand(g, 256) * 0.1},
+                     "lin2": lin(256, 128)}
+            w5 = flash_self.prepare({"Wqkv": lin(128, 384), "out_proj": lin(128, 128),
+                                     "ffn": ffn_p}, 2, shift)
+            w6 = flash_cross_block.prepare(
+                {"to_qk": lin(128, 128), "to_v": lin(128, 128),
+                 "to_out": lin(128, 128), "ffn": ffn_p}, 2, shift)
+            x0, x1 = rand(g, 2, n, 128), rand(g, 2, m, 128)
+            ang = torch.rand(2, 1, n, 32, generator=g, device="cuda") * 6
+            enc = torch.stack([ang.cos(), ang.sin()])
+            va0, va1 = mask(2, n), mask(2, m)
+            errs["fused_self_block"] = max(errs.get("fused_self_block", 0.0), max_err(
+                flash_self.fused_self_block(w5, x0, enc, va0),
+                flash_self.fused_self_block_plain(w5, x0, enc, va0)))
+            got = flash_cross_block.fused_cross_block(w6, x0, x1, va0, va1)
+            ref = flash_cross_block.fused_cross_block_plain(w6, x0, x1, va0, va1)
+            errs["fused_cross_block"] = max(
+                errs.get("fused_cross_block", 0.0), max_err(got[0], ref[0], va0),
+                max_err(got[1], ref[1], va1))
+    for name in MATCHER_KERNELS + ("fused_self_block", "fused_cross_block"):
         check(f"{name} edge shapes", errs[name])
     torch.cuda.synchronize()
     return errs
@@ -450,7 +612,7 @@ def check_pair_output(name, f0, f1, m, size0, size1):
 
 def extraction_path_phase(mparams, sp_params):
     phase("3b main path: images -> SuperPoint -> LightGlue (match_pair, "
-          "make_end_to_end), 2048 keypoints")
+          "make_end_to_end), default configuration, 2048 keypoints")
     rng = np.random.default_rng(21)
     pairs = {
         f"{H}x{W}": image_pair(rng, H, W),
@@ -472,9 +634,9 @@ def extraction_path_phase(mparams, sp_params):
     e2e = run(im0, im1, sizes, sizes)
     torch.cuda.synchronize()
     counts = _build.launch_counts()
-    print(f"  launch counts: {counts}")
-    for kname, c in counts.items():
-        if c < 1:
+    print(f"  launch counts: { {k: c for k, c in counts.items() if c} }")
+    for kname in EXTRACTION_KERNELS:
+        if counts[kname] < 1:
             raise AssertionError(f"{kname} was not launched on the main path")
 
     for name, (a, b, _) in pairs.items():
@@ -500,7 +662,7 @@ def extraction_path_phase(mparams, sp_params):
     a, b, _ = pairs[f"{H}x{W}"]
     cpu_ext = SuperPoint(params={k: {kk: vv.cpu() for kk, vv in v.items()}
                                  for k, v in sp_params.items()}, device="cpu")
-    cpu_matcher = LightGlue("superpoint", params=mparams)
+    cpu_matcher = LightGlue("superpoint", params=mparams, device="cpu")
     cpu = match_pair(cpu_ext, cpu_matcher, a, b)
     gpu = outs[f"{H}x{W}"]
     shares, derr, common = [], 0.0, []
@@ -574,19 +736,31 @@ def precision(out, gt):
 
 
 def main_path_phase(params):
-    phase("3a main path: pipeline.LightGlue, trained weights, 1024 keypoints")
-    rng = np.random.default_rng(7)
-    singles = [planted_pairs(rng, 1, 1024) for _ in range(3)]
-    singles.append(planted_pairs(rng, 1, 900, 1024))  # unequal counts
-    batch8 = planted_pairs(rng, 8, 1024)
+    """Phase 3a: each matcher path of MATCHER_PATHS, fixed and adaptive.
+    Returns the launch counts summed over the paths."""
+    total = dict.fromkeys(KERNELS, 0)
+    for name, conf, n, kernels in MATCHER_PATHS:
+        counts = matcher_path(params, f"{name}, {n} keypoints", conf, n,
+                              kernels, seed=7)
+        for k, c in counts.items():
+            total[k] += c
+    return total
+
+
+def matcher_path(params, label, conf, n, kernels, seed):
+    phase(f"3a main path: pipeline.LightGlue, trained weights, {label}")
+    rng = np.random.default_rng(seed)
+    singles = [planted_pairs(rng, 1, n) for _ in range(3)]
+    singles.append(planted_pairs(rng, 1, n * 900 // 1024, n))  # unequal counts
+    batch8 = planted_pairs(rng, 8, n)
     matchers = {
-        "fixed": dict(depth_confidence=-1.0, width_confidence=-1.0),
-        "adaptive": {},
+        "fixed": dict(conf, depth_confidence=-1.0, width_confidence=-1.0),
+        "adaptive": conf,
     }
     gpu = {k: LightGlue("superpoint", params=params, device="cuda", **c)
-           .compile((512, 768, 1024)) for k, c in matchers.items()}
+           .compile((n // 2, n)) for k, c in matchers.items()}
     # an image without valid keypoints degrades to no matches, no NaN
-    empty = {"image0": dict(feats(singles[0], 0), valid=np.zeros((1, 1024), bool)),
+    empty = {"image0": dict(feats(singles[0], 0), valid=np.zeros((1, n), bool)),
              "image1": feats(singles[0], 1)}
     for name, matcher in gpu.items():
         out = matcher(empty)
@@ -594,6 +768,7 @@ def main_path_phase(params):
                 and np.isfinite(out["matching_scores1"]).all()):
             raise AssertionError(f"{name}: an empty image 0 still matched")
     print("  image 0 without valid keypoints: no matches, finite scores")
+    torch.cuda.synchronize()
     _build.reset_launch_counts()
     outs = {}
     for name, matcher in gpu.items():
@@ -604,22 +779,22 @@ def main_path_phase(params):
                                     "image1": feats(batch8, 1)})
     torch.cuda.synchronize()
     counts = _build.launch_counts()
-    print(f"  launch counts: {counts}")
-    for kname in MATCHER_KERNELS:
+    print(f"  launch counts: { {k: c for k, c in counts.items() if c} }")
+    for kname in kernels:
         if counts[kname] < 1:
-            raise AssertionError(f"{kname} was not launched on the main path")
+            raise AssertionError(f"{kname} was not launched on the path")
 
     for (name, i), out in outs.items():
         pr = batch8 if i == "b8" else singles[i]
         b, m = pr["gt_matches0"].shape
-        n = pr["keypoints1"].shape[1]
-        if out["matches0"].shape != (b, m) or out["matches1"].shape != (b, n):
+        nn_ = pr["keypoints1"].shape[1]
+        if out["matches0"].shape != (b, m) or out["matches1"].shape != (b, nn_):
             raise AssertionError(f"{name} {i}: bad output shapes")
         for f in ("matching_scores0", "matching_scores1"):
             if not np.isfinite(out[f]).all():
                 raise AssertionError(f"{name} {i}: {f} not finite")
         k, prec = precision(out, pr["gt_matches0"])
-        print(f"  {name} pair {i}: {m}x{n} kpts, stop {out['stop']}, "
+        print(f"  {name} pair {i}: {m}x{nn_} kpts, stop {out['stop']}, "
               f"{k} matches, precision {prec:.3f} against the planted truth")
         if prec < 0.8:  # a floor that catches wrong matches, not a target
             raise AssertionError(f"{name} {i}: precision {prec}")
@@ -651,13 +826,17 @@ def time_cuda(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def timing_phase(x, params):
-    phase("4a timing (CUDA events; plain = the same function in plain PyTorch)")
+def timing_phase(x, bx, params):
+    phase("4a timing (CUDA events; plain = the same function in plain PyTorch; "
+          "library = one PyTorch call computing it)")
     q, k, v = x["k1"]
     qk0, qk1, v0, v1, va0, va1 = x["k2"]
     xx, msg, p = x["k3"]
     d0, d1, z0, z1, mk0, mk1 = x["k4"]
     ls0, ls1 = torch.nn.functional.logsigmoid(z0), torch.nn.functional.logsigmoid(z1)
+    w5, w6 = block_weights(bx, None)
+    x5, enc5, _ = bx["b5"]
+    x60, x61, m60, m61 = bx["b6"]
     pairs = {
         "flash_sdpa": (lambda: flash.flash_sdpa(q, k, v),
                        lambda: flash.flash_sdpa_plain(q, k, v)),
@@ -669,7 +848,26 @@ def timing_phase(x, params):
         "fused_filter_matches": (
             lambda: af._filter_reductions_kernel(d0, d1, ls0, ls1, mk0, mk1),
             lambda: af.filter_reductions_plain(d0, d1, ls0, ls1, mk0, mk1)),
+        "fused_self_block": (
+            lambda: flash_self.fused_self_block(w5, x5, enc5),
+            lambda: flash_self.fused_self_block_plain(w5, x5, enc5)),
+        "fused_cross_block": (
+            lambda: flash_cross_block.fused_cross_block(w6, x60, x61, m60, m61),
+            lambda: flash_cross_block.fused_cross_block_plain(w6, x60, x61, m60, m61)),
+        "flash_sdpa_shift": (
+            lambda: flash.flash_sdpa(q, k, v, shift=SHIFT),
+            lambda: flash.flash_sdpa_plain(q, k, v, shift=SHIFT)),
+        "fused_cross_attention_shift": (
+            lambda: flash_cross.fused_cross_attention(qk0, qk1, v0, v1, va0, va1,
+                                                      shift=SHIFT),
+            lambda: flash_cross.fused_cross_attention_plain(qk0, qk1, v0, v1, va0,
+                                                            va1, SHIFT)),
     }
+    # the one PyTorch call computing B1's function (both variants): SDPA
+    # with the additive key bias (0: every key valid), in fp32
+    kb = torch.zeros(q.shape[0], 1, 1, q.shape[2], device="cuda")
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, attn_mask=kb)
     times = {}
     for name, (kern, plain) in pairs.items():
         # plain, kernel, kernel, plain: report the mean of each pair
@@ -677,34 +875,83 @@ def timing_phase(x, params):
         b = time_cuda(kern)
         c = time_cuda(kern)
         d = time_cuda(plain)
-        times[name] = ((b + c) / 2, (a + d) / 2)
+        lib = None
+        if name in ("flash_sdpa", "flash_sdpa_shift"):
+            lib = time_cuda(sdpa)
+        times[name] = ((b + c) / 2, (a + d) / 2, lib)
         print(f"  {name}: kernel {times[name][0]:.4f} ms, plain "
-              f"{times[name][1]:.4f} ms (runs {b:.4f}/{c:.4f}, {a:.4f}/{d:.4f})",
+              f"{times[name][1]:.4f} ms (runs {b:.4f}/{c:.4f}, {a:.4f}/{d:.4f})"
+              + ("" if lib is None else f", library (SDPA) {lib:.4f} ms"),
               flush=True)
 
     # end to end: host clock per call (each call ends in a device-to-host
-    # copy of its outputs), median over the calls after two warm-up calls
+    # copy of its outputs), median over the calls after two warm-up calls;
+    # the default (B5, B6) and the composed block configuration in turns
     rng = np.random.default_rng(11)
-    for bsz, reps in ((1, 30), (16, 8)):
+    for bsz, reps in ((1, 20), (16, 6)):
         pr = planted_pairs(rng, bsz, 1024)
         data = {"image0": feats(pr, 0), "image1": feats(pr, 1)}
         for name, c in (("fixed", dict(depth_confidence=-1.0,
                                        width_confidence=-1.0)),
                         ("adaptive", {})):
-            matcher = LightGlue("superpoint", params=params, device="cuda", **c)
-            for _ in range(2):
-                matcher(data)
-            ms = []
-            for _ in range(reps):
-                t0 = time.perf_counter()
-                out = matcher(data)
-                ms.append((time.perf_counter() - t0) * 1e3)
-            q1, med, q3 = np.percentile(ms, [25, 50, 75])
-            print(f"  end to end {name} B={bsz} 1024 kpts: "
-                  f"{bsz * 1e3 / med:.1f} pairs/s (median {med:.2f} ms per "
-                  f"call, quartiles {q1:.2f}-{q3:.2f}, {reps} calls, stop "
-                  f"{out['stop']})", flush=True)
+            ms = {"composed": [], "default": []}
+            for blocks in ("composed", "default", "default", "composed"):
+                matcher = LightGlue("superpoint", params=params, device="cuda",
+                                    **c, **(COMPOSED if blocks == "composed"
+                                            else {}))
+                for _ in range(2):
+                    matcher(data)
+                for _ in range(reps):
+                    t0 = time.perf_counter()
+                    out = matcher(data)
+                    ms[blocks].append((time.perf_counter() - t0) * 1e3)
+            for blocks, m in ms.items():
+                q1, med, q3 = np.percentile(m, [25, 50, 75])
+                print(f"  end to end {name} B={bsz} 1024 kpts, {blocks} blocks: "
+                      f"{bsz * 1e3 / med:.1f} pairs/s (median {med:.2f} ms per "
+                      f"call, quartiles {q1:.2f}-{q3:.2f}, {len(m)} calls, stop "
+                      f"{out['stop']})", flush=True)
     return times
+
+
+def kernel_bounds():
+    """(FLOPs, bytes) of each kernel's function at the shapes timed in
+    phase 4: the products it must compute (fp32) and each input read and
+    output written once."""
+    f = 4  # bytes of fp32
+    b, h, n, m1, d = 4, 4, 1024, 768, 256
+    ffn_w = (2 * d * 2 * d + 2 * d * d + 3 * 2 * d + d) * f
+    attn = (4 * b * h * n * n * 64, 4 * b * h * n * 64 * f)
+    cross = (8 * b * h * n * m1 * 64, 3 * b * h * (n + m1) * 64 * f + b * (n + m1))
+    ffn_rows = b * n
+    self_flops = b * (2 * n * d * 3 * d + 4 * h * n * n * 64 + 2 * n * d * d
+                      + 2 * n * (2 * d * 2 * d + 2 * d * d))
+    cross_flops = b * (2 * (n + m1) * d * 2 * d + 6 * n * m1 * d
+                       + 2 * (n + m1) * d * d
+                       + 2 * (n + m1) * (2 * d * 2 * d + 2 * d * d))
+    img = 2 * H * W
+    return {
+        "flash_sdpa": attn,
+        "flash_sdpa_shift": attn,
+        "fused_cross_attention": cross,
+        "fused_cross_attention_shift": cross,
+        "fused_ffn_residual": (ffn_rows * 2 * (2 * d * 2 * d + 2 * d * d),
+                               3 * ffn_rows * d * f + ffn_w),
+        "fused_filter_matches": (2 * b * n * n * d,
+                                 (2 * b * n * d + 2 * b * n) * f + 2 * b * n
+                                 + 4 * b * n * f),
+        "fused_self_block": (self_flops, (2 * b * n * d + 2 * b * n * 32) * f
+                             + (d * 3 * d + 3 * d + d * d + d) * f + ffn_w),
+        "fused_cross_block": (cross_flops, 2 * b * (n + m1) * d * f + b * (n + m1)
+                              + (d * 2 * d + 2 * d + d * d + d) * f + ffn_w),
+        "fused_stem": (img * 2 * 9 * (64 + 64 * 64),
+                       (img + img // 4 * 64) * f + (64 * 9 + 64 * 64 * 9 + 128) * f),
+        "fused_block2": (img // 4 * 2 * 9 * (64 * 64 + 64 * 64),
+                         (img // 4 * 64 + img // 16 * 64) * f
+                         + (2 * 64 * 64 * 9 + 128) * f),
+        # five (2r + 1)-wide max pools, separable, r 4: compares, not FLOPs
+        "simple_nms": (img * 5 * 2 * 9, 2 * img * f),
+    }
 
 
 def sp_timing_phase(sx, mparams, sp_params):
@@ -723,7 +970,7 @@ def sp_timing_phase(sx, mparams, sp_params):
     times = {}
     for name, (kern, plain) in pairs.items():
         a, b, c, d = (time_cuda(f, iters=10) for f in (plain, kern, kern, plain))
-        times[name] = ((b + c) / 2, (a + d) / 2)
+        times[name] = ((b + c) / 2, (a + d) / 2, None)
         print(f"  {name} (B 2, {H}x{W}): kernel {times[name][0]:.4f} ms, "
               f"plain {times[name][1]:.4f} ms (runs {b:.4f}/{c:.4f}, "
               f"{a:.4f}/{d:.4f})", flush=True)
@@ -781,27 +1028,79 @@ def sp_timing_phase(sx, mparams, sp_params):
     return times
 
 
+def profile_phase(params, calls=5, warmup=3, top=6):
+    phase("P profile: the matcher at 1024 keypoints (torch.profiler; device "
+          "time = kernels and copies)")
+    from torch.profiler import ProfilerActivity, profile
+    rng = np.random.default_rng(11)
+    for bsz in (1, 16):
+        pr = planted_pairs(rng, bsz, 1024)
+        data = {"image0": feats(pr, 0), "image1": feats(pr, 1)}
+        for mode, c in (("fixed", dict(depth_confidence=-1.0,
+                                       width_confidence=-1.0)),
+                        ("adaptive", {})):
+            for blocks, bc in (("default", {}), ("composed", COMPOSED)):
+                matcher = LightGlue("superpoint", params=params,
+                                    device="cuda", **c, **bc)
+                for _ in range(warmup):
+                    matcher(data)
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    for _ in range(calls):
+                        out = matcher(data)
+                    torch.cuda.synchronize()
+                    wall = (time.perf_counter() - t0) * 1e3 / calls
+                by_name, n_ops = {}, 0
+                for e in prof.events():
+                    if e.device_type == torch.autograd.DeviceType.CUDA:
+                        n_ops += 1
+                        by_name[e.name] = by_name.get(e.name, 0.0) + \
+                            e.time_range.elapsed_us() / 1e3 / calls
+                dev = sum(by_name.values())
+                print(f"  {mode} B {bsz}, {blocks} blocks, stop {out['stop']}: "
+                      f"wall {wall:.2f} ms/call, device {dev:.2f} ms/call, "
+                      f"busy {100 * dev / wall:.1f} %, {n_ops / calls:.0f} "
+                      f"device ops/call", flush=True)
+                for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
+                    print(f"    {ms:8.3f} ms  {name[:90]}")
+
+
 def main():
     smi = device_phase()
     build_phase()
+    params = weights_lib.load_params(WEIGHTS)
+    if sys.argv[1:] == ["--profile"]:
+        profile_phase(params)
+        return
+    if sys.argv[1:]:
+        raise SystemExit(f"unknown arguments {sys.argv[1:]}; see the docstring")
     x = kernel_inputs()
+    bx = block_inputs(params)
     errs = kernel_phase(x)
+    errs.update(block_phase(x, bx))
     sp_params = superpoint_params()
     sp_errs, sx = sp_kernel_phase(sp_params)
     errs.update(sp_errs)
     for name, err in edge_phase().items():
         errs[name] = max(errs[name], err)
-    params = weights_lib.load_params(WEIGHTS)
-    main_path_phase(params)
-    counts = extraction_path_phase(params, sp_params)
-    times = timing_phase(x, params)
+    counts = main_path_phase(params)
+    for k, c in extraction_path_phase(params, sp_params).items():
+        counts[k] += c
+    times = timing_phase(x, bx, params)
     times.update(sp_timing_phase(sx, params, sp_params))
-    kernels = [
-        {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": counts[name], "max_abs_err": errs[name],
-         "ms": times[name][0], "plain_ms": times[name][1]}
-        for name, (src, rep) in KERNELS.items()
-    ]
+    kernels, bounds = [], kernel_bounds()
+    for name, (src, rep) in KERNELS.items():
+        flops, nbytes = bounds[name]
+        t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+        kernels.append({
+            "name": name, "route": "cuda", "source": src, "replaces": rep,
+            "launches": counts[name], "max_abs_err": errs[name],
+            "ms": times[name][0], "plain_ms": times[name][1],
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": times[name][2]})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

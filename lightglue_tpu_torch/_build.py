@@ -31,11 +31,13 @@ NVCC_FLAGS = (
     *ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry point -> argument types (pointers and the stream as c_void_p).
 SIGNATURES = {
-    "lg_flash_sdpa": [_P] * 5 + [_I] * 4 + [_P],
-    "lg_fused_cross": [_P] * 9 + [_I] * 4 + [_P],
+    "lg_flash_sdpa": [_P] * 5 + [_I] * 5 + [_F] * 2 + [_P],
+    "lg_fused_cross": [_P] * 9 + [_I] * 5 + [_F] * 2 + [_P],
+    "lg_project_heads": [_P] * 6 + [_I] * 5 + [_P],
+    "lg_block_tail": [_P] * 11 + [_I] * 3 + [_P],
     "lg_ffn_residual": [_P] * 9 + [_I] * 2 + [_P],
     "lg_assign_lse": [_P] * 5 + [_I] * 4 + [_P],
     "lg_assign_argmax": [_P] * 8 + [_I] * 4 + [_P],
@@ -48,6 +50,8 @@ SIGNATURES = {
 KERNELS = (
     "flash_sdpa", "fused_cross_attention", "fused_ffn_residual",
     "fused_filter_matches", "fused_stem", "fused_block2", "simple_nms",
+    "fused_self_block", "fused_cross_block", "flash_sdpa_shift",
+    "fused_cross_attention_shift",
 )
 _launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 _lib: Optional[ctypes.CDLL] = None

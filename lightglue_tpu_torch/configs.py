@@ -19,9 +19,14 @@ class LightGlueConfig:
     """Matcher configuration (reference: lightglue/lightglue.py:322-335).
 
     ``depth_confidence``/``width_confidence`` < 0 disable adaptive depth /
-    width. ``fused_self``/``fused_cross`` default to False here: the
-    whole-block kernels are not ported yet, and the matcher runs the
-    composed blocks (attention, cross attention and FFN kernels).
+    width. ``fused_self``/``fused_cross`` (the JAX package's defaults, on)
+    run each SelfBlock through the whole-block kernel B5 for N <= 2048 and
+    each CrossBlock through B6 for max(M, N) <= 1024 (lengths multiples of
+    128); otherwise, or with them off, the blocks are composed from the
+    attention, cross-attention and FFN kernels. ``self_softmax_shift`` /
+    ``cross_softmax_shift`` (nats) replace the softmax's row maximum by a
+    constant in the kernels (exp2 form, no max pass); None is the exact
+    softmax.
     """
 
     name: str = "lightglue"
@@ -42,8 +47,8 @@ class LightGlueConfig:
     cross_softmax_shift: Optional[float] = None
     self_softmax_shift: Optional[float] = None
     fused_ffn: bool = True  # FFN kernel (False: composed FFN)
-    fused_self: bool = False
-    fused_cross: bool = False
+    fused_self: bool = True
+    fused_cross: bool = True
 
     def __post_init__(self):
         if self.descriptor_dim % self.num_heads != 0:
@@ -54,13 +59,7 @@ class LightGlueConfig:
         if self.n_layers < 1:
             raise ValueError("n_layers must be >= 1")
         unported = {
-            "fused_self=True (whole-SelfBlock kernel B5)": self.fused_self,
-            "fused_cross=True (whole-CrossBlock kernel B6)": self.fused_cross,
             "mp=True (bf16 compute)": self.mp,
-            "self_softmax_shift (constant-shift attention kernel)":
-                self.self_softmax_shift is not None,
-            "cross_softmax_shift (single-pass cross attention kernel)":
-                self.cross_softmax_shift is not None,
             "compaction_bucket > 0 (two-stage compaction)":
                 self.compaction_bucket > 0,
         }

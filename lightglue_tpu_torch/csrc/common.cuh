@@ -87,114 +87,168 @@ __device__ __forceinline__ float group4_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-// Row-softmax attention of one 64-row query tile against all keys, with an
-// online softmax (running max and sum) over 64-key tiles:
-//   o[r] = sum_j exp(s_rj - max_j s_rj) v_j / sum_j exp(s_rj - max_j s_rj),
-//   s_rj = (scale * q_r) . k_j + kbias[j]   (kbias: 0 valid / -1e30 masked).
-// zero_empty: rows of a batch whose keys are all masked come out as 0.
-// tile_max (optional): writes max_{r, j} s_rj over this tile's rows to
-// tile_max[(b * H + h) * gridDim.x + blockIdx.x].
-// Grid (cdiv(Nq, 64), H, B); q, o (B, H, Nq, 64); k, v (B, H, Nk, 64).
-__device__ __forceinline__ void row_softmax_attention(
-    const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, const float* __restrict__ kbias,
-    float* __restrict__ o, float* __restrict__ tile_max, int H, int Nq,
-    int Nk, float scale, bool zero_empty) {
-  extern __shared__ __align__(16) float lg_smem[];
-  float* Qs = lg_smem;          // 64 x LD, pre-scaled queries
-  float* Ks = Qs + TILE * LD;   // 64 x LD
-  float* Vs = Ks + TILE * LD;   // 64 x HD
-  float* Ss = Vs + TILE * HD;   // 64 x LD, scores then probabilities
-  float* row_a = Ss + TILE * LD;  // 64: per-row rescale, then row sum
-  float* row_m = row_a + TILE;    // 64: per-row max
-  int* any_valid = reinterpret_cast<int*>(row_m + TILE);
+// Shared-memory carve of the row attention below.
+struct AttnTile {
+  float* Qs;     // 64 x LD, pre-scaled queries
+  float* Ks;     // 64 x LD
+  float* Vs;     // 64 x HD
+  float* Ss;     // 64 x LD, scores then weights
+  float* row_a;  // 64: per-row rescale, then the row sum
+  float* row_m;  // 64: per-row max
+  int* any_valid;
+};
 
+__device__ __forceinline__ AttnTile carve_attn(float* base) {
+  AttnTile sm;
+  sm.Qs = base;
+  sm.Ks = sm.Qs + TILE * LD;
+  sm.Vs = sm.Ks + TILE * LD;
+  sm.Ss = sm.Vs + TILE * HD;
+  sm.row_a = sm.Ss + TILE * LD;
+  sm.row_m = sm.row_a + TILE;
+  sm.any_valid = reinterpret_cast<int*>(sm.row_m + TILE);
+  return sm;
+}
+
+// Floats of shared memory carve_attn takes (the last one holds the flag).
+constexpr int kAttnFloats = 3 * TILE * LD + TILE * HD + 2 * TILE + 4;
+
+// The key loop of one 64-row query tile, already in sm.Qs (pre-scaled),
+// against all Nk keys of one (batch, head), in 64-key tiles, with
+//   s_rj = q_r . k_j + kbias[j]   (kbias: 0 valid / -1e30 masked, or null).
+// Exact (!SHIFT): an online softmax, weights exp(s_rj - max_j s_rj) with a
+// running max and sum. SHIFT: weights exp2(min(s_rj - shift2, 100)) with no
+// max (q in the log2 domain); a masked key's weight is exactly 0.
+// On return (synchronised) acc[i][j] holds sum_j w_rj v_j for row ty + 16i
+// and channel tx + 16j, sm.row_a[r] the row sum, sm.row_m[r] the row max
+// (exact), *sm.any_valid whether some key has kbias >= 0.
+template <bool SHIFT>
+__device__ __forceinline__ void attend_keys(const AttnTile& sm,
+                                            const float* __restrict__ kb,
+                                            const float* __restrict__ vb,
+                                            const float* __restrict__ bias,
+                                            int Nk, float shift2,
+                                            float acc[4][4]) {
   const int t = threadIdx.x, ty = t >> 4, tx = t & 15;
   const int r = t >> 2, seg = t & 3;
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * TILE;
-  const size_t bh = (size_t)b * H + h;
-  const float* qb = q + bh * Nq * HD;
-  const float* kb = k + bh * Nk * HD;
-  const float* vb = v + bh * Nk * HD;
-  const float* bias = kbias ? kbias + (size_t)b * Nk : nullptr;
-
-  load_tile(Qs, LD, qb, q0, Nq, HD, 0, scale);
-  if (t == 0) *any_valid = 0;
+  if (t == 0) *sm.any_valid = 0;
   float m_run = -INFINITY, l_run = 0.f;  // this row's, same in its 4 threads
-  float acc[4][4] = {};
 
   for (int k0 = 0; k0 < Nk; k0 += TILE) {
     __syncthreads();  // the previous tile's readers are done
-    load_tile(Ks, LD, kb, k0, Nk, HD, 0, 1.f);
-    load_tile(Vs, HD, vb, k0, Nk, HD, 0, 1.f);
+    load_tile(sm.Ks, LD, kb, k0, Nk, HD, 0, 1.f);
+    load_tile(sm.Vs, HD, vb, k0, Nk, HD, 0, 1.f);
     __syncthreads();
     float s[4][4] = {};
-    tile_abt(Qs, Ks, s);
+    tile_abt(sm.Qs, sm.Ks, s);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int col = k0 + tx + 16 * j;
-        Ss[(ty + 16 * i) * LD + tx + 16 * j] =
+        sm.Ss[(ty + 16 * i) * LD + tx + 16 * j] =
             col < Nk ? s[i][j] + (bias ? bias[col] : 0.f) : -INFINITY;
       }
     if (bias && t < TILE && k0 + t < Nk && bias[k0 + t] >= 0.f)
-      *any_valid = 1;
+      *sm.any_valid = 1;
     __syncthreads();
 
-    float* srow = Ss + r * LD + seg * 16;
-    float mt = -INFINITY;
+    float* srow = sm.Ss + r * LD + seg * 16;
+    if (SHIFT) {
+      float ps = 0.f;
 #pragma unroll
-    for (int c = 0; c < 16; ++c) mt = fmaxf(mt, srow[c]);
-    const float m_new = fmaxf(m_run, group4_max(mt));
-    const float alpha = expf(m_run - m_new);  // 0 on the first tile
-    float ps = 0.f;
+      for (int c = 0; c < 16; ++c) {
+        const float p = exp2f(fminf(srow[c] - shift2, 100.f));
+        srow[c] = p;
+        ps += p;
+      }
+      l_run += group4_sum(ps);
+      __syncthreads();
+    } else {
+      float mt = -INFINITY;
 #pragma unroll
-    for (int c = 0; c < 16; ++c) {
-      const float p = expf(srow[c] - m_new);
-      srow[c] = p;
-      ps += p;
+      for (int c = 0; c < 16; ++c) mt = fmaxf(mt, srow[c]);
+      const float m_new = fmaxf(m_run, group4_max(mt));
+      const float alpha = expf(m_run - m_new);  // 0 on the first tile
+      float ps = 0.f;
+#pragma unroll
+      for (int c = 0; c < 16; ++c) {
+        const float p = expf(srow[c] - m_new);
+        srow[c] = p;
+        ps += p;
+      }
+      l_run = l_run * alpha + group4_sum(ps);
+      m_run = m_new;
+      if (seg == 0) sm.row_a[r] = alpha;
+      __syncthreads();
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float a = sm.row_a[ty + 16 * i];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] *= a;
+      }
     }
-    l_run = l_run * alpha + group4_sum(ps);
-    m_run = m_new;
-    if (seg == 0) row_a[r] = alpha;
-    __syncthreads();
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float a = row_a[ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] *= a;
-    }
-    tile_pv(Ss, Vs, acc);
+    tile_pv(sm.Ss, sm.Vs, acc);
   }
 
-  __syncthreads();  // the last tile's reads of row_a are done
+  __syncthreads();  // the last tile's reads of Ss and row_a are done
   if (seg == 0) {
-    row_a[r] = l_run;
-    row_m[r] = m_run;
+    sm.row_a[r] = l_run;
+    sm.row_m[r] = m_run;
   }
   __syncthreads();
-  const bool empty = zero_empty && bias && *any_valid == 0;
+}
+
+// Row attention of one 64-row query tile, written to o:
+//   o[r] = sum_j w_rj v_j / max(sum_j w_rj, 1e-30)   (attend_keys' weights)
+// with the queries scaled by `scale` as they are loaded.
+// zero_empty (exact): rows of a batch whose keys are all masked come out 0.
+// rbias (B, Nq) (0 valid / -1e30 masked, or null): with SHIFT, masked query
+// rows come out 0, as the weights of a row with a -1e30 bias all are; exact,
+// tile_max skips them.
+// tile_max (exact, optional): writes the max over this tile's (unmasked)
+// rows of the row max to tile_max[(b * H + h) * gridDim.x + blockIdx.x].
+// Grid (cdiv(Nq, 64), H, B); q, o (B, H, Nq, 64); k, v (B, H, Nk, 64).
+template <bool SHIFT>
+__device__ __forceinline__ void row_softmax_attention(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ kbias,
+    const float* __restrict__ rbias, float* __restrict__ o,
+    float* __restrict__ tile_max, int H, int Nq, int Nk, float scale,
+    bool zero_empty, float shift2) {
+  extern __shared__ __align__(16) float lg_smem[];
+  const AttnTile sm = carve_attn(lg_smem);
+  const int t = threadIdx.x, ty = t >> 4, tx = t & 15;
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * TILE;
+  const size_t bh = (size_t)b * H + h;
+  const float* bias = kbias ? kbias + (size_t)b * Nk : nullptr;
+  const float* rb = rbias ? rbias + (size_t)b * Nq : nullptr;
+
+  load_tile(sm.Qs, LD, q + bh * Nq * HD, q0, Nq, HD, 0, scale);
+  float acc[4][4] = {};
+  attend_keys<SHIFT>(sm, k + bh * Nk * HD, v + bh * Nk * HD, bias, Nk, shift2,
+                     acc);
+  const bool empty = !SHIFT && zero_empty && bias && *sm.any_valid == 0;
   float* ob = o + bh * Nq * HD;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + ty + 16 * i;
     if (row >= Nq) continue;
-    const float l = fmaxf(row_a[ty + 16 * i], 1e-30f);
+    const bool zero = empty || (SHIFT && rb && rb[row] < 0.f);
+    const float l = fmaxf(sm.row_a[ty + 16 * i], 1e-30f);
 #pragma unroll
     for (int j = 0; j < 4; ++j)
-      ob[(size_t)row * HD + tx + 16 * j] = empty ? 0.f : acc[i][j] / l;
+      ob[(size_t)row * HD + tx + 16 * j] = zero ? 0.f : acc[i][j] / l;
   }
-  if (tile_max && t == 0) {
+  if (!SHIFT && tile_max && t == 0) {
     float mx = -INFINITY;
-    for (int rr = 0; rr < TILE && q0 + rr < Nq; ++rr) mx = fmaxf(mx, row_m[rr]);
+    for (int rr = 0; rr < TILE && q0 + rr < Nq; ++rr)
+      if (!rb || rb[q0 + rr] >= 0.f) mx = fmaxf(mx, sm.row_m[rr]);
     tile_max[bh * gridDim.x + blockIdx.x] = mx;
   }
 }
 
 // Bytes of dynamic shared memory row_softmax_attention carves.
-constexpr size_t kRowAttnSmem =
-    (3 * TILE * LD + TILE * HD + 2 * TILE) * sizeof(float) + 16;
+constexpr size_t kRowAttnSmem = kAttnFloats * sizeof(float);
 
 }  // namespace lg

@@ -6,11 +6,15 @@ package: variable keypoint counts are validity masks, and width pruning is a
 per-image mask update. The layer loop is a Python loop; the adaptive path
 reads its stop flag on the host once per layer.
 
-The blocks are composed from four kernels (ops/flash.py,
-ops/flash_cross.py, ops/ffn.py, ops/assignment_fused.py); the projections
-around them are plain ``x @ w``. ``conf.flash=False`` and
-``conf.fused_ffn=False`` switch to the composed ops of ops/attention.py and
-ops/assignment.py, as in the JAX package.
+At the default configuration each SelfBlock is one op, kernel B5
+(ops/flash_self.py, N <= 2048), and each CrossBlock one op, kernel B6
+(ops/flash_cross_block.py, max(M, N) <= 1024). Otherwise the blocks are
+composed from the attention, cross-attention and FFN kernels (ops/flash.py,
+ops/flash_cross.py, ops/ffn.py), with plain ``x @ w`` projections around
+them; the assignment head is kernel ops/assignment_fused.py.
+``conf.flash=False`` and ``conf.fused_ffn=False`` switch to the composed ops
+of ops/attention.py and ops/assignment.py, as in the JAX package. The
+dispatch follows the JAX package's order of tests (lightglue.py:235-341).
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from .. import nn
 from ..configs import LightGlueConfig
@@ -28,6 +33,8 @@ from ..ops import attention as attn_ops
 from ..ops import ffn as ffn_ops
 from ..ops import flash as flash_ops
 from ..ops import flash_cross as flash_cross_ops
+from ..ops import flash_cross_block as flash_cross_block_ops
+from ..ops import flash_self as flash_self_ops
 from ..ops import rotary
 from ..ops.keypoints import normalize_keypoints
 
@@ -98,12 +105,6 @@ def _split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
     return x.reshape(b, n, num_heads, d // num_heads).transpose(1, 2).contiguous()
 
 
-def _merge_heads(x: torch.Tensor) -> torch.Tensor:
-    """(B, H, N, hd) -> (B, N, D)."""
-    b, h, n, hd = x.shape
-    return x.transpose(1, 2).reshape(b, n, h * hd)
-
-
 def _ffn_residual(p, x, message, conf: LightGlueConfig) -> torch.Tensor:
     """x + FFN(cat[x, message]): kernel K3, or the composed FFN when
     conf.flash or conf.fused_ffn is off."""
@@ -114,10 +115,59 @@ def _ffn_residual(p, x, message, conf: LightGlueConfig) -> torch.Tensor:
     return x + nn.linear(p["lin2"], y)
 
 
-def self_block(p, x, encoding, conf: LightGlueConfig, key_mask=None):
+def _fused_self_ok(conf: LightGlueConfig, n: int) -> bool:
+    """JAX self_block's test for the whole-block kernel (lightglue.py:
+    249-256): the attention kernels on, head_dim 64 (_check_conf), N a
+    multiple of 128 and at most MAX_FUSED_N."""
+    return (conf.flash and conf.fused_self and conf.fused_ffn
+            and n % 128 == 0 and n <= flash_self_ops.MAX_FUSED_N)
+
+
+def _fused_cross_ok(conf: LightGlueConfig, m: int, n: int) -> bool:
+    """JAX cross_block's test (lightglue.py:301-307)."""
+    return (conf.flash and conf.fused_cross and conf.fused_ffn
+            and m % 128 == 0 and n % 128 == 0
+            and max(m, n) <= flash_cross_block_ops.MAX_FUSED_N)
+
+
+_PREPARED = WeakIdKeyDictionary()
+
+
+def prepared_blocks(params, conf: LightGlueConfig):
+    """Per layer, the (B5, B6) kernel weights of ``params``: built once per
+    parameter tree and configuration (keyed by the tree's stacked Wqkv
+    tensor), not in every layer call. An edit in place of a tree's tensors
+    is not seen: build a new tree."""
+    key = params["transformers"]["self_attn"]["Wqkv"]["w"]
+    per_conf = _PREPARED.setdefault(key, {})
+    ck = (conf.num_heads, conf.self_softmax_shift, conf.cross_softmax_shift)
+    if ck not in per_conf:
+        per_conf[ck] = [
+            (flash_self_ops.prepare(layer["self_attn"], conf.num_heads,
+                                    conf.self_softmax_shift),
+             flash_cross_block_ops.prepare(layer["cross_attn"], conf.num_heads,
+                                           conf.cross_softmax_shift))
+            for layer in (nn.index_params(params["transformers"], i)
+                          for i in range(conf.n_layers))]
+    return per_conf[ck]
+
+
+def _block_weights(params, conf: LightGlueConfig):
+    """Per layer, the (B5, B6) weights when a whole-block kernel may run,
+    else (None, None)."""
+    if conf.flash and conf.fused_ffn and (conf.fused_self or conf.fused_cross):
+        return prepared_blocks(params, conf)
+    return [(None, None)] * conf.n_layers
+
+
+def self_block(p, x, encoding, conf: LightGlueConfig, key_mask=None,
+               fused=None):
     """Self-attention block (reference SelfBlock, lightglue.py:159-172).
-    encoding (2, B, 1, N, head_dim/2); key_mask (B, N) True = valid."""
+    encoding (2, B, 1, N, head_dim/2); key_mask (B, N) True = valid;
+    ``fused``: this layer's B5 weights (prepared_blocks)."""
     b, n, d = x.shape
+    if fused is not None and _fused_self_ok(conf, n):
+        return flash_self_ops.fused_self_block(fused, x, encoding, key_mask)
     h = conf.num_heads
     qkv = nn.linear(p["Wqkv"], x)
     # reference packing: unflatten(-1, (heads, head_dim, 3)) (lightglue.py:166)
@@ -126,17 +176,22 @@ def self_block(p, x, encoding, conf: LightGlueConfig, key_mask=None):
     k = rotary.apply_rotary(encoding, qkv[..., 1]).contiguous()
     v = qkv[..., 2].contiguous()
     if conf.flash:
-        context = flash_ops.flash_sdpa(q, k, v, key_mask)
+        context = flash_ops.flash_sdpa(q, k, v, key_mask,
+                                       shift=conf.self_softmax_shift)
     else:
         mask = None if key_mask is None else key_mask[:, None, None, :]
         context = attn_ops.sdpa(q, k, v, mask)
-    message = nn.linear(p["out_proj"], _merge_heads(context))
+    message = nn.linear(p["out_proj"], flash_self_ops.merge_heads(context))
     return _ffn_residual(p["ffn"], x, message, conf)
 
 
-def cross_block(p, x0, x1, conf: LightGlueConfig, mask0=None, mask1=None):
+def cross_block(p, x0, x1, conf: LightGlueConfig, mask0=None, mask1=None,
+                fused=None):
     """Shared-QK bidirectional cross attention (reference CrossBlock,
-    lightglue.py:201-230)."""
+    lightglue.py:201-230); ``fused``: this layer's B6 weights."""
+    if fused is not None and _fused_cross_ok(conf, x0.shape[1], x1.shape[1]):
+        return flash_cross_block_ops.fused_cross_block(fused, x0, x1, mask0,
+                                                       mask1)
     h = conf.num_heads
     qk0 = _split_heads(nn.linear(p["to_qk"], x0), h)
     qk1 = _split_heads(nn.linear(p["to_qk"], x1), h)
@@ -144,7 +199,7 @@ def cross_block(p, x0, x1, conf: LightGlueConfig, mask0=None, mask1=None):
     v1 = _split_heads(nn.linear(p["to_v"], x1), h)
     if conf.flash:
         m0, m1 = flash_cross_ops.fused_cross_attention(
-            qk0, qk1, v0, v1, mask0, mask1)
+            qk0, qk1, v0, v1, mask0, mask1, shift=conf.cross_softmax_shift)
     else:
         mask = None
         if mask0 is not None or mask1 is not None:
@@ -155,19 +210,20 @@ def cross_block(p, x0, x1, conf: LightGlueConfig, mask0=None, mask1=None):
                 b, x1.shape[1], dtype=torch.bool, device=dev)
             mask = m0_[:, None, :, None] & m1_[:, None, None, :]
         m0, m1 = attn_ops.bidirectional_cross_attention(qk0, qk1, v0, v1, mask)
-    m0 = nn.linear(p["to_out"], _merge_heads(m0))
-    m1 = nn.linear(p["to_out"], _merge_heads(m1))
+    m0 = nn.linear(p["to_out"], flash_self_ops.merge_heads(m0))
+    m1 = nn.linear(p["to_out"], flash_self_ops.merge_heads(m1))
     return (_ffn_residual(p["ffn"], x0, m0, conf),
             _ffn_residual(p["ffn"], x1, m1, conf))
 
 
 def transformer_layer(p, desc0, desc1, enc0, enc1, conf, mask0=None,
-                      mask1=None):
+                      mask1=None, fused=(None, None)):
     """One self+self+cross layer (reference TransformerLayer,
-    lightglue.py:239-262)."""
-    desc0 = self_block(p["self_attn"], desc0, enc0, conf, mask0)
-    desc1 = self_block(p["self_attn"], desc1, enc1, conf, mask1)
-    return cross_block(p["cross_attn"], desc0, desc1, conf, mask0, mask1)
+    lightglue.py:239-262); ``fused``: this layer's (B5, B6) weights."""
+    desc0 = self_block(p["self_attn"], desc0, enc0, conf, mask0, fused[0])
+    desc1 = self_block(p["self_attn"], desc1, enc1, conf, mask1, fused[0])
+    return cross_block(p["cross_attn"], desc0, desc1, conf, mask0, mask1,
+                       fused[1])
 
 
 def token_confidence(p, desc0, desc1):
@@ -251,10 +307,11 @@ def forward_fixed(params, conf: LightGlueConfig, kpts0, kpts1, desc0, desc1,
     desc0, desc1, enc0, enc1 = _prepare(
         params, conf, kpts0, kpts1, desc0, desc1, size0, size1, mask0, mask1,
         scales0, oris0, scales1, oris1)
+    fused = _block_weights(params, conf)
     for i in range(conf.n_layers):
         desc0, desc1 = transformer_layer(
             nn.index_params(params["transformers"], i), desc0, desc1,
-            enc0, enc1, conf, mask0, mask1)
+            enc0, enc1, conf, mask0, mask1, fused[i])
     last = nn.index_params(params["log_assignment"], conf.n_layers - 1)
     m0, m1, ms0, ms1 = _assign_and_filter(last, conf, desc0, desc1, mask0,
                                           mask1)
@@ -307,10 +364,11 @@ def _adaptive_loop(params, conf: LightGlueConfig, enc0, enc1, num_points,
     do_pruning = conf.width_confidence > 0
     thresholds = confidence_thresholds(conf.n_layers)
     num_points = num_points.float()
+    fused = _block_weights(params, conf)
     for i in range(conf.n_layers):
         d0, d1 = transformer_layer(
             nn.index_params(params["transformers"], i), d0, d1, enc0, enc1,
-            conf, act0, act1)
+            conf, act0, act1, fused[i])
         if i == conf.n_layers - 1:
             break
         th = float(thresholds[i])

@@ -1,0 +1,124 @@
+"""The whole CrossBlock for both images: kernel B6 and its plain version.
+
+Counterpart of lightglue_tpu/ops/flash_cross_block.py::fused_cross_block
+(``_kernel``, flash_cross_block.py:94-293): the reference CrossBlock
+(lightglue.py:201-230) for both images,
+
+    qk = to_qk(x), v = to_v(x), one score matrix softmaxed both ways,
+    x + FFN(cat[x, to_out(message)])   for x0 and for x1,
+
+with sqrt(scale [* log2(e)]) folded into the shared to_qk on each side.
+Exact (``shift`` None): the row softmax is exact, the column weights are
+e * exp(m_row - max m_row) on valid rows of image 0, and a direction's
+messages are 0 where the other image has no valid point. Shift: one
+exp2(min(s + bias0 + bias1 - shift * log2(e), 100)) serves both
+directions, with no guards. On a CUDA tensor ``fused_cross_block`` runs
+its launches (csrc/blocks.cu: the [qk | v] projection of each image; the
+row and column launches of csrc/flash_cross.cu; csrc/blocks.cu: the
+to_out + FFN tail of each image) or raises; on a CPU tensor it runs
+``fused_cross_block_plain``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from .. import _build, nn
+from . import ffn as ffn_ops
+from .flash import LOG2E, shift_weights
+from .flash_cross import EXACT_BLOCK, SHIFT, _biases, launch_cross
+from .flash_self import (
+    check_block_weights, launch_project, launch_tail, merge_heads,
+    project_heads)
+
+MAX_FUSED_N = 1024  # the JAX package's limit; it decides which kernels run
+
+
+def prepare(p: nn.Params, num_heads: int,
+            shift: Optional[float] = None) -> dict:
+    """Kernel weights from one layer's cross_attn params {"to_qk", "to_v",
+    "to_out": {w (D, D), b}, "ffn": ...}: w_in (2D, D) and b_in (2D) with
+    rows [qk | v], qk scaled by sqrt(scale [* log2(e)]); to_out and the FFN
+    as they are."""
+    d = p["to_qk"]["w"].shape[0]
+    root = ((d // num_heads) ** -0.5
+            * (1.0 if shift is None else LOG2E)) ** 0.5
+    return {
+        "w_in": torch.cat([p["to_qk"]["w"] * root, p["to_v"]["w"]],
+                          1).t().contiguous(),
+        "b_in": torch.cat([p["to_qk"]["b"] * root, p["to_v"]["b"]]),
+        "wo": p["to_out"]["w"].contiguous(),
+        "bo": p["to_out"]["b"].contiguous(),
+        "ffn": p["ffn"],
+        "num_heads": num_heads,
+        "shift": shift,
+    }
+
+
+def fused_cross_block_plain(
+    w: dict, x0: torch.Tensor, x1: torch.Tensor,
+    mask0: Optional[torch.Tensor] = None,
+    mask1: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x0 (B, M, D), x1 (B, N, D); mask0 (B, M), mask1 (B, N) bool."""
+    qk0, v0 = project_heads(w, x0, 2)
+    qk1, v1 = project_heads(w, x1, 2)
+    b, m, n = x0.shape[0], x0.shape[1], x1.shape[1]
+    bias0, bias1 = _biases(mask0, mask1, b, m, n, x0.device)
+    s = qk0 @ qk1.transpose(-1, -2)
+    if bias0 is not None:
+        s = s + bias0[:, None, :, None] + bias1[:, None, None, :]
+    if w["shift"] is not None:
+        e = ec = shift_weights(s, w["shift"] * LOG2E)
+    else:
+        m_row = s.amax(-1, keepdim=True)
+        e = torch.exp(s - m_row)
+        f = torch.exp(m_row - m_row.amax(-2, keepdim=True))
+        if bias0 is not None:
+            f = f * (bias0 >= 0).float()[:, None, :, None]
+        ec = e * f
+    m0 = (e @ v1) / torch.clamp(e.sum(-1, keepdim=True), min=1e-30)
+    m1 = (ec.transpose(-1, -2) @ v0) / torch.clamp(
+        ec.sum(-2)[..., None], min=1e-30)
+    if bias0 is not None and w["shift"] is None:
+        zero = lambda t, bias: torch.where(
+            (bias >= 0).any(-1)[:, None, None, None], t, torch.zeros_like(t))
+        m0, m1 = zero(m0, bias1), zero(m1, bias0)
+    y0 = merge_heads(m0) @ w["wo"] + w["bo"]
+    y1 = merge_heads(m1) @ w["wo"] + w["bo"]
+    return (ffn_ops.fused_ffn_residual_plain(x0, y0, w["ffn"]),
+            ffn_ops.fused_ffn_residual_plain(x1, y1, w["ffn"]))
+
+
+def fused_cross_block(
+    w: dict, x0: torch.Tensor, x1: torch.Tensor,
+    mask0: Optional[torch.Tensor] = None,
+    mask1: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """B6 on CUDA tensors, the plain version on CPU tensors. ``w`` from
+    ``prepare``."""
+    if x0.device.type == "cpu":
+        return fused_cross_block_plain(w, x0, x1, mask0, mask1)
+    b, m, d = x0.shape
+    n = x1.shape[1]
+    bias0, bias1 = _biases(mask0, mask1, b, m, n, x0.device)
+    dev = check_block_weights(w, d)
+    if _build.check_cuda(x0=x0, x1=x1) != dev:
+        raise ValueError(f"x0 is on {x0.device}, the weights on {dev}")
+    if x1.shape != (b, n, d) or m < 1 or n < 1:
+        raise ValueError(f"x0 {tuple(x0.shape)} and x1 {tuple(x1.shape)} "
+                         "must be (B, M, D) and (B, N, D)")
+    p0 = launch_project(w, x0, 2, dev)
+    p1 = launch_project(w, x1, 2, dev)
+    shift = w["shift"]
+    if shift is None:
+        m0, m1 = launch_cross(p0[0], p1[0], p0[1], p1[1], bias0, bias1,
+                              EXACT_BLOCK, 1.0)
+    else:
+        m0, m1 = launch_cross(p0[0], p1[0], p0[1], p1[1], bias0, bias1,
+                              SHIFT, 1.0, shift * LOG2E)
+    out0, out1 = launch_tail(w, m0, x0, dev), launch_tail(w, m1, x1, dev)
+    _build.count("fused_cross_block")
+    return out0, out1

@@ -151,7 +151,9 @@ class Extractor:
 class SuperPoint(Extractor):
     """SuperPoint wrapper (reference superpoint.py:98-148). ``params``: the
     port's parameter tree, or the path of a flat npz in the JAX package's
-    layout; None draws random weights from ``seed``."""
+    layout; None draws random weights from ``seed``. ``device`` is "cuda"
+    (the kernels) unless the caller asks for "cpu" (the plain versions);
+    without CUDA the default raises."""
 
     def __init__(
         self,
@@ -159,7 +161,7 @@ class SuperPoint(Extractor):
         conf: Optional[SuperPointConfig] = None,
         seed: int = 0,
         pretrained: bool = False,
-        device: Union[str, torch.device, None] = None,
+        device: Union[str, torch.device] = "cuda",
         **conf_overrides,
     ):
         self.conf = (conf or SuperPointConfig()).replace(**conf_overrides)
@@ -177,14 +179,15 @@ class SuperPoint(Extractor):
             with np.load(params) as f:
                 params = weights_lib.superpoint_from_jax_params(
                     {k: f[k] for k in f.files}, self.conf)
-        self.device = torch.device(device or "cpu")
+        self.device = torch.device(device)
         self.params = nn.params_to(params, self.device)
         self._forward_fn = sp.forward
 
 
 class LightGlue:
-    """Matcher wrapper: parameters on one device, optional static padding
-    buckets, host-side compaction of the matches."""
+    """Matcher wrapper: parameters on one device ("cuda" unless the caller
+    asks for "cpu"), optional static padding buckets, host-side compaction
+    of the matches."""
 
     def __init__(
         self,
@@ -192,7 +195,7 @@ class LightGlue:
         params: Union[None, str, nn.Params] = None,
         conf: Optional[LightGlueConfig] = None,
         seed: int = 0,
-        device: Union[str, torch.device, None] = None,
+        device: Union[str, torch.device] = "cuda",
         **conf_overrides,
     ):
         self.conf = conf or lightglue_config(features, **conf_overrides)
@@ -200,8 +203,9 @@ class LightGlue:
             params = lg.init_params(self.conf, torch.Generator().manual_seed(seed))
         elif isinstance(params, str):
             params = weights_lib.load_params(params, self.conf)
-        self.device = torch.device(device or "cpu")
+        self.device = torch.device(device)
         self.params = nn.params_to(params, self.device)
+        lg.prepared_blocks(self.params, self.conf)  # B5/B6 weights, once
         self.static_lengths: Optional[Tuple[int, ...]] = None
 
     def compile(self, static_lengths=(256, 512, 768, 1024, 1280, 1536)):

@@ -57,7 +57,7 @@ def extractors(sp_flat):
     jext = jpipeline.SuperPoint(params=jweights.unflatten_tree(sp_flat),
                                 max_num_keypoints=K)
     ext = SuperPoint(params=weights.superpoint_from_jax_params(sp_flat),
-                     max_num_keypoints=K)
+                     max_num_keypoints=K, device="cpu")
     return jext, ext
 
 
@@ -66,7 +66,8 @@ def matchers():
     jm = jpipeline.LightGlue(
         "superpoint", params=jweights.load_params(NPZ, dtype=np.float32),
         fused_self=False, fused_cross=False, **MATCHER)
-    return jm, LightGlue("superpoint", params=NPZ, **MATCHER)
+    return jm, LightGlue("superpoint", params=NPZ, device="cpu",
+                         fused_self=False, fused_cross=False, **MATCHER)
 
 
 @pytest.fixture(scope="module")
@@ -188,7 +189,8 @@ def test_make_end_to_end_matches_jax(sp_flat, pair):
     sizes = np.array([[128, 96], [120, 88]], np.float32)
     conf = configs.SuperPointConfig(max_num_keypoints=K)
     jconf = jconfigs.SuperPointConfig(max_num_keypoints=K)
-    mconf = configs.lightglue_config("superpoint", **MATCHER)
+    mconf = configs.lightglue_config("superpoint", fused_self=False,
+                                     fused_cross=False, **MATCHER)
     jmconf = jconfigs.lightglue_config("superpoint", fused_self=False,
                                        fused_cross=False, **MATCHER)
     run = end_to_end.make_end_to_end(
@@ -215,14 +217,15 @@ def test_make_end_to_end_matches_jax(sp_flat, pair):
 
 def test_pretrained_raises_and_npz_params(sp_flat, tmp_path):
     with pytest.raises(FileNotFoundError, match="not in this repository"):
-        SuperPoint(pretrained=True)
+        SuperPoint(pretrained=True, device="cpu")
     path = str(tmp_path / "sp.npz")
     np.savez(path, **sp_flat)
-    ext = SuperPoint(params=path)
+    ext = SuperPoint(params=path, device="cpu")
     want = weights.superpoint_from_jax_params(sp_flat)
     for name in want:
         assert torch.equal(ext.params[name]["w"], want[name]["w"])
-    assert SuperPoint(seed=1).params["conv1a"]["w"].shape == (64, 1, 3, 3)
+    assert SuperPoint(seed=1, device="cpu").params["conv1a"]["w"].shape == (
+        64, 1, 3, 3)
 
 
 def test_main_path_without_opencv_or_pil():
@@ -242,8 +245,9 @@ from lightglue_tpu_torch.utils.image import read_image
 img0, img1, _ = image_pair(np.random.default_rng(0), 60, 80)
 params = {n: {"w": p["w"] * 3.0, "b": p["b"]}
           for n, p in sp.init_params().items()}
-ext = SuperPoint(params=params, max_num_keypoints=64, resize=48)
-f0, f1, m = match_pair(ext, LightGlue("superpoint", n_layers=2), img0, img1)
+ext = SuperPoint(params=params, max_num_keypoints=64, resize=48, device="cpu")
+f0, f1, m = match_pair(ext, LightGlue("superpoint", n_layers=2, device="cpu"),
+                       img0, img1)
 assert f0["keypoints"].shape == (64, 2), f0["keypoints"].shape
 assert f0["image_size"].tolist() == [80.0, 60.0]
 assert m["matches0"].shape == (64,)

@@ -70,7 +70,8 @@ def test_small_config_random_weights(mode, masked):
         over.update(depth_confidence=-1.0, width_confidence=-1.0)
     jconf = jconfigs.lightglue_config("superpoint", **over, fused_self=False,
                                       fused_cross=False)
-    conf = configs.lightglue_config("superpoint", **over)
+    conf = configs.lightglue_config("superpoint", **over, fused_self=False,
+                                    fused_cross=False)
     if mode == "composed":  # the debug switches to the composed ops
         conf = conf.replace(flash=False, fused_ffn=False)
     jparams = jlg.init_params(jax.random.key(0), jconf)
@@ -101,7 +102,8 @@ def test_full_width_trained_weights(trained, mode):
     over = dict(pruning_min_kpts=32, **ADAPTIVE_MODES[mode])
     jconf = jconfigs.lightglue_config("superpoint", **over, fused_self=False,
                                       fused_cross=False)
-    conf = configs.lightglue_config("superpoint", **over)
+    conf = configs.lightglue_config("superpoint", **over, fused_self=False,
+                                    fused_cross=False)
     jparams, params = trained
     pairs = planted_pairs(np.random.default_rng(3), 2, 128)
     got = _compare(jparams, jconf, params, conf,
@@ -128,7 +130,8 @@ def test_side_without_valid_keypoints(which, mode):
         over.update(depth_confidence=-1.0, width_confidence=-1.0)
     jconf = jconfigs.lightglue_config("superpoint", **over, fused_self=False,
                                       fused_cross=False)
-    conf = configs.lightglue_config("superpoint", **over)
+    conf = configs.lightglue_config("superpoint", **over, fused_self=False,
+                                    fused_cross=False)
     jparams = jlg.init_params(jax.random.key(1), jconf)
     params = weights.from_jax_params(jweights.flatten_tree(jparams), conf)
     pairs = planted_pairs(np.random.default_rng(2), 1, 32, 40, desc_dim=128)

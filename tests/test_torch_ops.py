@@ -46,7 +46,10 @@ def test_config_fields_and_presets_match_jax():
     assert configs.FEATURES == jconfigs.FEATURES
     c = configs.lightglue_config("sift", n_layers=3)
     assert (c.input_dim, c.add_scale_ori, c.n_layers, c.head_dim) == (128, True, 3, 64)
-    assert not c.fused_self and not c.fused_cross
+    # the JAX package's default block configuration (whole-block kernels)
+    assert c.fused_self and c.fused_cross
+    assert (c.fused_self, c.fused_cross) == (
+        jconfigs.LightGlueConfig().fused_self, jconfigs.LightGlueConfig().fused_cross)
     with pytest.raises(ValueError):
         configs.lightglue_config("nope")
 
@@ -57,8 +60,15 @@ def test_config_fields_and_presets_match_jax():
     dict(compaction_bucket=256),
 ])
 def test_unported_options_raise(option):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        configs.lightglue_config("superpoint", **option)
+    """bf16 and two-stage compaction are refused with their ROADMAP entry;
+    the whole-block kernels and both softmax shifts are ported (B5, B6,
+    B1s, B3s) and taken."""
+    if "mp" in option or "compaction_bucket" in option:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            configs.lightglue_config("superpoint", **option)
+    else:
+        conf = configs.lightglue_config("superpoint", **option)
+        assert all(getattr(conf, k) == v for k, v in option.items())
 
 
 def test_nn_layers():

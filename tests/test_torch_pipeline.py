@@ -34,7 +34,8 @@ def _request(pairs, valid0=None):
 
 @pytest.fixture(scope="module")
 def matcher():
-    return LightGlue("superpoint", params=NPZ, pruning_min_kpts=32)
+    return LightGlue("superpoint", params=NPZ, pruning_min_kpts=32,
+                     device="cpu", fused_self=False, fused_cross=False)
 
 
 @pytest.mark.parametrize("valid", [False, True])
@@ -47,7 +48,8 @@ def test_buckets_match_the_unpadded_call(matcher, valid):
     req = _request(pairs, valid0)
     plain = matcher(req)
     bucketed = LightGlue("superpoint", params=matcher.params,
-                         pruning_min_kpts=32).compile((128, 256))(req)
+                         pruning_min_kpts=32, device="cpu", fused_self=False,
+                         fused_cross=False).compile((128, 256))(req)
     for k in ("matches0", "matches1", "prune0", "prune1"):
         np.testing.assert_array_equal(bucketed[k], plain[k], err_msg=k)
         assert bucketed[k].shape == plain[k].shape
@@ -105,6 +107,8 @@ def test_import_leaves_jax_out():
             "lightglue_tpu_torch.models.superpoint, "
             "lightglue_tpu_torch.ops.sampling, lightglue_tpu_torch.ops.nms, "
             "lightglue_tpu_torch.ops.stem, lightglue_tpu_torch.ops.stem2, "
+            "lightglue_tpu_torch.ops.flash_self, "
+            "lightglue_tpu_torch.ops.flash_cross_block, "
             "lightglue_tpu_torch.synthetic; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'lightglue_tpu')]; assert not bad, bad")
