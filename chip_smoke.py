@@ -1,7 +1,7 @@
 """Smoke run of lightglue_tpu_torch on one NVIDIA GPU (H100, sm_90a).
 
     python3 chip_smoke.py             # the smoke run below
-    python3 chip_smoke.py --profile   # only the matcher profile (phase P)
+    python3 chip_smoke.py --profile   # only the profiles (phase P)
 
 Phases, any failure raising (non-zero exit, no result line):
   0. device: the card's name and power limit, versions; the TF32 flags
@@ -12,7 +12,10 @@ Phases, any failure raising (non-zero exit, no result line):
   2. each kernel against its plain PyTorch version at the main paths'
      shapes, then at tiny and ragged shapes and, for the matcher's kernels,
      at 2048 keypoints; the whole-block kernels (B5, B6) and the
-     constant-shift variants (B1s, B3s) exact and with shift 12;
+     constant-shift variants (B1s, B3s) exact and with shift 12; ALIKED's
+     kernels (B10-B12) at two RGB 768 x 1024 images and at edge shapes
+     (a branch dimension of 1, ragged tiles, aliked-t16 widths), with
+     random batch-norm statistics;
   3. the main paths, each with the kernels' launch counts set to 0 just
      before it and read just after:
      a. pipeline.LightGlue with the trained matcher weights on planted pairs
@@ -30,18 +33,30 @@ Phases, any failure raising (non-zero exit, no result line):
         models.superpoint.init_params), one pair held against the CPU port;
         then the same matcher on a planted pair at 2048 keypoints, where it
         has matches to find, held against the CPU port;
+     c. images to matches through ALIKED: match_pair(ALIKED,
+        LightGlue("aliked")) on generated 768 x 1024 RGB pairs and
+        make_end_to_end at B 4 (B 2 for the dense map), 1024 keypoints,
+        aliked-n16 and the matcher with seeded random weights (ALIKED's
+        conv weights scaled, see aliked_params), in three extractor
+        configurations (default; fused_score_head; lazy_fm=False with
+        fused_score_head), each launching its kernels and not the others',
+        one pair of each held against the CPU port; then the "aliked"
+        preset built from the trained matcher on a planted pair of 128-d
+        descriptors, where it has matches to find, held against the CPU
+        port (matches, prune, stop and matching scores);
   4. timing with CUDA events and host clocks: each kernel beside its plain
      version (and the one PyTorch call that computes the same function,
      where there is one), extraction ms per image, the matcher in its
      default and composed configurations, end-to-end pairs/s and
-     match_pair ms per pair.
+     match_pair ms per pair, for SuperPoint and for ALIKED.
 A JSON object of the kernels (with each one's bound, from its shapes) and
 the card's name and power limit come before the last line,
 {"ok": true, "device": {...}}.
 
 Phase P (``--profile``, after phases 0 and 1): torch.profiler over the
 matcher at 1024 keypoints (planted pairs, trained weights; B 1 and B 16,
-fixed and adaptive, default and composed blocks): wall and device ms per
+fixed and adaptive, default and composed blocks), over ALIKED at B 1 and
+B 8 and over images -> ALIKED -> LightGlue at B 8: wall and device ms per
 call, the device's busy share, device ops per call and the largest device
 items.
 """
@@ -60,14 +75,16 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from lightglue_tpu_torch import (  # noqa: E402
-    LightGlue, SuperPoint, SuperPointConfig, _build, lightglue_config,
-    match_pair)
+    ALIKED, ALIKEDConfig, LightGlue, SuperPoint, SuperPointConfig, _build,
+    lightglue_config, match_pair)
 from lightglue_tpu_torch import end_to_end, nn  # noqa: E402
 from lightglue_tpu_torch import weights as weights_lib  # noqa: E402
+from lightglue_tpu_torch.models import aliked as al  # noqa: E402
 from lightglue_tpu_torch.models import superpoint as sp  # noqa: E402
 from lightglue_tpu_torch.ops import assignment_fused as af  # noqa: E402
 from lightglue_tpu_torch.ops import ffn, flash, flash_cross  # noqa: E402
 from lightglue_tpu_torch.ops import flash_cross_block, flash_self  # noqa: E402
+from lightglue_tpu_torch.ops import aliked_stem, score_head  # noqa: E402
 from lightglue_tpu_torch.ops import nms, stem, stem2  # noqa: E402
 from lightglue_tpu_torch.synthetic import image_pair, planted_pairs  # noqa: E402
 
@@ -99,6 +116,12 @@ KERNELS = {
                          "lightglue_tpu/ops/flash.py:63"),
     "fused_cross_attention_shift": ("lightglue_tpu_torch/csrc/flash_cross.cu",
                                     "lightglue_tpu/ops/flash_cross.py:116"),
+    "fused_aliked_stem": ("lightglue_tpu_torch/csrc/aliked_stem.cu",
+                          "lightglue_tpu/ops/aliked_stem.py:56"),
+    "score_head_lazy": ("lightglue_tpu_torch/csrc/score_head.cu",
+                        "lightglue_tpu/ops/score_head.py:161"),
+    "score_head_cplane": ("lightglue_tpu_torch/csrc/score_head.cu",
+                          "lightglue_tpu/ops/score_head.py:119"),
 }
 MATCHER_KERNELS = ("flash_sdpa", "fused_cross_attention", "fused_ffn_residual",
                    "fused_filter_matches")
@@ -131,6 +154,29 @@ PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
 CONV_TOL = 1e-4
 H, W = 768, 1024  # the extraction path's image size
 MIN_KEYPOINTS = 500  # per image at H x W: a floor that catches a dead detector
+# The score maps are sigmoids of a short conv chain: held to 1e-5 absolute.
+SCORE_TOL = 1e-5
+# ALIKED -> LightGlue("aliked") configurations of phase 3c: (name, extractor
+# options, kernels it must launch, kernels it must not), besides the
+# matcher's (B5 and the composed cross block at match_pair's 2048
+# keypoints, B5 and B6 at make_end_to_end's 1024) and never SuperPoint's
+ALIKED_PATHS = (
+    ("default (lazy, fused_stem)", {}, ("fused_aliked_stem", "simple_nms"),
+     ("score_head_lazy", "score_head_cplane")),
+    ("fused_score_head", dict(fused_score_head=True),
+     ("fused_aliked_stem", "score_head_lazy", "simple_nms"),
+     ("score_head_cplane",)),
+    ("dense, fused_score_head", dict(lazy_fm=False, fused_score_head=True),
+     ("score_head_cplane", "simple_nms"),
+     ("fused_aliked_stem", "score_head_lazy")),
+)
+ALIKED_MATCHER_KERNELS = ("fused_self_block", "fused_cross_attention",
+                          "fused_ffn_residual", "fused_filter_matches",
+                          "fused_cross_block")
+KPT_TOL = 1e-3  # px: keypoints of card and CPU paired within this distance
+# Matching scores (exp of a log-assignment entry, in [0, 1]) of card and
+# CPU port on the same inputs: about 8e-6 apart, checked at 1e-4.
+MATCH_SCORE_TOL = 1e-4
 
 
 def phase(name):
@@ -576,13 +622,19 @@ def sp_kernel_phase(sp_params):
              "scores": scores})
 
 
-def common_keypoints(fa, fb):
-    """(i, j) index pairs of the valid keypoints of feats fa and fb (batch
-    dims removed) at the same location."""
-    at = {tuple(k): i for i, k in enumerate(fa["keypoints"]) if fa["valid"][i]}
-    pairs = [(at[tuple(k)], j) for j, k in enumerate(fb["keypoints"])
-             if fb["valid"][j] and tuple(k) in at]
-    return np.array(pairs, np.int64).reshape(-1, 2)
+def common_keypoints(fa, fb, tol=0.0):
+    """(i, j) index pairs of valid keypoints of feats fa and fb (batch dims
+    removed) that are each other's nearest valid keypoint and lie within
+    tol px of each other (0: at the same location); one to one."""
+    ia, ib = np.nonzero(fa["valid"])[0], np.nonzero(fb["valid"])[0]
+    if not (len(ia) and len(ib)):
+        return np.zeros((0, 2), np.int64)
+    d = np.linalg.norm(fa["keypoints"][ia][:, None].astype(np.float32)
+                       - fb["keypoints"][ib][None], axis=-1)
+    near_b, near_a = d.argmin(1), d.argmin(0)
+    rows = np.arange(len(ia))
+    k = np.nonzero((near_a[near_b] == rows) & (d[rows, near_b] <= tol))[0]
+    return np.stack([ia[k], ib[near_b[k]]], 1).astype(np.int64)
 
 
 def check_pair_output(name, f0, f1, m, size0, size1):
@@ -688,33 +740,56 @@ def extraction_path_phase(mparams, sp_params):
     # With random SuperPoint weights the descriptors are near-parallel and
     # the trained matcher finds nothing, so the same matcher also takes a
     # planted pair at match_pair's 2048 keypoints, where it must match
-    pr = planted_pairs(np.random.default_rng(23), 1, 2048)
+    planted_pair_check("LightGlue('superpoint')", matcher, cpu_matcher, 256)
+    return counts
+
+
+def planted_pair_check(label, matcher, cpu_matcher, desc_dim):
+    """The matcher on a planted pair of desc_dim-d descriptors at 2048
+    keypoints, where it must match: precision against the planted truth,
+    and the same matches, prune and stop as the CPU port, with matching
+    scores within MATCH_SCORE_TOL of its."""
+    pr = planted_pairs(np.random.default_rng(23), 1, 2048, desc_dim=desc_dim)
     data = {"image0": feats(pr, 0), "image1": feats(pr, 1)}
     got, ref = matcher(data), cpu_matcher(data)
     k, prec = precision(got, pr["gt_matches0"])
-    print(f"  planted pair at 2048 keypoints: {k} matches, precision "
-          f"{prec:.3f}, stop {got['stop']} vs {ref['stop']} on the CPU port")
-    if prec < 0.8 or got["stop"] != ref["stop"] or not all(
-            np.array_equal(got[f], ref[f]) for f in
-            ("matches0", "matches1", "prune0", "prune1")):
-        raise AssertionError("planted pair at 2048 keypoints: precision low "
-                             "or the card disagrees with the CPU port")
-    return counts
+    serr = max(float(np.abs(got[f] - ref[f]).max())
+               for f in ("matching_scores0", "matching_scores1"))
+    print(f"  {label}, planted pair at 2048 keypoints: {k} matches, precision "
+          f"{prec:.3f}, stop {got['stop']} vs {ref['stop']} on the CPU port, "
+          f"matching scores max_abs_err {serr:.3e} (tol {MATCH_SCORE_TOL:g})")
+    if (prec < 0.8 or serr > MATCH_SCORE_TOL or got["stop"] != ref["stop"]
+            or not all(np.array_equal(got[f], ref[f]) for f in
+                       ("matches0", "matches1", "prune0", "prune1"))):
+        raise AssertionError(f"{label}, planted pair: precision low or the "
+                             "card disagrees with the CPU port")
+
+
+def aliked_preset_params(mparams):
+    """The "aliked" preset (input_dim 128; otherwise the superpoint
+    preset's) from the trained synthetic matcher and an orthonormal
+    128 -> 256 input_proj, which keeps the descriptors' dot products: the
+    trained layers see planted 128-d pairs as they saw 256-d ones."""
+    q, _ = np.linalg.qr(np.random.default_rng(0).standard_normal((256, 128)))
+    return dict(mparams, input_proj={
+        "w": torch.from_numpy(q.T.astype(np.float32).copy()),
+        "b": torch.zeros(256)})
 
 
 def matches_differ(gpu, cpu, common):
     """Number of keypoints shared by the card's and the CPU port's
-    (feats0, feats1, matches) whose match (by the partner's location) or
-    prune count differs; keypoints are paired by location, as the two
-    sides may order near-equal scores differently."""
+    (feats0, feats1, matches) whose match or prune count differs: a match
+    agrees when both sides have none or their partners are a shared pair
+    (keypoints are paired by location, as the two sides may order
+    near-equal scores differently)."""
     n = 0
     for s, o in ((0, 1), (1, 0)):
+        other = {int(i): int(j) for i, j in common[o]}
         gm, cm = gpu[2][f"matches{s}"], cpu[2][f"matches{s}"]
         gp, cp = gpu[2][f"prune{s}"], cpu[2][f"prune{s}"]
         for i, j in common[s]:
-            at_g = None if gm[i] < 0 else tuple(gpu[o]["keypoints"][gm[i]])
-            at_c = None if cm[j] < 0 else tuple(cpu[o]["keypoints"][cm[j]])
-            n += at_g != at_c or gp[i] != cp[j]
+            partner = -1 if gm[i] < 0 else other.get(int(gm[i]), -2)
+            n += partner != int(cm[j]) or gp[i] != cp[j]
     return n
 
 
@@ -811,6 +886,205 @@ def matcher_path(params, label, conf, n, kernels, seed):
         if agree < 0.999 or ref["stop"] != got["stop"]:
             raise AssertionError(f"{name}: the card disagrees with the CPU port")
     return counts
+
+
+def aliked_params(model_name="aliked-n16", device="cuda"):
+    """ALIKED at its published widths with seeded random weights, encoder
+    and aggregation conv weights times 2 and score-head conv weights times
+    3: the stand-in for the release weights (not in the repository). With
+    the init's own scale every score lies within about 1e-3 of 0.5 and
+    neighbouring scores within a few ulps, so rounding would decide the
+    ranking (tests/test_torch_aliked.py uses the same gains). The batch
+    norms get random statistics per channel (scale and var U(0.5, 1.5),
+    bias and mean N(0, 0.1)): the init's are the identity, under which a
+    kernel that skipped or swapped its folded batch norms would still
+    agree with its plain version to about 5e-6."""
+    g = torch.Generator().manual_seed(1)
+
+    def batch_norm(dim):
+        return {"scale": 0.5 + torch.rand(dim, generator=g),
+                "bias": 0.1 * torch.randn(dim, generator=g),
+                "mean": 0.1 * torch.randn(dim, generator=g),
+                "var": 0.5 + torch.rand(dim, generator=g)}
+
+    def walk(node, gain):
+        out = {}
+        for k, v in node.items():
+            if k in ("bn1", "bn2"):
+                v = batch_norm(len(v["scale"]))
+            if isinstance(v, dict):
+                out[k] = walk(v, 1.0 if k in ("offset_conv", "desc_head")
+                              else 3.0 if k == "score_head" else gain)
+            else:
+                out[k] = (v * gain if k == "w" else v).to(device)
+        return out
+
+    return walk(al.init_params(ALIKEDConfig(model_name=model_name),
+                               torch.Generator().manual_seed(0)), 2.0)
+
+
+def rgb(gray):
+    """(H, W) in [0, 1] -> (H, W, 3) with three distinct channels."""
+    return np.stack([gray, np.sqrt(gray), gray * gray], -1).astype(np.float32)
+
+
+def stem_errors(label, p, img):
+    """B10 against its plain version: max-abs errors of y1 and x1p, each
+    checked against CONV_TOL * max(1, max |plain|)."""
+    got = aliked_stem.fused_aliked_stem_kernel(p, img)
+    ref = aliked_stem.fused_aliked_stem_plain(p, img)
+    errs = []
+    for name, g, r in zip(("y1", "x1p"), got, ref):
+        err = max_err(g, r)
+        bound = CONV_TOL * max(1.0, float(r.abs().max()))
+        if not err <= bound:
+            raise AssertionError(f"fused_aliked_stem {name} {label}: {err} > {bound}")
+        errs.append(err)
+    return max(errs)
+
+
+def score_errors(label, sh, parts):
+    """B11 on the four branch parts and B12 on their upsampled sum, each
+    against its plain version (SCORE_TOL)."""
+    s0 = score_head.upsampled_sum(*parts)
+    return (
+        check(f"score_head_lazy {label}", max_err(
+            score_head.score_head_lazy_kernel(sh, *parts),
+            score_head.score_head_lazy_plain(sh, *parts)), SCORE_TOL),
+        check(f"score_head_cplane {label}", max_err(
+            score_head.score_head_cplane_kernel(sh, s0),
+            score_head.score_tail_plain(sh, s0)), SCORE_TOL))
+
+
+def aliked_kernel_phase(ap):
+    """B10, B11, B12 at the ALIKED path's shapes (two RGB 768 x 1024
+    images, aliked-n16; the score head on those images' branch parts),
+    then at edge shapes: a branch dimension of 1 (H or W 32), ragged tiles,
+    aliked-t16 widths. Returns (errors, the inputs for timing)."""
+    phase("2d ALIKED kernels against their plain versions")
+    rng = np.random.default_rng(41)
+    img = torch.from_numpy(np.stack([rgb(image_pair(rng, H, W)[0])
+                                     for _ in range(2)])).cuda()
+    img = img.permute(0, 3, 1, 2).contiguous()
+    stem_p = {"block1": ap["block1"], "conv1": ap["conv1"]}
+    e_stem = stem_errors(f"(2, 3, {H}, {W})", stem_p, img)
+    print(f"  fused_aliked_stem (2, 3, {H}, {W}) aliked-n16: max_abs_err "
+          f"{e_stem:.3e} (tol {CONV_TOL:g} x max(1, max|plain|))")
+    with torch.inference_mode():
+        ys, _ = al._dense_branches(ap, img, fused_score=False, fused_stem=False)
+        parts = al._score_parts(ap["score_head"], ys, True)
+    sh = ap["score_head"]
+    e_lazy, e_cplane = score_errors(f"(2, 8, {H}, {W}) from those images",
+                                    sh, parts)
+    g = torch.Generator(device="cuda").manual_seed(6)
+    t16 = aliked_params("aliked-t16")
+    for name, p in (("aliked-n16", ap), ("aliked-t16", t16)):
+        for b, h, w in ((1, 32, 96), (2, 64, 96), (1, 96, 32), (1, 40, 72)):
+            x = torch.rand(b, 3, h, w, generator=g, device="cuda")
+            e_stem = max(e_stem, stem_errors(
+                f"{name} {(b, h, w)}", {"block1": p["block1"], "conv1": p["conv1"]}, x))
+    print("  fused_aliked_stem aliked-n16 and aliked-t16 at 32x96, 64x96, "
+          f"96x32, 40x72: max_abs_err {e_stem:.3e}")
+    for b, h, w in ((1, 32, 96), (2, 64, 96), (1, 96, 32), (1, 32, 32)):
+        edge = [torch.randn(b, 8, max(1, h // f), max(1, w // f), generator=g,
+                            device="cuda") for f in (1, 2, 8, 32)]
+        el, ec = score_errors(f"{(b, h, w)} (branch dims {tuple(edge[3].shape[2:])})",
+                              sh, edge)
+        e_lazy, e_cplane = max(e_lazy, el), max(e_cplane, ec)
+    torch.cuda.synchronize()
+    return ({"fused_aliked_stem": e_stem, "score_head_lazy": e_lazy,
+             "score_head_cplane": e_cplane},
+            {"img": img, "stem_p": stem_p, "parts": parts,
+             "s0": score_head.upsampled_sum(*parts)})
+
+
+def aliked_path_phase(ap, mparams):
+    """Phase 3c: images -> ALIKED -> LightGlue("aliked") in the three
+    extractor configurations of ALIKED_PATHS; the matcher at the "aliked"
+    preset's full width with seeded random weights (the trained one is not
+    in the repository), as the JAX bench runs it; then that preset built
+    from mparams on a planted pair. Returns the launch counts summed over
+    the three configurations."""
+    rng = np.random.default_rng(43)
+    pairs = [image_pair(rng, H, W) for _ in range(4)]
+    views = [(rgb(a), rgb(b)) for a, b, _ in pairs]
+    matcher = LightGlue("aliked", device="cuda")
+    cpu_matcher = LightGlue("aliked", device="cpu")
+    cpu_params = nn.params_to(ap, "cpu")
+    total = dict.fromkeys(KERNELS, 0)
+    for label, cfg, must, must_not in ALIKED_PATHS:
+        phase(f"3c main path: images -> ALIKED ({label}) -> LightGlue('aliked'): "
+              "match_pair at 2048 keypoints, make_end_to_end at 1024")
+        bsz = 2 if cfg.get("lazy_fm") is False else 4  # the dense map: 400 MB/image
+        ext = ALIKED(params=ap, device="cuda", **cfg)
+        run = end_to_end.make_end_to_end(
+            al.forward, ext.params, ext.conf.replace(max_num_keypoints=1024),
+            matcher.params, matcher.conf)
+        im0, im1 = (torch.from_numpy(np.stack([v[i] for v in views[:bsz]])).cuda()
+                    for i in (0, 1))
+        sizes = torch.tensor([[W, H]] * bsz, dtype=torch.float32, device="cuda")
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        outs = [match_pair(ext, matcher, a, b) for a, b in views[:2]]
+        e2e = run(im0, im1, sizes, sizes)
+        torch.cuda.synchronize()
+        counts = _build.launch_counts()
+        print(f"  launch counts: { {k: c for k, c in counts.items() if c} }")
+        for k in must + ALIKED_MATCHER_KERNELS:
+            if counts[k] < 1:
+                raise AssertionError(f"{label}: {k} was not launched")
+        for k in must_not + ("fused_stem", "fused_block2"):
+            if counts[k]:
+                raise AssertionError(f"{label}: {k} was launched")
+        for k, c in counts.items():
+            total[k] += c
+
+        for i, out in enumerate(outs):
+            check_pair_output(f"match_pair pair {i}", *out, (W, H), (W, H))
+        for i in range(bsz):
+            f = [{"keypoints": getattr(e2e, f"feats{s}").keypoints[i].cpu().numpy(),
+                  "descriptors": getattr(e2e, f"feats{s}").descriptors[i].cpu().numpy(),
+                  "valid": getattr(e2e, f"feats{s}").valid[i].cpu().numpy()}
+                 for s in (0, 1)]
+            m = {"matches0": e2e.matches.matches0[i].cpu().numpy(),
+                 "matches1": e2e.matches.matches1[i].cpu().numpy(),
+                 "matching_scores0": e2e.matches.matching_scores0[i].cpu().numpy(),
+                 "stop": e2e.matches.stop}
+            check_pair_output(f"make_end_to_end B {bsz}, pair {i}", *f, m, (W, H), (W, H))
+
+        # pair 0 through the CPU port (plain versions, oneDNN convs)
+        cpu = match_pair(ALIKED(params=cpu_params, device="cpu", **cfg),
+                         cpu_matcher, *views[0])
+        gpu = outs[0]
+        shares, derr, common = [], 0.0, []
+        for s in (0, 1):
+            c = common_keypoints(gpu[s], cpu[s], KPT_TOL)
+            common.append(c)
+            shares.append(len(c) / gpu[s]["valid"].sum())
+            derr = max(derr, float(np.abs(gpu[s]["descriptors"][c[:, 0]]
+                                          - cpu[s]["descriptors"][c[:, 1]]).max()))
+        differ = matches_differ(gpu, cpu, common)
+        print(f"  against the CPU port: keypoints shared within {KPT_TOL} px "
+              f"{shares[0]:.6f} / {shares[1]:.6f}, descriptor max_abs_err at "
+              f"them {derr:.3e}, {int((gpu[2]['matches0'] >= 0).sum())} vs "
+              f"{int((cpu[2]['matches0'] >= 0).sum())} matches, {differ} shared "
+              f"keypoints whose match or prune differs, stop {gpu[2]['stop']} "
+              f"vs {cpu[2]['stop']}")
+        if (min(shares) < 0.99 or derr > 1e-3 or differ
+                or gpu[2]["stop"] != cpu[2]["stop"]):
+            raise AssertionError(f"{label}: the card disagrees with the CPU port")
+    if torch.backends.cudnn.allow_tf32 is not True:
+        raise AssertionError("the library changed cuDNN's global TF32 flag")
+
+    # The random matcher finds no match between random-weight ALIKED views
+    # (nine random layers collapse the descriptors to one direction), so
+    # the "aliked" preset also takes a planted pair of 128-d descriptors,
+    # built from the trained weights, through input_proj on the card
+    trained = aliked_preset_params(mparams)
+    planted_pair_check("LightGlue('aliked'), trained layers", LightGlue(
+        "aliked", params=trained, device="cuda"), LightGlue(
+        "aliked", params=trained, device="cpu"), 128)
+    return total
 
 
 def time_cuda(fn, iters=20, warmup=3):
@@ -951,6 +1225,18 @@ def kernel_bounds():
                          + (2 * 64 * 64 * 9 + 128) * f),
         # five (2r + 1)-wide max pools, separable, r 4: compares, not FLOPs
         "simple_nms": (img * 5 * 2 * 9, 2 * img * f),
+        # aliked-n16 at B 2: conv1 3 -> 16, conv2 16 -> 16 (3x3), 1x1 16 -> 32
+        # per pixel; image in, y1 and the pooled map out
+        "fused_aliked_stem": (img * 2 * (27 * 16 + 9 * 16 * 16 + 16 * 32),
+                              img * (3 + 32 + 16 / 4) * f
+                              + (27 * 16 + 9 * 16 * 16 + 16 * 32 + 64) * f),
+        # the tail's three 3x3 convs (8 -> 4, 4 -> 4, 4 -> 1) per pixel, plus
+        # for B11 three 8-channel two-point lerps in each direction and sums
+        "score_head_lazy": (img * (2 * 9 * (32 + 16 + 4) + 3 * 8 * 7),
+                            img * (8 + 8 / 4 + 8 / 64 + 8 / 1024 + 1) * f
+                            + 468 * f),
+        "score_head_cplane": (img * 2 * 9 * (32 + 16 + 4),
+                              img * (8 + 1) * f + 468 * f),
     }
 
 
@@ -1028,10 +1314,113 @@ def sp_timing_phase(sx, mparams, sp_params):
     return times
 
 
-def profile_phase(params, calls=5, warmup=3, top=6):
+def aliked_timing_phase(ax, ap):
+    phase("4c timing: ALIKED kernels, ALIKED, images -> ALIKED -> LightGlue")
+    img, stem_p, parts, s0 = ax["img"], ax["stem_p"], ax["parts"], ax["s0"]
+    sh = ap["score_head"]
+    pairs = {
+        "fused_aliked_stem": (
+            lambda: aliked_stem.fused_aliked_stem_kernel(stem_p, img),
+            lambda: aliked_stem.fused_aliked_stem_plain(stem_p, img)),
+        "score_head_lazy": (
+            lambda: score_head.score_head_lazy_kernel(sh, *parts),
+            lambda: score_head.score_head_lazy_plain(sh, *parts)),
+        "score_head_cplane": (
+            lambda: score_head.score_head_cplane_kernel(sh, s0),
+            lambda: score_head.score_tail_plain(sh, s0)),
+    }
+    times = {}
+    for name, (kern, plain) in pairs.items():
+        a, b, c, d = (time_cuda(f, iters=10) for f in (plain, kern, kern, plain))
+        times[name] = ((b + c) / 2, (a + d) / 2, None)
+        print(f"  {name} (B 2, {H}x{W}): kernel {times[name][0]:.4f} ms, "
+              f"plain {times[name][1]:.4f} ms (runs {b:.4f}/{c:.4f}, "
+              f"{a:.4f}/{d:.4f})", flush=True)
+
+    rng = np.random.default_rng(47)
+    pool = [image_pair(rng, H, W) for _ in range(8)]
+    imgs = torch.from_numpy(np.stack([rgb(p[0]) for p in pool])).cuda()
+    im1 = torch.from_numpy(np.stack([rgb(p[1]) for p in pool])).cuda()
+    conf = ALIKEDConfig()
+    for bsz in (1, 8):
+        ms = time_cuda(lambda: al.forward(ap, conf, imgs[:bsz]), iters=5) / bsz
+        print(f"  ALIKED extraction, default configuration, B {bsz}: {ms:.3f} "
+              f"ms per {H}x{W} image (2048 keypoints)", flush=True)
+
+    # end to end at the JAX bench's ALIKED e2e shape (bench.py:230-239)
+    sizes = torch.tensor([[W, H]] * 8, dtype=torch.float32, device="cuda")
+    mp = LightGlue("aliked", device="cuda").params
+    for name, c in (("fixed", dict(depth_confidence=-1.0,
+                                   width_confidence=-1.0)), ("adaptive", {})):
+        run = end_to_end.make_end_to_end(
+            al.forward, ap, ALIKEDConfig(max_num_keypoints=1024), mp,
+            lightglue_config("aliked", **c))
+        for _ in range(2):
+            run(imgs, im1, sizes, sizes)
+        torch.cuda.synchronize()
+        ms = []
+        for _ in range(6):
+            t0 = time.perf_counter()
+            out = run(imgs, im1, sizes, sizes)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        q1, med, q3 = np.percentile(ms, [25, 50, 75])
+        print(f"  make_end_to_end ALIKED {name} B 8, {H}x{W}, 1024 keypoints: "
+              f"{8 * 1e3 / med:.1f} pairs/s (median {med:.2f} ms per call, "
+              f"quartiles {q1:.2f}-{q3:.2f}, 6 calls, stop {out.matches.stop}"
+              + ("; random matcher weights: not representative" if c == {}
+                 else "") + ")", flush=True)
+
+    ext = ALIKED(params=ap, device="cuda")
+    matcher = LightGlue("aliked", device="cuda")
+    a, b = rgb(pool[0][0]), rgb(pool[0][1])
+    for _ in range(2):
+        match_pair(ext, matcher, a, b)
+    ms = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        match_pair(ext, matcher, a, b)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    q1, med, q3 = np.percentile(ms, [25, 50, 75])
+    print(f"  match_pair ALIKED B 1, {H}x{W}, 2048 keypoints, adaptive: median "
+          f"{med:.2f} ms per pair (quartiles {q1:.2f}-{q3:.2f}, 10 calls)",
+          flush=True)
+    return times
+
+
+def profile_call(label, fn, calls=5, warmup=3, top=6):
+    """torch.profiler over ``calls`` calls of fn after ``warmup``: wall and
+    device ms per call, busy share, device ops per call, largest items.
+    Returns fn's last output."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            out = fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / calls
+    by_name, n_ops = {}, 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            n_ops += 1
+            by_name[e.name] = by_name.get(e.name, 0.0) + \
+                e.time_range.elapsed_us() / 1e3 / calls
+    dev = sum(by_name.values())
+    print(f"  {label}: wall {wall:.2f} ms/call, device {dev:.2f} ms/call, "
+          f"busy {100 * dev / wall:.1f} %, {n_ops / calls:.0f} device "
+          "ops/call", flush=True)
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
+        print(f"    {ms:8.3f} ms  {name[:90]}")
+    return out
+
+
+def profile_phase(params):
     phase("P profile: the matcher at 1024 keypoints (torch.profiler; device "
           "time = kernels and copies)")
-    from torch.profiler import ProfilerActivity, profile
     rng = np.random.default_rng(11)
     for bsz in (1, 16):
         pr = planted_pairs(rng, bsz, 1024)
@@ -1042,29 +1431,27 @@ def profile_phase(params, calls=5, warmup=3, top=6):
             for blocks, bc in (("default", {}), ("composed", COMPOSED)):
                 matcher = LightGlue("superpoint", params=params,
                                     device="cuda", **c, **bc)
-                for _ in range(warmup):
-                    matcher(data)
-                torch.cuda.synchronize()
-                with profile(activities=[ProfilerActivity.CPU,
-                                         ProfilerActivity.CUDA]) as prof:
-                    t0 = time.perf_counter()
-                    for _ in range(calls):
-                        out = matcher(data)
-                    torch.cuda.synchronize()
-                    wall = (time.perf_counter() - t0) * 1e3 / calls
-                by_name, n_ops = {}, 0
-                for e in prof.events():
-                    if e.device_type == torch.autograd.DeviceType.CUDA:
-                        n_ops += 1
-                        by_name[e.name] = by_name.get(e.name, 0.0) + \
-                            e.time_range.elapsed_us() / 1e3 / calls
-                dev = sum(by_name.values())
-                print(f"  {mode} B {bsz}, {blocks} blocks, stop {out['stop']}: "
-                      f"wall {wall:.2f} ms/call, device {dev:.2f} ms/call, "
-                      f"busy {100 * dev / wall:.1f} %, {n_ops / calls:.0f} "
-                      f"device ops/call", flush=True)
-                for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
-                    print(f"    {ms:8.3f} ms  {name[:90]}")
+                out = profile_call(f"{mode} B {bsz}, {blocks} blocks",
+                                   lambda: matcher(data))
+                print(f"    (stop {out['stop']})")
+
+    phase("P profile: ALIKED at 768 x 1024 (default configuration, 2048 "
+          "keypoints) and images -> ALIKED -> LightGlue('aliked') at B 8")
+    ap = aliked_params()
+    rng = np.random.default_rng(47)
+    pool = [image_pair(rng, H, W) for _ in range(8)]
+    im0, im1 = (torch.from_numpy(np.stack([rgb(p[i]) for p in pool])).cuda()
+                for i in (0, 1))
+    for bsz in (1, 8):
+        profile_call(f"ALIKED B {bsz}", lambda: al.forward(
+            ap, ALIKEDConfig(), im0[:bsz]), calls=3, warmup=2, top=10)
+    sizes = torch.tensor([[W, H]] * 8, dtype=torch.float32, device="cuda")
+    run = end_to_end.make_end_to_end(
+        al.forward, ap, ALIKEDConfig(max_num_keypoints=1024),
+        LightGlue("aliked", device="cuda").params,
+        lightglue_config("aliked", depth_confidence=-1.0, width_confidence=-1.0))
+    profile_call("make_end_to_end ALIKED fixed B 8, 1024 keypoints",
+                 lambda: run(im0, im1, sizes, sizes), calls=3, warmup=2, top=10)
 
 
 def main():
@@ -1083,13 +1470,19 @@ def main():
     sp_params = superpoint_params()
     sp_errs, sx = sp_kernel_phase(sp_params)
     errs.update(sp_errs)
+    al_params = aliked_params()
+    al_errs, ax = aliked_kernel_phase(al_params)
+    errs.update(al_errs)
     for name, err in edge_phase().items():
         errs[name] = max(errs[name], err)
     counts = main_path_phase(params)
     for k, c in extraction_path_phase(params, sp_params).items():
         counts[k] += c
+    for k, c in aliked_path_phase(al_params, params).items():
+        counts[k] += c
     times = timing_phase(x, bx, params)
     times.update(sp_timing_phase(sx, params, sp_params))
+    times.update(aliked_timing_phase(ax, al_params))
     kernels, bounds = [], kernel_bounds()
     for name, (src, rep) in KERNELS.items():
         flops, nbytes = bounds[name]

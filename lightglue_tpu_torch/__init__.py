@@ -1,5 +1,5 @@
-"""lightglue_tpu_torch: SuperPoint and the LightGlue matcher in PyTorch with
-hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
+"""lightglue_tpu_torch: SuperPoint, ALIKED and the LightGlue matcher in
+PyTorch with hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
 
 The JAX package ``lightglue_tpu`` is the reference; this package imports
 neither it nor JAX. Ops run their CUDA kernels on CUDA tensors (built from
@@ -8,11 +8,14 @@ on CPU tensors.
 """
 
 from .configs import (
-    FEATURES, LightGlueConfig, PreprocessConfig, SuperPointConfig,
-    lightglue_config)
-from .pipeline import LightGlue, SuperPoint, compact_matches, match_pair, rbd
+    FEATURES, ALIKEDConfig, LightGlueConfig, PreprocessConfig,
+    SuperPointConfig, lightglue_config)
+from .pipeline import (
+    ALIKED, LightGlue, SuperPoint, compact_matches, match_pair, rbd)
 
 __all__ = [
+    "ALIKED",
+    "ALIKEDConfig",
     "FEATURES",
     "LightGlue",
     "LightGlueConfig",

@@ -44,6 +44,9 @@ SIGNATURES = {
     "lg_simple_nms": [_P] * 2 + [_I] * 4 + [_P],
     "lg_fused_stem": [_P] * 6 + [_I] * 3 + [_P],
     "lg_fused_block2": [_P] * 6 + [_I] * 3 + [_P],
+    "lg_aliked_stem": [_P] * 7 + [_I] * 5 + [_P],
+    "lg_score_head": [_P] * 3 + [_I] * 3 + [_P],
+    "lg_score_head_lazy": [_P] * 6 + [_I] * 9 + [_P],
 }
 
 # Op wrapper -> launches since the last reset.
@@ -51,7 +54,8 @@ KERNELS = (
     "flash_sdpa", "fused_cross_attention", "fused_ffn_residual",
     "fused_filter_matches", "fused_stem", "fused_block2", "simple_nms",
     "fused_self_block", "fused_cross_block", "flash_sdpa_shift",
-    "fused_cross_attention_shift",
+    "fused_cross_attention_shift", "fused_aliked_stem", "score_head_lazy",
+    "score_head_cplane",
 )
 _launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 _lib: Optional[ctypes.CDLL] = None

@@ -1,5 +1,5 @@
-"""Matcher, SuperPoint and preprocessing configuration (counterpart of
-lightglue_tpu/configs.py:16-162).
+"""Matcher, SuperPoint, ALIKED and preprocessing configuration (counterpart
+of lightglue_tpu/configs.py:16-162, 184-213).
 
 The same frozen dataclasses with the same fields, so one set of keyword
 arguments configures both packages. Options whose kernels the port does not
@@ -148,4 +148,40 @@ class SuperPointConfig:
                 "yet; see ROADMAP.md, Queue B.3.")
 
     def replace(self, **kw) -> "SuperPointConfig":
+        return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class ALIKEDConfig:
+    """ALIKED (reference: lightglue/aliked.py:631-644).
+
+    ``max_num_keypoints``, ``approx_topk`` and ``twolevel_topk`` as in
+    ``SuperPointConfig``. ``lazy_fm`` evaluates the descriptor head's
+    feature-map rows from the four branch maps instead of building the
+    full-resolution concat (``False``: the dense dataflow of the
+    reference). ``fused_stem`` runs block 1 and its two consumers through
+    kernel B10 on the lazy path. ``fused_score_head`` runs the score head's
+    upsampling and 3x3 tail through B11 on the lazy path and its tail
+    through B12 on the dense path; otherwise both are plain PyTorch.
+    """
+
+    model_name: str = "aliked-n16"
+    max_num_keypoints: Optional[int] = 2048
+    detection_threshold: float = 0.2
+    nms_radius: int = 2
+    resize: int = 1024
+    approx_topk: float = 0.0
+    twolevel_topk: bool = False
+    mp: bool = False
+    fused_score_head: bool = False
+    lazy_fm: bool = True
+    fused_stem: bool = True
+
+    def __post_init__(self):
+        if self.mp:
+            raise NotImplementedError(
+                "mp=True (bf16 compute) is not ported to lightglue_tpu_torch "
+                "yet; see ROADMAP.md, Queue B.3.")
+
+    def replace(self, **kw) -> "ALIKEDConfig":
         return dataclasses.replace(self, **kw)

@@ -34,9 +34,11 @@ def make_end_to_end(
     """Build ``run(image0, image1, size0, size1) -> E2EOutput``.
 
     ``extractor_forward(params, conf, image, image_size) -> Features`` is
-    ``models.superpoint.forward``. Images: (B, H, W, C) float [0, 1] tensors
-    on the parameters' device, padded to the extractor's stride; ``size0``,
-    ``size1``: (B, 2) true (w, h) extents before padding."""
+    any extractor's forward (``models.superpoint.forward``,
+    ``models.aliked.forward``) with its parameters and config. Images:
+    (B, H, W, C) float [0, 1] tensors on the parameters' device, padded to
+    the extractor's stride; ``size0``, ``size1``: (B, 2) true (w, h)
+    extents before padding."""
 
     @torch.inference_mode()
     def run(image0, image1, size0, size1) -> E2EOutput:

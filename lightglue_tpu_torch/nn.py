@@ -1,5 +1,5 @@
 """Layer functions over nested parameter dicts (counterpart of
-lightglue_tpu/nn.py:40-124, 297-307, 351-371).
+lightglue_tpu/nn.py:40-124, 297-307, 332-371).
 
 Linear weights keep the JAX package's layout, ``(in, out)``, so a layer is
 ``x @ w + b``, and the matcher's transformer layers are stacked along a
@@ -61,7 +61,8 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 
 
 def conv2d_init(
-    in_ch: int, out_ch: int, kernel: int, generator: torch.Generator
+    in_ch: int, out_ch: int, kernel: int, generator: torch.Generator,
+    bias: bool = True,
 ) -> Params:
     """OIHW weight and bias, U(-1/sqrt(fan_in), 1/sqrt(fan_in)), the JAX
     package's conv2d_init (torch's Conv2d default)."""
@@ -70,7 +71,37 @@ def conv2d_init(
     def uniform(*shape):
         return (torch.rand(*shape, generator=generator) * 2 - 1) * bound
 
-    return {"w": uniform(out_ch, in_ch, kernel, kernel), "b": uniform(out_ch)}
+    p = {"w": uniform(out_ch, in_ch, kernel, kernel)}
+    if bias:
+        p["b"] = uniform(out_ch)
+    return p
+
+
+def batch_norm_init(dim: int) -> Params:
+    return {"scale": torch.ones(dim), "bias": torch.zeros(dim),
+            "mean": torch.zeros(dim), "var": torch.ones(dim)}
+
+
+def fold_batch_norm(p: Params, eps: float = 1e-5):
+    """Inference batch norm as one fp32 (scale, bias) pair per channel:
+    scale = gamma * rsqrt(var + eps), bias = beta - mean * scale."""
+    scale = p["scale"].float() * torch.rsqrt(p["var"].float() + eps)
+    return scale, p["bias"].float() - p["mean"].float() * scale
+
+
+def batch_norm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Inference batch norm (running statistics) over NCHW channels."""
+    scale, bias = fold_batch_norm(p, eps)
+    return x * scale[:, None, None] + bias[:, None, None]
+
+
+def selu(x: torch.Tensor) -> torch.Tensor:
+    return F.selu(x)
+
+
+def avg_pool(x: torch.Tensor, window: int) -> torch.Tensor:
+    """NCHW average pooling, stride = window, VALID."""
+    return F.avg_pool2d(x, window, window)
 
 
 @contextlib.contextmanager

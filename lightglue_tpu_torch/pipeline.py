@@ -1,7 +1,8 @@
 """User-facing API (counterpart of lightglue_tpu/pipeline.py:59-218,
 442-583; reference lightglue.py:439-479, utils.py:131-165).
 
-``SuperPoint(...).extract(image)`` returns a feats dict of numpy arrays;
+``SuperPoint(...).extract(image)`` and ``ALIKED(...).extract(image)``
+return a feats dict of numpy arrays;
 ``LightGlue(...)`` is called on ``{"image0": feats0, "image1": feats1}``
 with numpy or torch feature arrays and returns numpy outputs plus the ragged
 ``matches``/``scores`` lists, built on the host in numpy; ``match_pair``
@@ -18,7 +19,9 @@ import torch
 from . import nn
 from . import weights as weights_lib
 from .configs import (
-    LightGlueConfig, PreprocessConfig, SuperPointConfig, lightglue_config)
+    ALIKEDConfig, LightGlueConfig, PreprocessConfig, SuperPointConfig,
+    lightglue_config)
+from .models import aliked as aliked_model
 from .models import lightglue as lg
 from .models import superpoint as sp
 from .utils import diagnostics
@@ -86,12 +89,50 @@ def _numpy_feats(feats: sp.Features, kpts: torch.Tensor, sizes) -> dict:
 
 
 class Extractor:
-    """Base wrapper: preprocessing, the forward pass and the rescale of the
-    keypoints to the original image (reference Extractor.extract,
-    utils.py:136-147). Subclasses set ``conf``, ``preprocess_conf``,
-    ``params``, ``device`` and ``_forward_fn``."""
+    """Base wrapper: parameters on one device, preprocessing, the forward
+    pass and the rescale of the keypoints to the original image (reference
+    Extractor.extract, utils.py:136-147). A subclass names its config class,
+    model module (``init_params``, ``forward``), JAX-npz converter and
+    release checkpoint.
+
+    ``params``: the port's parameter tree, or the path of a flat npz in the
+    JAX package's layout; None draws random weights from ``seed``
+    (``pretrained=True`` raises: nothing is downloaded). ``device`` is
+    "cuda" (the kernels) unless the caller asks for "cpu" (the plain
+    versions); without CUDA the default raises."""
 
     stride = 8  # pad input H/W to this multiple
+    _conf_cls: type
+    _model: object
+    _from_jax: staticmethod
+    _release: str  # checkpoint file name, formatted with the config's fields
+
+    def __init__(
+        self,
+        params: Union[None, str, nn.Params] = None,
+        conf=None,
+        seed: int = 0,
+        pretrained: bool = False,
+        device: Union[str, torch.device] = "cuda",
+        **conf_overrides,
+    ):
+        self.conf = (conf or self._conf_cls()).replace(**conf_overrides)
+        self.preprocess_conf = PreprocessConfig(resize=self.conf.resize)
+        name = type(self).__name__
+        if params is None and pretrained:
+            raise FileNotFoundError(
+                f"pretrained=True: the release {name} weights "
+                f"({self._release.format(**vars(self.conf))}) are not in this "
+                "repository and nothing is downloaded; convert a state dict "
+                f"with weights.{name.lower()}_from_state_dict and pass params=.")
+        if params is None:
+            params = self._model.init_params(
+                self.conf, torch.Generator().manual_seed(seed))
+        elif isinstance(params, str):
+            with np.load(params) as f:
+                params = self._from_jax({k: f[k] for k in f.files}, self.conf)
+        self.device = torch.device(device)
+        self.params = nn.params_to(params, self.device)
 
     def _effective_conf(self, h: int, w: int):
         """``max_num_keypoints=None`` resolved to an area-derived bucket."""
@@ -123,7 +164,7 @@ class Extractor:
         pp = ImagePreprocessor(self.preprocess_conf, **preprocess_overrides)
         img, scales = pp(img)
         img, (vh, vw) = pad_to_multiple(img, self.stride)
-        feats = self._forward_fn(
+        feats = self._model.forward(
             self.params, self._effective_conf(img.shape[0], img.shape[1]),
             img[None], torch.tensor([[vw, vh]], dtype=torch.float32,
                                     device=self.device))
@@ -142,46 +183,30 @@ class Extractor:
         imgs, (h, w) = pad_to_multiple(imgs, self.stride)
         sizes = torch.tensor([[w, h]] * b, dtype=torch.float32,
                              device=self.device)
-        feats = self._forward_fn(
+        feats = self._model.forward(
             self.params, self._effective_conf(imgs.shape[1], imgs.shape[2]),
             imgs, sizes)
         return _numpy_feats(feats, feats.keypoints, sizes.cpu().numpy())
 
 
 class SuperPoint(Extractor):
-    """SuperPoint wrapper (reference superpoint.py:98-148). ``params``: the
-    port's parameter tree, or the path of a flat npz in the JAX package's
-    layout; None draws random weights from ``seed``. ``device`` is "cuda"
-    (the kernels) unless the caller asks for "cpu" (the plain versions);
-    without CUDA the default raises."""
+    """SuperPoint wrapper (reference superpoint.py:98-148)."""
 
-    def __init__(
-        self,
-        params: Union[None, str, nn.Params] = None,
-        conf: Optional[SuperPointConfig] = None,
-        seed: int = 0,
-        pretrained: bool = False,
-        device: Union[str, torch.device] = "cuda",
-        **conf_overrides,
-    ):
-        self.conf = (conf or SuperPointConfig()).replace(**conf_overrides)
-        self.preprocess_conf = PreprocessConfig(resize=self.conf.resize)
-        if params is None and pretrained:
-            raise FileNotFoundError(
-                "pretrained=True: the release SuperPoint weights "
-                "(superpoint_v1.pth) are not in this repository and nothing "
-                "is downloaded; convert a state dict with "
-                "weights.superpoint_from_state_dict and pass params=.")
-        if params is None:
-            params = sp.init_params(self.conf,
-                                    torch.Generator().manual_seed(seed))
-        elif isinstance(params, str):
-            with np.load(params) as f:
-                params = weights_lib.superpoint_from_jax_params(
-                    {k: f[k] for k in f.files}, self.conf)
-        self.device = torch.device(device)
-        self.params = nn.params_to(params, self.device)
-        self._forward_fn = sp.forward
+    _conf_cls = SuperPointConfig
+    _model = sp
+    _from_jax = staticmethod(weights_lib.superpoint_from_jax_params)
+    _release = "superpoint_v1.pth"
+
+
+class ALIKED(Extractor):
+    """ALIKED wrapper (reference aliked.py:612-695); images are padded to a
+    multiple of 32."""
+
+    stride = aliked_model.STRIDE
+    _conf_cls = ALIKEDConfig
+    _model = aliked_model
+    _from_jax = staticmethod(weights_lib.aliked_from_jax_params)
+    _release = "{model_name}.pth"
 
 
 class LightGlue:

@@ -6,9 +6,11 @@ A checkpoint is a flat ``"a/b/c" -> array`` dict, as
 Matcher: linear weights ``(in, out)``, transformer layers stacked on axis 0;
 the port keeps that layout, so conversion is a key-for-key copy into float32
 tensors with every key and shape checked against the configuration.
-SuperPoint: conv weights are HWIO in the JAX package and OIHW in the port
-and in the reference's state dict (``conv1a.weight``, ``conv1a.bias``, ...),
-so they are transposed once here.
+SuperPoint and ALIKED: conv weights are HWIO in the JAX package and OIHW in
+the port and in the reference's state dicts (``conv1a.weight``,
+``conv1a.bias``, ...), so they are transposed once here. ALIKED's batch
+norms keep their four running tensors (scale, bias, mean, var), and its
+aggregation weights ``(M, dim, dim)`` are the same in every layout.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ import numpy as np
 import torch
 
 from . import nn
-from .configs import LightGlueConfig, SuperPointConfig
+from .configs import ALIKEDConfig, LightGlueConfig, SuperPointConfig
 
 
 def expected_shapes(conf: LightGlueConfig) -> Dict[str, tuple]:
@@ -152,4 +154,107 @@ def superpoint_to_state_dict(params: nn.Params) -> Dict[str, np.ndarray]:
     for name, p in params.items():
         out[f"{name}.weight"] = p["w"].detach().cpu().numpy()
         out[f"{name}.bias"] = p["b"].detach().cpu().numpy()
+    return out
+
+
+def aliked_entries(conf: Optional[ALIKEDConfig] = None):
+    """Every ALIKED parameter of ``conf`` as (tree path, reference
+    state-dict key, shape in the port; conv weights OIHW), in the layout of
+    the JAX package's ``convert_aliked`` (weights.py:184-234)."""
+    from .models.aliked import CFGS
+
+    c1, c2, c3, c4, dim, k, m = CFGS[(conf or ALIKEDConfig()).model_name]
+    out = []
+
+    def conv(path, key, cin, cout, ks, bias=False):
+        out.append((path + ("w",), f"{key}.weight", (cout, cin, ks, ks)))
+        if bias:
+            out.append((path + ("b",), f"{key}.bias", (cout,)))
+
+    def bn(path, key, ch):
+        for leaf, name in (("scale", "weight"), ("bias", "bias"),
+                           ("mean", "running_mean"), ("var", "running_var")):
+            out.append((path + (leaf,), f"{key}.{name}", (ch,)))
+
+    conv(("block1", "conv1"), "block1.conv1", 3, c1, 3)
+    bn(("block1", "bn1"), "block1.bn1", c1)
+    conv(("block1", "conv2"), "block1.conv2", c1, c1, 3)
+    bn(("block1", "bn2"), "block1.bn2", c1)
+    for i, (cin, cout) in ((2, (c1, c2)), (3, (c2, c3)), (4, (c3, c4))):
+        blk = f"block{i}"
+        for j, ci in ((1, cin), (2, cout)):
+            path, key = (blk, f"conv{j}"), f"{blk}.conv{j}"
+            if i == 2:
+                conv(path, key, ci, cout, 3)
+            else:  # deformable: offsets for the 9 taps, then the taps' conv
+                conv(path + ("offset_conv",), f"{key}.offset_conv", ci, 18, 3,
+                     bias=True)
+                conv(path + ("regular_conv",), f"{key}.regular_conv", ci,
+                     cout, 3)
+            bn((blk, f"bn{j}"), f"{blk}.bn{j}", cout)
+        conv((blk, "downsample"), f"{blk}.downsample", cin, cout, 1, bias=True)
+    for i, ch in enumerate((c1, c2, c3, dim), 1):
+        conv((f"conv{i}",), f"conv{i}", ch, dim // 4, 1)
+    for name, cin, cout, ks in (("0", dim, 8, 1), ("2", 8, 4, 3),
+                                ("4", 4, 4, 3), ("6", 4, 1, 3)):
+        conv(("score_head", name), f"score_head.{name}", cin, cout, ks)
+    conv(("desc_head", "offset_conv1"), "desc_head.offset_conv.0", dim, 2 * m,
+         k, bias=True)
+    conv(("desc_head", "offset_conv2"), "desc_head.offset_conv.2", 2 * m,
+         2 * m, 1, bias=True)
+    conv(("desc_head", "sf_conv"), "desc_head.sf_conv", dim, dim, 1)
+    out.append((("desc_head", "agg_weights"), "desc_head.agg_weights",
+                (m, dim, dim)))
+    return out
+
+
+def _aliked_tree(get, conf) -> nn.Params:
+    tree: dict = {}
+    for path, key, shape in aliked_entries(conf):
+        arr = np.asarray(get(path, key, len(shape)))
+        if arr.shape != shape:
+            raise ValueError(f"{key}: shape {arr.shape}, expected {shape}")
+        node = tree
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        node[path[-1]] = torch.from_numpy(np.array(arr, np.float32))
+    return tree
+
+
+def aliked_from_jax_params(
+    flat: Dict[str, np.ndarray], conf: Optional[ALIKEDConfig] = None
+) -> nn.Params:
+    """The port's ALIKED parameters from the JAX package's flat dict
+    (``block1/conv1/w`` HWIO, ``block1/bn1/scale``, ...). Raises on any
+    missing or unexpected key and on any shape that does not fit ``conf``
+    (default: aliked-n16)."""
+    _check_keys(flat, ["/".join(p) for p, _, _ in aliked_entries(conf)])
+
+    def get(path, _, ndim):
+        arr = np.asarray(flat["/".join(path)])  # conv weights HWIO -> OIHW
+        return arr.transpose(3, 2, 0, 1) if ndim == 4 == arr.ndim else arr
+
+    return _aliked_tree(get, conf)
+
+
+def aliked_from_state_dict(
+    sd: Dict[str, np.ndarray], conf: Optional[ALIKEDConfig] = None
+) -> nn.Params:
+    """The port's ALIKED parameters from a reference state dict
+    (lightglue/aliked.py:637-695), every key and shape checked."""
+    sd = {k: np.asarray(v) for k, v in sd.items()}
+    _check_keys(sd, [key for _, key, _ in aliked_entries(conf)])
+    return _aliked_tree(lambda _, key, __: sd[key], conf)
+
+
+def aliked_to_state_dict(
+    params: nn.Params, conf: Optional[ALIKEDConfig] = None
+) -> Dict[str, np.ndarray]:
+    """Inverse of ``aliked_from_state_dict``."""
+    out = {}
+    for path, key, _ in aliked_entries(conf):
+        node = params
+        for part in path:
+            node = node[part]
+        out[key] = node.detach().cpu().numpy()
     return out

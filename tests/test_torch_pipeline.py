@@ -100,8 +100,9 @@ def test_missing_image_raises(matcher):
 
 
 def test_import_leaves_jax_out():
-    """Every module of the port imports without JAX, OpenCV or PIL."""
+    """Every module of the port imports with JAX, OpenCV and PIL blocked."""
     code = ("import sys; sys.modules['cv2'] = None; sys.modules['PIL'] = None; "
+            "sys.modules['jax'] = None; "
             "import lightglue_tpu_torch, lightglue_tpu_torch.pipeline, "
             "lightglue_tpu_torch.end_to_end, lightglue_tpu_torch.utils.image, "
             "lightglue_tpu_torch.models.superpoint, "
@@ -109,8 +110,13 @@ def test_import_leaves_jax_out():
             "lightglue_tpu_torch.ops.stem, lightglue_tpu_torch.ops.stem2, "
             "lightglue_tpu_torch.ops.flash_self, "
             "lightglue_tpu_torch.ops.flash_cross_block, "
+            "lightglue_tpu_torch.models.aliked, "
+            "lightglue_tpu_torch.ops.aliked_stem, "
+            "lightglue_tpu_torch.ops.score_head, "
+            "lightglue_tpu_torch.ops.deform, "
             "lightglue_tpu_torch.synthetic; "
-            "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'lightglue_tpu')]; assert not bad, bad")
+            "bad = [m for m, mod in sys.modules.items() if mod is not None "
+            "and m.split('.')[0] in ('jax', 'lightglue_tpu')]; "
+            "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                    timeout=120)
