@@ -34,10 +34,11 @@ NVCC_FLAGS = (
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry point -> argument types (pointers and the stream as c_void_p).
 SIGNATURES = {
-    "lg_flash_sdpa": [_P] * 5 + [_I] * 5 + [_F] * 2 + [_P],
+    "lg_flash_sdpa": [_P] * 5 + [_I] * 6 + [_F] * 2 + [_P],
+    "lg_flash_cross_pair": [_P] * 8 + [_I] * 5 + [_F] + [_P],
     "lg_fused_cross": [_P] * 9 + [_I] * 5 + [_F] * 2 + [_P],
-    "lg_project_heads": [_P] * 6 + [_I] * 5 + [_P],
-    "lg_block_tail": [_P] * 11 + [_I] * 3 + [_P],
+    "lg_project_heads": [_P] * 6 + [_I] * 6 + [_P],
+    "lg_block_tail": [_P] * 11 + [_I] * 4 + [_P],
     "lg_ffn_residual": [_P] * 9 + [_I] * 2 + [_P],
     "lg_assign_lse": [_P] * 5 + [_I] * 4 + [_P],
     "lg_assign_argmax": [_P] * 8 + [_I] * 4 + [_P],
@@ -47,6 +48,7 @@ SIGNATURES = {
     "lg_aliked_stem": [_P] * 7 + [_I] * 5 + [_P],
     "lg_score_head": [_P] * 3 + [_I] * 3 + [_P],
     "lg_score_head_lazy": [_P] * 6 + [_I] * 9 + [_P],
+    "lg_gather_rows": [_P] * 3 + [_I] * 3 + [_P],
 }
 
 # Op wrapper -> launches since the last reset.
@@ -55,7 +57,7 @@ KERNELS = (
     "fused_filter_matches", "fused_stem", "fused_block2", "simple_nms",
     "fused_self_block", "fused_cross_block", "flash_sdpa_shift",
     "fused_cross_attention_shift", "fused_aliked_stem", "score_head_lazy",
-    "score_head_cplane",
+    "score_head_cplane", "flash_cross_pair", "gather_rows",
 )
 _launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 _lib: Optional[ctypes.CDLL] = None

@@ -19,14 +19,17 @@ class LightGlueConfig:
     """Matcher configuration (reference: lightglue/lightglue.py:322-335).
 
     ``depth_confidence``/``width_confidence`` < 0 disable adaptive depth /
-    width. ``fused_self``/``fused_cross`` (the JAX package's defaults, on)
-    run each SelfBlock through the whole-block kernel B5 for N <= 2048 and
-    each CrossBlock through B6 for max(M, N) <= 1024 (lengths multiples of
-    128); otherwise, or with them off, the blocks are composed from the
-    attention, cross-attention and FFN kernels. ``self_softmax_shift`` /
-    ``cross_softmax_shift`` (nats) replace the softmax's row maximum by a
-    constant in the kernels (exp2 form, no max pass); None is the exact
-    softmax.
+    width. ``flash`` takes head_dim (descriptor_dim / num_heads) 64 or 128.
+    ``fused_self``/``fused_cross`` (the JAX package's defaults, on) run each
+    SelfBlock through the whole-block kernel B5 for N <= 2048 and each
+    CrossBlock through B6 for max(M, N) <= 1024 at head_dim 64 (lengths
+    multiples of 128); otherwise, or with them off, the blocks are composed
+    from the attention (K1), cross-attention (K2 at head_dim 64, B1' at 128)
+    and FFN (K3) kernels. ``self_softmax_shift`` / ``cross_softmax_shift``
+    (nats) replace the softmax's row maximum by a constant in the kernels
+    (exp2 form, no max pass); None is the exact softmax. B1' is always
+    exact, as the JAX matcher calls it, so ``cross_softmax_shift`` has no
+    effect at head_dim 128.
     """
 
     name: str = "lightglue"

@@ -2,9 +2,11 @@
 // and B6 (CrossBlock, both images) run as the ops ops/flash_self.py and
 // ops/flash_cross_block.py, each a short chain of hand-written launches:
 //   B5: project_heads_kernel (q, k, v with rotary), the K1 key walk of
-//       flash_sdpa.cu (exact or shift) on them, block_tail_kernel;
+//       flash_sdpa.cu (exact or shift, head_dim 64 or 128) on them,
+//       block_tail_kernel;
 //   B6: project_heads_kernel for each image (qk, v), the row and column
-//       launches of flash_cross.cu (mode 1 exact, mode 2 shift),
+//       launches of flash_cross.cu (mode 1 exact, mode 2 shift; head_dim
+//       64, as the TPU kernel),
 //       block_tail_kernel for each image.
 //
 // Replaces the TPU kernels lightglue_tpu/ops/flash_self.py::_kernel
@@ -48,29 +50,31 @@ using lg::THREADS;
 using lg::TILE;
 
 // x (B, N, D); wT (G * D, D), one row per output channel; bias (G * D);
-// cs, sn (B, N, 32) rotary cos / sin per channel pair, or null;
-// out (G, B, H, N, 64). Grid (cdiv(N, 64), G * H, B); groups below n_rot
-// get rotary.
+// cs, sn (B, N, hd / 2) rotary cos / sin per channel pair, or null;
+// out (G, B, H, N, hd), D = H hd, hd a multiple of 64. Grid (cdiv(N, 64),
+// G * D / 64, B): one 64-channel tile of one group and head per block;
+// groups below n_rot get rotary (a pair never straddles two tiles).
 __global__ void __launch_bounds__(THREADS)
     project_heads_kernel(const float* __restrict__ x,
                          const float* __restrict__ wT,
                          const float* __restrict__ bias,
                          const float* __restrict__ cs,
                          const float* __restrict__ sn, float* __restrict__ out,
-                         int B, int N, int H, int n_rot) {
+                         int B, int N, int H, int hd, int n_rot) {
   extern __shared__ __align__(16) float lg_smem[];
   float* As = lg_smem;         // 64 x LD: x rows, then the output tile
   float* Bs = As + TILE * LD;  // 64 x LD: weight rows
   const int t = threadIdx.x, ty = t >> 4, tx = t & 15;
   const int n0 = blockIdx.x * TILE, ct = blockIdx.y, b = blockIdx.z;
-  const int g = ct / H, h = ct % H, D = H * HD;
+  const int D = H * hd, ch0 = ct * TILE;  // first channel of the G * D
+  const int g = ch0 / D, h = ch0 % D / hd, c0 = ch0 % hd;
   const float* xb = x + (size_t)b * N * D;
 
   float acc[4][4] = {};
   for (int k0 = 0; k0 < D; k0 += HD) {
     __syncthreads();
     lg::load_tile(As, LD, xb, n0, N, D, k0, 1.f);
-    lg::load_tile(Bs, LD, wT, ct * TILE, gridDim.y * TILE, D, k0, 1.f);
+    lg::load_tile(Bs, LD, wT, ch0, gridDim.y * TILE, D, k0, 1.f);
     __syncthreads();
     lg::tile_abt(As, Bs, acc);  // acc[i][j]: row ty + 16i, channel tx + 16j
   }
@@ -80,29 +84,29 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
     for (int j = 0; j < 4; ++j)
       As[(ty + 16 * i) * LD + tx + 16 * j] =
-          acc[i][j] + bias[ct * TILE + tx + 16 * j];
+          acc[i][j] + bias[ch0 + tx + 16 * j];
   __syncthreads();
 
   // rotary, interleaved pairs (ops/rotary.py::apply_rotary):
   //   o[2p] = t[2p] c_p - t[2p+1] s_p;  o[2p+1] = t[2p+1] c_p + t[2p] s_p
-  float* ob = out + (((size_t)g * B + b) * H + h) * N * HD;
+  float* ob = out + (((size_t)g * B + b) * H + h) * N * hd + c0;
   const bool rot = g < n_rot;
   for (int idx = t; idx < TILE * HD; idx += THREADS) {
     const int r = idx / HD, c = idx % HD, row = n0 + r;
     if (row >= N) continue;
     float val = As[r * LD + c];
     if (rot) {
-      const size_t at = ((size_t)b * N + row) * (HD / 2) + (c >> 1);
+      const size_t at = ((size_t)b * N + row) * (hd / 2) + ((c0 + c) >> 1);
       const float co = cs[at], si = sn[at], other = As[r * LD + (c ^ 1)];
       val = (c & 1) ? val * co + other * si : val * co - other * si;
     }
-    ob[(size_t)row * HD + c] = val;
+    ob[(size_t)row * hd + c] = val;
   }
 }
 
 constexpr size_t kProjSmem = 2 * TILE * LD * sizeof(float);
 
-// ctx (B, H, N, 64) per-head context; x, out (B, N, D). Grid
+// ctx (B, H, N, hd) per-head context, D = H hd; x, out (B, N, D). Grid
 // (cdiv(N, 32), B): Xs = [x | ctx] for 32 rows, the message
 // ctx Wo + bo (a 32 x D x D product, Wo streamed 16 rows at a time)
 // replaces the ctx half, then K3's FFN body.
@@ -118,8 +122,9 @@ __global__ void __launch_bounds__(THREADS)
                       const float* __restrict__ beta,
                       const float* __restrict__ w2,
                       const float* __restrict__ b2, float* __restrict__ out,
-                      int N) {
-  constexpr int H = D / HD, D2 = 2 * D, C = D / 32;
+                      int N, int hd) {
+  constexpr int D2 = 2 * D, C = D / 32;
+  const int H = D / hd;
   extern __shared__ __align__(16) float lg_smem[];
   float* Xs = lg_smem;                 // 32 x D2: [x | ctx], then [x | msg]
   float* Hs = Xs + lg::FFN_ROWS * D2;  // 32 x D2
@@ -132,9 +137,9 @@ __global__ void __launch_bounds__(THREADS)
     const int rr = idx / D2, c = idx % D2, row = row0 + rr;
     float val = 0.f;
     if (row < N) {
-      const int hc = c - D;  // merged-head channel h * 64 + chan
+      const int hc = c - D;  // merged-head channel h * hd + chan
       val = c < D ? xb[(size_t)row * D + c]
-                  : ctx[(((size_t)b * H + hc / HD) * N + row) * HD + hc % HD];
+                  : ctx[(((size_t)b * H + hc / hd) * N + row) * hd + hc % hd];
     }
     Xs[idx] = val;
   }
@@ -174,7 +179,7 @@ template <int D>
 cudaError_t launch_tail(const float* ctx, const float* x, const float* wo,
                         const float* bo, const float* w1, const float* b1,
                         const float* gamma, const float* beta, const float* w2,
-                        const float* b2, float* out, int B, int N,
+                        const float* b2, float* out, int B, int N, int hd,
                         cudaStream_t stream) {
   constexpr size_t smem = lg::ffn_floats<D>() * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
@@ -182,42 +187,44 @@ cudaError_t launch_tail(const float* ctx, const float* x, const float* wo,
       (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(lg::cdiv(N, lg::FFN_ROWS), B);
-  block_tail_kernel<D><<<grid, THREADS, smem, stream>>>(ctx, x, wo, bo, w1, b1, gamma, beta, w2, b2, out, N);
+  block_tail_kernel<D><<<grid, THREADS, smem, stream>>>(ctx, x, wo, bo, w1, b1, gamma, beta, w2, b2, out, N, hd);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// x (B, N, 64 H); wT (G * 64 H, 64 H); bias (G * 64 H); cos, sin (B, N, 32)
-// or null; out (G, B, H, N, 64); the first n_rot groups get rotary.
+// x (B, N, D); wT (G * D, D); bias (G * D); cos, sin (B, N, hd / 2) or
+// null; out (G, B, H, N, hd) with D = H hd and hd a multiple of 64; the
+// first n_rot groups get rotary.
 extern "C" cudaError_t lg_project_heads(const float* x, const float* wT,
                                         const float* bias, const float* cs,
                                         const float* sn, float* out, int B,
-                                        int N, int G, int H, int n_rot,
-                                        cudaStream_t stream) {
-  if (n_rot > 0 && (cs == nullptr || sn == nullptr))
+                                        int N, int G, int H, int hd,
+                                        int n_rot, cudaStream_t stream) {
+  if ((n_rot > 0 && (cs == nullptr || sn == nullptr)) || hd < HD ||
+      hd % HD != 0)
     return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       project_heads_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)kProjSmem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(lg::cdiv(N, TILE), G * H, B);
-  project_heads_kernel<<<grid, THREADS, kProjSmem, stream>>>(x, wT, bias, cs, sn, out, B, N, H, n_rot);
+  const dim3 grid(lg::cdiv(N, TILE), G * H * hd / TILE, B);
+  project_heads_kernel<<<grid, THREADS, kProjSmem, stream>>>(x, wT, bias, cs, sn, out, B, N, H, hd, n_rot);
   return cudaGetLastError();
 }
 
-// ctx (B, H, N, 64); x, out (B, N, 64 H); wo (D, D), w1 (2D, 2D), w2
-// (2D, D) stored (in, out); bo, b2 (D); b1, gamma, beta (2D). H is 2 or 4.
+// ctx (B, H, N, hd); x, out (B, N, D), D = H hd 128 or 256; wo (D, D), w1
+// (2D, 2D), w2 (2D, D) stored (in, out); bo, b2 (D); b1, gamma, beta (2D).
 extern "C" cudaError_t lg_block_tail(
     const float* ctx, const float* x, const float* wo, const float* bo,
     const float* w1, const float* b1, const float* gamma, const float* beta,
-    const float* w2, const float* b2, float* out, int B, int H, int N,
+    const float* w2, const float* b2, float* out, int B, int H, int hd, int N,
     cudaStream_t stream) {
-  if (H == 4)
+  if (H * hd == 256)
     return launch_tail<256>(ctx, x, wo, bo, w1, b1, gamma, beta, w2, b2, out,
-                            B, N, stream);
-  if (H == 2)
+                            B, N, hd, stream);
+  if (H * hd == 128)
     return launch_tail<128>(ctx, x, wo, bo, w1, b1, gamma, beta, w2, b2, out,
-                            B, N, stream);
+                            B, N, hd, stream);
   return cudaErrorInvalidValue;
 }

@@ -8,10 +8,12 @@ reads its stop flag on the host once per layer.
 
 At the default configuration each SelfBlock is one op, kernel B5
 (ops/flash_self.py, N <= 2048), and each CrossBlock one op, kernel B6
-(ops/flash_cross_block.py, max(M, N) <= 1024). Otherwise the blocks are
-composed from the attention, cross-attention and FFN kernels (ops/flash.py,
-ops/flash_cross.py, ops/ffn.py), with plain ``x @ w`` projections around
-them; the assignment head is kernel ops/assignment_fused.py.
+(ops/flash_cross_block.py, max(M, N) <= 1024, head_dim 64). Otherwise the
+blocks are composed from the attention, cross-attention and FFN kernels
+(ops/flash.py, ops/flash_cross.py, ops/ffn.py), with plain ``x @ w``
+projections around them; at head_dim 128 the cross attention is B1'
+(ops/flash.py::flash_cross_pair, always exact, as the JAX matcher calls
+it). The assignment head is kernel ops/assignment_fused.py.
 ``conf.flash=False`` and ``conf.fused_ffn=False`` switch to the composed ops
 of ops/attention.py and ops/assignment.py, as in the JAX package. The
 dispatch follows the JAX package's order of tests (lightglue.py:235-341).
@@ -117,15 +119,17 @@ def _ffn_residual(p, x, message, conf: LightGlueConfig) -> torch.Tensor:
 
 def _fused_self_ok(conf: LightGlueConfig, n: int) -> bool:
     """JAX self_block's test for the whole-block kernel (lightglue.py:
-    249-256): the attention kernels on, head_dim 64 (_check_conf), N a
-    multiple of 128 and at most MAX_FUSED_N."""
+    249-256): the attention kernels on (head_dim 64 or 128, _check_conf),
+    N a multiple of 128 and at most MAX_FUSED_N."""
     return (conf.flash and conf.fused_self and conf.fused_ffn
             and n % 128 == 0 and n <= flash_self_ops.MAX_FUSED_N)
 
 
 def _fused_cross_ok(conf: LightGlueConfig, m: int, n: int) -> bool:
-    """JAX cross_block's test (lightglue.py:301-307)."""
+    """JAX cross_block's test (lightglue.py:301-307): B6 takes head_dim 64
+    only."""
     return (conf.flash and conf.fused_cross and conf.fused_ffn
+            and conf.head_dim <= flash_cross_ops.HEAD_DIM
             and m % 128 == 0 and n % 128 == 0
             and max(m, n) <= flash_cross_block_ops.MAX_FUSED_N)
 
@@ -188,7 +192,10 @@ def self_block(p, x, encoding, conf: LightGlueConfig, key_mask=None,
 def cross_block(p, x0, x1, conf: LightGlueConfig, mask0=None, mask1=None,
                 fused=None):
     """Shared-QK bidirectional cross attention (reference CrossBlock,
-    lightglue.py:201-230); ``fused``: this layer's B6 weights."""
+    lightglue.py:201-230); ``fused``: this layer's B6 weights. With the
+    kernels, head_dim 64 takes K2 and 128 takes B1', which the JAX matcher
+    calls without a shift (lightglue.py:319-330): cross_softmax_shift has
+    no effect there."""
     if fused is not None and _fused_cross_ok(conf, x0.shape[1], x1.shape[1]):
         return flash_cross_block_ops.fused_cross_block(fused, x0, x1, mask0,
                                                        mask1)
@@ -197,9 +204,11 @@ def cross_block(p, x0, x1, conf: LightGlueConfig, mask0=None, mask1=None,
     qk1 = _split_heads(nn.linear(p["to_qk"], x1), h)
     v0 = _split_heads(nn.linear(p["to_v"], x0), h)
     v1 = _split_heads(nn.linear(p["to_v"], x1), h)
-    if conf.flash:
+    if conf.flash and conf.head_dim <= flash_cross_ops.HEAD_DIM:
         m0, m1 = flash_cross_ops.fused_cross_attention(
             qk0, qk1, v0, v1, mask0, mask1, shift=conf.cross_softmax_shift)
+    elif conf.flash:
+        m0, m1 = flash_ops.flash_cross_pair(qk0, qk1, v0, v1, mask0, mask1)
     else:
         mask = None
         if mask0 is not None or mask1 is not None:
@@ -269,10 +278,10 @@ class MatchOutput(NamedTuple):
 
 
 def _check_conf(conf: LightGlueConfig) -> None:
-    if conf.flash and conf.head_dim != flash_ops.HEAD_DIM:
+    if conf.flash and conf.head_dim not in flash_ops.HEAD_DIMS:
         raise ValueError(
-            f"the attention kernels take head_dim {flash_ops.HEAD_DIM}, got "
-            f"{conf.head_dim}; use flash=False for the composed ops")
+            f"the attention kernels take head_dim in {flash_ops.HEAD_DIMS}, "
+            f"got {conf.head_dim}; use flash=False for the composed ops")
 
 
 def _prepare(params, conf, kpts0, kpts1, desc0, desc1, size0, size1, mask0,

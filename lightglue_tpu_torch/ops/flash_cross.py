@@ -19,9 +19,12 @@ from typing import Optional, Tuple
 import torch
 
 from .. import _build
-from .flash import HEAD_DIM, LOG2E, key_bias, shift_weights
+from .flash import LOG2E, key_bias, shift_weights
 
 TILE = 64  # query rows per block of the row launch (csrc/common.cuh)
+# The only head_dim of K2 and B6, as in the TPU kernels (their ones column
+# in V sits at lane 64); the matcher takes B1' above it.
+HEAD_DIM = 64
 # Launch modes of csrc/flash_cross.cu (lg_fused_cross's ``mode``).
 EXACT, EXACT_BLOCK, SHIFT = 0, 1, 2
 

@@ -7,10 +7,11 @@ lightglue.py:159-172)
     x + FFN(cat[x, out_proj(attention(rot(q), rot(k), v))]),
 
 exact (``shift`` None: per-row maximum, an all-masked batch entry's context
-is 0) or with the constant-shift exp2 softmax. On a CUDA tensor
-``fused_self_block`` runs its launches (csrc/blocks.cu: the q, k, v
-projection with rotary, then K1's key walk of csrc/flash_sdpa.cu, then the
-out_proj + FFN tail) or raises; on a CPU tensor it runs
+is 0) or with the constant-shift exp2 softmax, at head_dim 64 or 128 (the
+JAX kernel has no head_dim limit; the JAX matcher reaches it at both). On a
+CUDA tensor ``fused_self_block`` runs its launches (csrc/blocks.cu: the q,
+k, v projection with rotary, then K1's key walk of csrc/flash_sdpa.cu, then
+the out_proj + FFN tail) or raises; on a CPU tensor it runs
 ``fused_self_block_plain``.
 
 ``prepare`` builds the kernel's weights once per parameter tree: the q, k
@@ -32,7 +33,7 @@ import torch
 from .. import _build, nn
 from . import ffn as ffn_ops
 from . import rotary
-from .flash import HEAD_DIM, LOG2E, key_bias, shift_weights
+from .flash import HEAD_DIMS, LOG2E, key_bias, shift_weights
 
 MAX_FUSED_N = 2048  # the JAX package's limit; it decides which kernels run
 
@@ -115,12 +116,13 @@ def ffn_weights(p: nn.Params) -> tuple:
 
 
 def check_block_weights(w: dict, d: int) -> torch.device:
-    """Raise unless the block weights fit width ``d`` and lie on one CUDA
-    device as contiguous float32; return the device."""
-    if d not in ffn_ops.DIMS or d != w["num_heads"] * HEAD_DIM:
+    """Raise unless the block weights fit width ``d`` (head_dim in
+    HEAD_DIMS) and lie on one CUDA device as contiguous float32; return the
+    device."""
+    h = w["num_heads"]
+    if d not in ffn_ops.DIMS or d % h or d // h not in HEAD_DIMS:
         raise ValueError(f"the block kernels take D in {ffn_ops.DIMS} with "
-                         f"head_dim {HEAD_DIM}, got D {d}, "
-                         f"{w['num_heads']} heads")
+                         f"head_dim in {HEAD_DIMS}, got D {d}, {h} heads")
     names = ("w1", "b1", "gamma", "beta", "w2", "b2")
     tensors = dict(w_in=w["w_in"], b_in=w["b_in"], wo=w["wo"], bo=w["bo"],
                    **dict(zip(names, ffn_weights(w["ffn"]))))
@@ -138,25 +140,26 @@ def check_block_weights(w: dict, d: int) -> torch.device:
 def launch_tail(w: dict, ctx: torch.Tensor, x: torch.Tensor, dev
                 ) -> torch.Tensor:
     """The tail launch: x + FFN(cat[x, merge_heads(ctx) wo + bo]) from the
-    per-head context ctx (B, H, N, 64)."""
+    per-head context ctx (B, H, N, hd)."""
     b, n, _ = x.shape
     out = torch.empty_like(x)
     _build.launch("lg_block_tail", dev, ctx, x, w["wo"], w["bo"],
-                  *ffn_weights(w["ffn"]), out, b, w["num_heads"], n)
+                  *ffn_weights(w["ffn"]), out, b, w["num_heads"],
+                  ctx.shape[-1], n)
     return out
 
 
 def launch_project(w: dict, x: torch.Tensor, groups: int, dev,
                    cos=None, sin=None) -> torch.Tensor:
-    """The projection launch: (groups, B, H, N, 64), rotary on the first
-    two groups when ``cos``/``sin`` (B, N, 32) are given."""
+    """The projection launch: (groups, B, H, N, hd), rotary on the first
+    two groups when ``cos``/``sin`` (B, N, hd/2) are given."""
     b, n, d = x.shape
     h = w["num_heads"]
     if w["w_in"].shape[0] != groups * d:
         raise ValueError(f"w_in must have {groups * d} rows")
-    out = torch.empty(groups, b, h, n, HEAD_DIM, device=dev)
+    out = torch.empty(groups, b, h, n, d // h, device=dev)
     _build.launch("lg_project_heads", dev, x, w["w_in"], w["b_in"], cos, sin,
-                  out, b, n, groups, h, 0 if cos is None else 2)
+                  out, b, n, groups, h, d // h, 0 if cos is None else 2)
     return out
 
 
@@ -173,9 +176,10 @@ def fused_self_block(
     sin = enc[1][:, 0].contiguous()
     kbias = None if key_mask is None else key_bias(key_mask).contiguous()
     dev = check_block_weights(w, d)
+    hd = d // w["num_heads"]
     if _build.check_cuda(x=x, cos=cos, sin=sin, k_bias=kbias) != dev:
         raise ValueError(f"x is on {x.device}, the weights on {dev}")
-    if cos.shape != (b, n, HEAD_DIM // 2) or n < 1:
+    if cos.shape != (b, n, hd // 2) or n < 1:
         raise ValueError(f"enc {tuple(enc.shape)} does not fit x "
                          f"{tuple(x.shape)}")
     if kbias is not None and kbias.shape != (b, n):
@@ -185,7 +189,7 @@ def fused_self_block(
     ctx = torch.empty_like(qkv[0])
     # K1's key walk on the projected heads (the scale is in q already)
     _build.launch("lg_flash_sdpa", dev, qkv[0], qkv[1], qkv[2], kbias, ctx,
-                  b, w["num_heads"], n, n, int(shift is not None), 1.0,
+                  b, w["num_heads"], n, n, hd, int(shift is not None), 1.0,
                   0.0 if shift is None else shift * LOG2E)
     out = launch_tail(w, ctx, x, dev)
     _build.count("fused_self_block")
