@@ -17,7 +17,9 @@ Phases, any failure raising (non-zero exit, no result line):
      (a branch dimension of 1, ragged tiles, aliked-t16 widths), with
      random batch-norm statistics; head_dim 128 (K1 exact and shift, B1',
      B5 at two heads of 128, from the trained layers regrouped by
-     two_head_params) and the row gather S1 (bf16, fp32, ragged);
+     two_head_params) and the row gather S1 (bf16, fp32, ragged); the
+     attention walk where it splits its keys (B 1, ragged key counts, one
+     key, an all-masked batch entry), each launch repeated bit for bit;
   3. the main paths, each with the kernels' launch counts set to 0 just
      before it and read just after:
      a. pipeline.LightGlue with the trained matcher weights on planted pairs
@@ -55,11 +57,14 @@ Phases, any failure raising (non-zero exit, no result line):
         product);
   4. timing with CUDA events and host clocks: each kernel beside its plain
      version (and the one PyTorch call that computes the same function,
-     where there is one), K1 and B5 at head_dim 128 too, extraction ms per
+     where there is one), K1 and B5 at head_dim 128 too, the attention
+     walk (K1, B1s, B1') at B 1 too and its device time from CUDA-graph
+     replays beside SDPA's, extraction ms per
      image, the matcher in its default and composed configurations and
      with two heads of 128, end-to-end pairs/s and
      match_pair ms per pair, for SuperPoint and for ALIKED.
-A JSON object of the kernels (with each one's bound, from its shapes) and
+A JSON object of the kernels (with each one's bound, from its shapes, and
+for the attention walk its 3xTF32 tensor-core bound too) and
 the card's name and power limit come before the last line,
 {"ok": true, "device": {...}}.
 
@@ -76,6 +81,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -97,7 +103,7 @@ from lightglue_tpu_torch.ops import ffn, flash, flash_cross  # noqa: E402
 from lightglue_tpu_torch.ops import flash_cross_block, flash_self  # noqa: E402
 from lightglue_tpu_torch.ops import aliked_stem, score_head  # noqa: E402
 from lightglue_tpu_torch.ops import gather, nms, stem, stem2  # noqa: E402
-from lightglue_tpu_torch.scripts import micro_gather2  # noqa: E402
+from lightglue_tpu_torch.scripts import attn_split, micro_gather2  # noqa: E402
 from lightglue_tpu_torch.synthetic import image_pair, planted_pairs  # noqa: E402
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -139,6 +145,11 @@ KERNELS = {
     "gather_rows": ("lightglue_tpu_torch/csrc/gather.cu",
                     "scripts/micro_gather2.py:73"),
 }
+# Rows of the redesigned attention walk (K1, B1s, B1') in phase 4
+ATTENTION_ROWS = ("flash_sdpa", "flash_sdpa_shift", "flash_sdpa d 128",
+                  "flash_sdpa_shift d 128", "flash_cross_pair", "flash_sdpa B 1",
+                  "flash_sdpa_shift B 1", "flash_sdpa d 128 B 1",
+                  "flash_sdpa_shift d 128 B 1", "flash_cross_pair B 1")
 MATCHER_KERNELS = ("flash_sdpa", "fused_cross_attention", "fused_ffn_residual",
                    "fused_filter_matches")
 SHIFT = 12.0  # the JAX bench's self_ and cross_softmax_shift (bench.py:279)
@@ -187,6 +198,9 @@ EXTRACTION_KERNELS = ("fused_stem", "fused_block2", "simple_nms",
                       "fused_ffn_residual", "fused_filter_matches")
 # H100 SXM peaks (NVIDIA's data sheet): fp32 CUDA cores and HBM3
 PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
+# dense TF32 tensor cores: the attention walk's fp32 products as 3xTF32 are
+# three tf32 products each, a second bound of its rows
+PEAK_TF32 = 495e12
 # The conv kernels sum each output over (input channel, tap) in another
 # order than cuDNN may: held to a bound relative to the output's size.
 CONV_TOL = 1e-4
@@ -255,14 +269,34 @@ def device_phase():
     return smi
 
 
+def kernel_name(mangled):
+    """The function name in a mangled kernel symbol, with its template
+    arguments as mangled (ILb0ELi64E: <false, 64>)."""
+    for m in re.finditer(r"\d+", mangled):
+        for i in range(m.start(), m.end()):  # the length is a digit suffix
+            ident = mangled[m.end():m.end() + int(mangled[i:m.end()])]
+            if re.fullmatch(r"[A-Za-z_]\w*(kernel|splits)", ident):
+                args = re.match(r"I\w*?E(?=E*v)",
+                                mangled[m.end() + len(ident):])
+                return ident + (args.group() if args else "")
+    return mangled
+
+
 def build_phase():
     phase("1 build")
     t0 = time.time()
     path, log = _build.build()
     _build.library()
+    # ptxas -v, one line a kernel: its name (and template arguments, as
+    # mangled), registers and spills
+    name, spills = "?", ""
     for line in log.splitlines():
-        if "Used" in line or "spill" in line:
-            print("  " + line.strip())
+        if "Compiling entry function" in line:
+            name = kernel_name(line.split("'")[1])
+        elif "spill" in line:
+            spills = line.strip()
+        elif "Used" in line:
+            print(f"  {name}: {line.split(':', 1)[1].strip()}; {spills}")
     print(f"  built {os.path.relpath(path, ROOT)} in {time.time() - t0:.1f} s",
           flush=True)
 
@@ -577,6 +611,76 @@ def head128_phase(bx):
     torch.cuda.synchronize()
     return errs, {"pair": pair_in, "b5": (w5[None], *b5_in),
                   "gather": (tbl, idx)}
+
+
+def split_phase():
+    """Phase 2f: K1 (exact and shift 12, head_dim 64 and 128) and B1' at
+    shapes where the walk splits its keys (B 1), at key counts that are no
+    multiple of the key tile or of the splits, fewer keys than a tile per
+    split, one key, and a batch entry with every key masked; each launched
+    twice on the same inputs, which must give the same bits."""
+    phase("2f the key-split walk (K1, B1') against the plain versions, "
+          "bitwise repeats")
+    g = torch.Generator(device="cuda").manual_seed(12)
+    errs = {}
+
+    def mask(b, n, all_masked):
+        m = torch.rand(b, n, generator=g, device="cuda") < 0.85
+        m[:, 0] = True
+        if all_masked:
+            m[1] = False
+        return m
+
+    def same(name, a, b):
+        if not all(torch.equal(x, y) for x, y in zip(a, b)):
+            raise AssertionError(f"{name}: two launches differ")
+
+    # (B, H, Nq, Nk, d, batch entry 1 all masked)
+    k1_shapes = ((1, 4, 1024, 1024, 64, False), (1, 2, 1024, 1024, 128, False),
+                 (1, 4, 1000, 1000, 64, False), (1, 2, 333, 333, 128, False),
+                 (1, 4, 64, 100, 64, False), (1, 2, 64, 100, 128, False),
+                 (2, 4, 70, 1, 64, False), (2, 2, 300, 500, 128, True),
+                 (2, 4, 300, 500, 64, True))
+    for b, h, nq, nk, d, empty in k1_shapes:
+        q, k, v = rand(g, b, h, nq, d), rand(g, b, h, nk, d), rand(g, b, h, nk, d)
+        valid = mask(b, nk, empty)
+        (splits,) = flash.planned_splits([(q, k)])
+        if (b, nq, nk) == (1, 1024, 1024) and splits == 1:
+            raise AssertionError(f"K1 {(b, h, nq, nk, d)} is not split")
+        for shift, name in ((None, "flash_sdpa"), (SHIFT, "flash_sdpa_shift")):
+            for mk in ((valid,) if empty else (None, valid)):
+                got = flash.flash_sdpa(q, k, v, mk, shift=shift)
+                same(name, (got,), (flash.flash_sdpa(q, k, v, mk, shift=shift),))
+                errs[name] = max(errs.get(name, 0.0), check(
+                    f"{name} {(b, h, nq, nk, d)} S {splits}"
+                    f"{' masked' if mk is not None else ''}"
+                    f"{', entry 1 all masked' if empty else ''}",
+                    max_err(got, flash.flash_sdpa_plain(q, k, v, mk, shift))))
+                if empty and not bool((got[1] == 0).all()):
+                    raise AssertionError(f"{name}: the all-masked entry is not 0")
+    for b, m, n, empty in ((1, 1024, 768, False), (1, 1024, 30, False),
+                           (2, 130, 300, True)):
+        qk0, v0 = rand(g, b, 2, m, 128), rand(g, b, 2, m, 128)
+        qk1, v1 = rand(g, b, 2, n, 128), rand(g, b, 2, n, 128)
+        va0, va1 = mask(b, m, False), mask(b, n, empty)
+        splits = flash.planned_splits([(qk0, qk1), (qk1, qk0)])
+        if m == 1024 and (splits[1] == 1 or (splits[0] > 1) != (n == 768)):
+            raise AssertionError(f"B1' M {m} / N {n}: splits {splits}")
+        got = flash.flash_cross_pair(qk0, qk1, v0, v1, va0, va1)
+        same("flash_cross_pair", got,
+             flash.flash_cross_pair(qk0, qk1, v0, v1, va0, va1))
+        ref = flash.flash_cross_pair_plain(qk0, qk1, v0, v1, va0, va1)
+        errs["flash_cross_pair"] = max(errs.get("flash_cross_pair", 0.0), check(
+            f"flash_cross_pair d 128 B {b}, M {m} / N {n}, S {splits}"
+            f"{', entry 1 of image 1 all masked' if empty else ''}, valid rows",
+            max(max_err(got[0], ref[0], va0[:, None].expand(-1, 2, -1)),
+                max_err(got[1], ref[1], va1[:, None].expand(-1, 2, -1)))))
+        if empty and not bool((got[0][1] == 0).all()):
+            raise AssertionError("flash_cross_pair: the all-masked entry is not 0")
+    print("  the B 1 shapes split their keys (B1' M 1024 / N 30: direction 1 "
+          "only); every repeat bitwise equal")
+    torch.cuda.synchronize()
+    return errs
 
 
 def edge_phase():
@@ -1323,6 +1427,9 @@ def timing_phase(x, bx, hx, params, params2):
     g = torch.Generator(device="cuda").manual_seed(9)
     q2, k2, v2 = (rand(g, 4, 2, 1024, 128) for _ in range(3))
     pq0, pq1, pv0, pv1, pva0, pva1 = hx["pair"]
+    q_1, k_1, v_1 = (t[:1].contiguous() for t in (q, k, v))
+    q2_1, k2_1, v2_1 = (t[:1].contiguous() for t in (q2, k2, v2))
+    pair1 = tuple(t[:1].contiguous() for t in hx["pair"])
     w52, x52, enc52 = hx["b5"]
     tbl, idx = hx["gather"]
     idx_long = idx.long()
@@ -1366,6 +1473,21 @@ def timing_phase(x, bx, hx, params, params2):
         "fused_self_block 2 x 128": (
             lambda: flash_self.fused_self_block(w52, x52, enc52),
             lambda: flash_self.fused_self_block_plain(w52, x52, enc52)),
+        # the attention walk at B 1, the single-pair cells, where it splits
+        # its keys
+        "flash_sdpa B 1": (lambda: flash.flash_sdpa(q_1, k_1, v_1),
+                           lambda: flash.flash_sdpa_plain(q_1, k_1, v_1)),
+        "flash_sdpa_shift B 1": (
+            lambda: flash.flash_sdpa(q_1, k_1, v_1, shift=SHIFT),
+            lambda: flash.flash_sdpa_plain(q_1, k_1, v_1, shift=SHIFT)),
+        "flash_sdpa d 128 B 1": (lambda: flash.flash_sdpa(q2_1, k2_1, v2_1),
+                                 lambda: flash.flash_sdpa_plain(q2_1, k2_1, v2_1)),
+        "flash_sdpa_shift d 128 B 1": (
+            lambda: flash.flash_sdpa(q2_1, k2_1, v2_1, shift=SHIFT),
+            lambda: flash.flash_sdpa_plain(q2_1, k2_1, v2_1, shift=SHIFT)),
+        "flash_cross_pair B 1": (
+            lambda: flash.flash_cross_pair(*pair1),
+            lambda: flash.flash_cross_pair_plain(*pair1)),
     }
     # the one PyTorch call computing B1's function (both variants): SDPA
     # with the additive key bias (0: every key valid), in fp32; B1' is two
@@ -1384,8 +1506,18 @@ def timing_phase(x, bx, hx, params, params2):
             sdpa(pq0, pq1, pv1, attn_mask=bias1),
             sdpa(pq1, pq0, pv0, attn_mask=bias0))),
         "gather_rows": ("tbl[idx]", lambda: tbl[idx_long]),
+        "flash_sdpa B 1": ("SDPA", lambda: sdpa(q_1, k_1, v_1, attn_mask=kb[:1])),
+        "flash_sdpa_shift B 1": ("SDPA",
+                                 lambda: sdpa(q_1, k_1, v_1, attn_mask=kb[:1])),
+        "flash_sdpa d 128 B 1": ("SDPA",
+                                 lambda: sdpa(q2_1, k2_1, v2_1, attn_mask=kb[:1])),
+        "flash_sdpa_shift d 128 B 1": (
+            "SDPA", lambda: sdpa(q2_1, k2_1, v2_1, attn_mask=kb[:1])),
+        "flash_cross_pair B 1": ("2 SDPA calls", lambda: (
+            sdpa(pair1[0], pair1[1], pair1[3], attn_mask=bias1[:1]),
+            sdpa(pair1[1], pair1[0], pair1[2], attn_mask=bias0[:1]))),
     }
-    times = {}
+    times, graph_times = {}, {}
     for name, (kern, plain) in pairs.items():
         # plain, kernel, kernel, plain: report the mean of each pair
         a = time_cuda(plain)
@@ -1399,6 +1531,18 @@ def timing_phase(x, bx, hx, params, params2):
               f"{times[name][1]:.4f} ms (runs {b:.4f}/{c:.4f}, {a:.4f}/{d:.4f})"
               + ("" if lib is None else f", library ({lib_name}) {lib:.4f} ms"),
               flush=True)
+
+    # the attention rows' device time: CUDA-graph replays, kernel, library,
+    # library, kernel (the eager times above include the wrappers' host
+    # work, which a B 1 launch does not hide)
+    for name in ATTENTION_ROWS:
+        kern = pairs[name][0]
+        lib_name, lib_fn = libraries[name]
+        a, b, c, d = (attn_split.graph_ms(f) for f in (kern, lib_fn, lib_fn, kern))
+        graph_times[name] = ((a + d) / 2, (b + c) / 2)
+        print(f"  {name}, device time (CUDA graph): kernel {(a + d) / 2:.4f} ms, "
+              f"library ({lib_name}) {(b + c) / 2:.4f} ms (runs {a:.4f}/{d:.4f}, "
+              f"{b:.4f}/{c:.4f})", flush=True)
 
     # end to end: host clock per call (each call ends in a device-to-host
     # copy of its outputs), median over the calls after two warm-up calls;
@@ -1434,7 +1578,7 @@ def timing_phase(x, bx, hx, params, params2):
                       f"{bsz * 1e3 / med:.1f} pairs/s (median {med:.2f} ms per "
                       f"call, quartiles {q1:.2f}-{q3:.2f}, {len(m)} calls, stop "
                       f"{stops[blocks]})", flush=True)
-    return times
+    return times, graph_times
 
 
 def kernel_bounds():
@@ -1445,6 +1589,7 @@ def kernel_bounds():
     b, h, n, m1, d = 4, 4, 1024, 768, 256
     ffn_w = (2 * d * 2 * d + 2 * d * d + 3 * 2 * d + d) * f
     attn = (4 * b * h * n * n * 64, 4 * b * h * n * 64 * f)
+    attn1 = (attn[0] // b, attn[1] // b)
     cross = (8 * b * h * n * m1 * 64, 3 * b * h * (n + m1) * 64 * f + b * (n + m1))
     ffn_rows = b * n
     self_flops = b * (2 * n * d * 3 * d + 4 * h * n * n * 64 + 2 * n * d * d
@@ -1497,6 +1642,13 @@ def kernel_bounds():
         # do the same products and move the same bytes as at four of 64
         "flash_sdpa d 128": attn,
         "flash_sdpa_shift d 128": attn,
+        # the B 1 lines: a quarter of the work and of the bytes
+        "flash_sdpa B 1": attn1,
+        "flash_sdpa_shift B 1": attn1,
+        "flash_sdpa d 128 B 1": attn1,
+        "flash_sdpa_shift d 128 B 1": attn1,
+        "flash_cross_pair B 1": (8 * 2 * n * m1 * 128,
+                                 3 * 2 * (n + m1) * 128 * f + (n + m1)),
         "fused_self_block 2 x 128": (self_flops, (2 * b * n * d
                                                   + 2 * b * n * 64) * f
                                      + (d * 3 * d + 3 * d + d * d + d) * f
@@ -1736,7 +1888,7 @@ def main():
     errs = kernel_phase(x)
     errs.update(block_phase(x, bx))
     h_errs, hx = head128_phase(bx)
-    for name, err in h_errs.items():
+    for name, err in list(h_errs.items()) + list(split_phase().items()):
         errs[name] = max(errs.get(name, 0.0), err)
     sp_params = superpoint_params()
     sp_errs, sx = sp_kernel_phase(sp_params)
@@ -1753,16 +1905,18 @@ def main():
                  gather_path_phase):
         for k, c in path().items():
             counts[k] += c
-    times = timing_phase(x, bx, hx, params, params2)
+    times, graph_times = timing_phase(x, bx, hx, params, params2)
     times.update(sp_timing_phase(sx, params, sp_params))
     times.update(aliked_timing_phase(ax, al_params))
     kernels, bounds = [], kernel_bounds()
-    for name in ("flash_sdpa d 128", "flash_sdpa_shift d 128",
-                 "fused_self_block 2 x 128"):
+    for name in ("fused_self_block 2 x 128",) + ATTENTION_ROWS:
         flops, nbytes = bounds[name]
         print(f"  {name}: bound {max(flops / PEAK_FLOPS, nbytes / PEAK_BYTES) * 1e3:.4f} ms"
-              f" ({'operations' if flops / PEAK_FLOPS >= nbytes / PEAK_BYTES else 'bytes'}),"
-              f" kernel {times[name][0]:.4f}, plain {times[name][1]:.4f}"
+              f" ({'operations' if flops / PEAK_FLOPS >= nbytes / PEAK_BYTES else 'bytes'})"
+              + (f", 3xTF32 bound {3 * flops / PEAK_TF32 * 1e3:.4f} ms"
+                 f", device time {graph_times[name][0]:.4f} (library "
+                 f"{graph_times[name][1]:.4f})" if name in graph_times else "")
+              + f", kernel {times[name][0]:.4f}, plain {times[name][1]:.4f}"
               + ("" if times[name][2] is None else f", library {times[name][2]:.4f}"))
     for name, (src, rep) in KERNELS.items():
         flops, nbytes = bounds[name]
@@ -1773,7 +1927,10 @@ def main():
             "ms": times[name][0], "plain_ms": times[name][1],
             "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": times[name][2]})
+            "library_ms": times[name][2],
+            # the tensor-core bound of the redesigned walk (3xTF32)
+            "bound_3xtf32_ms": (3 * flops / PEAK_TF32 * 1e3
+                                if name in ATTENTION_ROWS else None)})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

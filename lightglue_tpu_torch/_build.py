@@ -34,8 +34,9 @@ NVCC_FLAGS = (
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry point -> argument types (pointers and the stream as c_void_p).
 SIGNATURES = {
-    "lg_flash_sdpa": [_P] * 5 + [_I] * 6 + [_F] * 2 + [_P],
-    "lg_flash_cross_pair": [_P] * 8 + [_I] * 5 + [_F] + [_P],
+    "lg_flash_sdpa": [_P] * 7 + [_I] * 7 + [_F] * 2 + [_P],
+    "lg_flash_cross_pair": [_P] * 12 + [_I] * 7 + [_F] + [_P],
+    "lg_attention_shape": [_I] + [ctypes.POINTER(_I)] * 2 + [_P],
     "lg_fused_cross": [_P] * 9 + [_I] * 5 + [_F] * 2 + [_P],
     "lg_project_heads": [_P] * 6 + [_I] * 6 + [_P],
     "lg_block_tail": [_P] * 11 + [_I] * 4 + [_P],

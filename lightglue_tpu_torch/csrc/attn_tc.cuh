@@ -1,0 +1,431 @@
+// The attention key walk of K1 and B1' on Hopper's tensor cores, in fp32
+// by 3xTF32, with asynchronous K/V copies and a key split.
+//
+// A block holds 4 warps and takes 64 query rows of one (batch, head); each
+// warp owns 16 rows. Both products run as mma.sync m16n8k8 tf32 tiles with
+// an fp32 accumulator (mma.sync rather than wgmma: wgmma takes tf32 B
+// operands K-major only, so V would need a transpose in shared memory, and
+// one warp per 16 rows keeps the softmax in the accumulator's registers).
+//
+// 3xTF32: each fp32 operand x is split into big = tf32(x) and small =
+// tf32(x - big) (split_tf32), and a product sums small*big + big*small +
+// big*big in fp32; the small*small term (2^-21 of the product at most) is
+// dropped. That keeps a product within about 1e-6 relative of fp32, where
+// one tf32 pass (10-bit mantissa) is about 5e-4 off.
+//
+// S = Q K^T: Q's fragments of the block are loaded once, scaled, and kept
+// in shared memory in fragment order (thread-private, one float4 a k-step):
+// at head_dim 128 they do not fit in registers beside the accumulators.
+// K fragments are read from the tile and split as they are used.
+//
+// O += P V without moving P: the accumulator of S gives a thread the keys
+// 2t and 2t+1 of each 8-key step (t = lane % 4), where the A operand of the
+// next product wants keys t and t+4. A product sums over its keys in any
+// order, so each 8-key step takes its keys in the order 0 4 1 5 2 6 3 7 in
+// both operands: P's fragments are then the accumulator's registers as
+// they are, and V's rows are read as 2t and 2t+1. No shuffle and no staging
+// buffer.
+//
+// K and V tiles arrive by cp.async, 16 bytes a thread, into a two-stage
+// ring: tile i + 1 is in flight while tile i's products run. Rows are
+// padded (Shape) so that both fragment reads (K by key row, V by key pair)
+// fall on distinct banks. Rows past the key count are filled with zeros
+// and masked with -inf.
+//
+// A key split: a block may take only the key tiles [s T / S, (s + 1) T / S)
+// of its (batch, head, query tile) (T key tiles, S splits, S <= T). With S
+// > 1 it writes its unnormalised output and its row max and row sum to
+// scratch, and merge_splits combines the S states in split order, so a
+// result repeats to the bit. The wrapper picks S (ops/flash.py).
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace lg {
+namespace tc {
+
+constexpr int BQ = 64;  // query rows of a block, 16 a warp
+constexpr int THREADS = 128;
+constexpr float MASKED = -1e30f;  // the score bias of a masked key
+
+// Keys of a tile and whether Q's fragments are kept split (big and small)
+// or as fp32 and split as they are used, by head_dim, so that the blocks an
+// SM holds are as many as the shared memory allows: 64 keys and split Q at
+// 64 (104,448 bytes, two blocks an SM); 32 keys and fp32 Q at 128 (101,376
+// bytes, two blocks an SM, where 64 keys and split Q take 204,800, one).
+template <int D>
+struct Config;
+template <>
+struct Config<64> {
+  static constexpr int BK = 64;
+  static constexpr bool kSplitQ = true;
+  static constexpr int kUnrollKs = 4;  // of the 8 steps of Q K^T
+};
+template <>
+struct Config<128> {
+  static constexpr int BK = 32;
+  static constexpr bool kSplitQ = false;
+  static constexpr int kUnrollKs = 16;  // all: 1-5 % faster than 4 here
+};
+
+template <int D>
+struct Shape {
+  static_assert(D == 64 || D == 128, "the attention takes head_dim 64 or 128");
+  static constexpr int BK = Config<D>::BK;
+  static constexpr bool kSplitQ = Config<D>::kSplitQ;
+  static constexpr int NJ = BK / 8;      // 8-key steps of a tile
+  static constexpr int KS = D / 8;       // 8-deep steps of Q K^T, 8-wide tiles of O
+  // padded rows: K is read as (key g, channels 2t, 2t + 1) in 8-byte
+  // words, V as (keys 2t and 2t + 1, channel g); D + 8 and D + 4 put each
+  // read's words on distinct banks
+  static constexpr int LDK = D + 8, LDV = D + 4;
+  static constexpr int kStage = BK * (LDK + LDV);  // floats of a K and a V tile
+  static constexpr int kQ = (kSplitQ ? 2 : 1) * BQ * D;
+  static constexpr size_t kBytes = (kQ + 2 * kStage) * sizeof(float);
+  // of an SM's 228 KB, with 1 KB reserved a block
+  static constexpr int kBlocksPerSM = (228 * 1024) / (kBytes + 1024);
+};
+
+// x = big + small as two tf32 operands (a tensor core reads the top 19
+// bits of each): big = x with its low 13 bits cleared, small = x - big
+// (exact in fp32) plus half a tf32 unit, so that the hardware's truncation
+// rounds it to nearest. Three integer or fp32 operations and no cvt: the
+// split of CUTLASS's OpMultiplyAddFastF32.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
+                                           uint32_t& small) {
+  big = __float_as_uint(x) & 0xffffe000u;
+  small = __float_as_uint(x - __uint_as_float(big)) + 0x1000u;
+}
+
+// c += a b for one m16n8k8 tile (a: 4 tf32, b: 2 tf32, c: 4 fp32)
+__device__ __forceinline__ void mma(float c[4], const uint32_t a[4],
+                                    const uint32_t b[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c += a b in 3xTF32 from split operands
+__device__ __forceinline__ void mma3(float c[4], const uint32_t ab[4],
+                                     const uint32_t as[4], const uint32_t bb[2],
+                                     const uint32_t bs[2]) {
+  mma(c, as, bb);
+  mma(c, ab, bs);
+  mma(c, ab, bb);
+}
+
+// 16 bytes global -> shared, or 16 zero bytes when !valid
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool valid) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__host__ __device__ __forceinline__ int cdiv(int a, int b) {
+  return (a + b - 1) / b;
+}
+
+// The first key tile of split s of S over T key tiles.
+__host__ __device__ __forceinline__ int split_begin(int s, int S, int T) {
+  return s * T / S;
+}
+
+// Rows k0 .. k0 + BK - 1 of k and v (Nk, D) into the tiles Ks and Vs.
+template <int D>
+__device__ __forceinline__ void load_kv(float* Ks, float* Vs,
+                                        const float* __restrict__ k,
+                                        const float* __restrict__ v, int k0,
+                                        int Nk) {
+  using S = Shape<D>;
+  constexpr int CH = D / 4;  // 16-byte chunks of a row
+#pragma unroll
+  for (int i = 0; i < S::BK * CH / THREADS; ++i) {
+    const int idx = threadIdx.x + i * THREADS;
+    const int r = idx / CH, c = 4 * (idx % CH);
+    const bool ok = k0 + r < Nk;
+    const size_t off = ok ? (size_t)(k0 + r) * D + c : 0;
+    cp_async16(Ks + r * S::LDK + c, k + off, ok);
+    cp_async16(Vs + r * S::LDV + c, v + off, ok);
+  }
+  cp_async_commit();
+}
+
+__device__ __forceinline__ void unpack(const float4& f, uint32_t a[4]) {
+  a[0] = __float_as_uint(f.x);
+  a[1] = __float_as_uint(f.y);
+  a[2] = __float_as_uint(f.z);
+  a[3] = __float_as_uint(f.w);
+}
+
+// One block's work: query tile `tile` (rows 64 tile ..) of one (batch,
+// head) against key split `split` of `splits`, with
+//   s_rj = (scale q_r) . k_j + (kvalid[j] ? 0 : -1e30)   (kvalid null: all valid).
+// Exact (!SHIFT): online softmax; rows of a batch whose keys are all masked
+// come out 0. SHIFT: weights exp2(min(s_rj - shift2, 100)), no max.
+// splits == 1: o[r] = sum_j w_rj v_j / max(sum_j w_rj, 1e-30) into out.
+// splits > 1: the unnormalised sum into part (splits, rows, D) and (row
+// max, row sum) into ml (splits, rows, 2) at row `row0` + r; the row max is
+// -inf when the split has no valid key.
+// q, out: this (batch, head)'s (Nq, D); k, v: (Nk, D); dynamic shared
+// memory Shape<D>::kBytes.
+template <bool SHIFT, int D>
+__device__ __forceinline__ void attend_block(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const bool* __restrict__ kvalid,
+    float* __restrict__ out, float* __restrict__ part, float* __restrict__ ml,
+    int rows, int row0, int Nq, int Nk, int tile, int split, int splits,
+    float scale, float shift2) {
+  using S = Shape<D>;
+  constexpr int BK = S::BK, NJ = S::NJ;
+  extern __shared__ __align__(16) float lg_smem[];
+  float4* Qf = reinterpret_cast<float4*>(lg_smem);  // [KS][THREADS] (x2)
+  float* KV = lg_smem + S::kQ;  // stage st at st kStage: K, then V
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int T = cdiv(Nk, BK);
+  const int t0 = split_begin(split, splits, T);
+  const int t1 = split_begin(split + 1, splits, T);
+
+  load_kv<D>(KV, KV + BK * S::LDK, k, v, t0 * BK, Nk);
+
+  // Q's A fragments of the warp's 16 rows, the channels of each 8-deep
+  // step taken in the order 0 2 4 6 1 3 5 7 (A column t is channel 2t,
+  // column t + 4 channel 2t + 1; K's B fragments alike), so that a thread's
+  // two channels of a key are adjacent: a0 (g, c), a1 (g + 8, c), a2 (g,
+  // c + 1), a3 (g + 8, c + 1), c = 8 ks + 2t
+  const int r0 = tile * BQ + (tid >> 5) * 16 + g, r1 = r0 + 8;
+#pragma unroll
+  for (int ks = 0; ks < S::KS; ++ks) {
+    const int c = 8 * ks + 2 * t;
+    const float a[4] = {
+        r0 < Nq ? scale * q[(size_t)r0 * D + c] : 0.f,
+        r1 < Nq ? scale * q[(size_t)r1 * D + c] : 0.f,
+        r0 < Nq ? scale * q[(size_t)r0 * D + c + 1] : 0.f,
+        r1 < Nq ? scale * q[(size_t)r1 * D + c + 1] : 0.f};
+    if constexpr (S::kSplitQ) {
+      uint32_t ab[4], as[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) split_tf32(a[i], ab[i], as[i]);
+      Qf[ks * THREADS + tid] = make_float4(
+          __uint_as_float(ab[0]), __uint_as_float(ab[1]),
+          __uint_as_float(ab[2]), __uint_as_float(ab[3]));
+      Qf[(S::KS + ks) * THREADS + tid] = make_float4(
+          __uint_as_float(as[0]), __uint_as_float(as[1]),
+          __uint_as_float(as[2]), __uint_as_float(as[3]));
+    } else {
+      Qf[ks * THREADS + tid] = make_float4(a[0], a[1], a[2], a[3]);
+    }
+  }
+
+  // o[n]: rows g (0, 1) and g + 8 (2, 3), channels 8 n + 2t (+1)
+  float o[S::KS][4];
+#pragma unroll
+  for (int n = 0; n < S::KS; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
+  bool valid = kvalid == nullptr;
+
+  for (int kt = t0; kt < t1; ++kt) {
+    const int st = (kt - t0) & 1;
+    if (kt + 1 < t1) {
+      float* nxt = KV + (st ^ 1) * S::kStage;
+      load_kv<D>(nxt, nxt + BK * S::LDK, k, v, (kt + 1) * BK, Nk);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // tile kt has landed for every thread
+    const float* Ks = KV + st * S::kStage;
+    const float* Vs = Ks + BK * S::LDK;
+
+    // s[j]: rows g (0, 1) and g + 8 (2, 3), keys 8 j + 2t (+1)
+    float s[NJ][4];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll(Config<D>::kUnrollKs)
+    for (int ks = 0; ks < S::KS; ++ks) {
+      uint32_t ab[4], as[4];
+      if constexpr (S::kSplitQ) {
+        unpack(Qf[ks * THREADS + tid], ab);
+        unpack(Qf[(S::KS + ks) * THREADS + tid], as);
+      } else {
+        const float4 f = Qf[ks * THREADS + tid];
+        split_tf32(f.x, ab[0], as[0]);
+        split_tf32(f.y, ab[1], as[1]);
+        split_tf32(f.z, ab[2], as[2]);
+        split_tf32(f.w, ab[3], as[3]);
+      }
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        // B (k x n) = K^T: b0 (channel 2t, key g), b1 (2t + 1, key g)
+        const float2 kf = *reinterpret_cast<const float2*>(
+            Ks + (8 * j + g) * S::LDK + 8 * ks + 2 * t);
+        uint32_t bb[2], bs[2];
+        split_tf32(kf.x, bb[0], bs[0]);
+        split_tf32(kf.y, bb[1], bs[1]);
+        mma3(s[j], ab, as, bb, bs);
+      }
+    }
+
+    const int k0 = kt * BK;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int key = k0 + 8 * j + 2 * t + e;
+        float kb = 0.f;
+        if (kvalid != nullptr && key < Nk) {
+          const bool ok = kvalid[key];
+          kb = ok ? 0.f : MASKED;
+          valid |= ok;
+        }
+        s[j][e] = key < Nk ? s[j][e] + kb : -INFINITY;
+        s[j][e + 2] = key < Nk ? s[j][e + 2] + kb : -INFINITY;
+      }
+
+    if (SHIFT) {
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          s[j][c] = exp2f(fminf(s[j][c] - shift2, 100.f));
+          l_run[c >> 1] += s[j][c];
+        }
+    } else {
+      // each tile holds a key below Nk, so the new max is finite
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mt = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < NJ; ++j)
+          mt = fmaxf(mt, fmaxf(s[j][2 * r], s[j][2 * r + 1]));
+        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
+        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
+        const float m_new = fmaxf(m_run[r], mt);
+        const float alpha = expf(m_run[r] - m_new);  // 0 on the first tile
+        float ps = 0.f;
+#pragma unroll
+        for (int j = 0; j < NJ; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            s[j][2 * r + e] = expf(s[j][2 * r + e] - m_new);
+            ps += s[j][2 * r + e];
+          }
+        l_run[r] = l_run[r] * alpha + ps;
+        m_run[r] = m_new;
+#pragma unroll
+        for (int n = 0; n < S::KS; ++n) {
+          o[n][2 * r] *= alpha;
+          o[n][2 * r + 1] *= alpha;
+        }
+      }
+    }
+
+    // O += P V, keys of step j taken as 2t (A column t) and 2t + 1 (A
+    // column t + 4): a = (s0, s2, s1, s3), b0 = V[2t], b1 = V[2t + 1]
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      uint32_t pb[4], ps[4];
+      split_tf32(s[j][0], pb[0], ps[0]);
+      split_tf32(s[j][2], pb[1], ps[1]);
+      split_tf32(s[j][1], pb[2], ps[2]);
+      split_tf32(s[j][3], pb[3], ps[3]);
+      const float* vp = Vs + (8 * j + 2 * t) * S::LDV + g;
+#pragma unroll
+      for (int n = 0; n < S::KS; ++n) {
+        uint32_t bb[2], bs[2];
+        split_tf32(vp[8 * n], bb[0], bs[0]);
+        split_tf32(vp[S::LDV + 8 * n], bb[1], bs[1]);
+        mma3(o[n], pb, ps, bb, bs);
+      }
+    }
+    __syncthreads();  // every read of this stage is done before its reload
+  }
+
+  // the row sums over the quad; whether any key of the split is valid
+  // (the lanes of a warp together cover every key)
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
+  }
+  valid = __any_sync(0xffffffffu, valid);
+  const bool empty = !SHIFT && !valid;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r ? r1 : r0;
+    if (row >= Nq) continue;
+    if (splits == 1) {
+      const float l = fmaxf(l_run[r], 1e-30f);
+      float* dst = out + (size_t)row * D + 2 * t;
+#pragma unroll
+      for (int n = 0; n < S::KS; ++n)
+        *reinterpret_cast<float2*>(dst + 8 * n) =
+            empty ? make_float2(0.f, 0.f)
+                  : make_float2(o[n][2 * r] / l, o[n][2 * r + 1] / l);
+    } else {
+      const size_t prow = (size_t)split * rows + row0 + row;
+      float* dst = part + prow * D + 2 * t;
+#pragma unroll
+      for (int n = 0; n < S::KS; ++n)
+        *reinterpret_cast<float2*>(dst + 8 * n) =
+            make_float2(o[n][2 * r], o[n][2 * r + 1]);
+      if (t == 0)
+        *reinterpret_cast<float2*>(ml + 2 * prow) =
+            make_float2(empty ? -INFINITY : m_run[r], l_run[r]);
+    }
+  }
+}
+
+// o[row] = sum_s w_s part[s][row] / max(sum_s w_s l_s, 1e-30) over rows
+// (rows, D), w_s = exp(m_s - max_s m_s) (exact; 0 when every m_s is -inf,
+// which leaves the row 0) or 1 (SHIFT); splits summed in order.
+// One thread per 4 channels of a row.
+template <bool SHIFT>
+__global__ void __launch_bounds__(256)
+    merge_splits(const float* __restrict__ part, const float* __restrict__ ml,
+                 float* __restrict__ o, int rows, int D, int splits) {
+  const int per_row = D / 4;
+  const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (long)rows * per_row) return;
+  const int row = (int)(i / per_row), c = 4 * (int)(i % per_row);
+  float mx = 0.f;
+  if (!SHIFT) {
+    mx = -INFINITY;
+    for (int s = 0; s < splits; ++s)
+      mx = fmaxf(mx, ml[2 * ((size_t)s * rows + row)]);
+  }
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  float l = 0.f;
+  if (SHIFT || mx != -INFINITY) {
+    for (int s = 0; s < splits; ++s) {
+      const size_t pr = (size_t)s * rows + row;
+      const float w = SHIFT ? 1.f : expf(ml[2 * pr] - mx);
+      const float4 p = *reinterpret_cast<const float4*>(part + pr * D + c);
+      l += w * ml[2 * pr + 1];
+      acc.x += w * p.x;
+      acc.y += w * p.y;
+      acc.z += w * p.z;
+      acc.w += w * p.w;
+    }
+    l = fmaxf(l, 1e-30f);
+    acc = make_float4(acc.x / l, acc.y / l, acc.z / l, acc.w / l);
+  }
+  *reinterpret_cast<float4*>(o + (size_t)row * D + c) = acc;
+}
+
+}  // namespace tc
+}  // namespace lg

@@ -15,68 +15,77 @@
 //   m0 = attn(qk0, qk1, v1, valid1),  m1 = attn(qk1, qk0, v0, valid0).
 // The JAX matcher takes it for the cross blocks at head_dim 128, where the
 // ones column of B3's and B6's augmented V does not fit. Here it is one
-// launch over both directions (grid z = 2 B, the low bit the direction):
-// at head_dim 128 a matcher has two heads, so one direction at B 1 and
-// N 1024 is 16 x 2 = 32 blocks for 132 SMs; one launch doubles that and
-// halves the launches. Rows of masked queries are not zeroed, as in the
-// TPU pair.
+// launch over both directions (grid z = 2 B, the low bit the direction).
+// Rows of masked queries are not zeroed, as in the TPU pair.
 //
 // What bounds them on an H100: arithmetic. At the main path's shape
-// (B 4, H 4, N 1024, head_dim 64, or H 2 at 128) the two tile products are
-// 4.3 GFLOP for 17 MB of q, k, v and o, about 250 flop per byte, far above
-// the ~20 flop per byte where fp32 CUDA-core work (67 TFLOP/s) stops
-// waiting on HBM.
+// (B 4, H 4, N 1024, head_dim 64, or H 2 at 128) the two products are
+// 4.3 GFLOP for 17 MB of q, k, v and o, about 250 flop per byte. In fp32 on
+// CUDA cores (67 TFLOP/s) that is 0.064 ms; as 3xTF32 on the tensor cores
+// (three tf32 products of 495 TFLOP/s each) 0.026 ms.
 //
-// Design: the TPU kernel keeps a whole (256, N) fp32 score strip in VMEM;
-// at N = 1024 a 64-row strip alone is 256 KB, over the 227 KB a block can
-// have. So one block takes one (batch, head, 64-query tile) and walks the
-// keys in 64-row tiles with an online softmax (running max and sum), the
-// output accumulator in registers (16 floats a thread at head_dim 64, 32 at
-// 128). At 128 each score tile is two 64-deep products in order, and the
-// value tile overwrites the key tile once the scores are taken
-// (common.cuh::AttnShape). K and V tiles are re-read from L2 by each query
-// tile. An online softmax over all-masked keys returns mean(v), so the block
-// tracks whether any key is valid and writes 0 when none is, as the TPU
-// kernel does. The shift variant is the same walk without the max and the
-// rescale: a template flag of the one kernel. The ragged last key tile is
-// masked with -inf, so any N >= 1 is taken. Tensor cores (wgmma) are later
-// work.
-#include "common.cuh"
+// Design (attn_tc.cuh): the TPU kernel keeps a whole (256, N) score strip
+// in VMEM, over the 227 KB a block can have. Here a block of 4 warps takes
+// 64 queries of one (batch, head) and walks the keys in tiles (64 keys at
+// head_dim 64, 32 at 128: two blocks an SM either way) with an online
+// softmax, both products on the tensor cores in 3xTF32, the tiles
+// arriving by cp.async into a two-stage ring. At small batch the blocks
+// would not fill the card (32 at B 1 with two heads of 128), so the wrapper
+// splits each block's keys over S blocks and a second launch, merge_splits,
+// combines their states in a fixed order. An online softmax over
+// all-masked keys returns mean(v), so the block tracks whether any key is
+// valid and writes 0 when none is, as the TPU kernel does. The shift
+// variant is the same walk without the max and the rescale.
+#include "attn_tc.cuh"
 
 namespace {
 
+using lg::tc::Shape;
+
+// Grid (cdiv(Nq, 64) splits, H, B): x = query tile * splits + split.
 template <bool SHIFT, int D>
-__global__ void __launch_bounds__(lg::THREADS)
+__global__ void __launch_bounds__(lg::tc::THREADS, Shape<D>::kBlocksPerSM)
     flash_sdpa_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ v,
-                      const float* __restrict__ kbias, float* __restrict__ o,
-                      int H, int Nq, int Nk, float scale, float shift2) {
-  lg::row_softmax_attention<SHIFT, D>(q, k, v, kbias, nullptr, o, nullptr, H,
-                                      Nq, Nk, scale, /*zero_empty=*/true,
-                                      shift2);
+                      const bool* __restrict__ kvalid, float* __restrict__ o,
+                      float* __restrict__ part, float* __restrict__ ml, int H,
+                      int Nq, int Nk, int splits, float scale, float shift2) {
+  const int b = blockIdx.z, h = blockIdx.y;
+  const size_t bh = (size_t)b * H + h;
+  lg::tc::attend_block<SHIFT, D>(
+      q + bh * Nq * D, k + bh * Nk * D, v + bh * Nk * D,
+      kvalid ? kvalid + (size_t)b * Nk : nullptr, o + bh * Nq * D, part, ml,
+      (int)(gridDim.z * H) * Nq, (int)bh * Nq, Nq, Nk, blockIdx.x / splits,
+      blockIdx.x % splits, splits, scale, shift2);
 }
 
-// Grid (cdiv(max(M, N), 64), H, 2 B); z = 2 b + direction. A block whose
-// tile lies past its direction's query count returns at once.
+// Grid (max over directions of cdiv(nq, 64) splits, H, 2 B); z = 2 b +
+// direction. Direction 0 (messages into image 0) has M queries, N keys and
+// splits0; direction 1 the reverse. A block past its direction's grid
+// returns at once.
 template <int D>
-__global__ void __launch_bounds__(lg::THREADS)
-    flash_cross_pair_kernel(const float* __restrict__ qk0,
-                            const float* __restrict__ qk1,
-                            const float* __restrict__ v0,
-                            const float* __restrict__ v1,
-                            const float* __restrict__ bias0,
-                            const float* __restrict__ bias1,
-                            float* __restrict__ m0, float* __restrict__ m1,
-                            int H, int M, int N, float scale) {
-  const int b = blockIdx.z >> 1;
+__global__ void __launch_bounds__(lg::tc::THREADS, Shape<D>::kBlocksPerSM)
+    flash_cross_pair_kernel(
+        const float* __restrict__ qk0, const float* __restrict__ qk1,
+        const float* __restrict__ v0, const float* __restrict__ v1,
+        const bool* __restrict__ valid0, const bool* __restrict__ valid1,
+        float* __restrict__ m0, float* __restrict__ m1,
+        float* __restrict__ part0, float* __restrict__ ml0,
+        float* __restrict__ part1, float* __restrict__ ml1, int H, int M,
+        int N, int splits0, int splits1, float scale) {
+  const int b = blockIdx.z >> 1, h = blockIdx.y;
   const bool dir1 = blockIdx.z & 1;  // messages into image 1
   const int nq = dir1 ? N : M, nk = dir1 ? M : N;
-  if ((int)blockIdx.x * lg::TILE >= nq) return;
-  lg::attend_tile<false, D>(dir1 ? qk1 : qk0, dir1 ? qk0 : qk1,
-                            dir1 ? v0 : v1, dir1 ? bias0 : bias1, nullptr,
-                            dir1 ? m1 : m0, nullptr, H, nq, nk, scale,
-                            /*zero_empty=*/true, 0.f, b, blockIdx.y,
-                            blockIdx.x, 0);
+  const int splits = dir1 ? splits1 : splits0;
+  if ((int)blockIdx.x >= lg::tc::cdiv(nq, lg::tc::BQ) * splits) return;
+  const size_t bh = (size_t)b * H + h;
+  const bool* kvalid = dir1 ? valid0 : valid1;
+  lg::tc::attend_block<false, D>(
+      (dir1 ? qk1 : qk0) + bh * nq * D, (dir1 ? qk0 : qk1) + bh * nk * D,
+      (dir1 ? v0 : v1) + bh * nk * D, kvalid ? kvalid + (size_t)b * nk : nullptr,
+      (dir1 ? m1 : m0) + bh * nq * D, dir1 ? part1 : part0, dir1 ? ml1 : ml0,
+      (int)(gridDim.z >> 1) * H * nq, (int)bh * nq, nq, nk,
+      blockIdx.x / splits, blockIdx.x % splits, splits, scale, 0.f);
 }
 
 template <typename Kernel>
@@ -86,73 +95,127 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
                               (int)smem);
 }
 
+// The merge launch of a split walk (nothing when splits == 1).
+template <bool SHIFT>
+cudaError_t merge(const float* part, const float* ml, float* o, int rows,
+                  int D, int splits, cudaStream_t stream) {
+  if (splits == 1) return cudaSuccess;
+  const long n = (long)rows * (D / 4);
+  lg::tc::merge_splits<SHIFT><<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(part, ml, o, rows, D, splits);
+  return cudaGetLastError();
+}
+
 template <bool SHIFT, int D>
 cudaError_t launch(const float* q, const float* k, const float* v,
-                   const float* kbias, float* o, int B, int H, int Nq, int Nk,
-                   float scale, float shift2, cudaStream_t stream) {
-  constexpr size_t smem = lg::row_attn_smem<D>();
+                   const bool* kvalid, float* o, float* part, float* ml,
+                   int B, int H, int Nq, int Nk, int splits, float scale,
+                   float shift2, cudaStream_t stream) {
+  constexpr size_t smem = Shape<D>::kBytes;
   cudaError_t err = allow_smem(flash_sdpa_kernel<SHIFT, D>, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(lg::cdiv(Nq, lg::TILE), H, B);
-  flash_sdpa_kernel<SHIFT, D><<<grid, lg::THREADS, smem, stream>>>(q, k, v, kbias, o, H, Nq, Nk, scale, shift2);
-  return cudaGetLastError();
+  const dim3 grid(lg::tc::cdiv(Nq, lg::tc::BQ) * splits, H, B);
+  flash_sdpa_kernel<SHIFT, D><<<grid, lg::tc::THREADS, smem, stream>>>(q, k, v, kvalid, o, part, ml, H, Nq, Nk, splits, scale, shift2);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return merge<SHIFT>(part, ml, o, B * H * Nq, D, splits, stream);
+}
+
+// Keys of a tile and blocks an SM holds of the walk at head_dim D.
+template <int D>
+cudaError_t walk_shape(int* key_tile, int* blocks_per_sm) {
+  constexpr size_t smem = Shape<D>::kBytes;
+  cudaError_t err = allow_smem(flash_sdpa_kernel<false, D>, smem);
+  if (err != cudaSuccess) return err;
+  *key_tile = Shape<D>::BK;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, flash_sdpa_kernel<false, D>, lg::tc::THREADS, smem);
 }
 
 template <bool SHIFT>
 cudaError_t launch_d(int d, const float* q, const float* k, const float* v,
-                     const float* kbias, float* o, int B, int H, int Nq,
-                     int Nk, float scale, float shift2, cudaStream_t stream) {
+                     const bool* kvalid, float* o, float* part, float* ml,
+                     int B, int H, int Nq, int Nk, int splits, float scale,
+                     float shift2, cudaStream_t stream) {
   if (d == 64)
-    return launch<SHIFT, 64>(q, k, v, kbias, o, B, H, Nq, Nk, scale, shift2,
-                             stream);
+    return launch<SHIFT, 64>(q, k, v, kvalid, o, part, ml, B, H, Nq, Nk,
+                             splits, scale, shift2, stream);
   if (d == 128)
-    return launch<SHIFT, 128>(q, k, v, kbias, o, B, H, Nq, Nk, scale, shift2,
-                              stream);
+    return launch<SHIFT, 128>(q, k, v, kvalid, o, part, ml, B, H, Nq, Nk,
+                              splits, scale, shift2, stream);
   return cudaErrorInvalidValue;
 }
 
 template <int D>
 cudaError_t launch_pair(const float* qk0, const float* qk1, const float* v0,
-                        const float* v1, const float* bias0,
-                        const float* bias1, float* m0, float* m1, int B,
-                        int H, int M, int N, float scale,
-                        cudaStream_t stream) {
-  constexpr size_t smem = lg::row_attn_smem<D>();
+                        const float* v1, const bool* valid0,
+                        const bool* valid1, float* m0, float* m1,
+                        float* part0, float* ml0, float* part1, float* ml1,
+                        int B, int H, int M, int N, int splits0, int splits1,
+                        float scale, cudaStream_t stream) {
+  constexpr size_t smem = Shape<D>::kBytes;
   cudaError_t err = allow_smem(flash_cross_pair_kernel<D>, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(lg::cdiv(M > N ? M : N, lg::TILE), H, 2 * B);
-  flash_cross_pair_kernel<D><<<grid, lg::THREADS, smem, stream>>>(qk0, qk1, v0, v1, bias0, bias1, m0, m1, H, M, N, scale);
-  return cudaGetLastError();
+  const int x0 = lg::tc::cdiv(M, lg::tc::BQ) * splits0;
+  const int x1 = lg::tc::cdiv(N, lg::tc::BQ) * splits1;
+  const dim3 grid(x0 > x1 ? x0 : x1, H, 2 * B);
+  flash_cross_pair_kernel<D><<<grid, lg::tc::THREADS, smem, stream>>>(qk0, qk1, v0, v1, valid0, valid1, m0, m1, part0, ml0, part1, ml1, H, M, N, splits0, splits1, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  err = merge<false>(part0, ml0, m0, B * H * M, D, splits0, stream);
+  if (err != cudaSuccess) return err;
+  return merge<false>(part1, ml1, m1, B * H * N, D, splits1, stream);
 }
 
 }  // namespace
 
-// q, o: (B, H, Nq, d); k, v: (B, H, Nk, d); kbias: (B, Nk) or null;
-// d 64 or 128. scale multiplies q (1/sqrt(d) exact; times log2(e) with a
-// shift); shift2 = shift * log2(e).
+// q, o: (B, H, Nq, d); k, v: (B, H, Nk, d); kvalid: (B, Nk) bool, true
+// for a valid key, or null;
+// d 64 or 128; q, k, v 16-byte aligned. splits: key splits per query tile
+// (1 <= splits <= the key tiles, lg_attention_shape); with splits > 1,
+// part (splits, B H Nq, d) and ml (splits, B H Nq, 2) are scratch. scale
+// multiplies q (1/sqrt(d) exact; times log2(e) with a shift); shift2 =
+// shift * log2(e).
 extern "C" cudaError_t lg_flash_sdpa(const float* q, const float* k,
-                                     const float* v, const float* kbias,
-                                     float* o, int B, int H, int Nq, int Nk,
-                                     int d, int shift, float scale,
-                                     float shift2, cudaStream_t stream) {
-  return shift ? launch_d<true>(d, q, k, v, kbias, o, B, H, Nq, Nk, scale,
-                                shift2, stream)
-               : launch_d<false>(d, q, k, v, kbias, o, B, H, Nq, Nk, scale,
-                                 shift2, stream);
+                                     const float* v, const bool* kvalid,
+                                     float* o, float* part, float* ml, int B,
+                                     int H, int Nq, int Nk, int d, int shift,
+                                     int splits, float scale, float shift2,
+                                     cudaStream_t stream) {
+  return shift ? launch_d<true>(d, q, k, v, kvalid, o, part, ml, B, H, Nq, Nk,
+                                splits, scale, shift2, stream)
+               : launch_d<false>(d, q, k, v, kvalid, o, part, ml, B, H, Nq,
+                                 Nk, splits, scale, shift2, stream);
 }
 
-// qk0, v0, m0: (B, H, M, d); qk1, v1, m1: (B, H, N, d); bias0 (B, M),
-// bias1 (B, N), each or null; d 64 or 128; scale multiplies the queries of
-// both directions (1/sqrt(d)).
+// qk0, v0, m0: (B, H, M, d); qk1, v1, m1: (B, H, N, d); valid0 (B, M),
+// valid1 (B, N) bool, each or null; d 64 or 128; inputs 16-byte aligned.
+// splits0 splits direction 0's N keys (part0 (splits0, B H M, d), ml0 (splits0,
+// B H M, 2)), splits1 direction 1's M keys. scale multiplies the queries
+// of both directions (1/sqrt(d)).
 extern "C" cudaError_t lg_flash_cross_pair(
     const float* qk0, const float* qk1, const float* v0, const float* v1,
-    const float* bias0, const float* bias1, float* m0, float* m1, int B,
-    int H, int M, int N, int d, float scale, cudaStream_t stream) {
+    const bool* valid0, const bool* valid1, float* m0, float* m1,
+    float* part0, float* ml0, float* part1, float* ml1, int B, int H, int M,
+    int N, int d, int splits0, int splits1, float scale,
+    cudaStream_t stream) {
   if (d == 64)
-    return launch_pair<64>(qk0, qk1, v0, v1, bias0, bias1, m0, m1, B, H, M,
-                           N, scale, stream);
+    return launch_pair<64>(qk0, qk1, v0, v1, valid0, valid1, m0, m1, part0,
+                           ml0, part1, ml1, B, H, M, N, splits0, splits1,
+                           scale, stream);
   if (d == 128)
-    return launch_pair<128>(qk0, qk1, v0, v1, bias0, bias1, m0, m1, B, H, M,
-                            N, scale, stream);
+    return launch_pair<128>(qk0, qk1, v0, v1, valid0, valid1, m0, m1, part0,
+                            ml0, part1, ml1, B, H, M, N, splits0, splits1,
+                            scale, stream);
+  return cudaErrorInvalidValue;
+}
+
+// The walk's key tile and the blocks an SM holds of it at head_dim d (64
+// or 128), for the wrapper's split plan. The stream is not used.
+extern "C" cudaError_t lg_attention_shape(int d, int* key_tile,
+                                          int* blocks_per_sm,
+                                          cudaStream_t stream) {
+  (void)stream;
+  if (d == 64) return walk_shape<64>(key_tile, blocks_per_sm);
+  if (d == 128) return walk_shape<128>(key_tile, blocks_per_sm);
   return cudaErrorInvalidValue;
 }

@@ -10,9 +10,9 @@ exact (``shift`` None: per-row maximum, an all-masked batch entry's context
 is 0) or with the constant-shift exp2 softmax, at head_dim 64 or 128 (the
 JAX kernel has no head_dim limit; the JAX matcher reaches it at both). On a
 CUDA tensor ``fused_self_block`` runs its launches (csrc/blocks.cu: the q,
-k, v projection with rotary, then K1's key walk of csrc/flash_sdpa.cu, then
-the out_proj + FFN tail) or raises; on a CPU tensor it runs
-``fused_self_block_plain``.
+k, v projection with rotary, then K1's key walk of csrc/flash_sdpa.cu
+through flash.launch_attention, with its key split, then the out_proj +
+FFN tail) or raises; on a CPU tensor it runs ``fused_self_block_plain``.
 
 ``prepare`` builds the kernel's weights once per parameter tree: the q, k
 and v columns of the reference packing ``(head * hd + chan) * 3 + which``
@@ -33,7 +33,8 @@ import torch
 from .. import _build, nn
 from . import ffn as ffn_ops
 from . import rotary
-from .flash import HEAD_DIMS, LOG2E, key_bias, shift_weights
+from .flash import (HEAD_DIMS, LOG2E, key_bias, launch_attention, mask_arg,
+                    shift_weights)
 
 MAX_FUSED_N = 2048  # the JAX package's limit; it decides which kernels run
 
@@ -174,23 +175,20 @@ def fused_self_block(
     b, n, d = x.shape
     cos = enc[0][:, 0].contiguous()
     sin = enc[1][:, 0].contiguous()
-    kbias = None if key_mask is None else key_bias(key_mask).contiguous()
     dev = check_block_weights(w, d)
     hd = d // w["num_heads"]
-    if _build.check_cuda(x=x, cos=cos, sin=sin, k_bias=kbias) != dev:
+    if _build.check_cuda(x=x, cos=cos, sin=sin) != dev:
         raise ValueError(f"x is on {x.device}, the weights on {dev}")
     if cos.shape != (b, n, hd // 2) or n < 1:
         raise ValueError(f"enc {tuple(enc.shape)} does not fit x "
                          f"{tuple(x.shape)}")
-    if kbias is not None and kbias.shape != (b, n):
-        raise ValueError(f"key_mask must be ({b}, {n})")
     qkv = launch_project(w, x, 3, dev, cos, sin)
     shift = w["shift"]
     ctx = torch.empty_like(qkv[0])
     # K1's key walk on the projected heads (the scale is in q already)
-    _build.launch("lg_flash_sdpa", dev, qkv[0], qkv[1], qkv[2], kbias, ctx,
-                  b, w["num_heads"], n, n, hd, int(shift is not None), 1.0,
-                  0.0 if shift is None else shift * LOG2E)
+    launch_attention(dev, [(qkv[0], qkv[1], qkv[2],
+                            mask_arg(key_mask, (b, n), dev), ctx)], 1.0,
+                     None if shift is None else shift * LOG2E)
     out = launch_tail(w, ctx, x, dev)
     _build.count("fused_self_block")
     return out

@@ -116,7 +116,7 @@ def test_import_leaves_jax_out():
             "lightglue_tpu_torch.ops.deform, "
             "lightglue_tpu_torch.ops.gather, "
             "lightglue_tpu_torch.scripts.micro_gather2, "
-            "lightglue_tpu_torch.scripts.attn_carve, "
+            "lightglue_tpu_torch.scripts.attn_split, "
             "lightglue_tpu_torch.synthetic; "
             "bad = [m for m, mod in sys.modules.items() if mod is not None "
             "and m.split('.')[0] in ('jax', 'lightglue_tpu')]; "
