@@ -8,10 +8,16 @@ Phases, any failure raising (non-zero exit, no result line):
      stay at torch's defaults (cuDNN's on), so the checks below hold the
      library's own fp32 scoping of its convs;
   1. build: nvcc compiles csrc/*.cu into _build/, one process per source
-     (timed);
+     (timed), each kernel's registers and spills (a spilling tile kernel of
+     B5 or B6 fails the run);
   2. each kernel against its plain PyTorch version at the main paths'
      shapes, then at tiny and ragged shapes and, for the matcher's kernels,
-     at 2048 keypoints; the whole-block kernels (B5, B6) and the
+     at 2048 keypoints; the whole-block kernels (B5, B6) exact and with
+     shift 12 at B 1, 4 and 16, ragged and at 2048 keypoints (B5), masked
+     and with a batch entry that has no valid point, each launched twice
+     (bit for bit), and each of their tensor-core launches (projection,
+     out_proj, lin1 with its LayerNorm partials, lin2, the tail chain)
+     against its plain version at B 1 and 16, twice; the
      constant-shift variants (B1s, B3s) exact and with shift 12; ALIKED's
      kernels (B10-B12) at two RGB 768 x 1024 images and at edge shapes
      (a branch dimension of 1, ragged tiles, aliked-t16 widths), with
@@ -59,12 +65,14 @@ Phases, any failure raising (non-zero exit, no result line):
      version (and the one PyTorch call that computes the same function,
      where there is one), K1 and B5 at head_dim 128 too, the attention
      walk (K1, B1s, B1') at B 1 too and its device time from CUDA-graph
-     replays beside SDPA's, extraction ms per
+     replays beside SDPA's; B5 and B6 at B 1, 4 and 16 with their
+     projection (beside cuBLAS addmm) and tail, as events and as CUDA-graph
+     device time; extraction ms per
      image, the matcher in its default and composed configurations and
      with two heads of 128, end-to-end pairs/s and
      match_pair ms per pair, for SuperPoint and for ALIKED.
 A JSON object of the kernels (with each one's bound, from its shapes, and
-for the attention walk its 3xTF32 tensor-core bound too) and
+for the attention walk, B5 and B6 its 3xTF32 tensor-core bound too) and
 the card's name and power limit come before the last line,
 {"ok": true, "device": {...}}.
 
@@ -100,6 +108,7 @@ from lightglue_tpu_torch.models import aliked as al  # noqa: E402
 from lightglue_tpu_torch.models import superpoint as sp  # noqa: E402
 from lightglue_tpu_torch.ops import assignment_fused as af  # noqa: E402
 from lightglue_tpu_torch.ops import ffn, flash, flash_cross  # noqa: E402
+from lightglue_tpu_torch.ops import block_tc  # noqa: E402
 from lightglue_tpu_torch.ops import flash_cross_block, flash_self  # noqa: E402
 from lightglue_tpu_torch.ops import aliked_stem, score_head  # noqa: E402
 from lightglue_tpu_torch.ops import gather, nms, stem, stem2  # noqa: E402
@@ -150,8 +159,16 @@ ATTENTION_ROWS = ("flash_sdpa", "flash_sdpa_shift", "flash_sdpa d 128",
                   "flash_sdpa_shift d 128", "flash_cross_pair", "flash_sdpa B 1",
                   "flash_sdpa_shift B 1", "flash_sdpa d 128 B 1",
                   "flash_sdpa_shift d 128 B 1", "flash_cross_pair B 1")
+# Rows of the redesigned B5 and B6 in phase 4: the whole ops (B 4 under
+# their kernel names) and their projection and tail launches
+BLOCK_ROWS = tuple(
+    [f"fused_self_block{'' if b == 4 else f' B {b}'}" for b in (1, 4, 16)]
+    + [f"fused_cross_block{'' if b == 4 else f' B {b}'}" for b in (1, 4, 16)]
+    + [f"{blk} {part} B {b}" for blk in ("B5", "B6")
+       for part in ("projection", "tail") for b in (1, 4, 16)])
 MATCHER_KERNELS = ("flash_sdpa", "fused_cross_attention", "fused_ffn_residual",
                    "fused_filter_matches")
+BLOCK_BATCHES = (1, 4, 16)  # B5 and B6 in phases 2c and 4
 SHIFT = 12.0  # the JAX bench's self_ and cross_softmax_shift (bench.py:279)
 COMPOSED = dict(fused_self=False, fused_cross=False)
 SHIFTED = dict(self_softmax_shift=SHIFT, cross_softmax_shift=SHIFT)
@@ -288,15 +305,21 @@ def build_phase():
     path, log = _build.build()
     _build.library()
     # ptxas -v, one line a kernel: its name (and template arguments, as
-    # mangled), registers and spills
+    # mangled; the tile kernels' tile as rows x channels / warp), registers
+    # and spills; a tile kernel (blocks.cu) that spills or has a stack
+    # frame fails the run
     name, spills = "?", ""
     for line in log.splitlines():
         if "Compiling entry function" in line:
-            name = kernel_name(line.split("'")[1])
+            name = re.sub(r"IN2lg4gemm4TileILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E",
+                          r"<\1x\2 / \3x\4>", kernel_name(line.split("'")[1]))
         elif "spill" in line:
             spills = line.strip()
         elif "Used" in line:
             print(f"  {name}: {line.split(':', 1)[1].strip()}; {spills}")
+            if "_tc_kernel" in name and not spills.startswith(
+                    "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"):
+                raise AssertionError(f"{name} spills: {spills}")
     print(f"  built {os.path.relpath(path, ROOT)} in {time.time() - t0:.1f} s",
           flush=True)
 
@@ -436,15 +459,32 @@ def block_inputs(params):
     valid[1] = False
     va1 = mask(4, 768, 0.9)
     va1[1] = False
-    return {
+    bx = {
         "layer": layer,
-        "b5": (rand(g, 4, 1024, 256), enc(4, 1024), valid),
+        "b5": {4: (rand(g, 4, 1024, 256), enc(4, 1024), valid)},
         "b5_2048": (rand(g, 1, 2048, 256), enc(1, 2048), mask(1, 2048)),
-        "b6": (rand(g, 4, 1024, 256), rand(g, 4, 768, 256), mask(4, 1024, 0.9),
-               va1),
+        "b6": {4: (rand(g, 4, 1024, 256), rand(g, 4, 768, 256),
+                   mask(4, 1024, 0.9), va1)},
         "k_2048": (rand(g, 1, 4, 2048, 64), rand(g, 1, 4, 2048, 64),
                    rand(g, 1, 4, 2048, 64), mask(1, 2048), mask(1, 2048)),
     }
+    # B 1 and B 16 and the ragged B5, from a generator of their own, so
+    # that the inputs above (and the other kernels' checks on them) keep
+    # their draws; batch entry 1 without a valid point
+    g = torch.Generator(device="cuda").manual_seed(14)
+
+    def mask_empty(b, n, p=0.85):
+        m = mask(b, n, p)
+        if b > 1:
+            m[1] = False
+        return m
+
+    for b in (1, 16):
+        bx["b5"][b] = (rand(g, b, 1024, 256), enc(b, 1024), mask_empty(b, 1024))
+        bx["b6"][b] = (rand(g, b, 1024, 256), rand(g, b, 768, 256),
+                       mask(b, 1024, 0.9), mask_empty(b, 768, 0.9))
+    bx["b5_1000"] = (rand(g, 4, 1000, 256), enc(4, 1000), mask_empty(4, 1000))
+    return bx
 
 
 def block_weights(bx, shift):
@@ -458,24 +498,43 @@ def block_phase(x, bx):
     versions at the main paths' shapes and at 2048 keypoints."""
     phase("2c whole-block kernels and constant-shift variants against their "
           "plain versions")
-    errs = {}
+    errs = {"fused_self_block": 0.0, "fused_cross_block": 0.0}
+
+    def note(name, label, err):
+        errs[name] = max(errs[name], check(label, err))
+
     for shift in (None, SHIFT):
         w5, w6 = block_weights(bx, shift)
-        for key in ("b5", "b5_2048"):
-            xx, enc, valid = bx[key]
+        b5_cases = [(f"B {b}", bx["b5"][b]) for b in BLOCK_BATCHES] + [
+            ("ragged", bx["b5_1000"]), ("2048", bx["b5_2048"])]
+        for label, (xx, enc, valid) in b5_cases:
             for mk in (None, valid):
-                errs["fused_self_block"] = max(errs.get("fused_self_block", 0.0), check(
-                    f"fused_self_block {tuple(xx.shape)} shift {shift}"
-                    f"{' masked' if mk is not None else ''}",
-                    max_err(flash_self.fused_self_block(w5, xx, enc, mk),
-                            flash_self.fused_self_block_plain(w5, xx, enc, mk))))
-        x0, x1, va0, va1 = bx["b6"]
-        got = flash_cross_block.fused_cross_block(w6, x0, x1, va0, va1)
-        ref = flash_cross_block.fused_cross_block_plain(w6, x0, x1, va0, va1)
-        errs["fused_cross_block"] = max(errs.get("fused_cross_block", 0.0), check(
-            f"fused_cross_block B 4, M 1024 / N 768 masked (image 1 of entry 1 "
-            f"empty), shift {shift}, valid rows",
-            max(max_err(got[0], ref[0], va0), max_err(got[1], ref[1], va1))))
+                got = flash_self.fused_self_block(w5, xx, enc, mk)
+                same(f"fused_self_block {label}", (got,),
+                     (flash_self.fused_self_block(w5, xx, enc, mk),))
+                note("fused_self_block",
+                     f"fused_self_block {tuple(xx.shape)} shift {shift}"
+                     f"{' masked' if mk is not None else ''}"
+                     f"{', entry 1 all masked' if mk is not None and xx.shape[0] > 1 else ''}",
+                     max_err(got, flash_self.fused_self_block_plain(w5, xx, enc, mk)))
+        for b in BLOCK_BATCHES:
+            x0, x1, va0, va1 = bx["b6"][b]
+            got = flash_cross_block.fused_cross_block(w6, x0, x1, va0, va1)
+            same(f"fused_cross_block B {b}", got,
+                 flash_cross_block.fused_cross_block(w6, x0, x1, va0, va1))
+            ref = flash_cross_block.fused_cross_block_plain(w6, x0, x1, va0, va1)
+            note("fused_cross_block",
+                 f"fused_cross_block B {b}, M 1024 / N 768 masked"
+                 f"{' (image 1 of entry 1 empty)' if b > 1 else ''}, shift "
+                 f"{shift}, valid rows",
+                 max(max_err(got[0], ref[0], va0), max_err(got[1], ref[1], va1)))
+        if shift is None:  # the launches do not depend on the shift
+            for b in (1, 16):
+                for name, w, xs, groups, enc in (
+                        ("fused_self_block", w5, bx["b5"][b][:1], 3, bx["b5"][b][1]),
+                        ("fused_cross_block", w6, bx["b6"][b][:2], 2, None)):
+                    for label, err in launch_errors(w, xs, groups, enc).items():
+                        note(name, f"{name} B {b}: {label}", err)
 
     q, k, v = x["k1"]
     e1 = check("flash_sdpa_shift (4,4,1024,64)",
@@ -505,6 +564,53 @@ def block_phase(x, bx):
                         max(max_err(got[0], ref[0]), max_err(got[1], ref[1]))))
     errs["fused_cross_attention_shift"] = max(ce)
     torch.cuda.synchronize()
+    return errs
+
+
+def same(name, a, b):
+    """Raise unless two launches' outputs are equal bit for bit."""
+    if not all(torch.equal(x, y) for x, y in zip(a, b)):
+        raise AssertionError(f"{name}: two launches differ")
+
+
+def launch_errors(w, xs, groups, enc):
+    """Each launch of B5's or B6's projection and tail (ops/block_tc.py)
+    against its plain version on the same inputs (lin1 and lin2 from the
+    plain version's msg and h), each launched twice, bit for bit; B6's over
+    the rows of both images. Returns {launch: max abs error}; the
+    LayerNorm partials' M2 relative to max(M2, 1)."""
+    g = torch.Generator(device="cuda").manual_seed(15)
+    b, h = xs[0].shape[0], w["num_heads"]
+    ctxs = [rand(g, b, h, x.shape[1], x.shape[2] // h) for x in xs]
+    errs = {}
+
+    def run(name, fn, plain):
+        got, again = fn(), fn()
+        got, again = ((got, again) if isinstance(got, (list, tuple))
+                      else ((got,), (again,)))
+        same(name, got, again)
+        want = plain()
+        want = want if isinstance(want, (list, tuple)) else (want,)
+        return got, want
+
+    got, want = run("project", lambda: block_tc.project(w, xs, groups, enc),
+                    lambda: block_tc.project_plain(w, xs, groups, enc))
+    errs["project"] = max(max_err(a, c) for a, c in zip(got, want))
+    (msg,), (msg_p,) = run("tail_out_proj", lambda: block_tc.tail_out_proj(w, ctxs),
+                           lambda: block_tc.tail_out_proj_plain(w, ctxs))
+    errs["tail_out_proj"] = max_err(msg, msg_p)
+    (hh, st), (hp, sp) = run("tail_lin1", lambda: block_tc.tail_lin1(w, xs, msg_p),
+                             lambda: block_tc.tail_lin1_plain(w, xs, msg_p))
+    errs["tail_lin1 h"] = max_err(hh, hp)
+    errs["tail_lin1 partial means"] = max_err(st[..., 0], sp[..., 0])
+    errs["tail_lin1 partial M2 (relative)"] = float(
+        ((st[..., 1] - sp[..., 1]).abs() / sp[..., 1].clamp(min=1.0)).max())
+    got, want = run("tail_lin2", lambda: block_tc.tail_lin2(w, hp, sp, xs),
+                    lambda: block_tc.tail_lin2_plain(w, hp, sp, xs))
+    errs["tail_lin2"] = max(max_err(a, c) for a, c in zip(got, want))
+    got, want = run("tail_chain", lambda: block_tc.tail_chain(w, ctxs, xs),
+                    lambda: block_tc.tail_chain_plain(w, ctxs, xs))
+    errs["tail_chain"] = max(max_err(a, c) for a, c in zip(got, want))
     return errs
 
 
@@ -630,10 +736,6 @@ def split_phase():
         if all_masked:
             m[1] = False
         return m
-
-    def same(name, a, b):
-        if not all(torch.equal(x, y) for x, y in zip(a, b)):
-            raise AssertionError(f"{name}: two launches differ")
 
     # (B, H, Nq, Nk, d, batch entry 1 all masked)
     k1_shapes = ((1, 4, 1024, 1024, 64, False), (1, 2, 1024, 1024, 128, False),
@@ -1422,8 +1524,8 @@ def timing_phase(x, bx, hx, params, params2):
     d0, d1, z0, z1, mk0, mk1 = x["k4"]
     ls0, ls1 = torch.nn.functional.logsigmoid(z0), torch.nn.functional.logsigmoid(z1)
     w5, w6 = block_weights(bx, None)
-    x5, enc5, _ = bx["b5"]
-    x60, x61, m60, m61 = bx["b6"]
+    x5, enc5, _ = bx["b5"][4]
+    x60, x61, m60, m61 = bx["b6"][4]
     g = torch.Generator(device="cuda").manual_seed(9)
     q2, k2, v2 = (rand(g, 4, 2, 1024, 128) for _ in range(3))
     pq0, pq1, pv0, pv1, pva0, pva1 = hx["pair"]
@@ -1517,6 +1619,9 @@ def timing_phase(x, bx, hx, params, params2):
             sdpa(pair1[0], pair1[1], pair1[3], attn_mask=bias1[:1]),
             sdpa(pair1[1], pair1[0], pair1[2], attn_mask=bias0[:1]))),
     }
+    block_pairs, block_libs = block_rows(bx)
+    pairs.update(block_pairs)
+    libraries.update(block_libs)
     times, graph_times = {}, {}
     for name, (kern, plain) in pairs.items():
         # plain, kernel, kernel, plain: report the mean of each pair
@@ -1532,12 +1637,19 @@ def timing_phase(x, bx, hx, params, params2):
               + ("" if lib is None else f", library ({lib_name}) {lib:.4f} ms"),
               flush=True)
 
-    # the attention rows' device time: CUDA-graph replays, kernel, library,
-    # library, kernel (the eager times above include the wrappers' host
-    # work, which a B 1 launch does not hide)
-    for name in ATTENTION_ROWS:
+    # the attention and block rows' device time: CUDA-graph replays,
+    # kernel, library, library, kernel (the eager times above include the
+    # wrappers' host work, which a B 1 launch does not hide); a row without
+    # a library call: kernel, kernel
+    for name in ATTENTION_ROWS + BLOCK_ROWS:
         kern = pairs[name][0]
-        lib_name, lib_fn = libraries[name]
+        lib_name, lib_fn = libraries.get(name, (None, None))
+        if lib_fn is None:
+            a, d = (attn_split.graph_ms(kern) for _ in range(2))
+            graph_times[name] = ((a + d) / 2, None)
+            print(f"  {name}, device time (CUDA graph): kernel {(a + d) / 2:.4f} "
+                  f"ms (runs {a:.4f}/{d:.4f})", flush=True)
+            continue
         a, b, c, d = (attn_split.graph_ms(f) for f in (kern, lib_fn, lib_fn, kern))
         graph_times[name] = ((a + d) / 2, (b + c) / 2)
         print(f"  {name}, device time (CUDA graph): kernel {(a + d) / 2:.4f} ms, "
@@ -1579,6 +1691,45 @@ def timing_phase(x, bx, hx, params, params2):
                       f"call, quartiles {q1:.2f}-{q3:.2f}, {len(m)} calls, stop "
                       f"{stops[blocks]})", flush=True)
     return times, graph_times
+
+
+def block_rows(bx):
+    """Phase 4's rows of B5 and B6 besides the B 4 ones: at B 1 and 16, and
+    their projection and tail at B 1, 4 and 16 (exact, no mask; B6: M 1024
+    / N 768, masked, the projection and tail over the rows of both images).
+    The projection's library call: torch.addmm in fp32 (cuBLAS SGEMM) at
+    the same shape. Returns ({row: (kernel, plain)}, {row: (library name,
+    call)})."""
+    w5, w6 = block_weights(bx, None)
+    g = torch.Generator(device="cuda").manual_seed(16)
+    pairs, libs = {}, {}
+    for b in BLOCK_BATCHES:
+        x5, enc5, _ = bx["b5"][b]
+        x60, x61, m60, m61 = bx["b6"][b]
+        if b != 4:
+            pairs[f"fused_self_block B {b}"] = (
+                lambda x5=x5, enc5=enc5: flash_self.fused_self_block(w5, x5, enc5),
+                lambda x5=x5, enc5=enc5: flash_self.fused_self_block_plain(
+                    w5, x5, enc5))
+            pairs[f"fused_cross_block B {b}"] = (
+                lambda a=(x60, x61, m60, m61): flash_cross_block.fused_cross_block(w6, *a),
+                lambda a=(x60, x61, m60, m61): flash_cross_block.fused_cross_block_plain(
+                    w6, *a))
+        for blk, w, xs, groups, enc in (("B5", w5, [x5], 3, enc5),
+                                        ("B6", w6, [x60, x61], 2, None)):
+            pairs[f"{blk} projection B {b}"] = (
+                lambda w=w, xs=xs, gr=groups, e=enc: block_tc.project(w, xs, gr, e),
+                lambda w=w, xs=xs, gr=groups, e=enc: block_tc.project_plain(
+                    w, xs, gr, e))
+            rows = torch.cat([x.reshape(-1, 256) for x in xs])
+            libs[f"{blk} projection B {b}"] = (
+                "addmm", lambda w=w, rows=rows: torch.addmm(
+                    w["b_in"], rows, w["w_in"].t()).reshape(rows.shape[0], -1))
+            ctxs = [rand(g, b, 4, x.shape[1], 64) for x in xs]
+            pairs[f"{blk} tail B {b}"] = (
+                lambda w=w, c=ctxs, xs=xs: block_tc.tail_chain(w, c, xs),
+                lambda w=w, c=ctxs, xs=xs: block_tc.tail_chain_plain(w, c, xs))
+    return pairs, libs
 
 
 def kernel_bounds():
@@ -1653,7 +1804,38 @@ def kernel_bounds():
                                                   + 2 * b * n * 64) * f
                                      + (d * 3 * d + 3 * d + d * d + d) * f
                                      + ffn_w),
+        **block_bounds(),
     }
+
+
+def block_bounds():
+    """(FLOPs, bytes) of BLOCK_ROWS, as kernel_bounds: B5 at N 1024, B6 at
+    M 1024 / N 768 (its key masks as bytes), D 256, four heads of 64; the
+    projection (x, w_in, b_in, rotary tables in; q, k, v or qk, v out) and
+    the tail (context and x in, weights, x's shape out)."""
+    f, n, m1, d, h = 4, 1024, 768, 256, 4
+    ffn_w = (2 * d * 2 * d + 2 * d * d + 3 * 2 * d + d) * f
+    tail_w = (d * d + d) * f + ffn_w
+    out = {}
+    for b in BLOCK_BATCHES:
+        r5, r6 = b * n, b * (n + m1)
+        proj5 = (2 * r5 * d * 3 * d, (r5 * d + d * 3 * d + 3 * d + 2 * r5 * 32
+                                      + 3 * r5 * d) * f)
+        proj6 = (2 * r6 * d * 2 * d, (r6 * d + d * 2 * d + 2 * d + 2 * r6 * d) * f)
+        tail_flops = 2 * d * d + 2 * (2 * d * 2 * d + 2 * d * d)
+        tail5 = (r5 * tail_flops, 3 * r5 * d * f + tail_w)
+        tail6 = (r6 * tail_flops, 3 * r6 * d * f + tail_w)
+        attn5 = 4 * b * h * n * n * 64
+        attn6 = 6 * b * n * m1 * d
+        out[f"fused_self_block B {b}"] = (
+            proj5[0] + attn5 + tail5[0],
+            (2 * r5 * d + 2 * r5 * 32) * f + (d * 3 * d + 3 * d) * f + tail_w)
+        out[f"fused_cross_block B {b}"] = (
+            proj6[0] + attn6 + tail6[0],
+            2 * r6 * d * f + r6 + (d * 2 * d + 2 * d) * f + tail_w)
+        out[f"B5 projection B {b}"], out[f"B6 projection B {b}"] = proj5, proj6
+        out[f"B5 tail B {b}"], out[f"B6 tail B {b}"] = tail5, tail6
+    return out
 
 
 def sp_timing_phase(sx, mparams, sp_params):
@@ -1909,13 +2091,15 @@ def main():
     times.update(sp_timing_phase(sx, params, sp_params))
     times.update(aliked_timing_phase(ax, al_params))
     kernels, bounds = [], kernel_bounds()
-    for name in ("fused_self_block 2 x 128",) + ATTENTION_ROWS:
+    for name in ("fused_self_block 2 x 128",) + ATTENTION_ROWS + BLOCK_ROWS:
         flops, nbytes = bounds[name]
+        dev = graph_times.get(name)
         print(f"  {name}: bound {max(flops / PEAK_FLOPS, nbytes / PEAK_BYTES) * 1e3:.4f} ms"
               f" ({'operations' if flops / PEAK_FLOPS >= nbytes / PEAK_BYTES else 'bytes'})"
-              + (f", 3xTF32 bound {3 * flops / PEAK_TF32 * 1e3:.4f} ms"
-                 f", device time {graph_times[name][0]:.4f} (library "
-                 f"{graph_times[name][1]:.4f})" if name in graph_times else "")
+              + ("" if dev is None else
+                 f", 3xTF32 bound {3 * flops / PEAK_TF32 * 1e3:.4f} ms"
+                 f", device time {dev[0]:.4f}"
+                 + ("" if dev[1] is None else f" (library {dev[1]:.4f})"))
               + f", kernel {times[name][0]:.4f}, plain {times[name][1]:.4f}"
               + ("" if times[name][2] is None else f", library {times[name][2]:.4f}"))
     for name, (src, rep) in KERNELS.items():
@@ -1928,9 +2112,10 @@ def main():
             "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": times[name][2],
-            # the tensor-core bound of the redesigned walk (3xTF32)
+            # the tensor-core bound of the redesigned kernels (3xTF32)
             "bound_3xtf32_ms": (3 * flops / PEAK_TF32 * 1e3
-                                if name in ATTENTION_ROWS else None)})
+                                if name in ATTENTION_ROWS + BLOCK_ROWS
+                                else None)})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

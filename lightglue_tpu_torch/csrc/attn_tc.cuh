@@ -7,11 +7,9 @@
 // operands K-major only, so V would need a transpose in shared memory, and
 // one warp per 16 rows keeps the softmax in the accumulator's registers).
 //
-// 3xTF32: each fp32 operand x is split into big = tf32(x) and small =
-// tf32(x - big) (split_tf32), and a product sums small*big + big*small +
-// big*big in fp32; the small*small term (2^-21 of the product at most) is
-// dropped. That keeps a product within about 1e-6 relative of fp32, where
-// one tf32 pass (10-bit mantissa) is about 5e-4 off.
+// 3xTF32 (tc.cuh): each fp32 operand is split into a big and a small tf32
+// part and a product sums three tf32 products in fp32, within about 1e-6
+// relative of fp32.
 //
 // S = Q K^T: Q's fragments of the block are loaded once, scaled, and kept
 // in shared memory in fragment order (thread-private, one float4 a k-step):
@@ -39,9 +37,9 @@
 // result repeats to the bit. The wrapper picks S (ops/flash.py).
 #pragma once
 
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "tc.cuh"
 
 namespace lg {
 namespace tc {
@@ -87,53 +85,6 @@ struct Shape {
   // of an SM's 228 KB, with 1 KB reserved a block
   static constexpr int kBlocksPerSM = (228 * 1024) / (kBytes + 1024);
 };
-
-// x = big + small as two tf32 operands (a tensor core reads the top 19
-// bits of each): big = x with its low 13 bits cleared, small = x - big
-// (exact in fp32) plus half a tf32 unit, so that the hardware's truncation
-// rounds it to nearest. Three integer or fp32 operations and no cvt: the
-// split of CUTLASS's OpMultiplyAddFastF32.
-__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
-                                           uint32_t& small) {
-  big = __float_as_uint(x) & 0xffffe000u;
-  small = __float_as_uint(x - __uint_as_float(big)) + 0x1000u;
-}
-
-// c += a b for one m16n8k8 tile (a: 4 tf32, b: 2 tf32, c: 4 fp32)
-__device__ __forceinline__ void mma(float c[4], const uint32_t a[4],
-                                    const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// c += a b in 3xTF32 from split operands
-__device__ __forceinline__ void mma3(float c[4], const uint32_t ab[4],
-                                     const uint32_t as[4], const uint32_t bb[2],
-                                     const uint32_t bs[2]) {
-  mma(c, as, bb);
-  mma(c, ab, bs);
-  mma(c, ab, bb);
-}
-
-// 16 bytes global -> shared, or 16 zero bytes when !valid
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           bool valid) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 __host__ __device__ __forceinline__ int cdiv(int a, int b) {
   return (a + b - 1) / b;

@@ -1,13 +1,14 @@
-// B5 and B6: the whole-block kernels' own launches, fp32. B5 (SelfBlock)
-// and B6 (CrossBlock, both images) run as the ops ops/flash_self.py and
-// ops/flash_cross_block.py, each a short chain of hand-written launches:
-//   B5: project_heads_kernel (q, k, v with rotary), the K1 key walk of
-//       flash_sdpa.cu (exact or shift, head_dim 64 or 128) on them,
-//       block_tail_kernel;
-//   B6: project_heads_kernel for each image (qk, v), the row and column
-//       launches of flash_cross.cu (mode 1 exact, mode 2 shift; head_dim
-//       64, as the TPU kernel),
-//       block_tail_kernel for each image.
+// B5 and B6: the whole-block kernels' own launches, fp32 on the tensor
+// cores (gemm_tc.cuh). B5 (SelfBlock) and B6 (CrossBlock, both images) run
+// as the ops ops/flash_self.py and ops/flash_cross_block.py, each a short
+// chain of hand-written launches:
+//   B5: project_tc_kernel (q, k, v with rotary), the K1 key walk of
+//       flash_sdpa.cu (exact or shift, head_dim 64 or 128) on them, then
+//       the tail: out_proj_tc_kernel, lin1_tc_kernel, lin2_tc_kernel;
+//   B6: project_tc_kernel over the rows of both images (qk, v), the row
+//       and column launches of flash_cross.cu (mode 1 exact, mode 2 shift;
+//       head_dim 64, as the TPU kernel), then one tail over the rows of
+//       both images.
 //
 // Replaces the TPU kernels lightglue_tpu/ops/flash_self.py::_kernel
 // (fused_self_block) and lightglue_tpu/ops/flash_cross_block.py::_kernel
@@ -20,211 +21,470 @@
 // pair layout; the TPU kernel's deinterleaved layout is a lane trick that
 // changes no score.
 //
-// What bounds them on an H100: arithmetic. B5 per image and layer at N 1024,
-// D 256: 2.42 GFLOP (Wqkv 0.40, attention 1.07, out_proj 0.13, FFN 0.81)
-// against 1 MB of x, 2.6 MB of weights and 1 MB of output, about 36 us at
-// the 67 TFLOP/s fp32 CUDA-core peak; B6 per pair at M = N = 1024: 4.03
-// GFLOP, about 60 us.
+// What bounds them on an H100: arithmetic. B5 per image and layer at N
+// 1024, D 256: 2.42 GFLOP (Wqkv 0.40, attention 1.07, out_proj 0.13, FFN
+// 0.81) against 1 MB of x, 2.6 MB of weights and 1 MB of output; B6 per
+// pair at M = N = 1024: 4.03 GFLOP. On CUDA cores (67 TFLOP/s fp32) that is
+// 36 and 60 us; as 3xTF32 on the tensor cores (three tf32 products of 495
+// TFLOP/s each) 15 and 24 us. The projection and the tail are 1.35 of B5's
+// 2.42 GFLOP and 2.96 of B6's 4.03.
 //
-// Design: the TPU kernels keep a whole block's activations in VMEM (every
-// head's k and v, a (BQ, N) or (M, N) score strip); a block's 227 KB cannot,
-// and the card needs many blocks in flight where the TPU walks one grid in
-// order. A first version followed the TPU's shape with two launches for
-// B5, the second one block per 64-row query tile running every head's
-// attention, out_proj and the FFN: 64 blocks for 132 SMs at B 4, 1.10 ms
-// on an H100 SXM at 700 W against 0.57 ms for this design (chip_smoke.py).
-// This one splits at the head boundary instead, so each launch has a grid
-// of its own size: the projection one block per (64-row tile, head and
-// group, batch), the attention one per (64-row tile, head, batch), the tail
-// one per 32 rows. The context goes through device memory (1 MB per image
-// at N 1024, under a microsecond of HBM time); the projected q, k, v never
-// pass through a separate rotary or head-split pass, and out_proj is fused
-// into the FFN's launch.
-#include "ffn.cuh"
+// Design: the TPU kernels keep a whole block's activations in VMEM; a
+// block's 227 KB cannot, and the card needs many blocks in flight where the
+// TPU walks one grid in order. So the block splits at the head boundary and
+// at each product: every product is one launch of the tile product, whose
+// grid is its own size (64 x 64 or smaller tiles at B 1, so that each SM has
+// a block; 64 x 128 at B 16, so that each weight tile serves more rows and
+// each row tile more channels: ops/block_tc.py::tile_plan), with the
+// weights stored K-major once by the
+// host (prepare). The tail is three launches: msg = merge_heads(ctx) Wo +
+// bo (the prologue reads ctx head-major); h = [x | msg] W1 + b1 (the concat
+// as two K ranges), whose epilogue also writes each row's LayerNorm
+// partials over 16 columns (count, mean, M2 about the partial's own mean:
+// a trained layer's LN input can have |mean| >> std, where sum and sum of
+// squares cancel); out = x + GELU(LN(h)) W2 + b2, whose prologue merges a
+// row's partials in order (Chan's formula) and applies LayerNorm (eps 1e-5)
+// and the exact erf GELU to each A tile as it lands. The context, msg and h
+// go through device memory (h: 64 MB a tail at B 16, about 20 us of HBM
+// time).
+#include "gemm_tc.cuh"
 
 namespace {
 
-using lg::HD;
-using lg::LD;
-using lg::THREADS;
-using lg::TILE;
+using lg::gemm::BK;
+using lg::gemm::LDS;
+using lg::gemm::PART;
 
-// x (B, N, D); wT (G * D, D), one row per output channel; bias (G * D);
-// cs, sn (B, N, hd / 2) rotary cos / sin per channel pair, or null;
-// out (G, B, H, N, hd), D = H hd, hd a multiple of 64. Grid (cdiv(N, 64),
-// G * D / 64, B): one 64-channel tile of one group and head per block;
-// groups below n_rot get rotary (a pair never straddles two tiles).
-__global__ void __launch_bounds__(THREADS)
-    project_heads_kernel(const float* __restrict__ x,
-                         const float* __restrict__ wT,
-                         const float* __restrict__ bias,
-                         const float* __restrict__ cs,
-                         const float* __restrict__ sn, float* __restrict__ out,
-                         int B, int N, int H, int hd, int n_rot) {
-  extern __shared__ __align__(16) float lg_smem[];
-  float* As = lg_smem;         // 64 x LD: x rows, then the output tile
-  float* Bs = As + TILE * LD;  // 64 x LD: weight rows
-  const int t = threadIdx.x, ty = t >> 4, tx = t & 15;
-  const int n0 = blockIdx.x * TILE, ct = blockIdx.y, b = blockIdx.z;
-  const int D = H * hd, ch0 = ct * TILE;  // first channel of the G * D
-  const int g = ch0 / D, h = ch0 % D / hd, c0 = ch0 % hd;
-  const float* xb = x + (size_t)b * N * D;
-
-  float acc[4][4] = {};
-  for (int k0 = 0; k0 < D; k0 += HD) {
-    __syncthreads();
-    lg::load_tile(As, LD, xb, n0, N, D, k0, 1.f);
-    lg::load_tile(Bs, LD, wT, ch0, gridDim.y * TILE, D, k0, 1.f);
-    __syncthreads();
-    lg::tile_abt(As, Bs, acc);  // acc[i][j]: row ty + 16i, channel tx + 16j
-  }
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      As[(ty + 16 * i) * LD + tx + 16 * j] =
-          acc[i][j] + bias[ch0 + tx + 16 * j];
-  __syncthreads();
-
-  // rotary, interleaved pairs (ops/rotary.py::apply_rotary):
-  //   o[2p] = t[2p] c_p - t[2p+1] s_p;  o[2p+1] = t[2p+1] c_p + t[2p] s_p
-  float* ob = out + (((size_t)g * B + b) * H + h) * N * hd + c0;
-  const bool rot = g < n_rot;
-  for (int idx = t; idx < TILE * HD; idx += THREADS) {
-    const int r = idx / HD, c = idx % HD, row = n0 + r;
-    if (row >= N) continue;
-    float val = As[r * LD + c];
-    if (rot) {
-      const size_t at = ((size_t)b * N + row) * (hd / 2) + ((c0 + c) >> 1);
-      const float co = cs[at], si = sn[at], other = As[r * LD + (c ^ 1)];
-      val = (c & 1) ? val * co + other * si : val * co - other * si;
-    }
-    ob[(size_t)row * hd + c] = val;
-  }
+__host__ __device__ __forceinline__ int cdiv(int a, int b) {
+  return (a + b - 1) / b;
 }
 
-constexpr size_t kProjSmem = 2 * TILE * LD * sizeof(float);
+// The rows of a launch: B n0 rows of segment 0 (image 0), then B n1 of
+// segment 1 (image 1 of B6; n1 = 0 for B5), each segment's rows in its own
+// (B, n_s, ...) tensors.
+struct Rows {
+  int rows0;  // B n0
+  __device__ bool second(int r) const { return r >= rows0; }
+  __device__ int local(int r) const { return r >= rows0 ? r - rows0 : r; }
+};
 
-// ctx (B, H, N, hd) per-head context, D = H hd; x, out (B, N, D). Grid
-// (cdiv(N, 32), B): Xs = [x | ctx] for 32 rows, the message
-// ctx Wo + bo (a 32 x D x D product, Wo streamed 16 rows at a time)
-// replaces the ctx half, then K3's FFN body.
-template <int D>
-__global__ void __launch_bounds__(THREADS)
-    block_tail_kernel(const float* __restrict__ ctx,
-                      const float* __restrict__ x,
-                      const float* __restrict__ wo,
-                      const float* __restrict__ bo,
-                      const float* __restrict__ w1,
-                      const float* __restrict__ b1,
-                      const float* __restrict__ gamma,
-                      const float* __restrict__ beta,
-                      const float* __restrict__ w2,
-                      const float* __restrict__ b2, float* __restrict__ out,
-                      int N, int hd) {
-  constexpr int D2 = 2 * D, C = D / 32;
-  const int H = D / hd;
-  extern __shared__ __align__(16) float lg_smem[];
-  float* Xs = lg_smem;                 // 32 x D2: [x | ctx], then [x | msg]
-  float* Hs = Xs + lg::FFN_ROWS * D2;  // 32 x D2
-  float* Ws = Hs + lg::FFN_ROWS * D2;  // 16 x D2
-  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
-  const int b = blockIdx.y, row0 = blockIdx.x * lg::FFN_ROWS;
-  const float* xb = x + (size_t)b * N * D;
-
-  for (int idx = t; idx < lg::FFN_ROWS * D2; idx += THREADS) {
-    const int rr = idx / D2, c = idx % D2, row = row0 + rr;
-    float val = 0.f;
-    if (row < N) {
-      const int hc = c - D;  // merged-head channel h * hd + chan
-      val = c < D ? xb[(size_t)row * D + c]
-                  : ctx[(((size_t)b * H + hc / hd) * N + row) * hd + hc % hd];
-    }
-    Xs[idx] = val;
+// A = rows of x, (B, n_s, ld) for each segment
+struct XSrc : lg::gemm::NoTransform {
+  Rows rows;
+  const float* x0;
+  const float* x1;
+  int ld;
+  using Cursor = const float*;
+  __device__ Cursor at(int r) const {
+    return (rows.second(r) ? x1 : x0) + (size_t)rows.local(r) * ld;
   }
+  __device__ const float* src(Cursor c, int k0) const { return c + k0; }
+};
 
-  float acc[4][C] = {};
-  for (int k0 = 0; k0 < D; k0 += lg::FFN_KC) {
-    __syncthreads();  // Xs filled; previous Ws readers done
-    for (int idx = t; idx < lg::FFN_KC * D; idx += THREADS)
-      Ws[idx] = wo[(size_t)k0 * D + idx];
-    __syncthreads();
-#pragma unroll 4
-    for (int kk = 0; kk < lg::FFN_KC; ++kk) {
-      float a[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = Xs[(warp * 4 + i) * D2 + D + k0 + kk];
-#pragma unroll
-      for (int j = 0; j < C; ++j) {
-        const float w = Ws[kk * D + lane + 32 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(a[i], w, acc[i][j]);
+// A = merge_heads(ctx): channel k = h hd + c of row (b, i) at
+// ctx_s[((b H + h) n_s + i) hd + c]; a 32-channel step lies in one head
+struct CtxSrc : lg::gemm::NoTransform {
+  Rows rows;
+  const float* c0;
+  const float* c1;
+  int n0, n1, H, hd;
+  struct Cursor {
+    const float* p;  // the row's channels of head 0
+    int hs;          // n_s hd: from one head to the next
+  };
+  __device__ Cursor at(int r) const {
+    const bool s = rows.second(r);
+    const int loc = rows.local(r), n = s ? n1 : n0;
+    const int b = loc / n, i = loc - b * n;
+    return {(s ? c1 : c0) + ((size_t)b * H * n + i) * hd, n * hd};
+  }
+  __device__ const float* src(const Cursor& c, int k0) const {
+    const int h = k0 / hd;
+    return c.p + (size_t)h * c.hs + (k0 - h * hd);
+  }
+};
+
+// A = [x | msg]: channels below D from the rows of x, the rest from msg
+// (R, D)
+struct CatSrc : lg::gemm::NoTransform {
+  Rows rows;
+  const float* x0;
+  const float* x1;
+  const float* msg;
+  int D;
+  struct Cursor {
+    const float* x;
+    const float* m;
+  };
+  __device__ Cursor at(int r) const {
+    return {(rows.second(r) ? x1 : x0) + (size_t)rows.local(r) * D,
+            msg + (size_t)r * D};
+  }
+  __device__ const float* src(const Cursor& c, int k0) const {
+    return k0 < D ? c.x + k0 : c.m + (k0 - D);
+  }
+};
+
+// A = GELU(LN(h)), h (R, C): begin merges each row's `parts` LayerNorm
+// partials (stats (R, parts, 2): mean and M2 of PART columns) in order
+// into the row's mean and 1 / sqrt(var + 1e-5); transform applies the
+// LayerNorm and the exact erf GELU to a landed A tile. gamma and beta
+// 16-byte aligned.
+struct LnSrc {
+  static constexpr bool kTransform = true;
+  const float* h;
+  const float* stats;
+  const float* gamma;
+  const float* beta;
+  int C, parts;
+  using Cursor = const float*;
+  __device__ Cursor at(int r) const { return h + (size_t)r * C; }
+  __device__ const float* src(Cursor c, int k0) const { return c + k0; }
+
+  template <class T>
+  __device__ void begin(float* extra, int m0, int R) const {
+    for (int r = threadIdx.x; r < T::BM; r += T::THREADS) {
+      float mean = 0.f, rstd = 0.f;
+      if (m0 + r < R) {
+        // Chan's merge of (n, mean, M2) with (PART, mb, m2b), in order
+        const float* st = stats + (size_t)(m0 + r) * parts * 2;
+        float n = PART, m2 = st[1];
+        mean = st[0];
+        for (int p = 1; p < parts; ++p) {
+          const float nn = n + PART, delta = st[2 * p] - mean;
+          mean = mean + delta * (PART / nn);
+          m2 = m2 + (st[2 * p + 1] + delta * delta * (n * PART / nn));
+          n = nn;
+        }
+        rstd = 1.0f / sqrtf(m2 / n + 1e-5f);
       }
+      extra[r] = mean;
+      extra[T::BM + r] = rstd;
     }
   }
-  __syncthreads();  // every read of the ctx half is done
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < C; ++j) {
-      const int c = lane + 32 * j;
-      Xs[(warp * 4 + i) * D2 + D + c] = acc[i][j] + bo[c];
+
+  // a thread keeps one 4-channel column of the step (its gamma and beta)
+  // and walks the tile's rows, 16 bytes at a time
+  template <class T>
+  __device__ void transform(float* As, const float* extra, int k0) const {
+    constexpr int CH = BK / 4;
+    static_assert(T::THREADS % CH == 0, "a thread keeps its column");
+    const int c = 4 * (threadIdx.x % CH);
+    const float4 ga = *reinterpret_cast<const float4*>(gamma + k0 + c);
+    const float4 be = *reinterpret_cast<const float4*>(beta + k0 + c);
+    for (int r = threadIdx.x / CH; r < T::BM; r += T::THREADS / CH) {
+      float4* p = reinterpret_cast<float4*>(As + r * LDS + c);
+      const float mean = extra[r], rstd = extra[T::BM + r];
+      float4 v = *p;
+      v.x = gelu((v.x - mean) * rstd * ga.x + be.x);
+      v.y = gelu((v.y - mean) * rstd * ga.y + be.y);
+      v.z = gelu((v.z - mean) * rstd * ga.z + be.z);
+      v.w = gelu((v.w - mean) * rstd * ga.w + be.w);
+      *p = v;
     }
-  lg::ffn_rows<D>(Xs, Hs, Ws, w1, b1, gamma, beta, w2, b2,
-                  out + (size_t)b * N * D, row0, N);
+  }
+
+  // the exact erf GELU (nn.gelu)
+  __device__ static float gelu(float x) {
+    return 0.5f * x * (1.0f + erff(x * 0.7071067811865476f));
+  }
+};
+
+// The rows and columns of a thread's accumulators (gemm_tc.cuh::product).
+struct Frag {
+  int g, t;
+  __device__ Frag() : g((threadIdx.x & 31) >> 2), t(threadIdx.x & 3) {}
+  __device__ int row(int wr, int mt, int half) const {
+    return wr + 16 * mt + g + 8 * half;
+  }
+  __device__ int col(int wc, int nt) const { return wc + 8 * nt + 2 * t; }
+};
+
+// The projection's epilogue: + bias, rotary on the first n_rot groups,
+// written as (G, B, H, n_s, hd) for each segment. Channel ch = g D + h hd +
+// c; a thread's column pair (c, c + 1) is one rotary pair.
+struct HeadsEpi {
+  Rows rows;
+  float* out0;
+  float* out1;
+  const float* bias;
+  const float* cs;  // (B, n0, hd / 2) cos and sin, or null
+  const float* sn;
+  int B, n0, n1, H, hd, n_rot;
+  template <class T>
+  __device__ void store(const float (&acc)[T::MT][T::NT][4], int wr, int wc,
+                        int R) const {
+    const Frag f;
+    const int D = H * hd;
+#pragma unroll
+    for (int mt = 0; mt < T::MT; ++mt)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = f.row(wr, mt, half);
+        if (r >= R) continue;
+        const bool s = rows.second(r);
+        const int loc = rows.local(r), n = s ? n1 : n0;
+        const int b = loc / n, i = loc - b * n;
+        float* ob = s ? out1 : out0;
+#pragma unroll
+        for (int nt = 0; nt < T::NT; ++nt) {
+          const int ch = f.col(wc, nt), grp = ch / D, h = ch % D / hd,
+                    c = ch % hd;
+          float v0 = acc[mt][nt][2 * half] + bias[ch];
+          float v1 = acc[mt][nt][2 * half + 1] + bias[ch + 1];
+          if (grp < n_rot) {
+            // ops/rotary.py::apply_rotary: o[2p] = t[2p] c - t[2p+1] s,
+            // o[2p+1] = t[2p+1] c + t[2p] s
+            const size_t at = ((size_t)b * n + i) * (hd / 2) + (c >> 1);
+            const float co = cs[at], si = sn[at];
+            const float o0 = v0 * co - v1 * si, o1 = v1 * co + v0 * si;
+            v0 = o0;
+            v1 = o1;
+          }
+          *reinterpret_cast<float2*>(
+              ob + ((((size_t)grp * B + b) * H + h) * n + i) * hd + c) =
+              make_float2(v0, v1);
+        }
+      }
+  }
+};
+
+// out (R, C) = acc + bias (msg of out_proj)
+struct BiasEpi {
+  float* out;
+  const float* bias;
+  int C;
+  template <class T>
+  __device__ void store(const float (&acc)[T::MT][T::NT][4], int wr, int wc,
+                        int R) const {
+    const Frag f;
+#pragma unroll
+    for (int mt = 0; mt < T::MT; ++mt)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = f.row(wr, mt, half);
+        if (r >= R) continue;
+#pragma unroll
+        for (int nt = 0; nt < T::NT; ++nt) {
+          const int c = f.col(wc, nt);
+          *reinterpret_cast<float2*>(out + (size_t)r * C + c) =
+              make_float2(acc[mt][nt][2 * half] + bias[c],
+                          acc[mt][nt][2 * half + 1] + bias[c + 1]);
+        }
+      }
+  }
+};
+
+// lin1's epilogue: h (R, C) = acc + b1, and for each row and each PART
+// columns of it (n-tiles 2j, 2j + 1 of a warp: a quad's 16 values) the
+// partial (mean, M2 about that mean) into stats (R, C / PART, 2). Every
+// lane takes part in the quad sums, valid row or not.
+struct StatsEpi {
+  float* h;
+  float* stats;
+  const float* bias;
+  int C;
+  template <class T>
+  __device__ void store(const float (&acc)[T::MT][T::NT][4], int wr, int wc,
+                        int R) const {
+    const Frag f;
+#pragma unroll
+    for (int mt = 0; mt < T::MT; ++mt)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = f.row(wr, mt, half);
+        float v[T::NT][2];
+#pragma unroll
+        for (int nt = 0; nt < T::NT; ++nt) {
+          const int c = f.col(wc, nt);
+          v[nt][0] = acc[mt][nt][2 * half] + bias[c];
+          v[nt][1] = acc[mt][nt][2 * half + 1] + bias[c + 1];
+          if (r < R)
+            *reinterpret_cast<float2*>(h + (size_t)r * C + c) =
+                make_float2(v[nt][0], v[nt][1]);
+        }
+#pragma unroll
+        for (int j = 0; j < T::NT / 2; ++j) {
+          float s = ((v[2 * j][0] + v[2 * j][1]) + v[2 * j + 1][0]) +
+                    v[2 * j + 1][1];
+          s += __shfl_xor_sync(0xffffffffu, s, 1);
+          s += __shfl_xor_sync(0xffffffffu, s, 2);
+          const float mean = s * (1.0f / PART);
+          float q = 0.f;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float d = v[2 * j + (e >> 1)][e & 1] - mean;
+            q += d * d;
+          }
+          q += __shfl_xor_sync(0xffffffffu, q, 1);
+          q += __shfl_xor_sync(0xffffffffu, q, 2);
+          if (f.t == 0 && r < R)
+            *reinterpret_cast<float2*>(
+                stats + ((size_t)r * (C / PART) + (wc + 16 * j) / PART) * 2) =
+                make_float2(mean, q);
+        }
+      }
+  }
+};
+
+// lin2's epilogue: out_s[row] = x_s[row] + (acc + b2), (B, n_s, C) each
+struct ResidualEpi {
+  Rows rows;
+  const float* x0;
+  const float* x1;
+  float* out0;
+  float* out1;
+  const float* bias;
+  int C;
+  template <class T>
+  __device__ void store(const float (&acc)[T::MT][T::NT][4], int wr, int wc,
+                        int R) const {
+    const Frag f;
+#pragma unroll
+    for (int mt = 0; mt < T::MT; ++mt)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = f.row(wr, mt, half);
+        if (r >= R) continue;
+        const bool s = rows.second(r);
+        const size_t off = (size_t)rows.local(r) * C;
+        const float* xr = (s ? x1 : x0) + off;
+        float* orow = (s ? out1 : out0) + off;
+#pragma unroll
+        for (int nt = 0; nt < T::NT; ++nt) {
+          const int c = f.col(wc, nt);
+          const float2 xv = *reinterpret_cast<const float2*>(xr + c);
+          *reinterpret_cast<float2*>(orow + c) =
+              make_float2(xv.x + (acc[mt][nt][2 * half] + bias[c]),
+                          xv.y + (acc[mt][nt][2 * half + 1] + bias[c + 1]));
+        }
+      }
+  }
+};
+
+template <class T>
+__global__ void __launch_bounds__(T::THREADS)
+    project_tc_kernel(XSrc a, const float* __restrict__ w, HeadsEpi e, int K,
+                      int R) {
+  lg::gemm::product<T>(a, w, K, R, e);
 }
 
-template <int D>
-cudaError_t launch_tail(const float* ctx, const float* x, const float* wo,
-                        const float* bo, const float* w1, const float* b1,
-                        const float* gamma, const float* beta, const float* w2,
-                        const float* b2, float* out, int B, int N, int hd,
-                        cudaStream_t stream) {
-  constexpr size_t smem = lg::ffn_floats<D>() * sizeof(float);
+template <class T>
+__global__ void __launch_bounds__(T::THREADS)
+    out_proj_tc_kernel(CtxSrc a, const float* __restrict__ w, BiasEpi e,
+                       int K, int R) {
+  lg::gemm::product<T>(a, w, K, R, e);
+}
+
+template <class T>
+__global__ void __launch_bounds__(T::THREADS)
+    lin1_tc_kernel(CatSrc a, const float* __restrict__ w, StatsEpi e, int K,
+                   int R) {
+  lg::gemm::product<T>(a, w, K, R, e);
+}
+
+template <class T>
+__global__ void __launch_bounds__(T::THREADS)
+    lin2_tc_kernel(LnSrc a, const float* __restrict__ w, ResidualEpi e,
+                   int K, int R) {
+  lg::gemm::product<T>(a, w, K, R, e);
+}
+
+// One launch of `kernel` with tile T over R rows and C output channels.
+template <class T, class Kernel, class ASrc, class Epi>
+cudaError_t launch_tc(Kernel kernel, const ASrc& a, const float* w,
+                      const Epi& e, int K, int R, int C,
+                      cudaStream_t stream) {
+  if (R < 1 || K % BK != 0 || C % T::BN != 0) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      block_tail_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::kBytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid(lg::cdiv(N, lg::FFN_ROWS), B);
-  block_tail_kernel<D><<<grid, THREADS, smem, stream>>>(ctx, x, wo, bo, w1, b1, gamma, beta, w2, b2, out, N, hd);
+  const dim3 grid(C / T::BN, cdiv(R, T::BM));
+  kernel<<<grid, T::THREADS, T::kBytes, stream>>>(a, w, e, K, R);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// x (B, N, D); wT (G * D, D); bias (G * D); cos, sin (B, N, hd / 2) or
-// null; out (G, B, H, N, hd) with D = H hd and hd a multiple of 64; the
-// first n_rot groups get rotary.
-extern "C" cudaError_t lg_project_heads(const float* x, const float* wT,
-                                        const float* bias, const float* cs,
-                                        const float* sn, float* out, int B,
-                                        int N, int G, int H, int hd,
-                                        int n_rot, cudaStream_t stream) {
-  if ((n_rot > 0 && (cs == nullptr || sn == nullptr)) || hd < HD ||
-      hd % HD != 0)
+// Rows: B n0 of x0 / out0 (B, n0, ...) then B n1 of x1 / out1 (n1 0: no
+// second segment, x1 and out1 unused). All pointers 16-byte aligned; D =
+// H hd, hd a multiple of 32; `tile` indexes gemm_tc.cuh's tiles.
+
+// x_s (B, n_s, D); w (G D, D), one row per output channel; bias (G D);
+// cos, sin (B, n0, hd / 2) or null; out_s (G, B, H, n_s, hd); the first
+// n_rot groups get rotary (one segment only).
+extern "C" cudaError_t lg_project_heads(const float* x0, const float* x1,
+                                        const float* w, const float* bias,
+                                        const float* cs, const float* sn,
+                                        float* out0, float* out1, int B,
+                                        int n0, int n1, int G, int H, int hd,
+                                        int n_rot, int tile,
+                                        cudaStream_t stream) {
+  if ((n_rot > 0 && (cs == nullptr || sn == nullptr || n1 != 0)) ||
+      hd % 32 != 0 || n0 < 1 || n1 < 0)
     return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      project_heads_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)kProjSmem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(lg::cdiv(N, TILE), G * H * hd / TILE, B);
-  project_heads_kernel<<<grid, THREADS, kProjSmem, stream>>>(x, wT, bias, cs, sn, out, B, N, H, hd, n_rot);
-  return cudaGetLastError();
+  const int D = H * hd, R = B * (n0 + n1);
+  const Rows rows{B * n0};
+  const XSrc a{{}, rows, x0, x1, D};
+  const HeadsEpi e{rows, out0, out1, bias, cs, sn, B, n0, n1, H, hd, n_rot};
+  return lg::gemm::with_tile(tile, [&](auto t) {
+    using T = decltype(t);
+    return launch_tc<T>(project_tc_kernel<T>, a, w, e, D, R, G * D, stream);
+  });
 }
 
-// ctx (B, H, N, hd); x, out (B, N, D), D = H hd 128 or 256; wo (D, D), w1
-// (2D, 2D), w2 (2D, D) stored (in, out); bo, b2 (D); b1, gamma, beta (2D).
-extern "C" cudaError_t lg_block_tail(
-    const float* ctx, const float* x, const float* wo, const float* bo,
-    const float* w1, const float* b1, const float* gamma, const float* beta,
-    const float* w2, const float* b2, float* out, int B, int H, int hd, int N,
-    cudaStream_t stream) {
-  if (H * hd == 256)
-    return launch_tail<256>(ctx, x, wo, bo, w1, b1, gamma, beta, w2, b2, out,
-                            B, N, hd, stream);
-  if (H * hd == 128)
-    return launch_tail<128>(ctx, x, wo, bo, w1, b1, gamma, beta, w2, b2, out,
-                            B, N, hd, stream);
-  return cudaErrorInvalidValue;
+// msg (R, D) = merge_heads(ctx) Wo + bo: ctx_s (B, H, n_s, hd); woT (D, D)
+// with woT[o][k] = Wo[k][o]; bo (D).
+extern "C" cudaError_t lg_tail_out_proj(const float* ctx0, const float* ctx1,
+                                        const float* woT, const float* bo,
+                                        float* msg, int B, int n0, int n1,
+                                        int H, int hd, int tile,
+                                        cudaStream_t stream) {
+  if (hd % 32 != 0 || n0 < 1 || n1 < 0) return cudaErrorInvalidValue;
+  const int D = H * hd, R = B * (n0 + n1);
+  const CtxSrc a{{}, Rows{B * n0}, ctx0, ctx1, n0, n1, H, hd};
+  const BiasEpi e{msg, bo, D};
+  return lg::gemm::with_tile(tile, [&](auto t) {
+    using T = decltype(t);
+    return launch_tc<T>(out_proj_tc_kernel<T>, a, woT, e, D, R, D, stream);
+  });
+}
+
+// h (R, 2D) = [x | msg] W1 + b1 and its LayerNorm partials stats (R, 2D /
+// 16, 2): x_s (B, n_s, D); msg (R, D); w1T (2D, 2D) with w1T[o][k] =
+// W1[k][o]; b1 (2D).
+extern "C" cudaError_t lg_tail_lin1(const float* x0, const float* x1,
+                                    const float* msg, const float* w1T,
+                                    const float* b1, float* h, float* stats,
+                                    int B, int n0, int n1, int D, int tile,
+                                    cudaStream_t stream) {
+  if (D % 32 != 0 || n0 < 1 || n1 < 0) return cudaErrorInvalidValue;
+  const int R = B * (n0 + n1);
+  const CatSrc a{{}, Rows{B * n0}, x0, x1, msg, D};
+  const StatsEpi e{h, stats, b1, 2 * D};
+  return lg::gemm::with_tile(tile, [&](auto t) {
+    using T = decltype(t);
+    return launch_tc<T>(lin1_tc_kernel<T>, a, w1T, e, 2 * D, R, 2 * D,
+                        stream);
+  });
+}
+
+// out_s (B, n_s, D) = x_s + GELU(LN(h)) W2 + b2: h (R, 2D) and stats
+// (lg_tail_lin1's); gamma, beta (2D); w2T (D, 2D) with w2T[o][k] =
+// W2[k][o]; b2 (D).
+extern "C" cudaError_t lg_tail_lin2(const float* h, const float* stats,
+                                    const float* gamma, const float* beta,
+                                    const float* w2T, const float* b2,
+                                    const float* x0, const float* x1,
+                                    float* out0, float* out1, int B, int n0,
+                                    int n1, int D, int tile,
+                                    cudaStream_t stream) {
+  if (D % 32 != 0 || n0 < 1 || n1 < 0) return cudaErrorInvalidValue;
+  const int R = B * (n0 + n1), rows0 = B * n0;
+  const LnSrc a{h, stats, gamma, beta, 2 * D, 2 * D / PART};
+  const ResidualEpi e{Rows{rows0}, x0, x1, out0, out1, b2, D};
+  return lg::gemm::with_tile(tile, [&](auto t) {
+    using T = decltype(t);
+    return launch_tc<T>(lin2_tc_kernel<T>, a, w2T, e, 2 * D, R, D, stream);
+  });
 }

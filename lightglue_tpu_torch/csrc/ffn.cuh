@@ -1,5 +1,4 @@
-// The FFN on 32 rows held in shared memory: K3's body, also the tail of the
-// whole-block kernels B5 and B6 (blocks.cu).
+// The FFN on 32 rows held in shared memory: K3's body (ffn.cu).
 #pragma once
 
 #include "common.cuh"

@@ -32,6 +32,7 @@ from ..configs import LightGlueConfig
 from ..ops import assignment as asg
 from ..ops import assignment_fused as fasg_ops
 from ..ops import attention as attn_ops
+from ..ops import block_tc
 from ..ops import ffn as ffn_ops
 from ..ops import flash as flash_ops
 from ..ops import flash_cross as flash_cross_ops
@@ -185,7 +186,7 @@ def self_block(p, x, encoding, conf: LightGlueConfig, key_mask=None,
     else:
         mask = None if key_mask is None else key_mask[:, None, None, :]
         context = attn_ops.sdpa(q, k, v, mask)
-    message = nn.linear(p["out_proj"], flash_self_ops.merge_heads(context))
+    message = nn.linear(p["out_proj"], block_tc.merge_heads(context))
     return _ffn_residual(p["ffn"], x, message, conf)
 
 
@@ -219,8 +220,8 @@ def cross_block(p, x0, x1, conf: LightGlueConfig, mask0=None, mask1=None,
                 b, x1.shape[1], dtype=torch.bool, device=dev)
             mask = m0_[:, None, :, None] & m1_[:, None, None, :]
         m0, m1 = attn_ops.bidirectional_cross_attention(qk0, qk1, v0, v1, mask)
-    m0 = nn.linear(p["to_out"], flash_self_ops.merge_heads(m0))
-    m1 = nn.linear(p["to_out"], flash_self_ops.merge_heads(m1))
+    m0 = nn.linear(p["to_out"], block_tc.merge_heads(m0))
+    m1 = nn.linear(p["to_out"], block_tc.merge_heads(m1))
     return (_ffn_residual(p["ffn"], x0, m0, conf),
             _ffn_residual(p["ffn"], x1, m1, conf))
 

@@ -238,9 +238,9 @@ def mask_arg(valid: Optional[torch.Tensor], shape: Tuple[int, int],
     return valid.contiguous()
 
 
-def _aligned(t: torch.Tensor) -> torch.Tensor:
+def aligned16(t: torch.Tensor) -> torch.Tensor:
     """t, or a copy of it when its data is not 16-byte aligned (the walk
-    copies K and V rows 16 bytes at a time)."""
+    and the tile product copy rows 16 bytes at a time)."""
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
@@ -266,13 +266,13 @@ def launch_attention(dev: torch.device, walks, scale: float,
                     else [None, None])
     if len(walks) == 1:
         q, k, v, valid, o = walks[0]
-        _build.launch("lg_flash_sdpa", dev, q, _aligned(k), _aligned(v),
+        _build.launch("lg_flash_sdpa", dev, q, aligned16(k), aligned16(v),
                       valid, o, *scratch, b, h, q.shape[2], k.shape[2], d,
                       int(shift2 is not None), splits[0], float(scale),
                       float(shift2 or 0.0))
     else:
         (qk0, qk1, v1, valid1, m0), (_, _, v0, valid0, m1) = walks
-        qk0, qk1, v0, v1 = map(_aligned, (qk0, qk1, v0, v1))
+        qk0, qk1, v0, v1 = map(aligned16, (qk0, qk1, v0, v1))
         _build.launch("lg_flash_cross_pair", dev, qk0, qk1, v0, v1, valid0,
                       valid1, m0, m1, *scratch, b, h, qk0.shape[2],
                       qk1.shape[2], d, *splits, float(scale))

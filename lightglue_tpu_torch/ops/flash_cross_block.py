@@ -13,10 +13,11 @@ e * exp(m_row - max m_row) on valid rows of image 0, and a direction's
 messages are 0 where the other image has no valid point. Shift: one
 exp2(min(s + bias0 + bias1 - shift * log2(e), 100)) serves both
 directions, with no guards. On a CUDA tensor ``fused_cross_block`` runs
-its launches (csrc/blocks.cu: the [qk | v] projection of each image; the
-row and column launches of csrc/flash_cross.cu; csrc/blocks.cu: the
-to_out + FFN tail of each image) or raises; on a CPU tensor it runs
-``fused_cross_block_plain``.
+its launches (``block_tc.project``: the [qk | v] projection, one launch
+over the rows of both images; the row and column launches of
+csrc/flash_cross.cu; ``block_tc.tail_chain``: the to_out + FFN tail, each
+of its launches over the rows of both images) or raises; on a CPU tensor
+it runs ``fused_cross_block_plain``, the same steps' plain versions.
 """
 
 from __future__ import annotations
@@ -26,12 +27,9 @@ from typing import Optional, Tuple
 import torch
 
 from .. import _build, nn
-from . import ffn as ffn_ops
+from . import block_tc
 from .flash import LOG2E, shift_weights
 from .flash_cross import EXACT_BLOCK, SHIFT, _biases, launch_cross
-from .flash_self import (
-    check_block_weights, launch_project, launch_tail, merge_heads,
-    project_heads)
 
 MAX_FUSED_N = 1024  # the JAX package's limit; it decides which kernels run
 
@@ -41,7 +39,7 @@ def prepare(p: nn.Params, num_heads: int,
     """Kernel weights from one layer's cross_attn params {"to_qk", "to_v",
     "to_out": {w (D, D), b}, "ffn": ...}: w_in (2D, D) and b_in (2D) with
     rows [qk | v], qk scaled by sqrt(scale [* log2(e)]); to_out and the FFN
-    as they are."""
+    K-major (block_tc.tail_weights)."""
     d = p["to_qk"]["w"].shape[0]
     root = ((d // num_heads) ** -0.5
             * (1.0 if shift is None else LOG2E)) ** 0.5
@@ -49,9 +47,7 @@ def prepare(p: nn.Params, num_heads: int,
         "w_in": torch.cat([p["to_qk"]["w"] * root, p["to_v"]["w"]],
                           1).t().contiguous(),
         "b_in": torch.cat([p["to_qk"]["b"] * root, p["to_v"]["b"]]),
-        "wo": p["to_out"]["w"].contiguous(),
-        "bo": p["to_out"]["b"].contiguous(),
-        "ffn": p["ffn"],
+        **block_tc.tail_weights(p["to_out"], p["ffn"]),
         "num_heads": num_heads,
         "shift": shift,
     }
@@ -63,8 +59,7 @@ def fused_cross_block_plain(
     mask1: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x0 (B, M, D), x1 (B, N, D); mask0 (B, M), mask1 (B, N) bool."""
-    qk0, v0 = project_heads(w, x0, 2)
-    qk1, v1 = project_heads(w, x1, 2)
+    (qk0, v0), (qk1, v1) = block_tc.project_plain(w, [x0, x1], 2)
     b, m, n = x0.shape[0], x0.shape[1], x1.shape[1]
     bias0, bias1 = _biases(mask0, mask1, b, m, n, x0.device)
     s = qk0 @ qk1.transpose(-1, -2)
@@ -86,10 +81,8 @@ def fused_cross_block_plain(
         zero = lambda t, bias: torch.where(
             (bias >= 0).any(-1)[:, None, None, None], t, torch.zeros_like(t))
         m0, m1 = zero(m0, bias1), zero(m1, bias0)
-    y0 = merge_heads(m0) @ w["wo"] + w["bo"]
-    y1 = merge_heads(m1) @ w["wo"] + w["bo"]
-    return (ffn_ops.fused_ffn_residual_plain(x0, y0, w["ffn"]),
-            ffn_ops.fused_ffn_residual_plain(x1, y1, w["ffn"]))
+    out0, out1 = block_tc.tail_chain_plain(w, [m0, m1], [x0, x1])
+    return out0, out1
 
 
 def fused_cross_block(
@@ -104,14 +97,13 @@ def fused_cross_block(
     b, m, d = x0.shape
     n = x1.shape[1]
     bias0, bias1 = _biases(mask0, mask1, b, m, n, x0.device)
-    dev = check_block_weights(w, d)
+    dev = block_tc.check_block_weights(w, d)
     if _build.check_cuda(x0=x0, x1=x1) != dev:
         raise ValueError(f"x0 is on {x0.device}, the weights on {dev}")
     if x1.shape != (b, n, d) or m < 1 or n < 1:
         raise ValueError(f"x0 {tuple(x0.shape)} and x1 {tuple(x1.shape)} "
                          "must be (B, M, D) and (B, N, D)")
-    p0 = launch_project(w, x0, 2, dev)
-    p1 = launch_project(w, x1, 2, dev)
+    p0, p1 = block_tc.launch_project(dev, w, [x0, x1], 2, None)
     shift = w["shift"]
     if shift is None:
         m0, m1 = launch_cross(p0[0], p1[0], p0[1], p1[1], bias0, bias1,
@@ -119,6 +111,6 @@ def fused_cross_block(
     else:
         m0, m1 = launch_cross(p0[0], p1[0], p0[1], p1[1], bias0, bias1,
                               SHIFT, 1.0, shift * LOG2E)
-    out0, out1 = launch_tail(w, m0, x0, dev), launch_tail(w, m1, x1, dev)
+    out0, out1 = block_tc.launch_tail(dev, w, [m0, m1], [x0, x1])
     _build.count("fused_cross_block")
     return out0, out1

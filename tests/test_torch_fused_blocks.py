@@ -140,7 +140,7 @@ def test_prepare_regroups_the_packed_projection():
                                         .astype(np.float32)),
                   "b": torch.arange(3 * d, dtype=torch.float32)},
          "out_proj": {"w": torch.zeros(d, d), "b": torch.zeros(d)},
-         "ffn": {}}
+         "ffn": _torch_tree(_np_tree(jlg._ffn_init(jax.random.key(7), d)))}
     w = flash_self.prepare(p, heads)
     h, c = 1, 5  # head 1, channel 5
     col = (h * 64 + c) * 3

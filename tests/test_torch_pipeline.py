@@ -109,6 +109,7 @@ def test_import_leaves_jax_out():
             "lightglue_tpu_torch.ops.sampling, lightglue_tpu_torch.ops.nms, "
             "lightglue_tpu_torch.ops.stem, lightglue_tpu_torch.ops.stem2, "
             "lightglue_tpu_torch.ops.flash_self, "
+            "lightglue_tpu_torch.ops.block_tc, "
             "lightglue_tpu_torch.ops.flash_cross_block, "
             "lightglue_tpu_torch.models.aliked, "
             "lightglue_tpu_torch.ops.aliked_stem, "
