@@ -8,8 +8,8 @@ Phases, any failure raising (non-zero exit, no result line):
      stay at torch's defaults (cuDNN's on), so the checks below hold the
      library's own fp32 scoping of its convs;
   1. build: nvcc compiles csrc/*.cu into _build/, one process per source
-     (timed), each kernel's registers and spills (a spilling tile kernel of
-     B5 or B6 fails the run);
+     (timed), each kernel's registers and spills (a spilling tensor-core
+     kernel of B5, B6, K2 or B2 fails the run);
   2. each kernel against its plain PyTorch version at the main paths'
      shapes, then at tiny and ragged shapes and, for the matcher's kernels,
      at 2048 keypoints; the whole-block kernels (B5, B6) exact and with
@@ -26,6 +26,12 @@ Phases, any failure raising (non-zero exit, no result line):
      two_head_params) and the row gather S1 (bf16, fp32, ragged); the
      attention walk where it splits its keys (B 1, ragged key counts, one
      key, an all-masked batch entry), each launch repeated bit for bit;
+     K2 on the walk in its three modes (exact, B6's attention, shift 12) at
+     B 1, 4 and 16 and ragged, masked and with either image of a batch
+     entry all masked, and at B 1 at every split count, and B2 on the tile
+     product at B 1, 4 and 16, M != N and ragged, masked, with exact ties
+     inside a tile and across tile boundaries (lowest index), each launch
+     repeated bit for bit;
   3. the main paths, each with the kernels' launch counts set to 0 just
      before it and read just after:
      a. pipeline.LightGlue with the trained matcher weights on planted pairs
@@ -66,13 +72,14 @@ Phases, any failure raising (non-zero exit, no result line):
      where there is one), K1 and B5 at head_dim 128 too, the attention
      walk (K1, B1s, B1') at B 1 too and its device time from CUDA-graph
      replays beside SDPA's; B5 and B6 at B 1, 4 and 16 with their
-     projection (beside cuBLAS addmm) and tail, as events and as CUDA-graph
+     projection (beside cuBLAS addmm) and tail, and K2 (exact and as B6's
+     attention) and B2 at B 1, 4 and 16, as events and as CUDA-graph
      device time; extraction ms per
      image, the matcher in its default and composed configurations and
      with two heads of 128, end-to-end pairs/s and
      match_pair ms per pair, for SuperPoint and for ALIKED.
 A JSON object of the kernels (with each one's bound, from its shapes, and
-for the attention walk, B5 and B6 its 3xTF32 tensor-core bound too) and
+the 3xTF32 bound of the tensor-core kernels: the walk, B5, B6, K2, B2) and
 the card's name and power limit come before the last line,
 {"ok": true, "device": {...}}.
 
@@ -166,6 +173,13 @@ BLOCK_ROWS = tuple(
     + [f"fused_cross_block{'' if b == 4 else f' B {b}'}" for b in (1, 4, 16)]
     + [f"{blk} {part} B {b}" for blk in ("B5", "B6")
        for part in ("projection", "tail") for b in (1, 4, 16)])
+# Rows of the redesigned K2 (mode 0: fused_cross_attention; mode 1: B6's
+# attention) and B2 in phase 4 (B 4 under the kernel names), and B3s at B 4
+CROSS_ROWS = tuple(
+    [f"fused_cross_attention{'' if b == 4 else f' B {b}'}" for b in (1, 4, 16)]
+    + [f"B6 attention B {b}" for b in (1, 4, 16)]
+    + [f"fused_filter_matches{'' if b == 4 else f' B {b}'}" for b in (1, 4, 16)]
+    + ["fused_cross_attention_shift"])
 MATCHER_KERNELS = ("flash_sdpa", "fused_cross_attention", "fused_ffn_residual",
                    "fused_filter_matches")
 BLOCK_BATCHES = (1, 4, 16)  # B5 and B6 in phases 2c and 4
@@ -306,9 +320,12 @@ def build_phase():
     _build.library()
     # ptxas -v, one line a kernel: its name (and template arguments, as
     # mangled; the tile kernels' tile as rows x channels / warp), registers
-    # and spills; a tile kernel (blocks.cu) that spills or has a stack
+    # and spills; a tensor-core kernel (blocks.cu's tile kernels, the
+    # attention walks of K1, B1' and K2, and B2's) that spills or has a stack
     # frame fails the run
     name, spills = "?", ""
+    tc = ("_tc_kernel", "cross_rows", "cross_cols", "cross_shift",
+          "assign_tile", "flash_sdpa_kernel", "flash_cross_pair_kernel")
     for line in log.splitlines():
         if "Compiling entry function" in line:
             name = re.sub(r"IN2lg4gemm4TileILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E",
@@ -317,7 +334,7 @@ def build_phase():
             spills = line.strip()
         elif "Used" in line:
             print(f"  {name}: {line.split(':', 1)[1].strip()}; {spills}")
-            if "_tc_kernel" in name and not spills.startswith(
+            if any(k in name for k in tc) and not spills.startswith(
                     "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"):
                 raise AssertionError(f"{name} spills: {spills}")
     print(f"  built {os.path.relpath(path, ROOT)} in {time.time() - t0:.1f} s",
@@ -781,6 +798,178 @@ def split_phase():
             raise AssertionError("flash_cross_pair: the all-masked entry is not 0")
     print("  the B 1 shapes split their keys (B1' M 1024 / N 30: direction 1 "
           "only); every repeat bitwise equal")
+    torch.cuda.synchronize()
+    return errs
+
+
+def b2_inputs(rng, g, b, m, n):
+    """B2's inputs at (b, m, n), D 256: planted pairs (descriptors times 3,
+    the roles swapped where m > n), random matchability logits, masks at
+    0.9 with image 1 of entry 1 all masked but for the tied columns, and
+    planted exact ties (copies with the same logit): within a tile, row 5 a
+    dominant match of column 100, copied to 700 and 900, row 5 copied to
+    800 (where they exist); across the tile boundaries of every tile of
+    gemm_tc.cuh, row 63 a dominant match of column 127, copied to 128, and
+    row 63 copied to 64. The lowest index must win. Returns (mdesc0,
+    mdesc1, ls0, ls1, mask0, mask1, [(row, column) of each tie])."""
+    pr = planted_pairs(rng, b, min(m, n), max(m, n))
+    d = [torch.from_numpy(pr[f"descriptors{i}"]).cuda() * 3.0 for i in (0, 1)]
+    if m > n:
+        d = d[::-1]
+    z = [rand(g, b, m), rand(g, b, n)]
+    masks = [torch.rand(b, k, generator=g, device="cuda") < 0.9
+             for k in (m, n)]
+    if b > 1:
+        masks[1][1] = False
+    ties = []
+    for r, c, cols, rows in ((5, 100, (700, 900), (800,)),
+                             (63, 127, (128,), (64,))):
+        d[0][:, r] = d[1][:, c] * 4.0
+        z[0][:, r] = z[1][:, c] = 5.0
+        for j in (j for j in cols if j < n):
+            d[1][:, j] = d[1][:, c]
+            z[1][:, j] = z[1][:, c]
+            masks[1][:, j] = True
+        for i in (i for i in rows if i < m):
+            d[0][:, i] = d[0][:, r]
+            z[0][:, i] = z[0][:, r]
+            masks[0][:, i] = True
+        masks[0][:, r] = masks[1][:, c] = True
+        ties.append((r, c, [i for i in rows if i < m]))
+    ls = [torch.nn.functional.logsigmoid(t) for t in z]
+    return (*d, *ls, *masks, ties)
+
+
+def b2_check(label, x):
+    """B2 on x (b2_inputs) masked and unmasked against its plain version:
+    the maxima within TOL on valid rows and columns, the argmax equal on
+    every row and column with a top-two gap over 1e-3, every planted tie to
+    the lowest index, two launches bit for bit. Returns the largest
+    error."""
+    d0, d1, ls0, ls1, mk0, mk1, ties = x
+    err = 0.0
+    for masks in ((None, None), (mk0, mk1)):
+        got = af._filter_reductions_kernel(d0, d1, ls0, ls1, *masks)
+        same(f"fused_filter_matches {label}", got,
+             af._filter_reductions_kernel(d0, d1, ls0, ls1, *masks))
+        m0, v0, m1, v1 = af.filter_reductions_plain(d0, d1, ls0, ls1, *masks)
+        tag = f"{label}{' masked' if masks[0] is not None else ''}"
+        err = max(err, check(f"fused_filter_matches {tag}, maxima",
+                             max(max_err(got[1], v0, masks[0]),
+                                 max_err(got[3], v1, masks[1]))))
+        ones = [torch.ones_like(t, dtype=torch.bool) for t in (ls0, ls1)]
+        sure0, sure1 = k4_margin_rows(
+            d0, d1, ls0, ls1, *(mk if mk is not None else o
+                                for mk, o in zip(masks, ones)))
+        eq0, eq1 = got[0].long() == m0, got[2].long() == m1
+        if not (bool(eq0[sure0].all()) and bool(eq1[sure1].all())):
+            raise AssertionError(f"fused_filter_matches {tag}: argmax differs "
+                                 "on a row with a clear maximum")
+        for r, c, rows in ties:
+            if not (bool((got[0][:, [r] + rows] == c).all())
+                    and bool((got[2][:, c] == r).all())):
+                raise AssertionError(f"fused_filter_matches {tag}: the tie "
+                                     f"at ({r}, {c}) went to a higher index")
+        print(f"    argmax equal on the {int(sure0.sum())}+{int(sure1.sum())} "
+              f"rows and columns with a clear maximum; ties {ties} to the "
+              "lowest index; repeats bitwise equal")
+    return err
+
+
+def cross_assign_phase():
+    """Phase 2g: K2 in its three modes (0: fused_cross_attention, exact; 1:
+    B6's attention, launch_cross in mode EXACT_BLOCK on qk scaled as B6
+    folds it, held against flash_cross_block.cross_block_attention_plain;
+    2: with shift 12) at B 1, 4 and 16 (M 1024 / N 768) and ragged (1000 /
+    700), unmasked, masked, and with image 0 or image 1 of entry 1 all
+    masked, then at B 1 at every split count of both directions; and B2 at
+    B 1, 4, 16 (1024 x 1024), 1024 x 768 and ragged 1000 x 700 (b2_check).
+    Every launch twice, bit for bit."""
+    phase("2g K2 (modes 0, 1, 2) and B2 on the tensor cores against their "
+          "plain versions, bitwise repeats")
+    g = torch.Generator(device="cuda").manual_seed(21)
+    errs = {}
+
+    def note(name, label, err):
+        errs[name] = max(errs.get(name, 0.0), check(label, err))
+
+    def rows(valid, h=4):
+        return None if valid is None else valid[:, None, :].expand(-1, h, -1)
+
+    def modes(qk0, qk1, v0, v1, va0, va1, label, splits=None):
+        # mode 0 and 2 through fused_cross_attention (planned splits) or
+        # launch_cross (given splits); mode 1 on B6's scale
+        for name, shift in (("fused_cross_attention", None),
+                            ("fused_cross_attention_shift", SHIFT)):
+            if splits is None:
+                run = lambda: flash_cross.fused_cross_attention(  # noqa
+                    qk0, qk1, v0, v1, va0, va1, shift)
+            else:
+                run = lambda: flash_cross.launch_cross(  # noqa
+                    qk0, qk1, v0, v1, va0, va1,
+                    flash_cross.EXACT if shift is None else flash_cross.SHIFT,
+                    0.125 * (1.0 if shift is None else flash.LOG2E),
+                    0.0 if shift is None else shift * flash.LOG2E, splits)
+            got = run()
+            same(f"{name} {label}", got, run())
+            ref = flash_cross.fused_cross_attention_plain(
+                qk0, qk1, v0, v1, va0, va1, shift)
+            note(name, f"{name} {label}",
+                 max(max_err(got[0], ref[0], rows(va0) if shift is None
+                             else None), max_err(got[1], ref[1])))
+        q0, q1 = qk0 * 64 ** -0.25, qk1 * 64 ** -0.25
+        run = lambda: flash_cross.launch_cross(  # noqa
+            q0, q1, v0, v1, va0, va1, flash_cross.EXACT_BLOCK, 1.0,
+            splits=splits)
+        got = run()
+        same(f"B6 attention {label}", got, run())
+        ref = flash_cross_block.cross_block_attention_plain(q0, q1, v0, v1,
+                                                            va0, va1)
+        note("fused_cross_block", f"B6 attention (mode 1) {label}, valid rows",
+             max(max_err(got[0], ref[0], rows(va0)),
+                 max_err(got[1], ref[1], rows(va1))))
+
+    def mask(b, n, empty):
+        m = torch.rand(b, n, generator=g, device="cuda") < 0.85
+        m[:, 0] = True
+        if empty:
+            m[1] = False
+        return m
+
+    for b, m, n in ((1, 1024, 768), (4, 1024, 768), (16, 1024, 768),
+                    (2, 1000, 700)):
+        qk0, v0 = rand(g, b, 4, m, 64), rand(g, b, 4, m, 64)
+        qk1, v1 = rand(g, b, 4, n, 64), rand(g, b, 4, n, 64)
+        cases = [("unmasked", None, None),
+                 ("masked", mask(b, m, False), mask(b, n, False))]
+        if b > 1:
+            cases += [("image 0 of entry 1 all masked", mask(b, m, True),
+                       mask(b, n, False)),
+                      ("image 1 of entry 1 all masked", mask(b, m, False),
+                       mask(b, n, True))]
+        print(f"  B {b}, M {m} / N {n}: splits (row, column walks) "
+              f"{flash_cross.cross_splits(qk0.device, b, 4, m, n, 0)} exact, "
+              f"{flash_cross.cross_splits(qk0.device, b, 4, m, n, 2)} shift")
+        for case, va0, va1 in cases:
+            modes(qk0, qk1, v0, v1, va0, va1, f"B {b}, M {m} / N {n}, {case}")
+    # every split count either walk can take at B 1 (12 and 16 key tiles)
+    b, m, n = 1, 1024, 768
+    qk0, v0 = rand(g, b, 4, m, 64), rand(g, b, 4, m, 64)
+    qk1, v1 = rand(g, b, 4, n, 64), rand(g, b, 4, n, 64)
+    va0, va1 = mask(b, m, False), mask(b, n, False)
+    for s in range(1, flash.MAX_SPLITS + 1):
+        modes(qk0, qk1, v0, v1, va0, va1, f"B 1 masked, splits ({s}, {s})",
+              (s, s))
+
+    rng = np.random.default_rng(22)
+    errs["fused_filter_matches"] = 0.0
+    for b, m, n in ((1, 1024, 1024), (4, 1024, 1024), (16, 1024, 1024),
+                    (4, 1024, 768), (2, 1000, 700)):
+        tile = af.tile_plan(b, m, n, block_tc.sms(0))
+        errs["fused_filter_matches"] = max(
+            errs["fused_filter_matches"],
+            b2_check(f"B {b}, {m} x {n}, D 256, tile "
+                     f"{block_tc.TILES[tile]}", b2_inputs(rng, g, b, m, n)))
     torch.cuda.synchronize()
     return errs
 
@@ -1289,18 +1478,117 @@ def matcher_path(params, label, conf, n, kernels, must_not, seed):
         if prec < floor:  # a floor that catches wrong matches, not a target
             raise AssertionError(f"{name} {i}: precision {prec} < {floor}")
 
+    data = {"image0": feats(singles[0], 0), "image1": feats(singles[0], 1)}
     for name, c in matchers.items():
         cpu = LightGlue("superpoint", params=params, device="cpu", **c)
-        ref = cpu({"image0": feats(singles[0], 0), "image1": feats(singles[0], 1)})
+        ref = cpu(data)
         got = outs[name, 0]
         agree = float((ref["matches0"] == got["matches0"]).mean())
+        pruned = sum(int((ref[f] != got[f]).sum()) for f in ("prune0", "prune1"))
         print(f"  {name} pair 0 against the CPU port (plain versions): "
               f"matches0 agreement {agree:.6f}, stop {got['stop']} vs "
-              f"{ref['stop']}, score diff "
-              f"{np.abs(ref['matching_scores0'] - got['matching_scores0']).max():.2e}")
-        if agree < 0.999 or ref["stop"] != got["stop"]:
+              f"{ref['stop']}, {pruned} points whose prune differs, score diff "
+              f"{score_gap(got, ref):.2e}")
+        if agree < 0.999 or ref["stop"] != got["stop"] or pruned:
             raise AssertionError(f"{name}: the card disagrees with the CPU port")
+        if name == "fixed":
+            path_kernel_trace(gpu[name], ref, data)
     return counts
+
+
+def score_gap(got, ref):
+    return max(float(np.abs(got[f] - ref[f]).max())
+               for f in ("matching_scores0", "matching_scores1"))
+
+
+def valid_rows_err(got, ref, valid):
+    """Largest |got - ref| over the rows (B, n) that ``valid`` keeps (all
+    when None) of (B, n) values or (B, H, n, d) messages; 0 if none."""
+    d = (got.float() - ref.float()).abs()
+    if d.dim() == 4:
+        d = d.amax((1, 3))
+    d = d if valid is None else d[valid]
+    return float(d.max()) if d.numel() else 0.0
+
+
+def path_kernel_trace(matcher, ref, data):
+    """One call of ``matcher`` on ``data`` with every K2 launch
+    (``launch_cross``: B3, B3s and B6's attention) and every B2 launch held
+    against its plain version in float64 on the inputs the path produces
+    (valid rows; the fp32 plain version's own gap printed beside it; B2's
+    argmax against the fp32 plain one on the rows and columns with a clear
+    top-two gap). Then the
+    same call with K2, B2 or both swapped for their plain versions on the
+    card, each beside the CPU port's matching scores ``ref``: how much of
+    the path's gap to the CPU port each kernel brings. Launches here are
+    not counted: the path's counts are read before."""
+    cross, assign = flash_cross.launch_cross, af._filter_reductions_kernel
+    errs = {"K2": [], "B2": []}
+    f64 = lambda *x: [t.double() if torch.is_tensor(t) and t.is_floating_point()
+                      else t for t in x]  # noqa: E731
+
+    def cross_checked(qk0, qk1, v0, v1, valid0, valid1, mode, scale,
+                      shift2=0.0, splits=None):
+        out = cross(qk0, qk1, v0, v1, valid0, valid1, mode, scale, shift2,
+                    splits)
+        x = (qk0, qk1, v0, v1, valid0, valid1, mode, scale, shift2)
+        plain = flash_cross.cross_launches_plain(*x)
+        ref = flash_cross.cross_launches_plain(*f64(*x))
+        errs["K2"].append(tuple(
+            max(valid_rows_err(a[0], ref[0], valid0),
+                valid_rows_err(a[1], ref[1], valid1)) for a in (out, plain)))
+        return out
+
+    def assign_checked(mdesc0, mdesc1, ls0, ls1, mask0, mask1):
+        out = assign(mdesc0, mdesc1, ls0, ls1, mask0, mask1)
+        x = (mdesc0, mdesc1, ls0, ls1, mask0, mask1)
+        plain = af.filter_reductions_plain(*x)
+        ref = af.filter_reductions_plain(*f64(*x))
+        va0, va1 = (torch.ones(v.shape, dtype=torch.bool, device=v.device)
+                    if m is None else m
+                    for m, v in ((mask0, out[1]), (mask1, out[3])))
+        keep0, keep1 = k4_margin_rows(mdesc0, mdesc1, ls0, ls1, va0, va1)
+        if not (torch.equal(out[0][keep0], plain[0][keep0])
+                and torch.equal(out[2][keep1], plain[2][keep1])):
+            raise AssertionError("B2 on the path: argmax differs from the "
+                                 "plain version on a row with a clear gap")
+        errs["B2"].append(tuple(
+            max(valid_rows_err(a[1], ref[1], va0),
+                valid_rows_err(a[3], ref[3], va1)) for a in (out, plain)))
+        return out
+
+    def plain_cross(qk0, qk1, v0, v1, valid0, valid1, mode, scale, shift2=0.0,
+                    splits=None):
+        return flash_cross.cross_launches_plain(qk0, qk1, v0, v1, valid0,
+                                                valid1, mode, scale, shift2)
+
+    def run(k2, b2):
+        saved = (flash_cross.launch_cross, flash_cross_block.launch_cross,
+                 af._filter_reductions_kernel)
+        flash_cross.launch_cross = flash_cross_block.launch_cross = k2
+        af._filter_reductions_kernel = b2
+        try:
+            return matcher(data)
+        finally:
+            (flash_cross.launch_cross, flash_cross_block.launch_cross,
+             af._filter_reductions_kernel) = saved
+
+    got = run(cross_checked, assign_checked)
+    for k, e in errs.items():
+        if e:
+            check(f"{k} on the path against float64, {len(e)} launches (the "
+                  f"fp32 plain version {max(p for _, p in e):.3e}), largest",
+                  max(g for g, _ in e))
+        else:
+            print(f"  {k} on the path: no launch")
+    gaps = [score_gap(run(*fns), ref) for fns in (
+        (cross, assign), (plain_cross, assign),
+        (cross, af.filter_reductions_plain),
+        (plain_cross, af.filter_reductions_plain))]
+    print(f"  matching scores against the CPU port: the kernels "
+          f"{score_gap(got, ref):.2e} (again {gaps[0]:.2e}), K2 plain "
+          f"{gaps[1]:.2e}, B2 plain {gaps[2]:.2e}, both plain {gaps[3]:.2e}",
+          flush=True)
 
 
 def aliked_params(model_name="aliked-n16", device="cuda"):
@@ -1622,6 +1910,7 @@ def timing_phase(x, bx, hx, params, params2):
     block_pairs, block_libs = block_rows(bx)
     pairs.update(block_pairs)
     libraries.update(block_libs)
+    pairs.update(cross_rows())
     times, graph_times = {}, {}
     for name, (kern, plain) in pairs.items():
         # plain, kernel, kernel, plain: report the mean of each pair
@@ -1641,7 +1930,7 @@ def timing_phase(x, bx, hx, params, params2):
     # kernel, library, library, kernel (the eager times above include the
     # wrappers' host work, which a B 1 launch does not hide); a row without
     # a library call: kernel, kernel
-    for name in ATTENTION_ROWS + BLOCK_ROWS:
+    for name in ATTENTION_ROWS + BLOCK_ROWS + CROSS_ROWS:
         kern = pairs[name][0]
         lib_name, lib_fn = libraries.get(name, (None, None))
         if lib_fn is None:
@@ -1732,6 +2021,56 @@ def block_rows(bx):
     return pairs, libs
 
 
+def cross_rows():
+    """Phase 4's rows of K2 and B2 besides the B 4 ones under the kernel
+    names: K2 exact (fused_cross_attention) at B 1 and 16, B6's attention
+    (launch_cross in mode EXACT_BLOCK on qk scaled as B6 folds it) at B 1,
+    4 and 16, both at (B, 4, M 1024 / N 768, 64) masked; B2 at B 1 and 16,
+    1024 x 1024, D 256, masked. Returns {row: (kernel, plain)}."""
+    g = torch.Generator(device="cuda").manual_seed(23)
+    rng = np.random.default_rng(24)
+    pairs = {}
+    for b in BLOCK_BATCHES:
+        qk0, v0 = rand(g, b, 4, 1024, 64), rand(g, b, 4, 1024, 64)
+        qk1, v1 = rand(g, b, 4, 768, 64), rand(g, b, 4, 768, 64)
+        va0 = torch.rand(b, 1024, generator=g, device="cuda") < 0.9
+        va1 = torch.rand(b, 768, generator=g, device="cuda") < 0.9
+        x = (qk0, qk1, v0, v1, va0, va1)
+        if b != 4:
+            pairs[f"fused_cross_attention B {b}"] = (
+                lambda x=x: flash_cross.fused_cross_attention(*x),
+                lambda x=x: flash_cross.fused_cross_attention_plain(*x))
+        xs = (qk0 * 64 ** -0.25, qk1 * 64 ** -0.25, v0, v1, va0, va1)
+        pairs[f"B6 attention B {b}"] = (
+            lambda x=xs: flash_cross.launch_cross(
+                *x, flash_cross.EXACT_BLOCK, 1.0),
+            lambda x=xs: flash_cross_block.cross_block_attention_plain(*x))
+        if b != 4:
+            x = b2_inputs(rng, g, b, 1024, 1024)[:6]
+            pairs[f"fused_filter_matches B {b}"] = (
+                lambda x=x: af._filter_reductions_kernel(*x),
+                lambda x=x: af.filter_reductions_plain(*x))
+    return pairs
+
+
+def cross_bounds():
+    """(FLOPs, bytes) of CROSS_ROWS, as kernel_bounds: K2 and B6's
+    attention at (B, 4, M 1024 / N 768, 64), the key masks as bytes; B2's
+    one score product at (B, 1024, 1024, 256), descriptors, logits and
+    masks in, indices and maxima out."""
+    f, n, m1, d = 4, 1024, 768, 256
+    out = {}
+    for b in BLOCK_BATCHES:
+        cross = (6 * b * 4 * n * m1 * 64,
+                 3 * b * 4 * (n + m1) * 64 * f + b * (n + m1))
+        out[f"fused_cross_attention{'' if b == 4 else f' B {b}'}"] = cross
+        out[f"B6 attention B {b}"] = cross
+        out[f"fused_filter_matches{'' if b == 4 else f' B {b}'}"] = (
+            2 * b * n * n * d, (2 * b * n * d + 2 * b * n) * f + 2 * b * n
+            + 4 * b * n * f)
+    return out
+
+
 def kernel_bounds():
     """(FLOPs, bytes) of each kernel's function at the shapes timed in
     phase 4: the products it must compute (fp32) and each input read and
@@ -1741,7 +2080,9 @@ def kernel_bounds():
     ffn_w = (2 * d * 2 * d + 2 * d * d + 3 * 2 * d + d) * f
     attn = (4 * b * h * n * n * 64, 4 * b * h * n * 64 * f)
     attn1 = (attn[0] // b, attn[1] // b)
-    cross = (8 * b * h * n * m1 * 64, 3 * b * h * (n + m1) * 64 * f + b * (n + m1))
+    # the shared-QK cross attention needs three M N 64 products a (batch,
+    # head): the scores once, then P V1 and P^T V0
+    cross = (6 * b * h * n * m1 * 64, 3 * b * h * (n + m1) * 64 * f + b * (n + m1))
     ffn_rows = b * n
     self_flops = b * (2 * n * d * 3 * d + 4 * h * n * n * 64 + 2 * n * d * d
                       + 2 * n * (2 * d * 2 * d + 2 * d * d))
@@ -1805,6 +2146,7 @@ def kernel_bounds():
                                      + (d * 3 * d + 3 * d + d * d + d) * f
                                      + ffn_w),
         **block_bounds(),
+        **cross_bounds(),
     }
 
 
@@ -2070,7 +2412,8 @@ def main():
     errs = kernel_phase(x)
     errs.update(block_phase(x, bx))
     h_errs, hx = head128_phase(bx)
-    for name, err in list(h_errs.items()) + list(split_phase().items()):
+    for name, err in (list(h_errs.items()) + list(split_phase().items())
+                      + list(cross_assign_phase().items())):
         errs[name] = max(errs.get(name, 0.0), err)
     sp_params = superpoint_params()
     sp_errs, sx = sp_kernel_phase(sp_params)
@@ -2091,7 +2434,8 @@ def main():
     times.update(sp_timing_phase(sx, params, sp_params))
     times.update(aliked_timing_phase(ax, al_params))
     kernels, bounds = [], kernel_bounds()
-    for name in ("fused_self_block 2 x 128",) + ATTENTION_ROWS + BLOCK_ROWS:
+    tc_rows = ATTENTION_ROWS + BLOCK_ROWS + CROSS_ROWS
+    for name in ("fused_self_block 2 x 128",) + tc_rows:
         flops, nbytes = bounds[name]
         dev = graph_times.get(name)
         print(f"  {name}: bound {max(flops / PEAK_FLOPS, nbytes / PEAK_BYTES) * 1e3:.4f} ms"
@@ -2114,8 +2458,7 @@ def main():
             "library_ms": times[name][2],
             # the tensor-core bound of the redesigned kernels (3xTF32)
             "bound_3xtf32_ms": (3 * flops / PEAK_TF32 * 1e3
-                                if name in ATTENTION_ROWS + BLOCK_ROWS
-                                else None)})
+                                if name in tc_rows else None)})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

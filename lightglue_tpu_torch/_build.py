@@ -37,14 +37,15 @@ SIGNATURES = {
     "lg_flash_sdpa": [_P] * 7 + [_I] * 7 + [_F] * 2 + [_P],
     "lg_flash_cross_pair": [_P] * 12 + [_I] * 7 + [_F] + [_P],
     "lg_attention_shape": [_I] + [ctypes.POINTER(_I)] * 2 + [_P],
-    "lg_fused_cross": [_P] * 9 + [_I] * 5 + [_F] * 2 + [_P],
+    "lg_fused_cross": [_P] * 13 + [_I] * 7 + [_F] * 2 + [_P],
     "lg_project_heads": [_P] * 8 + [_I] * 8 + [_P],
     "lg_tail_out_proj": [_P] * 5 + [_I] * 6 + [_P],
     "lg_tail_lin1": [_P] * 7 + [_I] * 5 + [_P],
     "lg_tail_lin2": [_P] * 10 + [_I] * 5 + [_P],
     "lg_ffn_residual": [_P] * 9 + [_I] * 2 + [_P],
-    "lg_assign_lse": [_P] * 5 + [_I] * 4 + [_P],
-    "lg_assign_argmax": [_P] * 8 + [_I] * 4 + [_P],
+    "lg_assign_tiles": [_P] * 8 + [_I] * 5 + [_P],
+    "lg_assign_merge_lse": [_P] * 8 + [_I] * 5 + [_P],
+    "lg_assign_merge_argmax": [_P] * 8 + [_I] * 5 + [_P],
     "lg_simple_nms": [_P] * 2 + [_I] * 4 + [_P],
     "lg_fused_stem": [_P] * 6 + [_I] * 3 + [_P],
     "lg_fused_block2": [_P] * 6 + [_I] * 3 + [_P],

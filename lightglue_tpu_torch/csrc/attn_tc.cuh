@@ -1,5 +1,5 @@
-// The attention key walk of K1 and B1' on Hopper's tensor cores, in fp32
-// by 3xTF32, with asynchronous K/V copies and a key split.
+// The attention key walk of K1, B1' and K2 on Hopper's tensor cores, in
+// fp32 by 3xTF32, with asynchronous K/V copies and a key split.
 //
 // A block holds 4 warps and takes 64 query rows of one (batch, head); each
 // warp owns 16 rows. Both products run as mma.sync m16n8k8 tf32 tiles with
@@ -15,6 +15,17 @@
 // in shared memory in fragment order (thread-private, one float4 a k-step):
 // at head_dim 128 they do not fit in registers beside the accumulators.
 // K fragments are read from the tile and split as they are used.
+//
+// A tensor core's fp32 accumulation truncates each sum of products aligned
+// to the accumulator, so over a long walk O drifts toward 0 with one sign
+// (three such adds every 8 keys), while the row sum l, added on the CUDA
+// cores, rounds to nearest. With kTileSums each key tile's P V goes into a
+// zeroed register tile that an fp32 add then puts into O, as gemm_tc.cuh's
+// step sums do for B2, so the truncation acts on one tile's sum only. On
+// the trained matcher's own K2 inputs at 2048 keypoints (shift 12) that
+// took K2 from 2.6e-4 to 3.7e-5 of a float64 reference (the fp32 plain
+// version 2.7e-5) at under 2 % of its time on an H100
+// (scripts/walk_sums.py).
 //
 // O += P V without moving P: the accumulator of S gives a thread the keys
 // 2t and 2t+1 of each 8-key step (t = lane % 4), where the A operand of the
@@ -35,6 +46,12 @@
 // > 1 it writes its unnormalised output and its row max and row sum to
 // scratch, and merge_splits combines the S states in split order, so a
 // result repeats to the bit. The wrapper picks S (ops/flash.py).
+//
+// Three weightings (Walk): the exact online softmax; the constant shift
+// (B1s, B3s); and a fixed shift read by the caller, with no running max and
+// no rescale (K2's column direction, shifted by the largest score of the row
+// direction). K2's query-row mask enters the two shifted forms as an
+// additive -1e30 on the row's scores, as the TPU kernels' bias0 does.
 #pragma once
 
 #include <math.h>
@@ -48,11 +65,20 @@ constexpr int BQ = 64;  // query rows of a block, 16 a warp
 constexpr int THREADS = 128;
 constexpr float MASKED = -1e30f;  // the score bias of a masked key
 
+// The walk's weights of a score s_rj (qb_r: the query row's bias, 0 or
+// MASKED; shift2: the launch's shift):
+//   kExact  exp(s_rj - max_j s_rj), an online softmax;
+//   kShift  exp2(min(s_rj + qb_r - shift2, 100)), q in the log2 domain;
+//   kFixed  exp(s_rj + qb_r - shift2), shift2 at or above every score.
+enum Walk : int { kExact = 0, kShift = 1, kFixed = 2 };
+
 // Keys of a tile and whether Q's fragments are kept split (big and small)
 // or as fp32 and split as they are used, by head_dim, so that the blocks an
 // SM holds are as many as the shared memory allows: 64 keys and split Q at
 // 64 (104,448 bytes, two blocks an SM); 32 keys and fp32 Q at 128 (101,376
 // bytes, two blocks an SM, where 64 keys and split Q take 204,800, one).
+// kTileSums (above): at 64 the tile of P V takes 32 more registers; at 128
+// it would take 64 beside O's 64, more than the walk has left.
 template <int D>
 struct Config;
 template <>
@@ -60,12 +86,14 @@ struct Config<64> {
   static constexpr int BK = 64;
   static constexpr bool kSplitQ = true;
   static constexpr int kUnrollKs = 4;  // of the 8 steps of Q K^T
+  static constexpr bool kTileSums = true;
 };
 template <>
 struct Config<128> {
   static constexpr int BK = 32;
   static constexpr bool kSplitQ = false;
   static constexpr int kUnrollKs = 16;  // all: 1-5 % faster than 4 here
+  static constexpr bool kTileSums = false;
 };
 
 template <int D>
@@ -124,22 +152,27 @@ __device__ __forceinline__ void unpack(const float4& f, uint32_t a[4]) {
 
 // One block's work: query tile `tile` (rows 64 tile ..) of one (batch,
 // head) against key split `split` of `splits`, with
-//   s_rj = (scale q_r) . k_j + (kvalid[j] ? 0 : -1e30)   (kvalid null: all valid).
-// Exact (!SHIFT): online softmax; rows of a batch whose keys are all masked
-// come out 0. SHIFT: weights exp2(min(s_rj - shift2, 100)), no max.
-// splits == 1: o[r] = sum_j w_rj v_j / max(sum_j w_rj, 1e-30) into out.
+//   s_rj = (scale q_r) . k_j + (kvalid[j] ? 0 : -1e30)   (kvalid null: all valid)
+// weighted as MODE says (qvalid null: every qb_r is 0; kExact ignores it).
+// kExact with zero_empty: rows of a batch whose keys are all masked come
+// out 0; without, they average v with equal weights, as the scores are.
+// splits == 1: o[r] = sum_j w_rj v_j / max(sum_j w_rj, 1e-30) into out, and
+// with rmax (kExact) the row max into rmax[row0 + r] (-inf where the row
+// came out 0).
 // splits > 1: the unnormalised sum into part (splits, rows, D) and (row
 // max, row sum) into ml (splits, rows, 2) at row `row0` + r; the row max is
-// -inf when the split has no valid key.
-// q, out: this (batch, head)'s (Nq, D); k, v: (Nk, D); dynamic shared
-// memory Shape<D>::kBytes.
-template <bool SHIFT, int D>
+// -inf when zero_empty and the split has no valid key; merge_splits writes
+// rmax.
+// q, out: this (batch, head)'s (Nq, D); k, v: (Nk, D); kvalid (Nk),
+// qvalid (Nq); dynamic shared memory Shape<D>::kBytes.
+template <int MODE, int D>
 __device__ __forceinline__ void attend_block(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, const bool* __restrict__ kvalid,
-    float* __restrict__ out, float* __restrict__ part, float* __restrict__ ml,
+    const bool* __restrict__ qvalid, float* __restrict__ out,
+    float* __restrict__ part, float* __restrict__ ml, float* __restrict__ rmax,
     int rows, int row0, int Nq, int Nk, int tile, int split, int splits,
-    float scale, float shift2) {
+    float scale, float shift2, bool zero_empty) {
   using S = Shape<D>;
   constexpr int BK = S::BK, NJ = S::NJ;
   extern __shared__ __align__(16) float lg_smem[];
@@ -159,6 +192,11 @@ __device__ __forceinline__ void attend_block(
   // two channels of a key are adjacent: a0 (g, c), a1 (g + 8, c), a2 (g,
   // c + 1), a3 (g + 8, c + 1), c = 8 ks + 2t
   const int r0 = tile * BQ + (tid >> 5) * 16 + g, r1 = r0 + 8;
+  float qb[2] = {0.f, 0.f};
+  if (MODE != kExact && qvalid != nullptr) {
+    qb[0] = r0 < Nq && !qvalid[r0] ? MASKED : 0.f;
+    qb[1] = r1 < Nq && !qvalid[r1] ? MASKED : 0.f;
+  }
 #pragma unroll
   for (int ks = 0; ks < S::KS; ++ks) {
     const int c = 8 * ks + 2 * t;
@@ -243,16 +281,22 @@ __device__ __forceinline__ void attend_block(
           kb = ok ? 0.f : MASKED;
           valid |= ok;
         }
-        s[j][e] = key < Nk ? s[j][e] + kb : -INFINITY;
-        s[j][e + 2] = key < Nk ? s[j][e + 2] + kb : -INFINITY;
+        if (MODE == kExact) {
+          s[j][e] = key < Nk ? s[j][e] + kb : -INFINITY;
+          s[j][e + 2] = key < Nk ? s[j][e + 2] + kb : -INFINITY;
+        } else {
+          s[j][e] = key < Nk ? s[j][e] + kb + qb[0] : -INFINITY;
+          s[j][e + 2] = key < Nk ? s[j][e + 2] + kb + qb[1] : -INFINITY;
+        }
       }
 
-    if (SHIFT) {
+    if (MODE != kExact) {
 #pragma unroll
       for (int j = 0; j < NJ; ++j)
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
-          s[j][c] = exp2f(fminf(s[j][c] - shift2, 100.f));
+          s[j][c] = MODE == kShift ? exp2f(fminf(s[j][c] - shift2, 100.f))
+                                   : expf(s[j][c] - shift2);
           l_run[c >> 1] += s[j][c];
         }
     } else {
@@ -286,7 +330,15 @@ __device__ __forceinline__ void attend_block(
     }
 
     // O += P V, keys of step j taken as 2t (A column t) and 2t + 1 (A
-    // column t + 4): a = (s0, s2, s1, s3), b0 = V[2t], b1 = V[2t + 1]
+    // column t + 4): a = (s0, s2, s1, s3), b0 = V[2t], b1 = V[2t + 1]; with
+    // kTileSums into the tile pv, then added to O
+    constexpr bool kTileSums = Config<D>::kTileSums;
+    float pv[kTileSums ? S::KS : 1][4];
+    if constexpr (kTileSums) {
+#pragma unroll
+      for (int n = 0; n < S::KS; ++n)
+        pv[n][0] = pv[n][1] = pv[n][2] = pv[n][3] = 0.f;
+    }
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
       uint32_t pb[4], ps[4];
@@ -300,8 +352,17 @@ __device__ __forceinline__ void attend_block(
         uint32_t bb[2], bs[2];
         split_tf32(vp[8 * n], bb[0], bs[0]);
         split_tf32(vp[S::LDV + 8 * n], bb[1], bs[1]);
-        mma3(o[n], pb, ps, bb, bs);
+        if constexpr (kTileSums)
+          mma3(pv[n], pb, ps, bb, bs);
+        else
+          mma3(o[n], pb, ps, bb, bs);
       }
+    }
+    if constexpr (kTileSums) {
+#pragma unroll
+      for (int n = 0; n < S::KS; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) o[n][i] += pv[n][i];
     }
     __syncthreads();  // every read of this stage is done before its reload
   }
@@ -314,7 +375,7 @@ __device__ __forceinline__ void attend_block(
     l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
   }
   valid = __any_sync(0xffffffffu, valid);
-  const bool empty = !SHIFT && !valid;
+  const bool empty = MODE == kExact && zero_empty && !valid;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = r ? r1 : r0;
@@ -327,6 +388,8 @@ __device__ __forceinline__ void attend_block(
         *reinterpret_cast<float2*>(dst + 8 * n) =
             empty ? make_float2(0.f, 0.f)
                   : make_float2(o[n][2 * r] / l, o[n][2 * r + 1] / l);
+      if (MODE == kExact && rmax != nullptr && t == 0)
+        rmax[row0 + row] = empty ? -INFINITY : m_run[r];
     } else {
       const size_t prow = (size_t)split * rows + row0 + row;
       float* dst = part + prow * D + 2 * t;
@@ -343,12 +406,14 @@ __device__ __forceinline__ void attend_block(
 
 // o[row] = sum_s w_s part[s][row] / max(sum_s w_s l_s, 1e-30) over rows
 // (rows, D), w_s = exp(m_s - max_s m_s) (exact; 0 when every m_s is -inf,
-// which leaves the row 0) or 1 (SHIFT); splits summed in order.
-// One thread per 4 channels of a row.
+// which leaves the row 0) or 1 (SHIFT: the shifted walks, kShift and
+// kFixed); splits summed in order. Exact, with rmax: the row max max_s m_s
+// into rmax[row]. One thread per 4 channels of a row.
 template <bool SHIFT>
 __global__ void __launch_bounds__(256)
     merge_splits(const float* __restrict__ part, const float* __restrict__ ml,
-                 float* __restrict__ o, int rows, int D, int splits) {
+                 float* __restrict__ o, float* __restrict__ rmax, int rows,
+                 int D, int splits) {
   const int per_row = D / 4;
   const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= (long)rows * per_row) return;
@@ -358,6 +423,7 @@ __global__ void __launch_bounds__(256)
     mx = -INFINITY;
     for (int s = 0; s < splits; ++s)
       mx = fmaxf(mx, ml[2 * ((size_t)s * rows + row)]);
+    if (rmax != nullptr && c == 0) rmax[row] = mx;
   }
   float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
   float l = 0.f;

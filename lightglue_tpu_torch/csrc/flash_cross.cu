@@ -1,5 +1,5 @@
 // K2: bidirectional shared-QK cross attention, fp32: exact, and the
-// single-pass constant-shift variant (B3s).
+// single-pass constant-shift variant (B3s); head_dim 64.
 //
 // Replaces the TPU kernels lightglue_tpu/ops/flash_cross.py::
 // _fused_cross_kernel (the exact variant of fused_cross_attention) and
@@ -10,7 +10,9 @@
 //     m1_j = sum_i exp(s'_ij - S) valid0_i v0_i / sum_i exp(s'_ij - S) valid0_i
 //   where S = max_{i,j} s'_ij over the whole (batch, head): the TPU kernel's
 //   per-(b, h) global shift for the column direction. As on the TPU, m0 is
-//   not zeroed on invalid query rows; callers read valid rows only.
+//   not zeroed on invalid query rows (callers read valid rows only), and a
+//   batch entry whose image 1 is all masked gets the mean of v1 (every
+//   score there is -1e30).
 //   mode 1, the attention of the whole-CrossBlock kernel (B6, flash_cross_
 //   block.py:127-157): the same, except that S is the maximum over valid
 //   rows only and m0 is 0 in a batch entry whose image 1 is all masked.
@@ -18,175 +20,182 @@
 //   serves both directions (scale * log2(e) folded in),
 //     m0_i = sum_j e_ij v1_j / max(sum_j e_ij, 1e-30),
 //     m1_j = sum_i e_ij v0_i / max(sum_i e_ij, 1e-30),
-//   and invalid rows and columns come out 0; no global max, no rescale.
+//   so invalid rows and columns come out 0; no global max, no rescale.
 //
-// What bounds it on an H100: arithmetic, as K1 (6.4 GFLOP at B 4, H 4,
-// M 1024, N 768: four 2 M N 64 products per (batch, head), two for each
-// direction).
+// What bounds it on an H100: arithmetic, as K1 (4.8 GFLOP at B 4, H 4,
+// M 1024, N 768: the function needs three 2 M N 64 products per (batch,
+// head), the scores once, then P V1 and P^T V0): 0.072 ms in fp32 on the
+// CUDA cores, 0.029 ms as 3xTF32 on the tensor cores. Each direction's
+// walk computes the scores itself (four products): the exact column walk
+// needs S before it starts, and a block of one direction does not hold the
+// other direction's accumulators.
 //
-// Design: the TPU grid runs in order on one core and carries the column
-// accumulator and the running strip max across query blocks in VMEM scratch.
-// Blocks on the card run in no order, so the column direction becomes its
-// own launch. Launch 1 runs over (batch, head, 64-row tile of image 0): an
-// online row softmax (exact) or the exp2 walk (shift) gives m0, and, exact,
-// each block writes its tile's score max. Launch 2 runs over (batch, head,
-// 64-column tile of image 1): exact, it reduces the tile maxima to S; then
-// it walks all rows of image 0, accumulating the weighted v0 and the column
-// sum in registers. S is known before the walk, so launch 2 needs no
-// rescaling, and no block writes what another block reads in the same
-// launch: no atomics, same bits on every run. The sums are explicit; the
-// TPU's ones-column in V is an MXU trick.
-#include "common.cuh"
+// Design: both directions are the attention walk of attn_tc.cuh (3xTF32
+// mma.sync tiles, cp.async K/V ring, key split), once with image 0's rows
+// as queries and once with image 1's. The TPU grid runs in order on one
+// core and carries the column accumulator across query blocks in VMEM;
+// blocks on the card run in no order, so the exact column direction is a
+// launch of its own after the rows: the row launch (exact walk, keys
+// valid1) writes m0 and each row's score max, its split merge (if any)
+// combines them; the column launch (queries qk1 with bias1, keys qk0 with
+// valid0, values v0) first reduces the row maxima of its (batch, head) to
+// S (over valid rows in mode 1; 0 where there is none, when every key of
+// the column walk is masked anyway), then walks with the fixed shift S: no
+// running max, no rescale, and its split merge is a plain sum in split
+// order. The shift variant's directions do not depend on each other: one
+// launch over grid z = 2 B. No block writes what another block of the same
+// launch reads, no atomics: the same bits on every run.
+#include "attn_tc.cuh"
 
 namespace {
 
-// mode 0 exact (K2), 1 exact as the CrossBlock kernel; SHIFT for mode 2.
-template <bool SHIFT>
-__global__ void __launch_bounds__(lg::THREADS)
+using lg::tc::THREADS;
+constexpr int D = 64;  // head_dim, as the TPU kernels (the ones column of V)
+using Sh = lg::tc::Shape<D>;
+
+// Exact messages into image 0. Grid (cdiv(M, 64) splits, H, B).
+__global__ void __launch_bounds__(THREADS, Sh::kBlocksPerSM)
     cross_rows_kernel(const float* __restrict__ qk0,
                       const float* __restrict__ qk1,
                       const float* __restrict__ v1,
-                      const float* __restrict__ bias0,
-                      const float* __restrict__ bias1, float* __restrict__ m0,
-                      float* __restrict__ tile_max, int H, int M, int N,
-                      float scale, int mode, float shift2) {
-  lg::row_softmax_attention<SHIFT>(qk0, qk1, v1, bias1,
-                                   mode == 0 ? nullptr : bias0, m0, tile_max,
-                                   H, M, N, scale, /*zero_empty=*/mode == 1,
-                                   shift2);
+                      const bool* __restrict__ valid1, float* __restrict__ m0,
+                      float* __restrict__ part, float* __restrict__ ml,
+                      float* __restrict__ rmax, int H, int M, int N,
+                      int splits, float scale, bool zero_empty) {
+  const int b = blockIdx.z, h = blockIdx.y;
+  const size_t bh = (size_t)b * H + h;
+  lg::tc::attend_block<lg::tc::kExact, D>(
+      qk0 + bh * M * D, qk1 + bh * N * D, v1 + bh * N * D,
+      valid1 ? valid1 + (size_t)b * N : nullptr, nullptr, m0 + bh * M * D,
+      part, ml, rmax, (int)gridDim.z * H * M, (int)bh * M, M, N,
+      blockIdx.x / splits, blockIdx.x % splits, splits, scale, 0.f,
+      zero_empty);
 }
 
-// Grid (cdiv(N, 64), H, B).
-template <bool SHIFT>
-__global__ void __launch_bounds__(lg::THREADS)
+// Exact messages into image 1, shifted by S. Grid (cdiv(N, 64) splits, H,
+// B); rmax (B H M): the row launch's row maxima.
+__global__ void __launch_bounds__(THREADS, Sh::kBlocksPerSM)
     cross_cols_kernel(const float* __restrict__ qk0,
                       const float* __restrict__ qk1,
                       const float* __restrict__ v0,
-                      const float* __restrict__ bias0,
-                      const float* __restrict__ bias1,
-                      const float* __restrict__ tile_max, int n_tiles,
-                      float* __restrict__ m1, int H, int M, int N,
-                      float scale, float shift2) {
-  using namespace lg;
-  extern __shared__ __align__(16) float lg_smem[];
-  float* Cs = lg_smem;         // 64 x LD: qk1 rows of this column tile
-  float* Rs = Cs + TILE * LD;  // 64 x LD: scaled qk0 rows
-  float* Vs = Rs + TILE * LD;  // 64 x HD: v0 rows
-  float* Es = Vs + TILE * HD;  // 64 x LD: weights, [column][row]
-  float* col_l = Es + TILE * LD;  // 64
-
-  const int t = threadIdx.x, ty = t >> 4, tx = t & 15;
-  const int r = t >> 2, seg = t & 3;
-  const int b = blockIdx.z, h = blockIdx.y, j0 = blockIdx.x * TILE;
+                      const bool* __restrict__ valid0,
+                      const bool* __restrict__ valid1,
+                      const float* __restrict__ rmax, float* __restrict__ m1,
+                      float* __restrict__ part, float* __restrict__ ml, int H,
+                      int M, int N, int splits, float scale,
+                      bool valid_rows_only) {
+  __shared__ float warp_max[THREADS / 32];
+  const int b = blockIdx.z, h = blockIdx.y;
   const size_t bh = (size_t)b * H + h;
-  const float* q0b = qk0 + bh * M * HD;
-  const float* q1b = qk1 + bh * N * HD;
-  const float* v0b = v0 + bh * M * HD;
-  const float* b0 = bias0 ? bias0 + (size_t)b * M : nullptr;
-  const float* b1 = bias1 ? bias1 + (size_t)b * N : nullptr;
-
-  // exact: subtract the global max S; shift: the constant shift2
-  float sub = shift2;
-  if (!SHIFT) {
-    sub = -INFINITY;
-    for (int i = 0; i < n_tiles; ++i)
-      sub = fmaxf(sub, tile_max[bh * n_tiles + i]);
-  }
-
-  load_tile(Cs, LD, q1b, j0, N, HD, 0, 1.f);
-  float cbias[4];
+  const bool* va0 = valid0 ? valid0 + (size_t)b * M : nullptr;
+  const bool* only = valid_rows_only ? va0 : nullptr;
+  const float* rm = rmax + bh * M;
+  float mx = -INFINITY;
+  for (int i = threadIdx.x; i < M; i += THREADS)
+    if (only == nullptr || only[i]) mx = fmaxf(mx, rm[i]);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int col = j0 + ty + 16 * i;
-    cbias[i] = (b1 && col < N) ? b1[col] : 0.f;
-  }
-  float l_run = 0.f;  // this column's sum, same in its 4 threads
-  float acc[4][4] = {};
-
-  for (int i0 = 0; i0 < M; i0 += TILE) {
-    __syncthreads();
-    load_tile(Rs, LD, q0b, i0, M, HD, 0, scale);
-    load_tile(Vs, HD, v0b, i0, M, HD, 0, 1.f);
-    __syncthreads();
-    float s[4][4] = {};
-    tile_abt(Cs, Rs, s);  // s[j][i] = qk1_j . (scale qk0_i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int row = i0 + tx + 16 * i;
-        const bool ok = row < M && (!b0 || b0[row] >= 0.f);
-        const float x = s[j][i] + cbias[j] - sub;
-        Es[(ty + 16 * j) * LD + tx + 16 * i] =
-            !ok ? 0.f : SHIFT ? exp2f(fminf(x, 100.f)) : expf(x);
-      }
-    __syncthreads();
-    const float* erow = Es + r * LD + seg * 16;
-    float ps = 0.f;
-#pragma unroll
-    for (int c = 0; c < 16; ++c) ps += erow[c];
-    l_run += group4_sum(ps);
-    tile_pv(Es, Vs, acc);
-  }
-
+  for (int o = 16; o > 0; o >>= 1)
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+  if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = mx;
   __syncthreads();
-  if (seg == 0) col_l[r] = l_run;
-  __syncthreads();
-  float* mb = m1 + bh * N * HD;
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int col = j0 + ty + 16 * j;
-    if (col >= N) continue;
-    const float l = fmaxf(col_l[ty + 16 * j], 1e-30f);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      mb[(size_t)col * HD + tx + 16 * i] = acc[j][i] / l;
-  }
+  for (int w = 0; w < THREADS / 32; ++w) mx = fmaxf(mx, warp_max[w]);
+  lg::tc::attend_block<lg::tc::kFixed, D>(
+      qk1 + bh * N * D, qk0 + bh * M * D, v0 + bh * M * D, va0,
+      valid1 ? valid1 + (size_t)b * N : nullptr, m1 + bh * N * D, part, ml,
+      nullptr, (int)gridDim.z * H * N, (int)bh * N, N, M, blockIdx.x / splits,
+      blockIdx.x % splits, splits, scale, mx == -INFINITY ? 0.f : mx, false);
 }
 
-constexpr size_t kColSmem = (3 * lg::TILE * lg::LD + lg::TILE * lg::HD +
-                             lg::TILE) * sizeof(float);
+// Both directions of the shift variant. Grid (max over directions of
+// cdiv(nq, 64) splits, H, 2 B); z = 2 b + direction, as B1'.
+__global__ void __launch_bounds__(THREADS, Sh::kBlocksPerSM)
+    cross_shift_kernel(const float* __restrict__ qk0,
+                       const float* __restrict__ qk1,
+                       const float* __restrict__ v0,
+                       const float* __restrict__ v1,
+                       const bool* __restrict__ valid0,
+                       const bool* __restrict__ valid1,
+                       float* __restrict__ m0, float* __restrict__ m1,
+                       float* __restrict__ part0, float* __restrict__ ml0,
+                       float* __restrict__ part1, float* __restrict__ ml1,
+                       int H, int M, int N, int splits0, int splits1,
+                       float scale, float shift2) {
+  const int b = blockIdx.z >> 1, h = blockIdx.y;
+  const bool dir1 = blockIdx.z & 1;  // messages into image 1
+  const int nq = dir1 ? N : M, nk = dir1 ? M : N;
+  const int splits = dir1 ? splits1 : splits0;
+  if ((int)blockIdx.x >= lg::tc::cdiv(nq, lg::tc::BQ) * splits) return;
+  const size_t bh = (size_t)b * H + h;
+  const bool* kvalid = dir1 ? valid0 : valid1;
+  const bool* qvalid = dir1 ? valid1 : valid0;
+  lg::tc::attend_block<lg::tc::kShift, D>(
+      (dir1 ? qk1 : qk0) + bh * nq * D, (dir1 ? qk0 : qk1) + bh * nk * D,
+      (dir1 ? v0 : v1) + bh * nk * D, kvalid ? kvalid + (size_t)b * nk : nullptr,
+      qvalid ? qvalid + (size_t)b * nq : nullptr, (dir1 ? m1 : m0) + bh * nq * D,
+      dir1 ? part1 : part0, dir1 ? ml1 : ml0, nullptr,
+      (int)(gridDim.z >> 1) * H * nq, (int)bh * nq, nq, nk,
+      blockIdx.x / splits, blockIdx.x % splits, splits, scale, shift2, false);
+}
 
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel) {
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)Sh::kBytes);
+}
+
+// The merge launch of a split walk (nothing when splits == 1).
 template <bool SHIFT>
-cudaError_t launch(const float* qk0, const float* qk1, const float* v0,
-                   const float* v1, const float* bias0, const float* bias1,
-                   float* m0, float* m1, float* tile_max, int B, int H, int M,
-                   int N, int mode, float scale, float shift2,
-                   cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      cross_rows_kernel<SHIFT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)lg::kRowAttnSmem);
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(cross_cols_kernel<SHIFT>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)kColSmem);
-  if (err != cudaSuccess) return err;
-  const int n_tiles = lg::cdiv(M, lg::TILE);
-  const dim3 rows(n_tiles, H, B), cols(lg::cdiv(N, lg::TILE), H, B);
-  cross_rows_kernel<SHIFT><<<rows, lg::THREADS, lg::kRowAttnSmem, stream>>>(qk0, qk1, v1, bias0, bias1, m0, tile_max, H, M, N, scale, mode, shift2);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  cross_cols_kernel<SHIFT><<<cols, lg::THREADS, kColSmem, stream>>>(qk0, qk1, v0, bias0, bias1, tile_max, n_tiles, m1, H, M, N, scale, shift2);
+cudaError_t merge(const float* part, const float* ml, float* o, float* rmax,
+                  int rows, int splits, cudaStream_t stream) {
+  if (splits == 1) return cudaSuccess;
+  const long n = (long)rows * (D / 4);
+  lg::tc::merge_splits<SHIFT><<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(part, ml, o, rmax, rows, D, splits);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// qk0, v0, m0: (B, H, M, 64); qk1, v1, m1: (B, H, N, 64); bias0 (B, M) and
-// bias1 (B, N) or null; tile_max: scratch of B * H * cdiv(M, 64) floats.
-// mode: 0 exact, 1 exact as the CrossBlock kernel, 2 shift. scale
-// multiplies qk0; shift2 = shift * log2(e) (mode 2).
-extern "C" cudaError_t lg_fused_cross(const float* qk0, const float* qk1,
-                                      const float* v0, const float* v1,
-                                      const float* bias0, const float* bias1,
-                                      float* m0, float* m1, float* tile_max,
-                                      int B, int H, int M, int N, int mode,
-                                      float scale, float shift2,
-                                      cudaStream_t stream) {
-  if (mode < 0 || mode > 2) return cudaErrorInvalidValue;
-  return mode == 2
-             ? launch<true>(qk0, qk1, v0, v1, bias0, bias1, m0, m1, tile_max, B,
-                            H, M, N, mode, scale, shift2, stream)
-             : launch<false>(qk0, qk1, v0, v1, bias0, bias1, m0, m1, tile_max,
-                             B, H, M, N, mode, scale, shift2, stream);
+// qk0, v0, m0: (B, H, M, 64); qk1, v1, m1: (B, H, N, 64); valid0 (B, M),
+// valid1 (B, N) bool, each or null; qk0, qk1, v0, v1 16-byte aligned.
+// mode: 0 exact, 1 exact as the CrossBlock kernel, 2 shift. splits0 splits
+// direction 0's N keys (part0 (splits0, B H M, 64), ml0 (splits0, B H M,
+// 2)), splits1 direction 1's M keys (part1, ml1 over B H N rows), each
+// from 1 to its key tiles; rmax (B H M) scratch of the exact modes. scale
+// multiplies the queries of both directions; shift2 = shift * log2(e)
+// (mode 2).
+extern "C" cudaError_t lg_fused_cross(
+    const float* qk0, const float* qk1, const float* v0, const float* v1,
+    const bool* valid0, const bool* valid1, float* m0, float* m1,
+    float* part0, float* ml0, float* part1, float* ml1, float* rmax, int B,
+    int H, int M, int N, int mode, int splits0, int splits1, float scale,
+    float shift2, cudaStream_t stream) {
+  if (mode < 0 || mode > 2 || (mode != 2 && rmax == nullptr))
+    return cudaErrorInvalidValue;
+  using lg::tc::BQ;
+  using lg::tc::cdiv;
+  const size_t smem = Sh::kBytes;
+  cudaError_t err;
+  if (mode == 2) {
+    if ((err = allow_smem(cross_shift_kernel)) != cudaSuccess) return err;
+    const int x0 = cdiv(M, BQ) * splits0, x1 = cdiv(N, BQ) * splits1;
+    const dim3 grid(x0 > x1 ? x0 : x1, H, 2 * B);
+    cross_shift_kernel<<<grid, THREADS, smem, stream>>>(qk0, qk1, v0, v1, valid0, valid1, m0, m1, part0, ml0, part1, ml1, H, M, N, splits0, splits1, scale, shift2);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    if ((err = merge<true>(part0, ml0, m0, nullptr, B * H * M, splits0,
+                           stream)) != cudaSuccess)
+      return err;
+    return merge<true>(part1, ml1, m1, nullptr, B * H * N, splits1, stream);
+  }
+  if ((err = allow_smem(cross_rows_kernel)) != cudaSuccess) return err;
+  if ((err = allow_smem(cross_cols_kernel)) != cudaSuccess) return err;
+  cross_rows_kernel<<<dim3(cdiv(M, BQ) * splits0, H, B), THREADS, smem, stream>>>(qk0, qk1, v1, valid1, m0, part0, ml0, rmax, H, M, N, splits0, scale, mode == 1);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if ((err = merge<false>(part0, ml0, m0, rmax, B * H * M, splits0,
+                          stream)) != cudaSuccess)
+    return err;
+  cross_cols_kernel<<<dim3(cdiv(N, BQ) * splits1, H, B), THREADS, smem, stream>>>(qk0, qk1, v0, valid0, valid1, rmax, m1, part1, ml1, H, M, N, splits1, scale, mode == 1);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  return merge<true>(part1, ml1, m1, nullptr, B * H * N, splits1, stream);
 }

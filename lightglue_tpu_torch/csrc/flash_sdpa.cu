@@ -52,11 +52,11 @@ __global__ void __launch_bounds__(lg::tc::THREADS, Shape<D>::kBlocksPerSM)
                       int Nq, int Nk, int splits, float scale, float shift2) {
   const int b = blockIdx.z, h = blockIdx.y;
   const size_t bh = (size_t)b * H + h;
-  lg::tc::attend_block<SHIFT, D>(
+  lg::tc::attend_block<SHIFT ? lg::tc::kShift : lg::tc::kExact, D>(
       q + bh * Nq * D, k + bh * Nk * D, v + bh * Nk * D,
-      kvalid ? kvalid + (size_t)b * Nk : nullptr, o + bh * Nq * D, part, ml,
-      (int)(gridDim.z * H) * Nq, (int)bh * Nq, Nq, Nk, blockIdx.x / splits,
-      blockIdx.x % splits, splits, scale, shift2);
+      kvalid ? kvalid + (size_t)b * Nk : nullptr, nullptr, o + bh * Nq * D,
+      part, ml, nullptr, (int)(gridDim.z * H) * Nq, (int)bh * Nq, Nq, Nk,
+      blockIdx.x / splits, blockIdx.x % splits, splits, scale, shift2, true);
 }
 
 // Grid (max over directions of cdiv(nq, 64) splits, H, 2 B); z = 2 b +
@@ -80,12 +80,13 @@ __global__ void __launch_bounds__(lg::tc::THREADS, Shape<D>::kBlocksPerSM)
   if ((int)blockIdx.x >= lg::tc::cdiv(nq, lg::tc::BQ) * splits) return;
   const size_t bh = (size_t)b * H + h;
   const bool* kvalid = dir1 ? valid0 : valid1;
-  lg::tc::attend_block<false, D>(
+  lg::tc::attend_block<lg::tc::kExact, D>(
       (dir1 ? qk1 : qk0) + bh * nq * D, (dir1 ? qk0 : qk1) + bh * nk * D,
       (dir1 ? v0 : v1) + bh * nk * D, kvalid ? kvalid + (size_t)b * nk : nullptr,
-      (dir1 ? m1 : m0) + bh * nq * D, dir1 ? part1 : part0, dir1 ? ml1 : ml0,
-      (int)(gridDim.z >> 1) * H * nq, (int)bh * nq, nq, nk,
-      blockIdx.x / splits, blockIdx.x % splits, splits, scale, 0.f);
+      nullptr, (dir1 ? m1 : m0) + bh * nq * D, dir1 ? part1 : part0,
+      dir1 ? ml1 : ml0, nullptr, (int)(gridDim.z >> 1) * H * nq, (int)bh * nq,
+      nq, nk, blockIdx.x / splits, blockIdx.x % splits, splits, scale, 0.f,
+      true);
 }
 
 template <typename Kernel>
@@ -101,7 +102,7 @@ cudaError_t merge(const float* part, const float* ml, float* o, int rows,
                   int D, int splits, cudaStream_t stream) {
   if (splits == 1) return cudaSuccess;
   const long n = (long)rows * (D / 4);
-  lg::tc::merge_splits<SHIFT><<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(part, ml, o, rows, D, splits);
+  lg::tc::merge_splits<SHIFT><<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(part, ml, o, nullptr, rows, D, splits);
   return cudaGetLastError();
 }
 

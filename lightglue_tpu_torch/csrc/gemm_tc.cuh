@@ -1,5 +1,6 @@
 // A tile product on Hopper's tensor cores, C = A B^T in fp32 by 3xTF32:
-// the projections and the out_proj + FFN chain of B5 and B6 (blocks.cu).
+// the projections and the out_proj + FFN chain of B5 and B6 (blocks.cu), and
+// the score tiles of the assignment reductions B2 (assignment_fused.cu).
 //
 // A (R, K) holds activation rows and B (C, K) one row per output channel,
 // both K-major, so a k-step copies whole 32-float row segments of each. A
@@ -81,12 +82,24 @@ struct NoTransform {
 // or past R read as 0. A source `a`: a.at(row) -> a cursor for row < R,
 // a.src(cursor, k0) -> the address of the row's channels k0 .. k0 + 31
 // (contiguous); kTransform, begin and transform as NoTransform. w (C, K)
-// row-major; K a multiple of 32; dynamic shared memory T::kBytes.
-template <class T, class ASrc>
+// row-major; with kBoundB its rows at or past C read as 0 (else the tile's
+// BN rows must exist); K a multiple of 32; dynamic shared memory T::kBytes.
+// kStepSums: each 8-deep step's three products go into a zeroed register
+// tile that an fp32 add then puts into acc. The tensor core's own adds
+// truncate the products aligned to the accumulator, so over a deep K at
+// large |C| its errors add up with one sign (B2 at scores up to 160, K 256,
+// on an H100: 9.5e-5 from float64 summed in place, 1.3e-5 with the step
+// sums, 3.1e-5 for the fp32 plain product; scripts/assign_study.py), at
+// 11-12 % of B2's time. B5's and B6's products (blocks.cu) keep the
+// in-place sums: over K 256 and 512 their outputs are of order 1-10, and
+// every launch stays within 1.2e-5 of its plain version (chip_smoke.py,
+// phase 2c), so the step sums would cost time there and buy nothing.
+template <class T, class ASrc, bool kBoundB = false, bool kStepSums = false>
 __device__ __forceinline__ void mainloop(const ASrc& a,
                                          const float* __restrict__ w, int K,
                                          int R, int m0, int n0,
-                                         float (&acc)[T::MT][T::NT][4]) {
+                                         float (&acc)[T::MT][T::NT][4],
+                                         int C = 0) {
   extern __shared__ __align__(16) float lg_smem[];
   constexpr int CH = BK / 4;  // 16-byte chunks of a row segment
   constexpr int AC = T::BM * CH / T::THREADS, BC = T::BN * CH / T::THREADS;
@@ -105,10 +118,12 @@ __device__ __forceinline__ void mainloop(const ASrc& a,
     cur[i] = a.at(ok[i] ? row : m0);  // m0 < R: a valid address
   }
   const float* wrow[BC];
+  bool okb[BC];
 #pragma unroll
   for (int i = 0; i < BC; ++i) {
-    const int idx = tid + i * T::THREADS;
-    wrow[i] = w + (size_t)(n0 + idx / CH) * K + 4 * (idx % CH);
+    const int idx = tid + i * T::THREADS, c = n0 + idx / CH;
+    okb[i] = !kBoundB || c < C;
+    wrow[i] = w + (size_t)(okb[i] ? c : n0) * K + 4 * (idx % CH);
   }
   auto load = [&](int stage, int k0) {
     float* As = lg_smem + stage * T::kStage;
@@ -122,7 +137,7 @@ __device__ __forceinline__ void mainloop(const ASrc& a,
     for (int i = 0; i < BC; ++i) {
       const int idx = tid + i * T::THREADS;
       tc::cp_async16(Bs + (idx / CH) * LDS + 4 * (idx % CH), wrow[i] + k0,
-                     true);
+                     okb[i]);
     }
     tc::cp_async_commit();
   };
@@ -173,8 +188,16 @@ __device__ __forceinline__ void mainloop(const ASrc& a,
         tc::split_tf32(bv.x, bb[0], bs[0]);
         tc::split_tf32(bv.y, bb[1], bs[1]);
 #pragma unroll
-        for (int mt = 0; mt < T::MT; ++mt)
-          tc::mma3(acc[mt][nt], ab[mt], as[mt], bb, bs);
+        for (int mt = 0; mt < T::MT; ++mt) {
+          if constexpr (kStepSums) {
+            float d[4] = {0.f, 0.f, 0.f, 0.f};
+            tc::mma3(d, ab[mt], as[mt], bb, bs);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) acc[mt][nt][i] += d[i];
+          } else {
+            tc::mma3(acc[mt][nt], ab[mt], as[mt], bb, bs);
+          }
+        }
       }
     }
   }

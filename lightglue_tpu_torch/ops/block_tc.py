@@ -60,12 +60,13 @@ def tile_plan(rows: int, cols: int, sms: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def _sms(index: int) -> int:
+def sms(index: int) -> int:
+    """SMs of CUDA device ``index``."""
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _tile(dev: torch.device, rows: int, cols: int) -> int:
-    return tile_plan(rows, cols, _sms(dev.index))
+    return tile_plan(rows, cols, sms(dev.index))
 
 
 def merge_heads(t: torch.Tensor) -> torch.Tensor:

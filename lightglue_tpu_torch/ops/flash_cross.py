@@ -10,18 +10,27 @@ matrix, as the TPU kernel does, and neither zeroes the messages of invalid
 rows of image 0 (callers read valid rows only). Shift: one
 e = exp2(min(s + bias0 + bias1 - shift * log2(e), 100)) serves both
 directions, and invalid rows and columns come out 0.
+
+On CUDA tensors ``launch_cross`` (the one launch helper of K2 and of B6's
+attention) runs csrc/flash_cross.cu: both directions on the attention walk
+of csrc/attn_tc.cuh, each split over its keys where the query tiles would
+leave SMs idle (``cross_splits``). ``cross_launches_plain`` states those
+launches in plain PyTorch (``walk_partial_plain`` for one split's state,
+``column_shift_plain`` for the column direction's device-side shift, the
+states merged by ``flash.merge_splits_plain``); only the tests use it.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import math
+from typing import Optional, Sequence, Tuple
 
 import torch
 
 from .. import _build
+from . import flash
 from .flash import LOG2E, key_bias, shift_weights
 
-TILE = 64  # query rows per block of the row launch (csrc/common.cuh)
 # The only head_dim of K2 and B6, as in the TPU kernels (their ones column
 # in V sits at lane 64); the matcher takes B1' above it.
 HEAD_DIM = 64
@@ -75,18 +84,38 @@ def fused_cross_attention_plain(
     return m0, m1
 
 
-def launch_cross(qk0, qk1, v0, v1, bias0, bias1, mode: int, scale: float,
-                 shift2: float = 0.0) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The row and column launches of csrc/flash_cross.cu on CUDA tensors
-    (no launch count: the calling op counts). ``scale`` multiplies qk0;
-    ``mode``: EXACT (K2), EXACT_BLOCK (B6's exact attention: the column
-    shift is the maximum over valid rows only, and m0 is 0 where image 1
-    has no valid point) or SHIFT (log2-domain scores, ``shift2`` =
-    shift * log2(e))."""
+def cross_splits(dev: torch.device, b: int, h: int, m: int, n: int,
+                 mode: int) -> Tuple[int, int]:
+    """Key splits (direction 0 over image 1's n keys, direction 1 over
+    image 0's m) from ``flash.split_plan`` and the walk's own tile and
+    occupancy on ``dev``: the exact modes' row and column launches are
+    planned each alone, the shift mode's one launch over both directions
+    together."""
+    key_tile, per_sm, sms = flash.walk_shape(dev.index, HEAD_DIM)
+    tiles = lambda k: -(-k // key_tile)  # noqa: E731
+    walks = ((b * h * -(-m // flash.QUERY_TILE), tiles(n)),
+             (b * h * -(-n // flash.QUERY_TILE), tiles(m)))
+    if mode == SHIFT:
+        return flash.split_plan(walks, sms, per_sm)
+    return (flash.split_plan(walks[:1], sms, per_sm)[0],
+            flash.split_plan(walks[1:], sms, per_sm)[0])
+
+
+def launch_cross(qk0, qk1, v0, v1, valid0, valid1, mode: int, scale: float,
+                 shift2: float = 0.0,
+                 splits: Optional[Sequence[int]] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """csrc/flash_cross.cu's launches on CUDA tensors (no launch count: the
+    calling op counts). valid0 (B, M), valid1 (B, N): bool masks or None.
+    ``scale`` multiplies the queries of both directions; ``mode``: EXACT
+    (K2), EXACT_BLOCK (B6's exact attention: the column shift is the
+    maximum over valid rows only, and m0 is 0 where image 1 has no valid
+    point) or SHIFT (log2-domain scores, ``shift2`` = shift * log2(e)).
+    ``splits`` (direction 0's, direction 1's): a study's candidates, else
+    ``cross_splits``; the scratch of a split walk is allocated here."""
     b, h, m, d = qk0.shape
     n = qk1.shape[2]
-    dev = _build.check_cuda(qk0=qk0, qk1=qk1, v0=v0, v1=v1, bias0=bias0,
-                            bias1=bias1)
+    dev = _build.check_cuda(qk0=qk0, qk1=qk1, v0=v0, v1=v1)
     if d != HEAD_DIM:
         raise ValueError(
             f"the cross attention kernel takes head_dim {HEAD_DIM}, got {d}")
@@ -95,14 +124,27 @@ def launch_cross(qk0, qk1, v0, v1, bias0, bias1, mode: int, scale: float,
         raise ValueError(
             f"bad shapes qk0 {tuple(qk0.shape)} qk1 {tuple(qk1.shape)} "
             f"v0 {tuple(v0.shape)} v1 {tuple(v1.shape)}")
-    if bias0 is not None and (bias0.shape != (b, m) or bias1.shape != (b, n)):
-        raise ValueError("valid0/valid1 must be (B, M)/(B, N)")
+    if mode not in (EXACT, EXACT_BLOCK, SHIFT):
+        raise ValueError(f"unknown mode {mode}")
+    valid0 = flash.mask_arg(valid0, (b, m), dev)
+    valid1 = flash.mask_arg(valid1, (b, n), dev)
+    if splits is None:
+        splits = cross_splits(dev, b, h, m, n, mode)
+    key_tile = flash.walk_shape(dev.index, d)[0]
+    scratch = []
+    for nq, nk, s in ((m, n, splits[0]), (n, m, splits[1])):
+        flash.split_ranges(nk, s, key_tile)  # raises unless 1 <= s <= T
+        rows = b * h * nq
+        scratch += ([torch.empty(s, rows, d, device=dev),
+                     torch.empty(s, rows, 2, device=dev)] if s > 1
+                    else [None, None])
+    rmax = None if mode == SHIFT else torch.empty(b * h * m, device=dev)
+    qk0, qk1, v0, v1 = map(flash.aligned16, (qk0, qk1, v0, v1))
     m0 = torch.empty_like(qk0)
     m1 = torch.empty_like(qk1)
-    tile_max = torch.empty(b, h, -(-m // TILE), device=dev)
-    _build.launch("lg_fused_cross", dev, qk0, qk1, v0, v1, bias0, bias1, m0,
-                  m1, tile_max, b, h, m, n, mode, float(scale),
-                  float(shift2))
+    _build.launch("lg_fused_cross", dev, qk0, qk1, v0, v1, valid0, valid1,
+                  m0, m1, *scratch, rmax, b, h, m, n, mode, *splits,
+                  float(scale), float(shift2))
     return m0, m1
 
 
@@ -119,13 +161,92 @@ def fused_cross_attention(
     if qk0.device.type == "cpu":
         return fused_cross_attention_plain(qk0, qk1, v0, v1, valid0, valid1,
                                            shift)
-    b, _, m, d = qk0.shape
-    bias0, bias1 = _biases(valid0, valid1, b, m, qk1.shape[2], qk0.device)
+    d = qk0.shape[-1]
     if shift is None:
-        out = launch_cross(qk0, qk1, v0, v1, bias0, bias1, EXACT, d ** -0.5)
+        out = launch_cross(qk0, qk1, v0, v1, valid0, valid1, EXACT, d ** -0.5)
         _build.count("fused_cross_attention")
     else:
-        out = launch_cross(qk0, qk1, v0, v1, bias0, bias1, SHIFT,
+        out = launch_cross(qk0, qk1, v0, v1, valid0, valid1, SHIFT,
                            d ** -0.5 * LOG2E, shift * LOG2E)
         _build.count("fused_cross_attention_shift")
     return out
+
+
+# --- the launches in plain PyTorch (tests) ---------------------------------
+
+
+def walk_partial_plain(q, k, v, kvalid, qvalid, scale: float, walk: str,
+                       shift=0.0, zero_empty: bool = True):
+    """The state one key split of csrc/attn_tc.cuh::attend_block leaves, in
+    plain PyTorch: (unnormalised output (B, H, Nq, d), row max, row sum
+    (B, H, Nq)). s = (scale q) k^T + key bias; ``walk`` "exact": weights
+    exp(s - row max), the row max -inf where ``zero_empty`` and the split
+    has no valid key; "shift": exp2(min(s + query bias - shift, 100));
+    "fixed": exp(s + query bias - shift), ``shift`` (B, H) per (batch,
+    head). The shifted walks' row max is not used (0)."""
+    s = (q * scale) @ k.transpose(-1, -2)
+    if kvalid is not None:
+        s = s + key_bias(kvalid)[:, None, None, :]
+    if walk == "exact":
+        mx = s.amax(-1)
+        e = torch.exp(s - mx[..., None])
+        if zero_empty and kvalid is not None:
+            mx = torch.where(kvalid.any(-1)[:, None, None], mx,
+                             torch.full_like(mx, -math.inf))
+        return e @ v, mx, e.sum(-1)
+    if qvalid is not None:
+        s = s + key_bias(qvalid)[:, None, :, None]
+    if walk == "shift":
+        e = shift_weights(s, shift)
+    elif walk == "fixed":
+        e = torch.exp(s - shift[:, :, None, None])
+    else:
+        raise ValueError(f"unknown walk {walk!r}")
+    return e @ v, torch.zeros_like(s[..., 0]), e.sum(-1)
+
+
+def column_shift_plain(rmax: torch.Tensor, valid0: Optional[torch.Tensor],
+                       valid_rows_only: bool) -> torch.Tensor:
+    """The column launch's shift S (B, H): the maximum of the row maxima
+    (B, H, M) of its (batch, head), over valid rows of image 0 only with
+    ``valid_rows_only`` (B6), and 0 where there is none."""
+    if valid_rows_only and valid0 is not None:
+        rmax = torch.where(valid0[:, None, :], rmax,
+                           torch.full_like(rmax, -math.inf))
+    s = rmax.amax(-1)
+    return torch.where(s == -math.inf, torch.zeros_like(s), s)
+
+
+def cross_launches_plain(qk0, qk1, v0, v1, valid0, valid1, mode: int,
+                         scale: float, shift2: float = 0.0,
+                         splits: Sequence[int] = (1, 1),
+                         key_tile: int = 64) -> Tuple[torch.Tensor,
+                                                      torch.Tensor]:
+    """``launch_cross`` in plain PyTorch, split as the kernels split: each
+    direction's keys in ``splits`` ranges of whole key tiles
+    (``flash.split_ranges``), the split states merged in order
+    (``flash.merge_splits_plain``). Exact modes: the row walk (keys valid1;
+    mode EXACT_BLOCK zeroes an entry without a valid key), its merged row
+    maxima reduced to S (``column_shift_plain``), then the column walk
+    (queries qk1 with valid1's bias, keys qk0 with valid0) with the fixed
+    shift S. SHIFT: both directions as shift walks, each with its query
+    rows' bias. Returns (m0, m1)."""
+    def walk(q, k, v, kvalid, qvalid, s, kind, shift, zero_empty=True):
+        states = [walk_partial_plain(
+            q, k[:, :, lo:hi], v[:, :, lo:hi],
+            None if kvalid is None else kvalid[:, lo:hi], qvalid, scale, kind,
+            shift, zero_empty)
+            for lo, hi in flash.split_ranges(k.shape[2], s, key_tile)]
+        return flash.merge_splits_plain(
+            states, None if kind == "exact" else shift), states
+
+    if mode == SHIFT:
+        m0, _ = walk(qk0, qk1, v1, valid1, valid0, splits[0], "shift", shift2)
+        m1, _ = walk(qk1, qk0, v0, valid0, valid1, splits[1], "shift", shift2)
+        return m0, m1
+    m0, states = walk(qk0, qk1, v1, valid1, None, splits[0], "exact", 0.0,
+                      mode == EXACT_BLOCK)
+    rmax = torch.stack([st[1] for st in states]).amax(0)
+    shift = column_shift_plain(rmax, valid0, mode == EXACT_BLOCK)
+    m1, _ = walk(qk1, qk0, v0, valid0, valid1, splits[1], "fixed", shift)
+    return m0, m1

@@ -14,8 +14,9 @@ messages are 0 where the other image has no valid point. Shift: one
 exp2(min(s + bias0 + bias1 - shift * log2(e), 100)) serves both
 directions, with no guards. On a CUDA tensor ``fused_cross_block`` runs
 its launches (``block_tc.project``: the [qk | v] projection, one launch
-over the rows of both images; the row and column launches of
-csrc/flash_cross.cu; ``block_tc.tail_chain``: the to_out + FFN tail, each
+over the rows of both images; the row and column walks of
+csrc/flash_cross.cu, ``flash_cross.launch_cross`` in mode EXACT_BLOCK or
+SHIFT; ``block_tc.tail_chain``: the to_out + FFN tail, each
 of its launches over the rows of both images) or raises; on a CPU tensor
 it runs ``fused_cross_block_plain``, the same steps' plain versions.
 """
@@ -53,20 +54,23 @@ def prepare(p: nn.Params, num_heads: int,
     }
 
 
-def fused_cross_block_plain(
-    w: dict, x0: torch.Tensor, x1: torch.Tensor,
+def cross_block_attention_plain(
+    qk0: torch.Tensor, qk1: torch.Tensor, v0: torch.Tensor, v1: torch.Tensor,
     mask0: Optional[torch.Tensor] = None,
     mask1: Optional[torch.Tensor] = None,
+    shift: Optional[float] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x0 (B, M, D), x1 (B, N, D); mask0 (B, M), mask1 (B, N) bool."""
-    (qk0, v0), (qk1, v1) = block_tc.project_plain(w, [x0, x1], 2)
-    b, m, n = x0.shape[0], x0.shape[1], x1.shape[1]
-    bias0, bias1 = _biases(mask0, mask1, b, m, n, x0.device)
+    """B6's attention: (m0, m1) from qk0, v0 (B, H, M, hd) and qk1, v1 (B,
+    H, N, hd), the scale already folded into qk0 and qk1; mask0 (B, M),
+    mask1 (B, N) bool."""
+    b, _, m, _ = qk0.shape
+    n = qk1.shape[2]
+    bias0, bias1 = _biases(mask0, mask1, b, m, n, qk0.device)
     s = qk0 @ qk1.transpose(-1, -2)
     if bias0 is not None:
         s = s + bias0[:, None, :, None] + bias1[:, None, None, :]
-    if w["shift"] is not None:
-        e = ec = shift_weights(s, w["shift"] * LOG2E)
+    if shift is not None:
+        e = ec = shift_weights(s, shift * LOG2E)
     else:
         m_row = s.amax(-1, keepdim=True)
         e = torch.exp(s - m_row)
@@ -77,10 +81,22 @@ def fused_cross_block_plain(
     m0 = (e @ v1) / torch.clamp(e.sum(-1, keepdim=True), min=1e-30)
     m1 = (ec.transpose(-1, -2) @ v0) / torch.clamp(
         ec.sum(-2)[..., None], min=1e-30)
-    if bias0 is not None and w["shift"] is None:
-        zero = lambda t, bias: torch.where(
+    if bias0 is not None and shift is None:
+        zero = lambda t, bias: torch.where(  # noqa: E731
             (bias >= 0).any(-1)[:, None, None, None], t, torch.zeros_like(t))
         m0, m1 = zero(m0, bias1), zero(m1, bias0)
+    return m0, m1
+
+
+def fused_cross_block_plain(
+    w: dict, x0: torch.Tensor, x1: torch.Tensor,
+    mask0: Optional[torch.Tensor] = None,
+    mask1: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x0 (B, M, D), x1 (B, N, D); mask0 (B, M), mask1 (B, N) bool."""
+    (qk0, v0), (qk1, v1) = block_tc.project_plain(w, [x0, x1], 2)
+    m0, m1 = cross_block_attention_plain(qk0, qk1, v0, v1, mask0, mask1,
+                                         w["shift"])
     out0, out1 = block_tc.tail_chain_plain(w, [m0, m1], [x0, x1])
     return out0, out1
 
@@ -96,7 +112,6 @@ def fused_cross_block(
         return fused_cross_block_plain(w, x0, x1, mask0, mask1)
     b, m, d = x0.shape
     n = x1.shape[1]
-    bias0, bias1 = _biases(mask0, mask1, b, m, n, x0.device)
     dev = block_tc.check_block_weights(w, d)
     if _build.check_cuda(x0=x0, x1=x1) != dev:
         raise ValueError(f"x0 is on {x0.device}, the weights on {dev}")
@@ -106,10 +121,10 @@ def fused_cross_block(
     p0, p1 = block_tc.launch_project(dev, w, [x0, x1], 2, None)
     shift = w["shift"]
     if shift is None:
-        m0, m1 = launch_cross(p0[0], p1[0], p0[1], p1[1], bias0, bias1,
+        m0, m1 = launch_cross(p0[0], p1[0], p0[1], p1[1], mask0, mask1,
                               EXACT_BLOCK, 1.0)
     else:
-        m0, m1 = launch_cross(p0[0], p1[0], p0[1], p1[1], bias0, bias1,
+        m0, m1 = launch_cross(p0[0], p1[0], p0[1], p1[1], mask0, mask1,
                               SHIFT, 1.0, shift * LOG2E)
     out0, out1 = block_tc.launch_tail(dev, w, [m0, m1], [x0, x1])
     _build.count("fused_cross_block")

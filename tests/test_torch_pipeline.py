@@ -109,6 +109,8 @@ def test_import_leaves_jax_out():
             "lightglue_tpu_torch.ops.sampling, lightglue_tpu_torch.ops.nms, "
             "lightglue_tpu_torch.ops.stem, lightglue_tpu_torch.ops.stem2, "
             "lightglue_tpu_torch.ops.flash_self, "
+            "lightglue_tpu_torch.ops.flash_cross, "
+            "lightglue_tpu_torch.ops.assignment_fused, "
             "lightglue_tpu_torch.ops.block_tc, "
             "lightglue_tpu_torch.ops.flash_cross_block, "
             "lightglue_tpu_torch.models.aliked, "
@@ -118,6 +120,9 @@ def test_import_leaves_jax_out():
             "lightglue_tpu_torch.ops.gather, "
             "lightglue_tpu_torch.scripts.micro_gather2, "
             "lightglue_tpu_torch.scripts.attn_split, "
+            "lightglue_tpu_torch.scripts.assign_study, "
+            "lightglue_tpu_torch.scripts.host_latency, "
+            "lightglue_tpu_torch.scripts.walk_sums, "
             "lightglue_tpu_torch.synthetic; "
             "bad = [m for m, mod in sys.modules.items() if mod is not None "
             "and m.split('.')[0] in ('jax', 'lightglue_tpu')]; "
