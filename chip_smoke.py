@@ -9,7 +9,7 @@ Phases, any failure raising (non-zero exit, no result line):
      library's own fp32 scoping of its convs;
   1. build: nvcc compiles csrc/*.cu into _build/, one process per source
      (timed), each kernel's registers and spills (a spilling tensor-core
-     kernel of B5, B6, K2 or B2 fails the run);
+     kernel of B5, B6, K2, B2, B7 or B8 fails the run);
   2. each kernel against its plain PyTorch version at the main paths'
      shapes, then at tiny and ragged shapes and, for the matcher's kernels,
      at 2048 keypoints; the whole-block kernels (B5, B6) exact and with
@@ -31,7 +31,10 @@ Phases, any failure raising (non-zero exit, no result line):
      entry all masked, and at B 1 at every split count, and B2 on the tile
      product at B 1, 4 and 16, M != N and ragged, masked, with exact ties
      inside a tile and across tile boundaries (lowest index), each launch
-     repeated bit for bit;
+     repeated bit for bit; B7, B8 and B8's conv2a launch alone at B 1, 2
+     and 8 (768 x 1024) and at ragged 8x8, 24x40, 72x136 and 12x52 images
+     (the last with half-size rows not 16-byte aligned), each launched
+     twice (bit for bit);
   3. the main paths, each with the kernels' launch counts set to 0 just
      before it and read just after:
      a. pipeline.LightGlue with the trained matcher weights on planted pairs
@@ -74,19 +77,21 @@ Phases, any failure raising (non-zero exit, no result line):
      replays beside SDPA's; B5 and B6 at B 1, 4 and 16 with their
      projection (beside cuBLAS addmm) and tail, and K2 (exact and as B6's
      attention) and B2 at B 1, 4 and 16, as events and as CUDA-graph
-     device time; extraction ms per
+     device time, B7 and B8 at B 2 likewise; extraction ms per
      image, the matcher in its default and composed configurations and
      with two heads of 128, end-to-end pairs/s and
      match_pair ms per pair, for SuperPoint and for ALIKED.
 A JSON object of the kernels (with each one's bound, from its shapes, and
-the 3xTF32 bound of the tensor-core kernels: the walk, B5, B6, K2, B2) and
+the 3xTF32 bound of the tensor-core kernels: the walk, B5, B6, K2, B2, B7,
+B8) and
 the card's name and power limit come before the last line,
 {"ok": true, "device": {...}}.
 
 Phase P (``--profile``, after phases 0 and 1): torch.profiler over the
 matcher at 1024 keypoints (planted pairs, trained weights; B 1 and B 16,
 fixed and adaptive, default and composed blocks, and the default with two
-heads of 128), over ALIKED at B 1 and
+heads of 128), over SuperPoint at B 1 and B 8 and images -> SuperPoint ->
+LightGlue fixed at B 8, over ALIKED at B 1 and
 B 8 and over images -> ALIKED -> LightGlue at B 8: wall and device ms per
 call, the device's busy share, device ops per call and the largest device
 items.
@@ -180,6 +185,8 @@ CROSS_ROWS = tuple(
     + [f"B6 attention B {b}" for b in (1, 4, 16)]
     + [f"fused_filter_matches{'' if b == 4 else f' B {b}'}" for b in (1, 4, 16)]
     + ["fused_cross_attention_shift"])
+# Rows of the redesigned B7 and B8 in phase 4 (B 2, 768 x 1024)
+CONV_ROWS = ("fused_stem", "fused_block2")
 MATCHER_KERNELS = ("flash_sdpa", "fused_cross_attention", "fused_ffn_residual",
                    "fused_filter_matches")
 BLOCK_BATCHES = (1, 4, 16)  # B5 and B6 in phases 2c and 4
@@ -325,11 +332,15 @@ def build_phase():
     # frame fails the run
     name, spills = "?", ""
     tc = ("_tc_kernel", "cross_rows", "cross_cols", "cross_shift",
-          "assign_tile", "flash_sdpa_kernel", "flash_cross_pair_kernel")
+          "assign_tile", "flash_sdpa_kernel", "flash_cross_pair_kernel",
+          "conv_tc_kernel")
     for line in log.splitlines():
         if "Compiling entry function" in line:
             name = re.sub(r"IN2lg4gemm4TileILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E",
                           r"<\1x\2 / \3x\4>", kernel_name(line.split("'")[1]))
+            name = re.sub(r"INS0_4TileILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)"
+                          r"EEELb(\d)ELb(\d)E",
+                          r"<\1x\2, NQ \3, \4 stages, image \5, pool \6>", name)
         elif "spill" in line:
             spills = line.strip()
         elif "Used" in line:
@@ -1050,15 +1061,17 @@ def edge_phase():
         max_err(kv1, pv1, va1))
     print(f"  matcher kernels at {n} keypoints: done")
 
-    # the extractor's kernels at tiny and ragged sizes (multiples of 8)
+    # the extractor's kernels at tiny and ragged sizes (multiples of 8), and
+    # at 12 x 52, whose half (6 x 26) has rows that are not 16-byte aligned
     params = superpoint_params()
-    for h, w in ((8, 8), (24, 40), (72, 136)):
+    for h, w in ((8, 8), (24, 40), (72, 136), (12, 52)):
         img = torch.rand(2, 1, h, w, generator=g, device="cuda")
-        e1, e2 = conv_pair_errors(params, img)
+        e1, e2, e3 = conv_pair_errors(params, img)
         errs["fused_stem"] = max(errs["fused_stem"], e1)
-        errs["fused_block2"] = max(errs["fused_block2"], e2)
-        print(f"  stem / block2 at {h}x{w}: max_abs_err {e1:.3e} / {e2:.3e} "
-              f"(tol {CONV_TOL:g} x max(1, max|plain|))")
+        errs["fused_block2"] = max(errs["fused_block2"], e2, e3)
+        print(f"  stem / block2 / conv2a at {h}x{w}: max_abs_err {e1:.3e} / "
+              f"{e2:.3e} / {e3:.3e} (tol {CONV_TOL:g} x max(1, max|plain|)), "
+              "each twice, equal to the bit")
     for r in (1, 2, 4):
         s = torch.rand(2, 61, 83, generator=g, device="cuda")
         s[0, 10:25, 20:50] = 0.75  # a plateau of tied scores
@@ -1116,37 +1129,49 @@ def superpoint_params(device="cuda"):
 
 
 def conv_pair_errors(params, img):
-    """(stem, block 2) kernel-vs-plain max-abs errors, each checked against
-    CONV_TOL * max(1, max |plain|); block 2 runs on the plain stem's output."""
+    """(stem, block 2, conv2a alone) kernel-vs-plain max-abs errors, each
+    checked against CONV_TOL * max(1, max |plain|) and launched twice (equal
+    to the bit); block 2 and conv2a run on the plain stem's output."""
     p1 = {"conv1a": params["conv1a"], "conv1b": params["conv1b"]}
     p2 = {"conv2a": params["conv2a"], "conv2b": params["conv2b"]}
+    x = stem.fused_stem_plain(p1, img)
     errs = []
-    x = img
-    for name, kern, plain, p in (
-            ("fused_stem", stem.fused_stem, stem.fused_stem_plain, p1),
-            ("fused_block2", stem2.fused_block2, stem2.fused_block2_plain, p2)):
-        ref = plain(p, x)
-        err = max_err(kern(p, x), ref)
+    for name, kern, plain, p, inp in (
+            ("fused_stem", stem.fused_stem, stem.fused_stem_plain, p1, img),
+            ("fused_block2", stem2.fused_block2, stem2.fused_block2_plain, p2,
+             x),
+            ("conv2a", stem2.conv3x3_relu, stem2.conv3x3_relu_plain,
+             params["conv2a"], x)):
+        ref, got, again = plain(p, inp), kern(p, inp), kern(p, inp)
+        err = max_err(got, ref)
         bound = CONV_TOL * max(1.0, float(ref.abs().max()))
         if not err <= bound:
-            raise AssertionError(f"{name} at {tuple(x.shape)}: {err} > {bound}")
+            raise AssertionError(f"{name} at {tuple(inp.shape)}: {err} > {bound}")
+        if not torch.equal(got, again):
+            raise AssertionError(f"{name} at {tuple(inp.shape)}: two launches "
+                                 "differ")
         errs.append(err)
-        x = ref
     return tuple(errs)
 
 
 def sp_kernel_phase(sp_params):
-    """B7, B8, B9 at the extraction path's shapes: two 768 x 1024 images,
-    block 2 on the stem's output, NMS (r 4) on their SuperPoint score maps.
-    Returns (errors, the inputs for timing)."""
+    """B7, B8 (and B8's conv2a launch alone) at B 1, 2 and 8 and B9 at the
+    extraction path's shapes: 768 x 1024 images, block 2 on the stem's
+    output, NMS (r 4) on their SuperPoint score maps. Returns (errors, the
+    B 2 inputs for timing)."""
     phase("2b extraction kernels against their plain versions")
     rng = np.random.default_rng(5)
-    img = torch.from_numpy(np.stack([image_pair(rng, H, W)[0] for _ in range(2)])
-                           ).cuda()[:, None]
-    e_stem, e_b2 = conv_pair_errors(sp_params, img)
-    print(f"  fused_stem (2,1,{H},{W}): max_abs_err {e_stem:.3e}; fused_block2 "
-          f"(2,64,{H // 2},{W // 2}): {e_b2:.3e} (tol {CONV_TOL:g} x "
-          "max(1, max|plain|))")
+    imgs = torch.from_numpy(np.stack([image_pair(rng, H, W)[0] for _ in range(8)])
+                            ).cuda()[:, None]
+    e_stem = e_b2 = 0.0
+    for b in (2, 1, 8):
+        e1, e2, e3 = conv_pair_errors(sp_params, imgs[:b])
+        print(f"  B {b}: fused_stem ({b},1,{H},{W}) max_abs_err {e1:.3e}; "
+              f"fused_block2 ({b},64,{H // 2},{W // 2}) {e2:.3e}; its conv2a "
+              f"launch {e3:.3e} (tol {CONV_TOL:g} x max(1, max|plain|)); each "
+              "twice, equal to the bit")
+        e_stem, e_b2 = max(e_stem, e1), max(e_b2, e2, e3)
+    img = imgs[:2]
     scores, _ = sp.dense_forward(sp_params, img.permute(0, 2, 3, 1))
     got = nms.simple_nms_kernel(scores, 4)
     if not torch.equal(got, nms.simple_nms_plain(scores, 4)):
@@ -2193,13 +2218,20 @@ def sp_timing_phase(sx, mparams, sp_params):
         "simple_nms": (lambda: nms.simple_nms_kernel(scores, 4),
                        lambda: nms.simple_nms_plain(scores, 4)),
     }
-    times = {}
+    times, graph_times = {}, {}
     for name, (kern, plain) in pairs.items():
         a, b, c, d = (time_cuda(f, iters=10) for f in (plain, kern, kern, plain))
         times[name] = ((b + c) / 2, (a + d) / 2, None)
         print(f"  {name} (B 2, {H}x{W}): kernel {times[name][0]:.4f} ms, "
               f"plain {times[name][1]:.4f} ms (runs {b:.4f}/{c:.4f}, "
               f"{a:.4f}/{d:.4f})", flush=True)
+    # the tensor-core convolutions' device time: CUDA-graph replays, kernel,
+    # kernel (B8: both launches)
+    for name in CONV_ROWS:
+        a, d = (attn_split.graph_ms(pairs[name][0], calls=10) for _ in range(2))
+        graph_times[name] = ((a + d) / 2, None)
+        print(f"  {name}, device time (CUDA graph): kernel {(a + d) / 2:.4f} "
+              f"ms (runs {a:.4f}/{d:.4f})", flush=True)
 
     rng = np.random.default_rng(31)
     pool = [image_pair(rng, H, W) for _ in range(8)]
@@ -2251,7 +2283,7 @@ def sp_timing_phase(sx, mparams, sp_params):
     print(f"  match_pair B 1, {H}x{W}, 2048 keypoints, adaptive: median "
           f"{med:.2f} ms per pair (quartiles {q1:.2f}-{q3:.2f}, 10 calls)",
           flush=True)
-    return times
+    return times, graph_times
 
 
 def aliked_timing_phase(ax, ap):
@@ -2378,6 +2410,26 @@ def profile_phase(params):
                                    lambda: matcher(data))
                 print(f"    (stop {out['stop']})")
 
+    phase("P profile: SuperPoint at 768 x 1024 (2048 keypoints) and images "
+          "-> SuperPoint -> LightGlue at B 8 (fixed, 1024 keypoints)")
+    sp_params = superpoint_params()
+    rng = np.random.default_rng(31)
+    pool = [image_pair(rng, H, W) for _ in range(8)]
+    im0, im1 = (torch.from_numpy(np.stack([p[i] for p in pool]))[..., None].cuda()
+                for i in (0, 1))
+    for bsz in (1, 8):
+        profile_call(f"SuperPoint B {bsz}", lambda: sp.forward(
+            sp_params, SuperPointConfig(), im0[:bsz]), calls=3, warmup=2,
+            top=10)
+    sizes = torch.tensor([[W, H]] * 8, dtype=torch.float32, device="cuda")
+    run = end_to_end.make_end_to_end(
+        sp.forward, sp_params, SuperPointConfig(max_num_keypoints=1024),
+        LightGlue("superpoint", params=params, device="cuda").params,
+        lightglue_config("superpoint", depth_confidence=-1.0,
+                         width_confidence=-1.0))
+    profile_call("make_end_to_end fixed B 8, 1024 keypoints",
+                 lambda: run(im0, im1, sizes, sizes), calls=3, warmup=2, top=10)
+
     phase("P profile: ALIKED at 768 x 1024 (default configuration, 2048 "
           "keypoints) and images -> ALIKED -> LightGlue('aliked') at B 8")
     ap = aliked_params()
@@ -2431,10 +2483,12 @@ def main():
         for k, c in path().items():
             counts[k] += c
     times, graph_times = timing_phase(x, bx, hx, params, params2)
-    times.update(sp_timing_phase(sx, params, sp_params))
+    sp_times, sp_graph = sp_timing_phase(sx, params, sp_params)
+    times.update(sp_times)
+    graph_times.update(sp_graph)
     times.update(aliked_timing_phase(ax, al_params))
     kernels, bounds = [], kernel_bounds()
-    tc_rows = ATTENTION_ROWS + BLOCK_ROWS + CROSS_ROWS
+    tc_rows = ATTENTION_ROWS + BLOCK_ROWS + CROSS_ROWS + CONV_ROWS
     for name in ("fused_self_block 2 x 128",) + tc_rows:
         flops, nbytes = bounds[name]
         dev = graph_times.get(name)

@@ -48,7 +48,7 @@ SIGNATURES = {
     "lg_assign_merge_argmax": [_P] * 8 + [_I] * 5 + [_P],
     "lg_simple_nms": [_P] * 2 + [_I] * 4 + [_P],
     "lg_fused_stem": [_P] * 6 + [_I] * 3 + [_P],
-    "lg_fused_block2": [_P] * 6 + [_I] * 3 + [_P],
+    "lg_conv3x3": [_P] * 4 + [_I] * 4 + [_P],
     "lg_aliked_stem": [_P] * 7 + [_I] * 5 + [_P],
     "lg_score_head": [_P] * 3 + [_I] * 3 + [_P],
     "lg_score_head_lazy": [_P] * 6 + [_I] * 9 + [_P],

@@ -1,6 +1,7 @@
-// The 3xTF32 tensor-core primitives that the attention walk (attn_tc.cuh)
-// and the tile product (gemm_tc.cuh) share: the operand split, one
-// m16n8k8 tf32 mma.sync, the three-product sum, and 16-byte cp.async.
+// The 3xTF32 tensor-core primitives that the attention walk (attn_tc.cuh),
+// the tile product (gemm_tc.cuh) and the 3x3 convolution (conv_tc.cuh)
+// share: the operand split, one m16n8k8 tf32 mma.sync, the three-product
+// sum, and 16- and 4-byte cp.async.
 //
 // 3xTF32: each fp32 operand x is split into big = tf32(x) and small =
 // tf32(x - big) (split_tf32), and a product sums small*big + big*small +
@@ -51,6 +52,15 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src,
   const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
                "l"(src), "r"(valid ? 16 : 0));
+}
+
+// 4 bytes global -> shared, or 4 zero bytes when !valid (rows that are not
+// 16-byte aligned)
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool valid) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(valid ? 4 : 0));
 }
 
 __device__ __forceinline__ void cp_async_commit() {

@@ -5,8 +5,9 @@ Counterpart of lightglue_tpu/ops/stem2.py::fused_block2_pallas
 (``_block2_kernel``, stem2.py:46-192) and of the XLA conv chain it replaces
 (lightglue_tpu/models/superpoint.py:120-124). NCHW here: (B, 64, H2, W2)
 -> (B, 64, H2/2, W2/2), fed by the stem's output as it is. On a CUDA tensor
-``fused_block2`` launches ``csrc/stem2.cu`` or raises; on a CPU tensor it
-runs ``fused_block2_plain``.
+``fused_block2`` launches ``csrc/stem2.cu`` twice (conv2a + ReLU into a
+scratch map, then conv2b + ReLU + pool) or raises; on a CPU tensor it runs
+``fused_block2_plain``.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ from __future__ import annotations
 import torch
 
 from .. import _build, nn
-from .stem import check_conv, check_even_map, conv_weights
+from .stem import check_conv, check_even_map, prepared_conv
 
 
 def fused_block2_plain(params: nn.Params, x: torch.Tensor) -> torch.Tensor:
@@ -26,19 +27,46 @@ def fused_block2_plain(params: nn.Params, x: torch.Tensor) -> torch.Tensor:
     return nn.max_pool(x, 2)
 
 
+def conv3x3_relu_plain(p: nn.Params, x: torch.Tensor) -> torch.Tensor:
+    """relu(conv3x3(x) + b), cuDNN in fp32: B8's first launch."""
+    with nn.fp32_convs():
+        return torch.relu(nn.conv2d(p, x))
+
+
+def _launch(p: nn.Params, x: torch.Tensor, pool: bool) -> torch.Tensor:
+    n, _, h, w = x.shape
+    out = torch.empty(n, 64, h // 2 if pool else h, w // 2 if pool else w,
+                      device=x.device)
+    _build.launch("lg_conv3x3", x.device, x, prepared_conv(p["w"]), p["b"],
+                  out, n, h, w, int(pool))
+    _build.count("fused_block2")
+    return out
+
+
+def _check(ps, x: torch.Tensor) -> None:
+    _build.check_cuda(x=x, **{f"{i}{k}": p[k] for i, p in enumerate(ps)
+                              for k in ("w", "b")})
+    check_even_map(x, 64, "x")
+    if x.data_ptr() % 16:  # the kernel copies rows in 16-byte pieces
+        raise ValueError("x must start on a 16-byte boundary")
+    for i, p in enumerate(ps):
+        check_conv(p, 64, f"conv {i}")
+
+
+def conv3x3_relu(p: nn.Params, x: torch.Tensor) -> torch.Tensor:
+    """B8's first launch alone on CUDA tensors (conv2a: relu(conv3x3(x) +
+    b) at full resolution), the plain version on CPU tensors."""
+    if x.device.type == "cpu":
+        return conv3x3_relu_plain(p, x)
+    _check([p], x)
+    return _launch(p, x, False)
+
+
 def fused_block2(params: nn.Params, x: torch.Tensor) -> torch.Tensor:
-    """B8 on CUDA tensors, the plain version on CPU tensors."""
+    """B8 on CUDA tensors (two launches, each counted), the plain version
+    on CPU tensors."""
     if x.device.type == "cpu":
         return fused_block2_plain(params, x)
     a, b = params["conv2a"], params["conv2b"]
-    dev = _build.check_cuda(x=x, w2a=a["w"], b2a=a["b"], w2b=b["w"],
-                            b2b=b["b"])
-    check_even_map(x, 64, "x")
-    check_conv(a, 64, "conv2a")
-    check_conv(b, 64, "conv2b")
-    n, _, h2, w2 = x.shape
-    out = torch.empty(n, 64, h2 // 2, w2 // 2, device=dev)
-    _build.launch("lg_fused_block2", dev, x, conv_weights(a["w"]), a["b"],
-                  conv_weights(b["w"]), b["b"], out, n, h2, w2)
-    _build.count("fused_block2")
-    return out
+    _check([a, b], x)
+    return _launch(b, _launch(a, x, False), True)
