@@ -9,7 +9,8 @@ Phases, any failure raising (non-zero exit, no result line):
      library's own fp32 scoping of its convs;
   1. build: nvcc compiles csrc/*.cu into _build/, one process per source
      (timed), each kernel's registers and spills (a spilling tensor-core
-     kernel of B5, B6, K2, B2, B7 or B8 fails the run);
+     kernel of B5, B6, K2, B2, B7, B8 or B10, or a spilling B9, fails the
+     run);
   2. each kernel against its plain PyTorch version at the main paths'
      shapes, then at tiny and ragged shapes and, for the matcher's kernels,
      at 2048 keypoints; the whole-block kernels (B5, B6) exact and with
@@ -19,7 +20,9 @@ Phases, any failure raising (non-zero exit, no result line):
      out_proj, lin1 with its LayerNorm partials, lin2, the tail chain)
      against its plain version at B 1 and 16, twice; the
      constant-shift variants (B1s, B3s) exact and with shift 12; ALIKED's
-     kernels (B10-B12) at two RGB 768 x 1024 images and at edge shapes
+     kernels at RGB 768 x 1024 images (B10 at aliked-n16 and aliked-t16
+     widths, B 1, 2 and 8, each launched twice, bit for bit; B11, B12 at B
+     2; B9 at r 2 on ALIKED's score maps, bit for bit) and at edge shapes
      (a branch dimension of 1, ragged tiles, aliked-t16 widths), with
      random batch-norm statistics; head_dim 128 (K1 exact and shift, B1',
      B5 at two heads of 128, from the trained layers regrouped by
@@ -34,7 +37,9 @@ Phases, any failure raising (non-zero exit, no result line):
      repeated bit for bit; B7, B8 and B8's conv2a launch alone at B 1, 2
      and 8 (768 x 1024) and at ragged 8x8, 24x40, 72x136 and 12x52 images
      (the last with half-size rows not 16-byte aligned), each launched
-     twice (bit for bit);
+     twice (bit for bit); B9 at r 4 on SuperPoint's score maps at B 1, 2
+     and 8, and at every radius 0-8 on a 61 x 83 edge map (plateaus,
+     all-negative scores), each bit for bit;
   3. the main paths, each with the kernels' launch counts set to 0 just
      before it and read just after:
      a. pipeline.LightGlue with the trained matcher weights on planted pairs
@@ -77,13 +82,14 @@ Phases, any failure raising (non-zero exit, no result line):
      replays beside SDPA's; B5 and B6 at B 1, 4 and 16 with their
      projection (beside cuBLAS addmm) and tail, and K2 (exact and as B6's
      attention) and B2 at B 1, 4 and 16, as events and as CUDA-graph
-     device time, B7 and B8 at B 2 likewise; extraction ms per
+     device time, B7 and B8 at B 2 likewise, and B9 (r 4 and r 2) and B10
+     at B 2 with their device time; extraction ms per
      image, the matcher in its default and composed configurations and
      with two heads of 128, end-to-end pairs/s and
      match_pair ms per pair, for SuperPoint and for ALIKED.
 A JSON object of the kernels (with each one's bound, from its shapes, and
 the 3xTF32 bound of the tensor-core kernels: the walk, B5, B6, K2, B2, B7,
-B8) and
+B8, B10) and
 the card's name and power limit come before the last line,
 {"ok": true, "device": {...}}.
 
@@ -124,7 +130,8 @@ from lightglue_tpu_torch.ops import block_tc  # noqa: E402
 from lightglue_tpu_torch.ops import flash_cross_block, flash_self  # noqa: E402
 from lightglue_tpu_torch.ops import aliked_stem, score_head  # noqa: E402
 from lightglue_tpu_torch.ops import gather, nms, stem, stem2  # noqa: E402
-from lightglue_tpu_torch.scripts import attn_split, micro_gather2  # noqa: E402
+from lightglue_tpu_torch.scripts import attn_split, extract_times  # noqa: E402
+from lightglue_tpu_torch.scripts import micro_gather2  # noqa: E402
 from lightglue_tpu_torch.synthetic import image_pair, planted_pairs  # noqa: E402
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -333,7 +340,7 @@ def build_phase():
     name, spills = "?", ""
     tc = ("_tc_kernel", "cross_rows", "cross_cols", "cross_shift",
           "assign_tile", "flash_sdpa_kernel", "flash_cross_pair_kernel",
-          "conv_tc_kernel")
+          "conv_tc_kernel", "nms_kernel")
     for line in log.splitlines():
         if "Compiling entry function" in line:
             name = re.sub(r"IN2lg4gemm4TileILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E",
@@ -341,6 +348,11 @@ def build_phase():
             name = re.sub(r"INS0_4TileILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)"
                           r"EEELb(\d)ELb(\d)E",
                           r"<\1x\2, NQ \3, \4 stages, image \5, pool \6>", name)
+            name = re.sub(r"INS_3GeoILi(\d+)ELi(\d+)ELi(\d+)ELi(\d)E+",
+                          r"<r \1, \2x\3, step \4>", name)
+            name = re.sub(r"INS_8StemTileILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)"
+                          r"ELi(\d+)ELi(\d+)E+",
+                          r"<C1 \1, CY \2, \3x\4, \5 m16 a warp, run \6>", name)
         elif "spill" in line:
             spills = line.strip()
         elif "Used" in line:
@@ -1072,15 +1084,15 @@ def edge_phase():
         print(f"  stem / block2 / conv2a at {h}x{w}: max_abs_err {e1:.3e} / "
               f"{e2:.3e} / {e3:.3e} (tol {CONV_TOL:g} x max(1, max|plain|)), "
               "each twice, equal to the bit")
-    for r in (1, 2, 4):
+    for r in range(nms.MAX_RADIUS + 1):
         s = torch.rand(2, 61, 83, generator=g, device="cuda")
         s[0, 10:25, 20:50] = 0.75  # a plateau of tied scores
         s[0, 40, 40] = 1.0
         s[1] = -s[1]  # all negative
         s[1, 30:, :10] = -0.25
-        if not torch.equal(nms.simple_nms_kernel(s, r), nms.simple_nms_plain(s, r)):
-            raise AssertionError(f"simple_nms differs at radius {r}")
-    print("  simple_nms at radii 1, 2, 4 (plateau, negative scores): equal")
+        nms_equal("61x83 edge map", s, r)
+    print(f"  simple_nms at radii 0-{nms.MAX_RADIUS} (plateau, negative "
+          "scores, 83 columns): equal to the bit")
     # the block kernels at D 128 (2 heads) and ragged lengths
     for shift in (None, SHIFT):
         for n, m in ((70, 130), (1, 65)):
@@ -1154,11 +1166,21 @@ def conv_pair_errors(params, img):
     return tuple(errs)
 
 
+def nms_equal(label, scores, r):
+    """B9 against its plain version, to the bit; returns the maxima kept."""
+    got = nms.simple_nms_kernel(scores, r)
+    want = nms.simple_nms_plain(scores, r)
+    if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+        raise AssertionError(f"simple_nms {label} r {r} differs from its plain "
+                             f"version at {int((got != want).sum())} pixels")
+    return int((got > 0).sum())
+
+
 def sp_kernel_phase(sp_params):
     """B7, B8 (and B8's conv2a launch alone) at B 1, 2 and 8 and B9 at the
     extraction path's shapes: 768 x 1024 images, block 2 on the stem's
-    output, NMS (r 4) on their SuperPoint score maps. Returns (errors, the
-    B 2 inputs for timing)."""
+    output, NMS (r 4) on their SuperPoint score maps at B 1, 2 and 8.
+    Returns (errors, the B 2 inputs for timing)."""
     phase("2b extraction kernels against their plain versions")
     rng = np.random.default_rng(5)
     imgs = torch.from_numpy(np.stack([image_pair(rng, H, W)[0] for _ in range(8)])
@@ -1172,12 +1194,13 @@ def sp_kernel_phase(sp_params):
               "twice, equal to the bit")
         e_stem, e_b2 = max(e_stem, e1), max(e_b2, e2, e3)
     img = imgs[:2]
-    scores, _ = sp.dense_forward(sp_params, img.permute(0, 2, 3, 1))
-    got = nms.simple_nms_kernel(scores, 4)
-    if not torch.equal(got, nms.simple_nms_plain(scores, 4)):
-        raise AssertionError("simple_nms differs from its plain version")
-    print(f"  simple_nms (2,{H},{W}) r 4: equal to the plain version, "
-          f"{int((got > 0).sum())} maxima")
+    with torch.inference_mode():
+        maps, _ = sp.dense_forward(sp_params, imgs.permute(0, 2, 3, 1))
+    for b in (1, 2, 8):
+        kept = nms_equal(f"B {b}", maps[:b].contiguous(), 4)
+        print(f"  simple_nms ({b},{H},{W}) r 4 on SuperPoint's score maps: "
+              f"equal to the plain version to the bit, {kept} maxima")
+    scores = maps[:2].contiguous()
     p1 = {"conv1a": sp_params["conv1a"], "conv1b": sp_params["conv1b"]}
     torch.cuda.synchronize()
     return ({"fused_stem": e_stem, "fused_block2": e_b2, "simple_nms": 0.0},
@@ -1617,38 +1640,11 @@ def path_kernel_trace(matcher, ref, data):
 
 
 def aliked_params(model_name="aliked-n16", device="cuda"):
-    """ALIKED at its published widths with seeded random weights, encoder
-    and aggregation conv weights times 2 and score-head conv weights times
-    3: the stand-in for the release weights (not in the repository). With
-    the init's own scale every score lies within about 1e-3 of 0.5 and
-    neighbouring scores within a few ulps, so rounding would decide the
-    ranking (tests/test_torch_aliked.py uses the same gains). The batch
-    norms get random statistics per channel (scale and var U(0.5, 1.5),
-    bias and mean N(0, 0.1)): the init's are the identity, under which a
-    kernel that skipped or swapped its folded batch norms would still
-    agree with its plain version to about 5e-6."""
-    g = torch.Generator().manual_seed(1)
-
-    def batch_norm(dim):
-        return {"scale": 0.5 + torch.rand(dim, generator=g),
-                "bias": 0.1 * torch.randn(dim, generator=g),
-                "mean": 0.1 * torch.randn(dim, generator=g),
-                "var": 0.5 + torch.rand(dim, generator=g)}
-
-    def walk(node, gain):
-        out = {}
-        for k, v in node.items():
-            if k in ("bn1", "bn2"):
-                v = batch_norm(len(v["scale"]))
-            if isinstance(v, dict):
-                out[k] = walk(v, 1.0 if k in ("offset_conv", "desc_head")
-                              else 3.0 if k == "score_head" else gain)
-            else:
-                out[k] = (v * gain if k == "w" else v).to(device)
-        return out
-
-    return walk(al.init_params(ALIKEDConfig(model_name=model_name),
-                               torch.Generator().manual_seed(0)), 2.0)
+    """ALIKED at its published widths with seeded random weights, the
+    stand-in for the release weights (not in the repository):
+    lightglue_tpu_torch.scripts.extract_times.aliked_params says how they
+    are drawn and scaled (tests/test_torch_aliked.py uses the same gains)."""
+    return extract_times.aliked_params(model_name, device)
 
 
 def rgb(gray):
@@ -1658,15 +1654,20 @@ def rgb(gray):
 
 def stem_errors(label, p, img):
     """B10 against its plain version: max-abs errors of y1 and x1p, each
-    checked against CONV_TOL * max(1, max |plain|)."""
+    checked against CONV_TOL * max(1, max |plain|), and a second launch
+    equal to the first to the bit."""
     got = aliked_stem.fused_aliked_stem_kernel(p, img)
+    again = aliked_stem.fused_aliked_stem_kernel(p, img)
     ref = aliked_stem.fused_aliked_stem_plain(p, img)
     errs = []
-    for name, g, r in zip(("y1", "x1p"), got, ref):
+    for name, g, a, r in zip(("y1", "x1p"), got, again, ref):
         err = max_err(g, r)
         bound = CONV_TOL * max(1.0, float(r.abs().max()))
         if not err <= bound:
             raise AssertionError(f"fused_aliked_stem {name} {label}: {err} > {bound}")
+        if not torch.equal(g, a):
+            raise AssertionError(f"fused_aliked_stem {name} {label}: two "
+                                 "launches differ")
         errs.append(err)
     return max(errs)
 
@@ -1685,34 +1686,47 @@ def score_errors(label, sh, parts):
 
 
 def aliked_kernel_phase(ap):
-    """B10, B11, B12 at the ALIKED path's shapes (two RGB 768 x 1024
-    images, aliked-n16; the score head on those images' branch parts),
-    then at edge shapes: a branch dimension of 1 (H or W 32), ragged tiles,
-    aliked-t16 widths. Returns (errors, the inputs for timing)."""
+    """B10 (aliked-n16 and aliked-t16 at B 1, 2 and 8), B11, B12 at the
+    ALIKED path's shapes (RGB 768 x 1024 images; the score head on two
+    images' branch parts), B9 at r 2 on their score maps, then at edge
+    shapes: a branch dimension of 1 (H or W 32), ragged tiles, aliked-t16
+    widths. Returns (errors, the inputs for timing)."""
     phase("2d ALIKED kernels against their plain versions")
     rng = np.random.default_rng(41)
-    img = torch.from_numpy(np.stack([rgb(image_pair(rng, H, W)[0])
-                                     for _ in range(2)])).cuda()
-    img = img.permute(0, 3, 1, 2).contiguous()
+    imgs = torch.from_numpy(np.stack([rgb(image_pair(rng, H, W)[0])
+                                      for _ in range(8)])).cuda()
+    imgs = imgs.permute(0, 3, 1, 2).contiguous()
+    img = imgs[:2]
     stem_p = {"block1": ap["block1"], "conv1": ap["conv1"]}
-    e_stem = stem_errors(f"(2, 3, {H}, {W})", stem_p, img)
-    print(f"  fused_aliked_stem (2, 3, {H}, {W}) aliked-n16: max_abs_err "
-          f"{e_stem:.3e} (tol {CONV_TOL:g} x max(1, max|plain|))")
+    t16 = aliked_params("aliked-t16")
+    e_stem = 0.0
+    for name, p in (("aliked-n16", stem_p),
+                    ("aliked-t16", {"block1": t16["block1"], "conv1": t16["conv1"]})):
+        for b in (2, 1, 8):
+            e = stem_errors(f"{name} ({b}, 3, {H}, {W})", p, imgs[:b])
+            e_stem = max(e_stem, e)
+            print(f"  fused_aliked_stem {name} ({b}, 3, {H}, {W}): max_abs_err "
+                  f"{e:.3e} (tol {CONV_TOL:g} x max(1, max|plain|)), twice, "
+                  "equal to the bit", flush=True)
     with torch.inference_mode():
-        ys, _ = al._dense_branches(ap, img, fused_score=False, fused_stem=False)
+        ys, smap = al._dense_branches(ap, img, fused_score=False, fused_stem=False)
         parts = al._score_parts(ap["score_head"], ys, True)
+    smap = smap.contiguous()
+    kept = nms_equal("on ALIKED's score maps", smap, 2)
+    print(f"  simple_nms (2,{H},{W}) r 2 on ALIKED's score maps: equal to the "
+          f"plain version to the bit, {kept} maxima")
     sh = ap["score_head"]
     e_lazy, e_cplane = score_errors(f"(2, 8, {H}, {W}) from those images",
                                     sh, parts)
     g = torch.Generator(device="cuda").manual_seed(6)
-    t16 = aliked_params("aliked-t16")
     for name, p in (("aliked-n16", ap), ("aliked-t16", t16)):
         for b, h, w in ((1, 32, 96), (2, 64, 96), (1, 96, 32), (1, 40, 72)):
             x = torch.rand(b, 3, h, w, generator=g, device="cuda")
             e_stem = max(e_stem, stem_errors(
                 f"{name} {(b, h, w)}", {"block1": p["block1"], "conv1": p["conv1"]}, x))
     print("  fused_aliked_stem aliked-n16 and aliked-t16 at 32x96, 64x96, "
-          f"96x32, 40x72: max_abs_err {e_stem:.3e}")
+          f"96x32, 40x72 (twice, equal to the bit): max_abs_err over all "
+          f"{e_stem:.3e}")
     for b, h, w in ((1, 32, 96), (2, 64, 96), (1, 96, 32), (1, 32, 32)):
         edge = [torch.randn(b, 8, max(1, h // f), max(1, w // f), generator=g,
                             device="cuda") for f in (1, 2, 8, 32)]
@@ -1722,7 +1736,7 @@ def aliked_kernel_phase(ap):
     torch.cuda.synchronize()
     return ({"fused_aliked_stem": e_stem, "score_head_lazy": e_lazy,
              "score_head_cplane": e_cplane},
-            {"img": img, "stem_p": stem_p, "parts": parts,
+            {"img": img, "stem_p": stem_p, "parts": parts, "smap": smap,
              "s0": score_head.upsampled_sum(*parts)})
 
 
@@ -2134,8 +2148,10 @@ def kernel_bounds():
         "fused_block2": (img // 4 * 2 * 9 * (64 * 64 + 64 * 64),
                          (img // 4 * 64 + img // 16 * 64) * f
                          + (2 * 64 * 64 * 9 + 128) * f),
-        # five (2r + 1)-wide max pools, separable, r 4: compares, not FLOPs
+        # five (2r + 1)-wide max pools, separable, r 4 (SuperPoint) and r 2
+        # (ALIKED): compares, not FLOPs
         "simple_nms": (img * 5 * 2 * 9, 2 * img * f),
+        "simple_nms r 2": (img * 5 * 2 * 5, 2 * img * f),
         # aliked-n16 at B 2: conv1 3 -> 16, conv2 16 -> 16 (3x3), 1x1 16 -> 32
         # per pixel; image in, y1 and the pooled map out
         "fused_aliked_stem": (img * 2 * (27 * 16 + 9 * 16 * 16 + 16 * 32),
@@ -2225,9 +2241,9 @@ def sp_timing_phase(sx, mparams, sp_params):
         print(f"  {name} (B 2, {H}x{W}): kernel {times[name][0]:.4f} ms, "
               f"plain {times[name][1]:.4f} ms (runs {b:.4f}/{c:.4f}, "
               f"{a:.4f}/{d:.4f})", flush=True)
-    # the tensor-core convolutions' device time: CUDA-graph replays, kernel,
-    # kernel (B8: both launches)
-    for name in CONV_ROWS:
+    # the tensor-core convolutions' and B9's device time: CUDA-graph
+    # replays, kernel, kernel (B8: both launches, B9 its three)
+    for name in CONV_ROWS + ("simple_nms",):
         a, d = (attn_split.graph_ms(pairs[name][0], calls=10) for _ in range(2))
         graph_times[name] = ((a + d) / 2, None)
         print(f"  {name}, device time (CUDA graph): kernel {(a + d) / 2:.4f} "
@@ -2289,11 +2305,14 @@ def sp_timing_phase(sx, mparams, sp_params):
 def aliked_timing_phase(ax, ap):
     phase("4c timing: ALIKED kernels, ALIKED, images -> ALIKED -> LightGlue")
     img, stem_p, parts, s0 = ax["img"], ax["stem_p"], ax["parts"], ax["s0"]
+    smap = ax["smap"]
     sh = ap["score_head"]
     pairs = {
         "fused_aliked_stem": (
             lambda: aliked_stem.fused_aliked_stem_kernel(stem_p, img),
             lambda: aliked_stem.fused_aliked_stem_plain(stem_p, img)),
+        "simple_nms r 2": (lambda: nms.simple_nms_kernel(smap, 2),
+                           lambda: nms.simple_nms_plain(smap, 2)),
         "score_head_lazy": (
             lambda: score_head.score_head_lazy_kernel(sh, *parts),
             lambda: score_head.score_head_lazy_plain(sh, *parts)),
@@ -2301,13 +2320,18 @@ def aliked_timing_phase(ax, ap):
             lambda: score_head.score_head_cplane_kernel(sh, s0),
             lambda: score_head.score_tail_plain(sh, s0)),
     }
-    times = {}
+    times, graph_times = {}, {}
     for name, (kern, plain) in pairs.items():
         a, b, c, d = (time_cuda(f, iters=10) for f in (plain, kern, kern, plain))
         times[name] = ((b + c) / 2, (a + d) / 2, None)
         print(f"  {name} (B 2, {H}x{W}): kernel {times[name][0]:.4f} ms, "
               f"plain {times[name][1]:.4f} ms (runs {b:.4f}/{c:.4f}, "
               f"{a:.4f}/{d:.4f})", flush=True)
+    for name in ("fused_aliked_stem", "simple_nms r 2"):
+        a, d = (attn_split.graph_ms(pairs[name][0], calls=10) for _ in range(2))
+        graph_times[name] = ((a + d) / 2, None)
+        print(f"  {name}, device time (CUDA graph): kernel {(a + d) / 2:.4f} "
+              f"ms (runs {a:.4f}/{d:.4f})", flush=True)
 
     rng = np.random.default_rng(47)
     pool = [image_pair(rng, H, W) for _ in range(8)]
@@ -2357,7 +2381,7 @@ def aliked_timing_phase(ax, ap):
     print(f"  match_pair ALIKED B 1, {H}x{W}, 2048 keypoints, adaptive: median "
           f"{med:.2f} ms per pair (quartiles {q1:.2f}-{q3:.2f}, 10 calls)",
           flush=True)
-    return times
+    return times, graph_times
 
 
 def profile_call(label, fn, calls=5, warmup=3, top=6):
@@ -2486,16 +2510,23 @@ def main():
     sp_times, sp_graph = sp_timing_phase(sx, params, sp_params)
     times.update(sp_times)
     graph_times.update(sp_graph)
-    times.update(aliked_timing_phase(ax, al_params))
+    al_times, al_graph = aliked_timing_phase(ax, al_params)
+    times.update(al_times)
+    graph_times.update(al_graph)
     kernels, bounds = [], kernel_bounds()
-    tc_rows = ATTENTION_ROWS + BLOCK_ROWS + CROSS_ROWS + CONV_ROWS
-    for name in ("fused_self_block 2 x 128",) + tc_rows:
+    # the tensor-core kernels: their 3xTF32 bound beside the fp32 one
+    tc_rows = (ATTENTION_ROWS + BLOCK_ROWS + CROSS_ROWS + CONV_ROWS
+               + ("fused_aliked_stem",))
+    rows = ("fused_self_block 2 x 128",) + tc_rows + ("simple_nms", "simple_nms r 2")
+    for name in rows:
         flops, nbytes = bounds[name]
         dev = graph_times.get(name)
         print(f"  {name}: bound {max(flops / PEAK_FLOPS, nbytes / PEAK_BYTES) * 1e3:.4f} ms"
-              f" ({'operations' if flops / PEAK_FLOPS >= nbytes / PEAK_BYTES else 'bytes'})"
+              f" ({'operations' if flops / PEAK_FLOPS >= nbytes / PEAK_BYTES else 'bytes'}"
+              f"; bytes {nbytes / PEAK_BYTES * 1e3:.4f})"
+              + (f", 3xTF32 bound {3 * flops / PEAK_TF32 * 1e3:.4f} ms"
+                 if name in tc_rows else "")
               + ("" if dev is None else
-                 f", 3xTF32 bound {3 * flops / PEAK_TF32 * 1e3:.4f} ms"
                  f", device time {dev[0]:.4f}"
                  + ("" if dev[1] is None else f" (library {dev[1]:.4f})"))
               + f", kernel {times[name][0]:.4f}, plain {times[name][1]:.4f}"

@@ -1,4 +1,5 @@
-"""SuperPoint non-maximum suppression: kernel B9 and its plain version.
+"""Non-maximum suppression of SuperPoint's and ALIKED's score maps: kernel
+B9 and its plain version.
 
 Counterpart of lightglue_tpu/ops/nms.py::simple_nms_pallas (``_nms_kernel``,
 nms.py:81-129) and of the reference algorithm it fuses
@@ -15,7 +16,7 @@ import torch.nn.functional as F
 
 from .. import _build
 
-MAX_RADIUS = 8  # the kernel's shared-memory tile holds a halo of 5 r
+MAX_RADIUS = 8  # the kernel's radii: template instantiations 0-8
 
 
 def _max_pool(x: torch.Tensor, r: int) -> torch.Tensor:
@@ -41,8 +42,8 @@ def simple_nms_plain(scores: torch.Tensor, nms_radius: int) -> torch.Tensor:
 
 
 def simple_nms_kernel(scores: torch.Tensor, nms_radius: int) -> torch.Tensor:
-    """B9: the whole suppression in one launch over (B, H, W) fp32 CUDA
-    maps, any H, W >= 1 and radius 0-8."""
+    """B9: the whole suppression over (B, H, W) fp32 CUDA maps, any H, W >=
+    1 and radius 0-8."""
     dev = _build.check_cuda(scores=scores)
     r = int(nms_radius)
     if scores.dim() != 3 or min(scores.shape) < 1:
@@ -51,6 +52,8 @@ def simple_nms_kernel(scores: torch.Tensor, nms_radius: int) -> torch.Tensor:
         raise ValueError(f"nms kernel takes radius 0-{MAX_RADIUS}, got {r}")
     b, h, w = scores.shape
     out = torch.empty_like(scores)
-    _build.launch("lg_simple_nms", dev, scores, out, b, h, w, r)
+    # the kernel's two bit masks, (B, H, cdiv(W, 32)) words each
+    bits = torch.empty(2 * b * h * -(-w // 32), dtype=torch.int32, device=dev)
+    _build.launch("lg_simple_nms", dev, scores, out, bits, b, h, w, r)
     _build.count("simple_nms")
     return out

@@ -33,12 +33,6 @@ def fused_stem_plain(params: nn.Params, image: torch.Tensor) -> torch.Tensor:
     return nn.max_pool(x, 2)
 
 
-def conv_weights(w: torch.Tensor) -> torch.Tensor:
-    """OIHW (co, ci, 3, 3) -> [ci][tap][co], the layout of ALIKED's stem
-    kernel (B10, ops/aliked_stem.py)."""
-    return w.permute(1, 2, 3, 0).reshape(w.shape[1], 9, w.shape[0]).contiguous()
-
-
 def split_tf32(x: torch.Tensor):
     """``csrc/tc.cuh::split_tf32`` as the tensor core reads it: big = x with
     its low 13 bits cleared, small = x - big (exact in fp32) plus half a

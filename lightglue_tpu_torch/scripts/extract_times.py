@@ -1,0 +1,143 @@
+"""B9 and B10 timed on the card through entry points that every version of
+the port has, so that two checkouts compare on one card.
+
+For B9 (``ops.nms.simple_nms_kernel``) at r 4 on SuperPoint's score maps and
+at r 2 on ALIKED's, and for B10 (``ops.aliked_stem.fused_aliked_stem_kernel``,
+aliked-n16), all at B 2 and 768 x 1024 (random weights: ``aliked_params``
+below, and SuperPoint's conv weights times 3), it checks each launch against the
+plain version (B9 to the bit, B10 within 1e-4 of max(1, max |plain|)), then
+prints the kernel's time by CUDA events (mean of 20 launches after 3) and
+as device time from CUDA-graph replays, beside the plain version's events
+time, and the card's name and power limit. Run it with ``PYTHONPATH`` set to
+each root in turns, a process each (parent, this, this, parent)::
+
+    PYTHONPATH=. python lightglue_tpu_torch/scripts/extract_times.py
+    PYTHONPATH=<other checkout> python lightglue_tpu_torch/scripts/extract_times.py
+"""
+
+from __future__ import annotations
+
+import subprocess
+
+import numpy as np
+import torch
+
+import lightglue_tpu_torch
+from lightglue_tpu_torch import ALIKEDConfig, SuperPointConfig
+from lightglue_tpu_torch.models import aliked as al
+from lightglue_tpu_torch.models import superpoint as sp
+from lightglue_tpu_torch.ops import aliked_stem, nms
+from lightglue_tpu_torch.synthetic import image_pair
+
+H, W = 768, 1024
+TOL = 1e-4
+
+
+def events_ms(fn, iters=20, warmup=3):
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, calls=10, replays=3):
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    graph, stream = torch.cuda.CUDAGraph(), torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream), torch.cuda.graph(graph, stream=stream):
+        for _ in range(calls):
+            fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (replays * calls)
+
+
+def aliked_params(model_name="aliked-n16", device="cuda"):
+    """ALIKED at its published widths with seeded random weights: encoder
+    and aggregation conv weights times 2, the score head's times 3, the
+    offset convs and the descriptor head as drawn (with the init's own
+    scale every score lies within about 1e-3 of 0.5); random batch-norm
+    statistics per channel (scale and var U(0.5, 1.5), bias and mean
+    N(0, 0.1)), so that a kernel that skipped or swapped its folded batch
+    norms would not agree with its plain version."""
+    g = torch.Generator().manual_seed(1)
+
+    def walk(node, gain):
+        out = {}
+        for k, v in node.items():
+            if k in ("bn1", "bn2"):
+                d = len(v["scale"])
+                v = {"scale": 0.5 + torch.rand(d, generator=g),
+                     "bias": 0.1 * torch.randn(d, generator=g),
+                     "mean": 0.1 * torch.randn(d, generator=g),
+                     "var": 0.5 + torch.rand(d, generator=g)}
+            if isinstance(v, dict):
+                out[k] = walk(v, 1.0 if k in ("offset_conv", "desc_head")
+                              else 3.0 if k == "score_head" else gain)
+            else:
+                out[k] = (v * gain if k == "w" else v).to(device)
+        return out
+
+    return walk(al.init_params(ALIKEDConfig(model_name=model_name),
+                               torch.Generator().manual_seed(0)), 2.0)
+
+
+def main() -> None:
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
+    print(f"  {card}; {lightglue_tpu_torch.__file__}")
+    rng = np.random.default_rng(5)
+    gray = np.stack([image_pair(rng, H, W)[0] for _ in range(2)])
+    spp = {k: {"w": v["w"].cuda() * 3.0, "b": v["b"].cuda()}
+           for k, v in sp.init_params(SuperPointConfig(),
+                                      torch.Generator().manual_seed(0)).items()}
+    ap = aliked_params()
+    img = torch.from_numpy(np.stack([gray, np.sqrt(gray), gray * gray], 1)
+                           .astype(np.float32)).cuda()
+    with torch.inference_mode():
+        s4, _ = sp.dense_forward(spp, torch.from_numpy(gray).cuda()[..., None])
+        _, s2 = al._dense_branches(ap, img, fused_stem=False)
+    s4, s2 = s4.contiguous(), s2.contiguous()
+    stem_p = {"block1": ap["block1"], "conv1": ap["conv1"]}
+    rows = {
+        "simple_nms r 4": (lambda: nms.simple_nms_kernel(s4, 4),
+                           lambda: nms.simple_nms_plain(s4, 4)),
+        "simple_nms r 2": (lambda: nms.simple_nms_kernel(s2, 2),
+                           lambda: nms.simple_nms_plain(s2, 2)),
+        "fused_aliked_stem": (
+            lambda: aliked_stem.fused_aliked_stem_kernel(stem_p, img),
+            lambda: aliked_stem.fused_aliked_stem_plain(stem_p, img)),
+    }
+    for name, (kern, plain) in rows.items():
+        got, want = kern(), plain()
+        if name.startswith("simple_nms"):
+            if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+                raise AssertionError(f"{name} differs from its plain version")
+        else:
+            for a, b in zip(got, want):
+                err = float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+                if not err <= TOL:
+                    raise AssertionError(f"{name}: {err} > {TOL}")
+        p, k, dev = events_ms(plain), events_ms(kern), graph_ms(kern)
+        print(f"  {name} (B 2, {H}x{W}): kernel {k:.4f} ms by events, device "
+              f"{dev:.4f} ms (CUDA graph); plain {p:.4f} ms", flush=True)
+
+
+if __name__ == "__main__":
+    main()
