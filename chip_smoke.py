@@ -13,9 +13,13 @@ Phases, any failure raising (non-zero exit, no result line):
      run);
   2. each kernel against its plain PyTorch version at the main paths'
      shapes, then at tiny and ragged shapes and, for the matcher's kernels,
-     at 2048 keypoints; the whole-block kernels (B5, B6) exact and with
-     shift 12 at B 1, 4 and 16, ragged and at 2048 keypoints (B5), masked
-     and with a batch entry that has no valid point, each launched twice
+     at 2048 keypoints; B4 (lin1 + lin2 on the tile product) at (4, 1024,
+     256), (1, 2048, 256), (16, 1024, 256), ragged (2, 200) at D 256 and
+     128, and over both images of a cross block in one call (B 1 at 2048,
+     B 16 at 1024, ragged), each call twice, bit for bit; the whole-block
+     kernels (B5, B6) exact and with shift 12 at B 1, 4 and 16, ragged
+     and at 2048 keypoints (B5), masked and with a batch entry that has no
+     valid point, each launched twice
      (bit for bit), and each of their tensor-core launches (projection,
      out_proj, lin1 with its LayerNorm partials, lin2, the tail chain)
      against its plain version at B 1 and 16, twice; the
@@ -37,7 +41,9 @@ Phases, any failure raising (non-zero exit, no result line):
      repeated bit for bit; B7, B8 and B8's conv2a launch alone at B 1, 2
      and 8 (768 x 1024) and at ragged 8x8, 24x40, 72x136 and 12x52 images
      (the last with half-size rows not 16-byte aligned), each launched
-     twice (bit for bit); B9 at r 4 on SuperPoint's score maps at B 1, 2
+     twice (bit for bit), and B8 and its conv2a launch on an input 4 bytes
+     past a 16-byte boundary (equal to the bit to the same input aligned);
+     B9 at r 4 on SuperPoint's score maps at B 1, 2
      and 8, and at every radius 0-8 on a 61 x 83 edge map (plateaus,
      all-negative scores), each bit for bit;
   3. the main paths, each with the kernels' launch counts set to 0 just
@@ -52,6 +58,9 @@ Phases, any failure raising (non-zero exit, no result line):
         (two_head_params), default exact and shift 12 at 1024 and 2048
         keypoints (B5, B1', never B6 or K2), composed with shift 12 (B1s
         at d 128, B1');
+     on each matcher path's fixed call, every K2, B2 and attention-walk
+     launch (K1 inside B5 or alone, at head_dim 64 and 128, and B1') is
+     held against float64 on the path's own inputs (path_kernel_trace);
      b. images to matches at the default configuration:
         pipeline.match_pair(SuperPoint, LightGlue) on generated 768 x 1024
         pairs (one needing padding, one a 2x area downscale) and
@@ -79,7 +88,10 @@ Phases, any failure raising (non-zero exit, no result line):
      version (and the one PyTorch call that computes the same function,
      where there is one), K1 and B5 at head_dim 128 too, the attention
      walk (K1, B1s, B1') at B 1 too and its device time from CUDA-graph
-     replays beside SDPA's; B5 and B6 at B 1, 4 and 16 with their
+     replays beside SDPA's; B4 at (4, 1024, 256), (1, 2048, 256) and (16,
+     1024, 256) and over both images of a cross block in one call against
+     two calls (B 1 at 2048, B 16 at 1024), with device time from CUDA
+     graphs and the 3xTF32 bound; B5 and B6 at B 1, 4 and 16 with their
      projection (beside cuBLAS addmm) and tail, and K2 (exact and as B6's
      attention) and B2 at B 1, 4 and 16, as events and as CUDA-graph
      device time, B7 and B8 at B 2 likewise, and B9 (r 4 and r 2) and B10
@@ -96,8 +108,9 @@ the card's name and power limit come before the last line,
 Phase P (``--profile``, after phases 0 and 1): torch.profiler over the
 matcher at 1024 keypoints (planted pairs, trained weights; B 1 and B 16,
 fixed and adaptive, default and composed blocks, and the default with two
-heads of 128), over SuperPoint at B 1 and B 8 and images -> SuperPoint ->
-LightGlue fixed at B 8, over ALIKED at B 1 and
+heads of 128), over SuperPoint at B 1 and B 8, match_pair at 2048
+keypoints (fixed) and images -> SuperPoint -> LightGlue fixed at B 8, over
+ALIKED at B 1 and
 B 8 and over images -> ALIKED -> LightGlue at B 8: wall and device ms per
 call, the device's busy share, device ops per call and the largest device
 items.
@@ -131,7 +144,7 @@ from lightglue_tpu_torch.ops import flash_cross_block, flash_self  # noqa: E402
 from lightglue_tpu_torch.ops import aliked_stem, score_head  # noqa: E402
 from lightglue_tpu_torch.ops import gather, nms, stem, stem2  # noqa: E402
 from lightglue_tpu_torch.scripts import attn_split, extract_times  # noqa: E402
-from lightglue_tpu_torch.scripts import micro_gather2  # noqa: E402
+from lightglue_tpu_torch.scripts import micro_gather2, walk_sums  # noqa: E402
 from lightglue_tpu_torch.synthetic import image_pair, planted_pairs  # noqa: E402
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -144,7 +157,7 @@ KERNELS = {
                    "lightglue_tpu/ops/flash.py:94"),
     "fused_cross_attention": ("lightglue_tpu_torch/csrc/flash_cross.cu",
                               "lightglue_tpu/ops/flash_cross.py:44"),
-    "fused_ffn_residual": ("lightglue_tpu_torch/csrc/ffn.cu",
+    "fused_ffn_residual": ("lightglue_tpu_torch/csrc/blocks.cu",
                            "lightglue_tpu/ops/ffn.py:40"),
     "fused_filter_matches": ("lightglue_tpu_torch/csrc/assignment_fused.cu",
                              "lightglue_tpu/ops/assignment_fused.py:39"),
@@ -194,6 +207,15 @@ CROSS_ROWS = tuple(
     + ["fused_cross_attention_shift"])
 # Rows of the redesigned B7 and B8 in phase 4 (B 2, 768 x 1024)
 CONV_ROWS = ("fused_stem", "fused_block2")
+# Rows of the redesigned B4 in phase 4: one image at B 4 (under the kernel
+# name), at match_pair's 2048 keypoints and at B 16; both images of a
+# composed cross block in one call (pair) and in two
+FFN_PAIRS = {"B 1 2048": "pair B 1, 2048 / 2048",
+             "B 16": "pair B 16, 1024 / 1024"}
+FFN_ROWS = (("fused_ffn_residual", "fused_ffn_residual B 1 2048",
+             "fused_ffn_residual B 16")
+            + tuple(f"fused_ffn_residual {form} {b}" for b in FFN_PAIRS
+                    for form in ("pair", "two calls")))
 MATCHER_KERNELS = ("flash_sdpa", "fused_cross_attention", "fused_ffn_residual",
                    "fused_filter_matches")
 BLOCK_BATCHES = (1, 4, 16)  # B5 and B6 in phases 2c and 4
@@ -407,6 +429,48 @@ def kernel_inputs():
     }
 
 
+def ffn_cases(k3):
+    """B4's cases of phase 2: label -> (xs, msgs, params), one image or
+    two (fused_ffn_residual_pair, the composed cross block): the main
+    paths' shapes (B 4, 1024 keypoints; match_pair's 2048; B 16), ragged
+    rows, D 128, and both images of a cross block at 2048 and at B 16."""
+    g = torch.Generator(device="cuda").manual_seed(17)
+    xx, msg, p = k3
+    p128 = {"lin1": {"w": rand(g, 256, 256) / 16.0, "b": rand(g, 256) * 0.1},
+            "ln": {"scale": 1 + rand(g, 256) * 0.1, "bias": rand(g, 256) * 0.1},
+            "lin2": {"w": rand(g, 256, 128) / 16.0, "b": rand(g, 128) * 0.1}}
+    cases = {"(4, 1024, 256)": ([xx], [msg], p)}
+    for b, n, d, pp in ((1, 2048, 256, p), (16, 1024, 256, p),
+                        (2, 200, 256, p), (2, 200, 128, p128)):
+        cases[f"({b}, {n}, {d})"] = ([rand(g, b, n, d)], [rand(g, b, n, d)], pp)
+    for b, m, n in ((1, 2048, 2048), (16, 1024, 1024), (2, 200, 72)):
+        cases[f"pair B {b}, {m} / {n}"] = (
+            [rand(g, b, m, 256), rand(g, b, n, 256)],
+            [rand(g, b, m, 256), rand(g, b, n, 256)], p)
+    return cases
+
+
+def ffn_call(xs, msgs, p):
+    """One B4 call over the segments: fused_ffn_residual or _pair."""
+    if len(xs) == 1:
+        return [ffn.fused_ffn_residual(xs[0], msgs[0], p)]
+    return list(ffn.fused_ffn_residual_pair(xs[0], msgs[0], xs[1], msgs[1], p))
+
+
+def ffn_checks(k3):
+    """B4 (lin1 + lin2 on the tile product) against its plain version at
+    each of ffn_cases, each call made twice, bit for bit."""
+    err = 0.0
+    for label, (xs, msgs, p) in ffn_cases(k3).items():
+        got = ffn_call(xs, msgs, p)
+        same(f"fused_ffn_residual {label}", got, ffn_call(xs, msgs, p))
+        err = max(err, check(f"fused_ffn_residual {label}, twice, equal to "
+                             "the bit", max(
+                                 max_err(a, ffn.fused_ffn_residual_plain(x, m, p))
+                                 for a, x, m in zip(got, xs, msgs))))
+    return err
+
+
 def k4_margin_rows(mdesc0, mdesc1, ls0, ls1, mask0, mask1):
     """Rows/columns whose top-two gap of the argmax score exceeds 1e-3."""
     b, m, _ = mdesc0.shape
@@ -447,11 +511,7 @@ def kernel_phase(x):
               max_err(m0, r0, rows0)),
         check("fused_cross_attention m1", max_err(m1, r1)))
 
-    xx, msg, p = x["k3"]
-    errs["fused_ffn_residual"] = check(
-        "fused_ffn_residual (4,1024,256)",
-        max_err(ffn.fused_ffn_residual(xx, msg, p),
-                ffn.fused_ffn_residual_plain(xx, msg, p)))
+    errs["fused_ffn_residual"] = ffn_checks(x["k3"])
 
     d0, d1, z0, z1, mk0, mk1 = x["k4"]
     ls0, ls1 = torch.nn.functional.logsigmoid(z0), torch.nn.functional.logsigmoid(z1)
@@ -639,8 +699,10 @@ def launch_errors(w, xs, groups, enc):
     (msg,), (msg_p,) = run("tail_out_proj", lambda: block_tc.tail_out_proj(w, ctxs),
                            lambda: block_tc.tail_out_proj_plain(w, ctxs))
     errs["tail_out_proj"] = max_err(msg, msg_p)
-    (hh, st), (hp, sp) = run("tail_lin1", lambda: block_tc.tail_lin1(w, xs, msg_p),
-                             lambda: block_tc.tail_lin1_plain(w, xs, msg_p))
+    msgs_p = list(torch.split(msg_p, [x.shape[0] * x.shape[1] for x in xs]))
+    (hh, st), (hp, sp) = run("tail_lin1",
+                             lambda: block_tc.tail_lin1(w, xs, msgs_p),
+                             lambda: block_tc.tail_lin1_plain(w, xs, msgs_p))
     errs["tail_lin1 h"] = max_err(hh, hp)
     errs["tail_lin1 partial means"] = max_err(st[..., 0], sp[..., 0])
     errs["tail_lin1 partial M2 (relative)"] = float(
@@ -1084,6 +1146,31 @@ def edge_phase():
         print(f"  stem / block2 / conv2a at {h}x{w}: max_abs_err {e1:.3e} / "
               f"{e2:.3e} / {e3:.3e} (tol {CONV_TOL:g} x max(1, max|plain|)), "
               "each twice, equal to the bit")
+    # B8 on an input one float past a 16-byte boundary: staged through an
+    # aligned copy, equal to the bit to the same input aligned
+    p2 = {"conv2a": params["conv2a"], "conv2b": params["conv2b"]}
+    xa = torch.rand(2, 64, 24, 40, generator=g, device="cuda")
+    buf = torch.empty(xa.numel() + 1, device="cuda")
+    xu = buf[1:].view(xa.shape)
+    xu.copy_(xa)
+    if xu.data_ptr() % 16 != 4:
+        raise AssertionError("the unaligned B8 input is aligned")
+    for name, kern, plain, pp in (
+            ("fused_block2", stem2.fused_block2, stem2.fused_block2_plain, p2),
+            ("conv2a", stem2.conv3x3_relu, stem2.conv3x3_relu_plain,
+             params["conv2a"])):
+        got, ref = kern(pp, xu), plain(pp, xu)
+        if not torch.equal(got, kern(pp, xa)):
+            raise AssertionError(f"{name}: the unaligned input differs from "
+                                 "the same input aligned")
+        err = max_err(got, ref)
+        bound = CONV_TOL * max(1.0, float(ref.abs().max()))
+        if not err <= bound:
+            raise AssertionError(f"{name} unaligned: {err} > {bound}")
+        errs["fused_block2"] = max(errs["fused_block2"], err)
+        print(f"  {name} at (2, 64, 24, 40), x 4 bytes past a 16-byte "
+              f"boundary: max_abs_err {err:.3e} (tol {CONV_TOL:g} x max(1, "
+              "max|plain|)), equal to the bit to the aligned input")
     for r in range(nms.MAX_RADIUS + 1):
         s = torch.rand(2, 61, 83, generator=g, device="cuda")
         s[0, 10:25, 20:50] = 0.75  # a plateau of tied scores
@@ -1561,17 +1648,19 @@ def valid_rows_err(got, ref, valid):
 
 def path_kernel_trace(matcher, ref, data):
     """One call of ``matcher`` on ``data`` with every K2 launch
-    (``launch_cross``: B3, B3s and B6's attention) and every B2 launch held
-    against its plain version in float64 on the inputs the path produces
-    (valid rows; the fp32 plain version's own gap printed beside it; B2's
-    argmax against the fp32 plain one on the rows and columns with a clear
-    top-two gap). Then the
+    (``launch_cross``: B3, B3s and B6's attention), every B2 launch and
+    every walk of K1 (inside B5 or alone, head_dim 64 or 128) and B1'
+    (``launch_attention``) held against its plain version in float64 on
+    the inputs the path produces (valid rows; the fp32 plain version's own
+    gap printed beside it; B2's argmax against the fp32 plain one on the
+    rows and columns with a clear top-two gap). Then the
     same call with K2, B2 or both swapped for their plain versions on the
     card, each beside the CPU port's matching scores ``ref``: how much of
     the path's gap to the CPU port each kernel brings. Launches here are
     not counted: the path's counts are read before."""
     cross, assign = flash_cross.launch_cross, af._filter_reductions_kernel
-    errs = {"K2": [], "B2": []}
+    attn = flash.launch_attention
+    errs = {"K2": [], "B2": [], "K1 d 64": [], "K1 d 128": [], "B1'": []}
     f64 = lambda *x: [t.double() if torch.is_tensor(t) and t.is_floating_point()
                       else t for t in x]  # noqa: E731
 
@@ -1605,23 +1694,40 @@ def path_kernel_trace(matcher, ref, data):
                 valid_rows_err(a[3], ref[3], va1)) for a in (out, plain)))
         return out
 
+    def attn_checked(dev, walks, scale, shift2, splits=None):
+        attn(dev, walks, scale, shift2, splits)
+        kind = "B1'" if len(walks) == 2 else f"K1 d {walks[0][0].shape[-1]}"
+        # B1' walk 0 queries image 0, whose keys are walk 1's
+        qvalid = ([walks[1][3], walks[0][3]] if len(walks) == 2
+                  else [walks[0][3]])
+        e = [0.0, 0.0]
+        for (q, k, v, valid, out), qv in zip(walks, qvalid):
+            x = (q, k, v, valid, scale, shift2)
+            ref = walk_sums.walk_plain(*f64(*x))
+            e[0] = max(e[0], valid_rows_err(out, ref, qv))
+            e[1] = max(e[1], valid_rows_err(walk_sums.walk_plain(*x), ref, qv))
+        errs[kind].append(tuple(e))
+
     def plain_cross(qk0, qk1, v0, v1, valid0, valid1, mode, scale, shift2=0.0,
                     splits=None):
         return flash_cross.cross_launches_plain(qk0, qk1, v0, v1, valid0,
                                                 valid1, mode, scale, shift2)
 
-    def run(k2, b2):
+    def run(k2, b2, walk=attn):
         saved = (flash_cross.launch_cross, flash_cross_block.launch_cross,
-                 af._filter_reductions_kernel)
+                 af._filter_reductions_kernel, flash.launch_attention,
+                 flash_self.launch_attention)
         flash_cross.launch_cross = flash_cross_block.launch_cross = k2
         af._filter_reductions_kernel = b2
+        flash.launch_attention = flash_self.launch_attention = walk
         try:
             return matcher(data)
         finally:
             (flash_cross.launch_cross, flash_cross_block.launch_cross,
-             af._filter_reductions_kernel) = saved
+             af._filter_reductions_kernel, flash.launch_attention,
+             flash_self.launch_attention) = saved
 
-    got = run(cross_checked, assign_checked)
+    got = run(cross_checked, assign_checked, attn_checked)
     for k, e in errs.items():
         if e:
             check(f"{k} on the path against float64, {len(e)} launches (the "
@@ -1950,6 +2056,7 @@ def timing_phase(x, bx, hx, params, params2):
     pairs.update(block_pairs)
     libraries.update(block_libs)
     pairs.update(cross_rows())
+    pairs.update(ffn_rows(x["k3"]))
     times, graph_times = {}, {}
     for name, (kern, plain) in pairs.items():
         # plain, kernel, kernel, plain: report the mean of each pair
@@ -1969,7 +2076,7 @@ def timing_phase(x, bx, hx, params, params2):
     # kernel, library, library, kernel (the eager times above include the
     # wrappers' host work, which a B 1 launch does not hide); a row without
     # a library call: kernel, kernel
-    for name in ATTENTION_ROWS + BLOCK_ROWS + CROSS_ROWS:
+    for name in ATTENTION_ROWS + BLOCK_ROWS + CROSS_ROWS + FFN_ROWS:
         kern = pairs[name][0]
         lib_name, lib_fn = libraries.get(name, (None, None))
         if lib_fn is None:
@@ -2092,6 +2199,45 @@ def cross_rows():
     return pairs
 
 
+def ffn_rows(k3):
+    """Phase 4's rows of B4 besides the B 4 one: {row: (kernel, plain)}
+    on ffn_cases' inputs; a pair row's plain version is two plain calls."""
+    cases = ffn_cases(k3)
+    pairs = {"fused_ffn_residual B 1 2048": cases["(1, 2048, 256)"],
+             "fused_ffn_residual B 16": cases["(16, 1024, 256)"]}
+    for b, label in FFN_PAIRS.items():
+        pairs[f"fused_ffn_residual pair {b}"] = cases[label]
+    rows = {name: (lambda c=c: ffn_call(*c),
+                   lambda c=c: [ffn.fused_ffn_residual_plain(x, m, c[2])
+                                for x, m in zip(c[0], c[1])])
+            for name, c in pairs.items()}
+    for b, label in FFN_PAIRS.items():
+        xs, msgs, p = cases[label]
+        rows[f"fused_ffn_residual two calls {b}"] = (
+            lambda c=(xs, msgs, p): [ffn.fused_ffn_residual(x, m, c[2])
+                                     for x, m in zip(c[0], c[1])],
+            rows[f"fused_ffn_residual pair {b}"][1])
+    return rows
+
+
+def ffn_bounds():
+    """(FLOPs, bytes) of FFN_ROWS, as kernel_bounds: rows x (lin1 2D x 2D
+    and lin2 2D x D products); x, msg in, out written, the weights read
+    once a call."""
+    f, d = 4, 256
+    ffn_w = (2 * d * 2 * d + 2 * d * d + 3 * 2 * d + d) * f
+    bound = lambda rows: (rows * 2 * (2 * d * 2 * d + 2 * d * d),  # noqa
+                          3 * rows * d * f + ffn_w)
+    out = {"fused_ffn_residual": bound(4 * 1024),
+           "fused_ffn_residual B 1 2048": bound(2048),
+           "fused_ffn_residual B 16": bound(16 * 1024)}
+    for b, rows in (("B 1 2048", 2 * 2048), ("B 16", 2 * 16 * 1024)):
+        out[f"fused_ffn_residual pair {b}"] = bound(rows)
+        two = bound(rows // 2)
+        out[f"fused_ffn_residual two calls {b}"] = (2 * two[0], 2 * two[1])
+    return out
+
+
 def cross_bounds():
     """(FLOPs, bytes) of CROSS_ROWS, as kernel_bounds: K2 and B6's
     attention at (B, 4, M 1024 / N 768, 64), the key masks as bytes; B2's
@@ -2122,7 +2268,6 @@ def kernel_bounds():
     # the shared-QK cross attention needs three M N 64 products a (batch,
     # head): the scores once, then P V1 and P^T V0
     cross = (6 * b * h * n * m1 * 64, 3 * b * h * (n + m1) * 64 * f + b * (n + m1))
-    ffn_rows = b * n
     self_flops = b * (2 * n * d * 3 * d + 4 * h * n * n * 64 + 2 * n * d * d
                       + 2 * n * (2 * d * 2 * d + 2 * d * d))
     cross_flops = b * (2 * (n + m1) * d * 2 * d + 6 * n * m1 * d
@@ -2134,8 +2279,6 @@ def kernel_bounds():
         "flash_sdpa_shift": attn,
         "fused_cross_attention": cross,
         "fused_cross_attention_shift": cross,
-        "fused_ffn_residual": (ffn_rows * 2 * (2 * d * 2 * d + 2 * d * d),
-                               3 * ffn_rows * d * f + ffn_w),
         "fused_filter_matches": (2 * b * n * n * d,
                                  (2 * b * n * d + 2 * b * n) * f + 2 * b * n
                                  + 4 * b * n * f),
@@ -2188,6 +2331,7 @@ def kernel_bounds():
                                      + ffn_w),
         **block_bounds(),
         **cross_bounds(),
+        **ffn_bounds(),
     }
 
 
@@ -2445,6 +2589,15 @@ def profile_phase(params):
         profile_call(f"SuperPoint B {bsz}", lambda: sp.forward(
             sp_params, SuperPointConfig(), im0[:bsz]), calls=3, warmup=2,
             top=10)
+    # match_pair at the extractor's default 2048 keypoints, fixed: B5 and
+    # the composed cross block (K2's walks, B4 over both images)
+    ext = SuperPoint(params=sp_params, device="cuda")
+    fixed = LightGlue("superpoint", params=params, device="cuda",
+                      depth_confidence=-1.0, width_confidence=-1.0)
+    a, b = pool[0][0], pool[0][1]
+    profile_call("match_pair fixed B 1, 768 x 1024, 2048 keypoints",
+                 lambda: match_pair(ext, fixed, a, b), calls=3, warmup=2,
+                 top=10)
     sizes = torch.tensor([[W, H]] * 8, dtype=torch.float32, device="cuda")
     run = end_to_end.make_end_to_end(
         sp.forward, sp_params, SuperPointConfig(max_num_keypoints=1024),
@@ -2515,8 +2668,8 @@ def main():
     graph_times.update(al_graph)
     kernels, bounds = [], kernel_bounds()
     # the tensor-core kernels: their 3xTF32 bound beside the fp32 one
-    tc_rows = (ATTENTION_ROWS + BLOCK_ROWS + CROSS_ROWS + CONV_ROWS
-               + ("fused_aliked_stem",))
+    tc_rows = (ATTENTION_ROWS + BLOCK_ROWS + CROSS_ROWS + FFN_ROWS
+               + CONV_ROWS + ("fused_aliked_stem",))
     rows = ("fused_self_block 2 x 128",) + tc_rows + ("simple_nms", "simple_nms r 2")
     for name in rows:
         flops, nbytes = bounds[name]

@@ -22,10 +22,13 @@
 // cores, rounds to nearest. With kTileSums each key tile's P V goes into a
 // zeroed register tile that an fp32 add then puts into O, as gemm_tc.cuh's
 // step sums do for B2, so the truncation acts on one tile's sum only. On
-// the trained matcher's own K2 inputs at 2048 keypoints (shift 12) that
-// took K2 from 2.6e-4 to 3.7e-5 of a float64 reference (the fp32 plain
-// version 2.7e-5) at under 2 % of its time on an H100
-// (scripts/walk_sums.py).
+// the trained matcher's own inputs at 2048 keypoints that took K2 (d 64,
+// shift 12) from 2.7e-4 to 2.9e-5 of a float64 reference, and at two heads
+// of 128 K1 from 7.6e-5 to 2.9e-5 and B1' from 1.4e-4 to 6.2e-5 (the fp32
+// plain versions 2.9e-5, 4.3e-5 and 4.6e-5; outputs up to 9.6), for 0-3 %
+// of K2's and K1's time and 0-5 % of B1''s on an H100 (scripts/walk_sums.py,
+// which also builds the other orders: O's column tiles one at a time, P held
+// split or split again, within 4 % of the register tile either way).
 //
 // O += P V without moving P: the accumulator of S gives a thread the keys
 // 2t and 2t+1 of each 8-key step (t = lane % 4), where the A operand of the
@@ -77,8 +80,9 @@ enum Walk : int { kExact = 0, kShift = 1, kFixed = 2 };
 // SM holds are as many as the shared memory allows: 64 keys and split Q at
 // 64 (104,448 bytes, two blocks an SM); 32 keys and fp32 Q at 128 (101,376
 // bytes, two blocks an SM, where 64 keys and split Q take 204,800, one).
-// kTileSums (above): at 64 the tile of P V takes 32 more registers; at 128
-// it would take 64 beside O's 64, more than the walk has left.
+// kTileSums (above): the tile of P V takes 32 registers at 64 and 64 at
+// 128, beside O's 32 and 64; the d-128 walks then use 234-238 registers,
+// no spill (164-190 in place), still two blocks an SM.
 template <int D>
 struct Config;
 template <>
@@ -93,7 +97,7 @@ struct Config<128> {
   static constexpr int BK = 32;
   static constexpr bool kSplitQ = false;
   static constexpr int kUnrollKs = 16;  // all: 1-5 % faster than 4 here
-  static constexpr bool kTileSums = false;
+  static constexpr bool kTileSums = true;
 };
 
 template <int D>

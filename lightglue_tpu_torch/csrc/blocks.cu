@@ -1,18 +1,22 @@
-// B5 and B6: the whole-block kernels' own launches, fp32 on the tensor
-// cores (gemm_tc.cuh). B5 (SelfBlock) and B6 (CrossBlock, both images) run
-// as the ops ops/flash_self.py and ops/flash_cross_block.py, each a short
-// chain of hand-written launches:
+// B5, B6 and B4: the whole-block kernels' own launches and the FFN
+// residual, fp32 on the tensor cores (gemm_tc.cuh). B5 (SelfBlock) and B6
+// (CrossBlock, both images) run as the ops ops/flash_self.py and
+// ops/flash_cross_block.py, B4 as ops/ffn.py, each a short chain of
+// hand-written launches:
 //   B5: project_tc_kernel (q, k, v with rotary), the K1 key walk of
 //       flash_sdpa.cu (exact or shift, head_dim 64 or 128) on them, then
 //       the tail: out_proj_tc_kernel, lin1_tc_kernel, lin2_tc_kernel;
 //   B6: project_tc_kernel over the rows of both images (qk, v), the row
 //       and column launches of flash_cross.cu (mode 1 exact, mode 2 shift;
 //       head_dim 64, as the TPU kernel), then one tail over the rows of
-//       both images.
+//       both images;
+//   B4: lin1_tc_kernel and lin2_tc_kernel alone, over the rows of one
+//       image or of both (the composed cross block).
 //
 // Replaces the TPU kernels lightglue_tpu/ops/flash_self.py::_kernel
-// (fused_self_block) and lightglue_tpu/ops/flash_cross_block.py::_kernel
-// (fused_cross_block): for one block,
+// (fused_self_block), lightglue_tpu/ops/flash_cross_block.py::_kernel
+// (fused_cross_block) and lightglue_tpu/ops/ffn.py::_ffn_kernel
+// (fused_ffn_residual, out = x + FFN(cat[x, msg])): for one block,
 //   out = x + FFN(cat[x, sum_h ctx_h Wo[h] + bo])
 // with the per-head context ctx_h of self attention (rot(q), rot(k), v
 // from Wqkv) or of the shared-QK cross attention (to_qk, to_v), the softmax
@@ -27,7 +31,10 @@
 // pair at M = N = 1024: 4.03 GFLOP. On CUDA cores (67 TFLOP/s fp32) that is
 // 36 and 60 us; as 3xTF32 on the tensor cores (three tf32 products of 495
 // TFLOP/s each) 15 and 24 us. The projection and the tail are 1.35 of B5's
-// 2.42 GFLOP and 2.96 of B6's 4.03.
+// 2.42 GFLOP and 2.96 of B6's 4.03. B4 at 2048 rows of D 256 (one image
+// of match_pair's default): 1.61 GFLOP against 6.3 MB of x, msg and out
+// and 1.6 MB of weights, 24 us on CUDA cores, 9.8 us as 3xTF32; h and its
+// partials go through device memory and back (9.4 MB, 2.8 us).
 //
 // Design: the TPU kernels keep a whole block's activations in VMEM; a
 // block's 227 KB cannot, and the card needs many blocks in flight where the
@@ -104,21 +111,23 @@ struct CtxSrc : lg::gemm::NoTransform {
   }
 };
 
-// A = [x | msg]: channels below D from the rows of x, the rest from msg
-// (R, D)
+// A = [x | msg]: channels below D from the rows of x, the rest from the
+// rows of msg, (B, n_s, D) for each segment
 struct CatSrc : lg::gemm::NoTransform {
   Rows rows;
   const float* x0;
   const float* x1;
-  const float* msg;
+  const float* m0;
+  const float* m1;
   int D;
   struct Cursor {
     const float* x;
     const float* m;
   };
   __device__ Cursor at(int r) const {
-    return {(rows.second(r) ? x1 : x0) + (size_t)rows.local(r) * D,
-            msg + (size_t)r * D};
+    const bool s = rows.second(r);
+    const size_t off = (size_t)rows.local(r) * D;
+    return {(s ? x1 : x0) + off, (s ? m1 : m0) + off};
   }
   __device__ const float* src(const Cursor& c, int k0) const {
     return k0 < D ? c.x + k0 : c.m + (k0 - D);
@@ -451,16 +460,18 @@ extern "C" cudaError_t lg_tail_out_proj(const float* ctx0, const float* ctx1,
 }
 
 // h (R, 2D) = [x | msg] W1 + b1 and its LayerNorm partials stats (R, 2D /
-// 16, 2): x_s (B, n_s, D); msg (R, D); w1T (2D, 2D) with w1T[o][k] =
-// W1[k][o]; b1 (2D).
+// 16, 2): x_s, m_s (B, n_s, D) (B5's and B6's m_s: rows of out_proj's msg;
+// B4's: the message it is given); w1T (2D, 2D) with w1T[o][k] = W1[k][o];
+// b1 (2D).
 extern "C" cudaError_t lg_tail_lin1(const float* x0, const float* x1,
-                                    const float* msg, const float* w1T,
-                                    const float* b1, float* h, float* stats,
-                                    int B, int n0, int n1, int D, int tile,
+                                    const float* m0, const float* m1,
+                                    const float* w1T, const float* b1,
+                                    float* h, float* stats, int B, int n0,
+                                    int n1, int D, int tile,
                                     cudaStream_t stream) {
   if (D % 32 != 0 || n0 < 1 || n1 < 0) return cudaErrorInvalidValue;
   const int R = B * (n0 + n1);
-  const CatSrc a{{}, Rows{B * n0}, x0, x1, msg, D};
+  const CatSrc a{{}, Rows{B * n0}, x0, x1, m0, m1, D};
   const StatsEpi e{h, stats, b1, 2 * D};
   return lg::gemm::with_tile(tile, [&](auto t) {
     using T = decltype(t);

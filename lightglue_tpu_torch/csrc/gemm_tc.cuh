@@ -208,8 +208,9 @@ __device__ __forceinline__ void mainloop(const ASrc& a,
 // acc[mt][nt], a thread holds rows 16 mt + g (0, 1) and 16 mt + g + 8 (2, 3)
 // and columns 8 nt + 2t (0, 2) and 8 nt + 2t + 1 (1, 3) of the warp's
 // outputs. Grid (C / BN, cdiv(R, BM)): the column tiles of a row tile run
-// next to each other, so its A rows are read from memory once.
-template <class T, class ASrc, class Epi>
+// next to each other, so its A rows are read from memory once. kStepSums
+// as mainloop's (scripts/tile_study.py builds the tail with it).
+template <class T, bool kStepSums = false, class ASrc, class Epi>
 __device__ __forceinline__ void product(const ASrc& a,
                                         const float* __restrict__ w, int K,
                                         int R, const Epi& epi) {
@@ -220,7 +221,7 @@ __device__ __forceinline__ void product(const ASrc& a,
     for (int nt = 0; nt < T::NT; ++nt)
       acc[mt][nt][0] = acc[mt][nt][1] = acc[mt][nt][2] = acc[mt][nt][3] = 0.f;
   const int m0 = blockIdx.y * T::BM, n0 = blockIdx.x * T::BN;
-  mainloop<T>(a, w, K, R, m0, n0, acc);
+  mainloop<T, ASrc, false, kStepSums>(a, w, K, R, m0, n0, acc);
   const int warp = threadIdx.x >> 5;
   epi.template store<T>(acc, m0 + (warp / T::WARPS_N) * T::WM,
                         n0 + (warp % T::WARPS_N) * T::WN, R);

@@ -109,7 +109,7 @@ def _split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
 
 
 def _ffn_residual(p, x, message, conf: LightGlueConfig) -> torch.Tensor:
-    """x + FFN(cat[x, message]): kernel K3, or the composed FFN when
+    """x + FFN(cat[x, message]): kernel B4, or the composed FFN when
     conf.flash or conf.fused_ffn is off."""
     if conf.flash and conf.fused_ffn:
         return ffn_ops.fused_ffn_residual(x, message.contiguous(), p)
@@ -222,6 +222,8 @@ def cross_block(p, x0, x1, conf: LightGlueConfig, mask0=None, mask1=None,
         m0, m1 = attn_ops.bidirectional_cross_attention(qk0, qk1, v0, v1, mask)
     m0 = nn.linear(p["to_out"], block_tc.merge_heads(m0))
     m1 = nn.linear(p["to_out"], block_tc.merge_heads(m1))
+    if conf.flash and conf.fused_ffn:  # B4 over the rows of both images
+        return ffn_ops.fused_ffn_residual_pair(x0, m0, x1, m1, p["ffn"])
     return (_ffn_residual(p["ffn"], x0, m0, conf),
             _ffn_residual(p["ffn"], x1, m1, conf))
 

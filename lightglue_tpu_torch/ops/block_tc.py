@@ -1,6 +1,6 @@
-"""The tensor-core launches of B5 and B6 and their plain versions: the
+"""The tensor-core launches of B5, B6 and B4 and their plain versions: the
 projection and the out_proj + FFN tail (csrc/blocks.cu over the tile
-product of csrc/gemm_tc.cuh).
+product of csrc/gemm_tc.cuh); B4 (ops/ffn.py) is lin1 and lin2 alone.
 
     project       x W_in^T + b_in split into groups of heads, rotary on q, k
     tail_out_proj msg = merge_heads(ctx) Wo + bo
@@ -9,8 +9,9 @@ product of csrc/gemm_tc.cuh).
     tail_chain    the three in order
 
 Each takes a list of one or two segments (B5: the image; B6: both images,
-one launch over the rows of both) and returns one result per segment
-(``tail_out_proj`` and ``tail_lin1`` return their rows stacked). On CUDA
+one launch over the rows of both; lin1 one message per segment) and
+returns one result per segment (``tail_out_proj`` and ``tail_lin1`` return
+their rows stacked). On CUDA
 tensors each launches its kernel or raises; on CPU tensors it runs its
 plain version, the function of the same name with ``_plain``.
 ``ln_partials_plain`` and ``merge_stats_plain`` state the LayerNorm
@@ -21,9 +22,10 @@ layer's LN input can have |mean| >> std, where those cancel.
 
 ``tile_plan`` picks each launch's tile from its shape and the card's SMs;
 the weights come K-major from the ops' ``prepare`` (``woT``, ``w1T``,
-``w2T``: one row per output channel). The ops check the weights once a
-call (``check_block_weights``) and run ``launch_project`` and
-``launch_tail``, which check only the activations.
+``w2T``: one row per output channel; B4's from ``ffn_weights``). The ops
+check the weights once a call (``check_block_weights``, B4
+``check_ffn_weights``) and run ``launch_project``, ``launch_tail`` and
+``launch_ffn``, which check only the activations.
 """
 
 from __future__ import annotations
@@ -35,9 +37,9 @@ import torch
 
 from .. import _build, nn
 from . import rotary
-from .ffn import DIMS
 from .flash import HEAD_DIMS, aligned16
 
+DIMS = (128, 256)  # the descriptor widths the block and FFN launches take
 # Tiles (rows, channels) of csrc/gemm_tc.cuh (Tile0-3), largest first
 TILES = ((64, 128), (64, 64), (32, 64), (32, 32))
 LN_PART = 16  # columns of one LayerNorm partial (gemm_tc.cuh::PART)
@@ -217,33 +219,39 @@ def merge_stats_plain(stats: torch.Tensor
     return mean, 1.0 / torch.sqrt(m2 / n + LN_EPS)
 
 
-def tail_lin1_plain(w: dict, xs: Sequence[torch.Tensor], msg: torch.Tensor
+def tail_lin1_plain(w: dict, xs: Sequence[torch.Tensor],
+                    msgs: Sequence[torch.Tensor]
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(h (R, 2D) = [x | msg] W1 + b1, ln_partials_plain(h))."""
+    """(h (R, 2D) = [x | msg] W1 + b1, ln_partials_plain(h)) over the rows
+    of every segment x (B, n_s, D) and its message (x's rows of D)."""
     d = xs[0].shape[-1]
     w1T = w["w1T"]
-    h = _rows(xs) @ w1T[:, :d].t() + msg @ w1T[:, d:].t() + w["b1"]
+    h = _rows(xs) @ w1T[:, :d].t() + _rows(msgs) @ w1T[:, d:].t() + w["b1"]
     return h, ln_partials_plain(h)
 
 
-def tail_lin1(w: dict, xs: Sequence[torch.Tensor], msg: torch.Tensor
+def tail_lin1(w: dict, xs: Sequence[torch.Tensor],
+              msgs: Sequence[torch.Tensor]
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     if xs[0].device.type == "cpu":
-        return tail_lin1_plain(w, xs, msg)
-    return _lin1(check_block_weights(w, xs[0].shape[-1]), w, xs, msg)
+        return tail_lin1_plain(w, xs, msgs)
+    return _lin1(check_block_weights(w, xs[0].shape[-1]), w, xs, msgs)
 
 
-def _lin1(dev, w, xs, msg):
+def _lin1(dev, w, xs, msgs):
     b, _, d = xs[0].shape
-    _activations(dev, msg=msg, **{f"x{i}": x for i, x in enumerate(xs)})
+    _activations(dev, **{f"x{i}": x for i, x in enumerate(xs)},
+                 **{f"msg{i}": m for i, m in enumerate(msgs)})
+    if len(msgs) != len(xs) or any(m.shape[-1] != d or m.numel() != x.numel()
+                                   for m, x in zip(msgs, xs)):
+        raise ValueError("lin1 takes one message of its x's rows a segment")
     x0, x1, n0, n1 = _segment_args([aligned16(x) for x in xs])
+    m0, m1, _, _ = _segment_args([aligned16(m) for m in msgs])
     rows = b * (n0 + n1)
-    if msg.shape != (rows, d):
-        raise ValueError(f"msg must be ({rows}, {d})")
     h = torch.empty(rows, 2 * d, device=dev)
     stats = torch.empty(rows, 2 * d // LN_PART, 2, device=dev)
-    _build.launch("lg_tail_lin1", dev, x0, x1, aligned16(msg), w["w1T"],
-                  w["b1"], h, stats, b, n0, n1, d, _tile(dev, rows, 2 * d))
+    _build.launch("lg_tail_lin1", dev, x0, x1, m0, m1, w["w1T"], w["b1"], h,
+                  stats, b, n0, n1, d, _tile(dev, rows, 2 * d))
     return h, stats
 
 
@@ -283,8 +291,7 @@ def tail_chain_plain(w: dict, ctxs: Sequence[torch.Tensor],
                      xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     """Per segment x + FFN(cat[x, merge_heads(ctx) Wo + bo]), as the three
     launches compute it."""
-    h, stats = tail_lin1_plain(w, xs, tail_out_proj_plain(w, ctxs))
-    return tail_lin2_plain(w, h, stats, xs)
+    return ffn_chain_plain(w, xs, _segments(tail_out_proj_plain(w, ctxs), xs))
 
 
 def tail_chain(w: dict, ctxs: Sequence[torch.Tensor],
@@ -300,25 +307,76 @@ def launch_tail(dev: torch.device, w: dict, ctxs: Sequence[torch.Tensor],
                 xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     """``tail_chain``'s launches on weights that check_block_weights
     returned ``dev`` for."""
-    h, stats = _lin1(dev, w, xs, _out_proj(dev, w, ctxs))
+    return launch_ffn(dev, w, xs, _segments(_out_proj(dev, w, ctxs), xs))
+
+
+def ffn_chain_plain(w: dict, xs: Sequence[torch.Tensor],
+                    msgs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """Per segment x + FFN(cat[x, msg]) as B4's two launches compute it."""
+    return tail_lin2_plain(w, *tail_lin1_plain(w, xs, msgs), xs)
+
+
+def launch_ffn(dev: torch.device, w: dict, xs: Sequence[torch.Tensor],
+               msgs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """lin1 and lin2 over the rows of every segment x and its message, on
+    weights that check_ffn_weights (or check_block_weights) returned ``dev``
+    for: B4, and the last two launches of B5's and B6's tail."""
+    h, stats = _lin1(dev, w, xs, msgs)
     return _lin2(dev, w, h, stats, xs)
 
 
 # --- weights ---------------------------------------------------------------
 
 
-def tail_weights(out_proj: nn.Params, ffn: nn.Params) -> dict:
-    """The tail's weights, K-major (one row per output channel), from the
-    output projection {w (D, D), b} and the FFN {"lin1", "ln", "lin2"} as
-    stored (in, out), each a tensor of its own (so 16-byte aligned); ``ffn``
-    itself is left as it is."""
-    own = lambda t: t.clone(memory_format=torch.contiguous_format)  # noqa
+def _own(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous tensor of its own (so 16-byte aligned)."""
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+def ffn_weights(ffn: nn.Params) -> dict:
+    """lin1's and lin2's weights, K-major (one row per output channel),
+    from the FFN {"lin1", "ln", "lin2"} as stored (in, out), each a tensor
+    of its own; ``ffn`` itself is left as it is."""
     return {
-        "woT": own(out_proj["w"].t()), "bo": own(out_proj["b"]),
-        "w1T": own(ffn["lin1"]["w"].t()), "b1": own(ffn["lin1"]["b"]),
-        "gamma": own(ffn["ln"]["scale"]), "beta": own(ffn["ln"]["bias"]),
-        "w2T": own(ffn["lin2"]["w"].t()), "b2": own(ffn["lin2"]["b"]),
+        "w1T": _own(ffn["lin1"]["w"].t()), "b1": _own(ffn["lin1"]["b"]),
+        "gamma": _own(ffn["ln"]["scale"]), "beta": _own(ffn["ln"]["bias"]),
+        "w2T": _own(ffn["lin2"]["w"].t()), "b2": _own(ffn["lin2"]["b"]),
     }
+
+
+def tail_weights(out_proj: nn.Params, ffn: nn.Params) -> dict:
+    """The tail's weights: the output projection {w (D, D), b} K-major and
+    ``ffn_weights(ffn)``."""
+    return {"woT": _own(out_proj["w"].t()), "bo": _own(out_proj["b"]),
+            **ffn_weights(ffn)}
+
+
+def _check_weights(w: dict, d: int, want: dict) -> torch.device:
+    """Raise unless each w[k] has shape want[k] and all lie on one CUDA
+    device as contiguous float32, the 2-d ones and the LayerNorm's 16-byte
+    aligned; return the device."""
+    if d not in DIMS:
+        raise ValueError(f"the block and FFN kernels take D in {DIMS}, got "
+                         f"{d}")
+    for k, shape in want.items():
+        if tuple(w[k].shape) != shape:
+            raise ValueError(f"{k} must be {shape}, got {tuple(w[k].shape)}")
+    dev = _build.check_cuda(**{k: w[k] for k in want})
+    for k in want:
+        if (len(want[k]) == 2 or k in ("gamma", "beta")) \
+                and w[k].data_ptr() % 16:  # read 16 bytes at a time
+            raise ValueError(f"{k} is not 16-byte aligned")
+    return dev
+
+
+def _ffn_shapes(d: int) -> dict:
+    return dict(w1T=(2 * d, 2 * d), b1=(2 * d,), gamma=(2 * d,),
+                beta=(2 * d,), w2T=(d, 2 * d), b2=(d,))
+
+
+def check_ffn_weights(w: dict, d: int) -> torch.device:
+    """``check_block_weights`` for lin1 and lin2 alone (B4)."""
+    return _check_weights(w, d, _ffn_shapes(d))
 
 
 def check_block_weights(w: dict, d: int) -> torch.device:
@@ -326,19 +384,11 @@ def check_block_weights(w: dict, d: int) -> torch.device:
     HEAD_DIMS) and lie on one CUDA device as contiguous float32; return the
     device."""
     h = w["num_heads"]
-    if d not in DIMS or d % h or d // h not in HEAD_DIMS:
-        raise ValueError(f"the block kernels take D in {DIMS} with head_dim "
-                         f"in {HEAD_DIMS}, got D {d}, {h} heads")
-    want = dict(woT=(d, d), bo=(d,), w1T=(2 * d, 2 * d), b1=(2 * d,),
-                gamma=(2 * d,), beta=(2 * d,), w2T=(d, 2 * d), b2=(d,))
-    for k, shape in want.items():
-        if tuple(w[k].shape) != shape:
-            raise ValueError(f"{k} must be {shape}, got {tuple(w[k].shape)}")
-    if w["w_in"].shape[1:] != (d,) or w["b_in"].shape != w["w_in"].shape[:1]:
-        raise ValueError(f"w_in/b_in do not fit D {d}")
-    dev = _build.check_cuda(w_in=w["w_in"], b_in=w["b_in"],
-                            **{k: w[k] for k in want})
-    for k in ("w_in", "woT", "w1T", "w2T", "gamma", "beta"):
-        if w[k].data_ptr() % 16:  # read 16 bytes at a time
-            raise ValueError(f"{k} is not 16-byte aligned")
-    return dev
+    if d % h or d // h not in HEAD_DIMS:
+        raise ValueError(f"the block kernels take head_dim in {HEAD_DIMS}, "
+                         f"got D {d}, {h} heads")
+    if w["w_in"].shape[1:] != (d,):
+        raise ValueError(f"w_in does not fit D {d}")
+    return _check_weights(w, d, dict(w_in=tuple(w["w_in"].shape),
+                                     b_in=tuple(w["w_in"].shape[:1]),
+                                     woT=(d, d), bo=(d,), **_ffn_shapes(d)))

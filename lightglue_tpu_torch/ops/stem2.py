@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from .. import _build, nn
+from .flash import aligned16
 from .stem import check_conv, check_even_map, prepared_conv
 
 
@@ -43,14 +44,16 @@ def _launch(p: nn.Params, x: torch.Tensor, pool: bool) -> torch.Tensor:
     return out
 
 
-def _check(ps, x: torch.Tensor) -> None:
+def _check(ps, x: torch.Tensor) -> torch.Tensor:
+    """x as the kernel reads it: staged through an aligned copy when it
+    does not start on a 16-byte boundary (the kernel copies its rows in
+    16-byte pieces from there)."""
     _build.check_cuda(x=x, **{f"{i}{k}": p[k] for i, p in enumerate(ps)
                               for k in ("w", "b")})
     check_even_map(x, 64, "x")
-    if x.data_ptr() % 16:  # the kernel copies rows in 16-byte pieces
-        raise ValueError("x must start on a 16-byte boundary")
     for i, p in enumerate(ps):
         check_conv(p, 64, f"conv {i}")
+    return aligned16(x)
 
 
 def conv3x3_relu(p: nn.Params, x: torch.Tensor) -> torch.Tensor:
@@ -58,8 +61,7 @@ def conv3x3_relu(p: nn.Params, x: torch.Tensor) -> torch.Tensor:
     b) at full resolution), the plain version on CPU tensors."""
     if x.device.type == "cpu":
         return conv3x3_relu_plain(p, x)
-    _check([p], x)
-    return _launch(p, x, False)
+    return _launch(p, _check([p], x), False)
 
 
 def fused_block2(params: nn.Params, x: torch.Tensor) -> torch.Tensor:
@@ -68,5 +70,4 @@ def fused_block2(params: nn.Params, x: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cpu":
         return fused_block2_plain(params, x)
     a, b = params["conv2a"], params["conv2b"]
-    _check([a, b], x)
-    return _launch(b, _launch(a, x, False), True)
+    return _launch(b, _launch(a, _check([a, b], x), False), True)

@@ -5,11 +5,13 @@ the card.
 
 Builds csrc/blocks.cu (with csrc/gemm_tc.cuh) several times from patched
 copies, each with another form of lin2's LayerNorm + GELU, shape of the
-largest tile (the one B 16 takes), ring depth (STAGES), k-step depth (BK)
-or warp tile, one nvcc per variant, all started together.
+largest tile (the one B 16 takes), ring depth (STAGES), k-step depth (BK),
+warp tile, or sums (lin1 and lin2, B4's launches, with gemm_tc.cuh's step
+sums), one nvcc per variant, all started together.
 For each variant it checks every launch of the projection and the tail
 against its plain version (ops/block_tc.py, layer 0 of the trained matcher,
-B 4) and then times each launch at B 1, 4 and 16 (1024 keypoints, D 256,
+B 4; the largest error relative to max(1, max |plain|) printed) and then
+times each launch at B 1, 4 and 16 (1024 keypoints, D 256,
 four heads) as device time from CUDA-graph replays, with the FLOP rate of
 the fp32 function. The committed sources are the first variant. Prints
 the card's name and power limit first.
@@ -73,6 +75,17 @@ VARIANTS = {
                                   "constexpr int STAGES = 4;")]},
     "k-step 64": {"gemm_tc.cuh": [("constexpr int BK = 32;",
                                    "constexpr int BK = 64;")]},
+    # lin1 and lin2 (B4, and the tail's last two launches) with each 8-deep
+    # step's products summed apart and added in fp32, as B2 does
+    "lin1, lin2 step sums": {"blocks.cu": [
+        ("    lin1_tc_kernel(CatSrc a, const float* __restrict__ w, StatsEpi e, int K,\n"
+         "                   int R) {\n  lg::gemm::product<T>(",
+         "    lin1_tc_kernel(CatSrc a, const float* __restrict__ w, StatsEpi e, int K,\n"
+         "                   int R) {\n  lg::gemm::product<T, true>("),
+        ("    lin2_tc_kernel(LnSrc a, const float* __restrict__ w, ResidualEpi e,\n"
+         "                   int K, int R) {\n  lg::gemm::product<T>(",
+         "    lin2_tc_kernel(LnSrc a, const float* __restrict__ w, ResidualEpi e,\n"
+         "                   int K, int R) {\n  lg::gemm::product<T, true>(")]},
     "3 stages, warp 64x32": {"gemm_tc.cuh": [
         ("constexpr int STAGES = 2;", "constexpr int STAGES = 3;"),
         ("using Tile0 = Tile<64, 128, 32, 32>;",
@@ -130,8 +143,8 @@ def launches(w, x, enc, ctx, msg, h, st):
                     lambda: block_tc.project_plain(w, [x], 3, enc)),
         "tail_out_proj": (lambda: block_tc.tail_out_proj(w, [ctx]),
                           lambda: block_tc.tail_out_proj_plain(w, [ctx])),
-        "tail_lin1": (lambda: block_tc.tail_lin1(w, [x], msg),
-                      lambda: block_tc.tail_lin1_plain(w, [x], msg)),
+        "tail_lin1": (lambda: block_tc.tail_lin1(w, [x], [msg]),
+                      lambda: block_tc.tail_lin1_plain(w, [x], [msg])),
         "tail_lin2": (lambda: block_tc.tail_lin2(w, h, st, [x]),
                       lambda: block_tc.tail_lin2_plain(w, h, st, [x])),
     }
@@ -142,19 +155,23 @@ def measure(name, lib, w, inputs, table) -> None:
     4, then time it at B 1, 4 and 16 into table[name, launch, B]."""
     use(lib)
     runs = launches(w, *inputs[4])
+    errs = {}
     for launch, (kern, plain) in runs.items():
         got, want = kern(), plain()
         got = got if isinstance(got, (list, tuple)) else (got,)
         want = want if isinstance(want, (list, tuple)) else (want,)
-        err = max(float((a - c).abs().max() / c.abs().max().clamp(
-            min=1.0)) for a, c in zip(got, want))
+        err = errs[launch] = max(float((a - c).abs().max() / c.abs().max(
+        ).clamp(min=1.0)) for a, c in zip(got, want))
         if not err < 1e-5:
             raise AssertionError(f"{name} {launch}: {err}")
     for b in (1, 4, 16):
         runs = launches(w, *inputs[b])
         for launch in LAUNCHES:
             table[name, launch, b] = graph_ms(runs[launch][0])
-    print(f"  {name}: checked against the plain versions", flush=True)
+    print(f"  {name}: checked against the plain versions, error relative to "
+          "max(1, max |plain|): " + ", ".join(f"{k} {e:.2e}"
+                                              for k, e in errs.items()),
+          flush=True)
 
 
 def flops(name: str, rows: int, d: int = 256) -> float:
@@ -179,7 +196,7 @@ def main() -> None:
         enc = torch.stack([ang.cos(), ang.sin()])
         ctx = torch.randn(b, 4, 1024, 64, generator=g, device="cuda")
         msg = block_tc.tail_out_proj_plain(w, [ctx])
-        h, st = block_tc.tail_lin1_plain(w, [x], msg)
+        h, st = block_tc.tail_lin1_plain(w, [x], [msg])
         inputs[b] = (x, enc, ctx, msg, h, st)
     with tempfile.TemporaryDirectory() as tmp:
         libs = build_variants(Path(tmp))

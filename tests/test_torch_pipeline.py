@@ -124,6 +124,9 @@ def test_import_leaves_jax_out():
             "lightglue_tpu_torch.scripts.host_latency, "
             "lightglue_tpu_torch.scripts.walk_sums, "
             "lightglue_tpu_torch.scripts.conv_study, "
+            "lightglue_tpu_torch.ops.ffn, "
+            "lightglue_tpu_torch.scripts.ffn_times, "
+            "lightglue_tpu_torch.scripts.cpu_repeat, "
             "lightglue_tpu_torch.synthetic; "
             "bad = [m for m, mod in sys.modules.items() if mod is not None "
             "and m.split('.')[0] in ('jax', 'lightglue_tpu')]; "
