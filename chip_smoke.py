@@ -9,8 +9,8 @@ Phases, any failure raising (non-zero exit, no result line):
      library's own fp32 scoping of its convs;
   1. build: nvcc compiles csrc/*.cu into _build/, one process per source
      (timed), each kernel's registers and spills (a spilling tensor-core
-     kernel of B5, B6, K2, B2, B7, B8 or B10, or a spilling B9, fails the
-     run);
+     kernel of B5, B6, K2, B2, B7, B8 or B10, or a spilling B9, B11 or B12,
+     fails the run; the score head's line names its tile);
   2. each kernel against its plain PyTorch version at the main paths'
      shapes, then at tiny and ragged shapes and, for the matcher's kernels,
      at 2048 keypoints; B4 (lin1 + lin2 on the tile product) at (4, 1024,
@@ -26,7 +26,8 @@ Phases, any failure raising (non-zero exit, no result line):
      constant-shift variants (B1s, B3s) exact and with shift 12; ALIKED's
      kernels at RGB 768 x 1024 images (B10 at aliked-n16 and aliked-t16
      widths, B 1, 2 and 8, each launched twice, bit for bit; B11, B12 at B
-     2; B9 at r 2 on ALIKED's score maps, bit for bit) and at edge shapes
+     1, 2 and 8, each launched twice, bit for bit, and their blocks an SM;
+     B9 at r 2 on ALIKED's score maps, bit for bit) and at edge shapes
      (a branch dimension of 1, ragged tiles, aliked-t16 widths), with
      random batch-norm statistics; head_dim 128 (K1 exact and shift, B1',
      B5 at two heads of 128, from the trained layers regrouped by
@@ -95,8 +96,10 @@ Phases, any failure raising (non-zero exit, no result line):
      projection (beside cuBLAS addmm) and tail, and K2 (exact and as B6's
      attention) and B2 at B 1, 4 and 16, as events and as CUDA-graph
      device time, B7 and B8 at B 2 likewise, and B9 (r 4 and r 2) and B10
-     at B 2 with their device time; extraction ms per
-     image, the matcher in its default and composed configurations and
+     at B 2 with their device time, B11 and B12 at B 1, 2 and 8 with their
+     device time and bound; extraction ms per image (ALIKED with and
+     without fused_score_head), the matcher in its default and composed
+     configurations and
      with two heads of 128, end-to-end pairs/s and
      match_pair ms per pair, for SuperPoint and for ALIKED.
 A JSON object of the kernels (with each one's bound, from its shapes, and
@@ -110,10 +113,10 @@ matcher at 1024 keypoints (planted pairs, trained weights; B 1 and B 16,
 fixed and adaptive, default and composed blocks, and the default with two
 heads of 128), over SuperPoint at B 1 and B 8, match_pair at 2048
 keypoints (fixed) and images -> SuperPoint -> LightGlue fixed at B 8, over
-ALIKED at B 1 and
-B 8 and over images -> ALIKED -> LightGlue at B 8: wall and device ms per
-call, the device's busy share, device ops per call and the largest device
-items.
+ALIKED at B 1 and B 8 and over images -> ALIKED -> LightGlue fixed at B 8,
+each at the default configuration and with fused_score_head (B11): wall
+and device ms per call, the device's busy share, device ops per call and
+the largest device items.
 """
 
 from __future__ import annotations
@@ -362,7 +365,7 @@ def build_phase():
     name, spills = "?", ""
     tc = ("_tc_kernel", "cross_rows", "cross_cols", "cross_shift",
           "assign_tile", "flash_sdpa_kernel", "flash_cross_pair_kernel",
-          "conv_tc_kernel", "nms_kernel")
+          "conv_tc_kernel", "nms_kernel", "score_head_kernel")
     for line in log.splitlines():
         if "Compiling entry function" in line:
             name = re.sub(r"IN2lg4gemm4TileILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E",
@@ -375,6 +378,9 @@ def build_phase():
             name = re.sub(r"INS_8StemTileILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)"
                           r"ELi(\d+)ELi(\d+)E+",
                           r"<C1 \1, CY \2, \3x\4, \5 m16 a warp, run \6>", name)
+            name = re.sub(r"ILb(\d)ENS_9ScoreTileILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)"
+                          r"ELi(\d+)E+",
+                          r"<lazy \1, \2x\3, micro-tile rows \4 / \5 / \6>", name)
         elif "spill" in line:
             spills = line.strip()
         elif "Used" in line:
@@ -1780,23 +1786,29 @@ def stem_errors(label, p, img):
 
 def score_errors(label, sh, parts):
     """B11 on the four branch parts and B12 on their upsampled sum, each
-    against its plain version (SCORE_TOL)."""
+    against its plain version (SCORE_TOL), each launched twice and equal to
+    the bit."""
     s0 = score_head.upsampled_sum(*parts)
-    return (
-        check(f"score_head_lazy {label}", max_err(
-            score_head.score_head_lazy_kernel(sh, *parts),
-            score_head.score_head_lazy_plain(sh, *parts)), SCORE_TOL),
-        check(f"score_head_cplane {label}", max_err(
-            score_head.score_head_cplane_kernel(sh, s0),
-            score_head.score_tail_plain(sh, s0)), SCORE_TOL))
+    errs = []
+    for name, kern, plain in (
+            ("score_head_lazy", lambda: score_head.score_head_lazy_kernel(sh, *parts),
+             lambda: score_head.score_head_lazy_plain(sh, *parts)),
+            ("score_head_cplane", lambda: score_head.score_head_cplane_kernel(sh, s0),
+             lambda: score_head.score_tail_plain(sh, s0))):
+        got, again = kern(), kern()
+        if not torch.equal(got, again):
+            raise AssertionError(f"{name} {label}: two launches differ")
+        errs.append(check(f"{name} {label} (twice, equal to the bit)",
+                          max_err(got, plain()), SCORE_TOL))
+    return tuple(errs)
 
 
 def aliked_kernel_phase(ap):
     """B10 (aliked-n16 and aliked-t16 at B 1, 2 and 8), B11, B12 at the
-    ALIKED path's shapes (RGB 768 x 1024 images; the score head on two
-    images' branch parts), B9 at r 2 on their score maps, then at edge
-    shapes: a branch dimension of 1 (H or W 32), ragged tiles, aliked-t16
-    widths. Returns (errors, the inputs for timing)."""
+    ALIKED path's shapes (RGB 768 x 1024 images; the score head on the
+    branch parts of 1, 2 and 8 images), B9 at r 2 on two images' score
+    maps, then at edge shapes: a branch dimension of 1 (H or W 32), ragged
+    tiles, aliked-t16 widths. Returns (errors, the inputs for timing)."""
     phase("2d ALIKED kernels against their plain versions")
     rng = np.random.default_rng(41)
     imgs = torch.from_numpy(np.stack([rgb(image_pair(rng, H, W)[0])
@@ -1815,15 +1827,23 @@ def aliked_kernel_phase(ap):
                   f"{e:.3e} (tol {CONV_TOL:g} x max(1, max|plain|)), twice, "
                   "equal to the bit", flush=True)
     with torch.inference_mode():
-        ys, smap = al._dense_branches(ap, img, fused_score=False, fused_stem=False)
-        parts = al._score_parts(ap["score_head"], ys, True)
-    smap = smap.contiguous()
+        ys, smap = al._dense_branches(ap, imgs, fused_score=False, fused_stem=False)
+        parts8 = al._score_parts(ap["score_head"], ys, True)
+    parts = [p[:2].contiguous() for p in parts8]
+    smap = smap[:2].contiguous()
     kept = nms_equal("on ALIKED's score maps", smap, 2)
     print(f"  simple_nms (2,{H},{W}) r 2 on ALIKED's score maps: equal to the "
           f"plain version to the bit, {kept} maxima")
     sh = ap["score_head"]
     e_lazy, e_cplane = score_errors(f"(2, 8, {H}, {W}) from those images",
                                     sh, parts)
+    for b in (1, 8):
+        el, ec = score_errors(f"({b}, 8, {H}, {W})", sh,
+                              [p[:b].contiguous() for p in parts8])
+        e_lazy, e_cplane = max(e_lazy, el), max(e_cplane, ec)
+    dev = torch.device("cuda")
+    print(f"  score_head blocks an SM: {score_head.blocks_per_sm(True, dev)} "
+          f"(B11), {score_head.blocks_per_sm(False, dev)} (B12)", flush=True)
     g = torch.Generator(device="cuda").manual_seed(6)
     for name, p in (("aliked-n16", ap), ("aliked-t16", t16)):
         for b, h, w in ((1, 32, 96), (2, 64, 96), (1, 96, 32), (1, 40, 72)):
@@ -1843,7 +1863,7 @@ def aliked_kernel_phase(ap):
     return ({"fused_aliked_stem": e_stem, "score_head_lazy": e_lazy,
              "score_head_cplane": e_cplane},
             {"img": img, "stem_p": stem_p, "parts": parts, "smap": smap,
-             "s0": score_head.upsampled_sum(*parts)})
+             "s0": score_head.upsampled_sum(*parts), "parts8": parts8})
 
 
 def aliked_path_phase(ap, mparams):
@@ -2307,6 +2327,15 @@ def kernel_bounds():
                             + 468 * f),
         "score_head_cplane": (img * 2 * 9 * (32 + 16 + 4),
                               img * (8 + 1) * f + 468 * f),
+        # the same at B 1 and B 8
+        **{f"{k} B {b}": (v[0] * b / 2, (v[1] - 468 * f) * b / 2 + 468 * f)
+           for k, v in (
+               ("score_head_lazy", (img * (2 * 9 * (32 + 16 + 4) + 3 * 8 * 7),
+                                    img * (8 + 8 / 4 + 8 / 64 + 8 / 1024 + 1) * f
+                                    + 468 * f)),
+               ("score_head_cplane", (img * 2 * 9 * (32 + 16 + 4),
+                                      img * (8 + 1) * f + 468 * f)))
+           for b in (1, 8)},
         # both directions at (4, 2, M 1024 / N 768, 128): the same products
         # as B3 at four heads of 64
         "flash_cross_pair": (8 * b * 2 * n * m1 * 128,
@@ -2451,6 +2480,7 @@ def aliked_timing_phase(ax, ap):
     img, stem_p, parts, s0 = ax["img"], ax["stem_p"], ax["parts"], ax["s0"]
     smap = ax["smap"]
     sh = ap["score_head"]
+    by_batch = {b: [p[:b].contiguous() for p in ax["parts8"]] for b in (1, 8)}
     pairs = {
         "fused_aliked_stem": (
             lambda: aliked_stem.fused_aliked_stem_kernel(stem_p, img),
@@ -2464,14 +2494,23 @@ def aliked_timing_phase(ax, ap):
             lambda: score_head.score_head_cplane_kernel(sh, s0),
             lambda: score_head.score_tail_plain(sh, s0)),
     }
+    for b, pb in by_batch.items():
+        sb = score_head.upsampled_sum(*pb)
+        pairs[f"score_head_lazy B {b}"] = (
+            lambda pb=pb: score_head.score_head_lazy_kernel(sh, *pb),
+            lambda pb=pb: score_head.score_head_lazy_plain(sh, *pb))
+        pairs[f"score_head_cplane B {b}"] = (
+            lambda sb=sb: score_head.score_head_cplane_kernel(sh, sb),
+            lambda sb=sb: score_head.score_tail_plain(sh, sb))
     times, graph_times = {}, {}
     for name, (kern, plain) in pairs.items():
         a, b, c, d = (time_cuda(f, iters=10) for f in (plain, kern, kern, plain))
         times[name] = ((b + c) / 2, (a + d) / 2, None)
-        print(f"  {name} (B 2, {H}x{W}): kernel {times[name][0]:.4f} ms, "
-              f"plain {times[name][1]:.4f} ms (runs {b:.4f}/{c:.4f}, "
-              f"{a:.4f}/{d:.4f})", flush=True)
-    for name in ("fused_aliked_stem", "simple_nms r 2"):
+        at = "" if " B " in name else " (B 2"
+        print(f"  {name}{at}, {H}x{W}{')' if at else ''}: kernel "
+              f"{times[name][0]:.4f} ms, plain {times[name][1]:.4f} ms (runs "
+              f"{b:.4f}/{c:.4f}, {a:.4f}/{d:.4f})", flush=True)
+    for name in pairs:
         a, d = (attn_split.graph_ms(pairs[name][0], calls=10) for _ in range(2))
         graph_times[name] = ((a + d) / 2, None)
         print(f"  {name}, device time (CUDA graph): kernel {(a + d) / 2:.4f} "
@@ -2483,9 +2522,11 @@ def aliked_timing_phase(ax, ap):
     im1 = torch.from_numpy(np.stack([rgb(p[1]) for p in pool])).cuda()
     conf = ALIKEDConfig()
     for bsz in (1, 8):
-        ms = time_cuda(lambda: al.forward(ap, conf, imgs[:bsz]), iters=5) / bsz
-        print(f"  ALIKED extraction, default configuration, B {bsz}: {ms:.3f} "
-              f"ms per {H}x{W} image (2048 keypoints)", flush=True)
+        for label, c in (("default configuration", conf),
+                         ("fused_score_head", conf.replace(fused_score_head=True))):
+            ms = time_cuda(lambda: al.forward(ap, c, imgs[:bsz]), iters=5) / bsz
+            print(f"  ALIKED extraction, {label}, B {bsz}: {ms:.3f} ms per "
+                  f"{H}x{W} image (2048 keypoints)", flush=True)
 
     # end to end at the JAX bench's ALIKED e2e shape (bench.py:230-239)
     sizes = torch.tensor([[W, H]] * 8, dtype=torch.float32, device="cuda")
@@ -2615,15 +2656,19 @@ def profile_phase(params):
     im0, im1 = (torch.from_numpy(np.stack([rgb(p[i]) for p in pool])).cuda()
                 for i in (0, 1))
     for bsz in (1, 8):
-        profile_call(f"ALIKED B {bsz}", lambda: al.forward(
-            ap, ALIKEDConfig(), im0[:bsz]), calls=3, warmup=2, top=10)
+        for label, fused in (("", False), (", fused_score_head", True)):
+            profile_call(f"ALIKED B {bsz}{label}", lambda: al.forward(
+                ap, ALIKEDConfig(fused_score_head=fused), im0[:bsz]),
+                calls=3, warmup=2, top=10)
     sizes = torch.tensor([[W, H]] * 8, dtype=torch.float32, device="cuda")
-    run = end_to_end.make_end_to_end(
-        al.forward, ap, ALIKEDConfig(max_num_keypoints=1024),
-        LightGlue("aliked", device="cuda").params,
-        lightglue_config("aliked", depth_confidence=-1.0, width_confidence=-1.0))
-    profile_call("make_end_to_end ALIKED fixed B 8, 1024 keypoints",
-                 lambda: run(im0, im1, sizes, sizes), calls=3, warmup=2, top=10)
+    matcher = LightGlue("aliked", device="cuda").params
+    for label, fused in (("", False), (", fused_score_head", True)):
+        run = end_to_end.make_end_to_end(
+            al.forward, ap, ALIKEDConfig(max_num_keypoints=1024,
+                                         fused_score_head=fused), matcher,
+            lightglue_config("aliked", depth_confidence=-1.0, width_confidence=-1.0))
+        profile_call(f"make_end_to_end ALIKED fixed B 8, 1024 keypoints{label}",
+                     lambda: run(im0, im1, sizes, sizes), calls=3, warmup=2, top=10)
 
 
 def main():
@@ -2670,7 +2715,9 @@ def main():
     # the tensor-core kernels: their 3xTF32 bound beside the fp32 one
     tc_rows = (ATTENTION_ROWS + BLOCK_ROWS + CROSS_ROWS + FFN_ROWS
                + CONV_ROWS + ("fused_aliked_stem",))
-    rows = ("fused_self_block 2 x 128",) + tc_rows + ("simple_nms", "simple_nms r 2")
+    rows = (("fused_self_block 2 x 128",) + tc_rows + ("simple_nms", "simple_nms r 2")
+            + tuple(f"{k}{b}" for b in ("", " B 1", " B 8")
+                    for k in ("score_head_lazy", "score_head_cplane")))
     for name in rows:
         flops, nbytes = bounds[name]
         dev = graph_times.get(name)

@@ -51,6 +51,7 @@ SIGNATURES = {
     "lg_aliked_stem": [_P] * 6 + [_I] * 5 + [_P],
     "lg_score_head": [_P] * 3 + [_I] * 3 + [_P],
     "lg_score_head_lazy": [_P] * 6 + [_I] * 9 + [_P],
+    "lg_score_head_blocks": [_I, ctypes.POINTER(_I), _P],
     "lg_gather_rows": [_P] * 3 + [_I] * 3 + [_P],
 }
 

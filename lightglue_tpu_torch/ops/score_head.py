@@ -13,16 +13,22 @@ the align-corners upsampling of the three coarse ones to the first.
 
 On CUDA tensors ``score_head_cplane`` and ``score_head_lazy`` launch
 ``csrc/score_head.cu`` or raise; on CPU tensors they run the plain versions.
+The kernels take the 468 weights by value as a kernel parameter, from a host
+copy that ``prepared`` makes once per parameter tree.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from .. import _build, nn
 from .sampling import upsample
 
 TAIL = (("2", 8, 4), ("4", 4, 4), ("6", 4, 1))  # conv, in, out
+_PREPARED = WeakIdKeyDictionary()
 
 
 def score_tail_plain(sh: nn.Params, s0: torch.Tensor) -> torch.Tensor:
@@ -49,16 +55,38 @@ def score_head_lazy_plain(sh, s1, s2, s3, s4) -> torch.Tensor:
     return score_tail_plain(sh, upsampled_sum(s1, s2, s3, s4))
 
 
-def _tail_weights(sh: nn.Params) -> torch.Tensor:
-    """The three convs' weights as [ci][tap][co], concatenated (468)."""
-    parts = []
+def _check_tail(sh: nn.Params) -> None:
     for name, cin, cout in TAIL:
         p = sh[name]
         if tuple(p["w"].shape) != (cout, cin, 3, 3) or "b" in p:
             raise ValueError(f"score_head.{name}: weight {(cout, cin, 3, 3)} "
                              f"without bias expected, got {tuple(p['w'].shape)}")
-        parts.append(p["w"].permute(1, 2, 3, 0).reshape(-1))
-    return torch.cat(parts)
+
+
+def prepare(sh: nn.Params) -> torch.Tensor:
+    """The kernels' weight parameter (``Weights`` in csrc/score_head.cu):
+    the three convs as [ci][tap][co], (8, 9, 4), (4, 9, 4), (4, 9, 1),
+    concatenated, 468 fp32 values in host memory."""
+    _check_tail(sh)
+    return torch.cat([sh[name]["w"].detach().float().permute(1, 2, 3, 0)
+                      .reshape(-1) for name, _, _ in TAIL]).cpu().contiguous()
+
+
+def prepared(sh: nn.Params) -> torch.Tensor:
+    """``prepare(sh)``, built once per parameter tree (keyed by conv "2"'s
+    weight tensor, and rebuilt if "4" or "6" is another object): an edit in
+    place of a tensor is not seen, build a new tree. The first call copies
+    the weights to the host."""
+    srcs = (sh["4"]["w"], sh["6"]["w"])
+    got = _PREPARED.get(sh["2"]["w"])
+    if got is None or any(a is not b for a, b in zip(got[0], srcs)):
+        got = _PREPARED[sh["2"]["w"]] = (srcs, prepare(sh))
+    return got[1]
+
+
+def _check_weights(sh: nn.Params) -> dict:
+    _check_tail(sh)
+    return {f"w{name}": sh[name]["w"].contiguous() for name, _, _ in TAIL}
 
 
 def _check_planes(name: str, x: torch.Tensor, b: int) -> None:
@@ -76,9 +104,9 @@ def score_head_cplane(sh: nn.Params, s0: torch.Tensor) -> torch.Tensor:
 
 def score_head_cplane_kernel(sh: nn.Params, s0: torch.Tensor) -> torch.Tensor:
     """B12: one launch over CUDA tensors."""
-    w = _tail_weights(sh)
-    dev = _build.check_cuda(s0=s0, w=w)
+    dev = _build.check_cuda(s0=s0, **_check_weights(sh))
     _check_planes("s0", s0, s0.shape[0])
+    w = prepared(sh)
     b, _, h, wd = s0.shape
     out = torch.empty(b, h, wd, device=dev)
     _build.launch("lg_score_head", dev, s0, w, out, b, h, wd)
@@ -97,13 +125,21 @@ def score_head_lazy(sh, s1, s2, s3, s4) -> torch.Tensor:
 
 def score_head_lazy_kernel(sh, s1, s2, s3, s4) -> torch.Tensor:
     """B11: one launch over CUDA tensors."""
-    w = _tail_weights(sh)
-    dev = _build.check_cuda(s1=s1, s2=s2, s3=s3, s4=s4, w=w)
+    dev = _build.check_cuda(s1=s1, s2=s2, s3=s3, s4=s4, **_check_weights(sh))
     b, _, h, wd = s1.shape
     for name, x in (("s1", s1), ("s2", s2), ("s3", s3), ("s4", s4)):
         _check_planes(name, x, b)
+    w = prepared(sh)
     out = torch.empty(b, h, wd, device=dev)
     _build.launch("lg_score_head_lazy", dev, s1, s2, s3, s4, w, out, b, h, wd,
                   *s2.shape[2:], *s3.shape[2:], *s4.shape[2:])
     _build.count("score_head_lazy")
     return out
+
+
+def blocks_per_sm(lazy: bool, device: torch.device) -> int:
+    """Blocks of B11 (lazy) or B12 resident on one SM of ``device``, by the
+    runtime's occupancy calculator at ALIKED's shared memory."""
+    n = ctypes.c_int(0)
+    _build.launch("lg_score_head_blocks", device, int(lazy), ctypes.byref(n))
+    return n.value
