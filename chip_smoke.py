@@ -2661,11 +2661,11 @@ def profile_phase(params):
                 ap, ALIKEDConfig(fused_score_head=fused), im0[:bsz]),
                 calls=3, warmup=2, top=10)
     sizes = torch.tensor([[W, H]] * 8, dtype=torch.float32, device="cuda")
-    matcher = LightGlue("aliked", device="cuda").params
+    matcher_params = LightGlue("aliked", device="cuda").params
     for label, fused in (("", False), (", fused_score_head", True)):
         run = end_to_end.make_end_to_end(
             al.forward, ap, ALIKEDConfig(max_num_keypoints=1024,
-                                         fused_score_head=fused), matcher,
+                                         fused_score_head=fused), matcher_params,
             lightglue_config("aliked", depth_confidence=-1.0, width_confidence=-1.0))
         profile_call(f"make_end_to_end ALIKED fixed B 8, 1024 keypoints{label}",
                      lambda: run(im0, im1, sizes, sizes), calls=3, warmup=2, top=10)

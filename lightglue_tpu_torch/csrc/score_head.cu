@@ -475,8 +475,9 @@ __global__ void __launch_bounds__(NT, kBlocksSM)
   }
 }
 
-// The most rows a window of n_tiles tiles of `tile` outputs with a 3-pixel
-// ring spans in a branch axis of nk (of n outputs).
+// The most branch rows (of nk) that one tile of `tile` outputs and its
+// 3-pixel ring lerp from, over the tiles of an axis of n outputs: the
+// capacity of a window in region B.
 int window_extent(int n, int nk, int tile) {
   int most = 1;
   for (int i = 0; i < cdiv(n, tile); ++i) {
