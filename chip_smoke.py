@@ -48,7 +48,8 @@ Phases, any failure raising (non-zero exit, no result line):
      and 8, and at every radius 0-8 on a 61 x 83 edge map (plateaus,
      all-negative scores), each bit for bit;
   3. the main paths, each with the kernels' launch counts set to 0 just
-     before it and read just after:
+     before it and read just after (a CUDA graph replay adds the counts
+     its capture made):
      a. pipeline.LightGlue with the trained matcher weights on planted pairs
         (single pairs, one through padding buckets, and a batch of 8; fixed
         and adaptive), one pair of each held against the same call on CPU
@@ -85,6 +86,24 @@ Phases, any failure raising (non-zero exit, no result line):
      d. the row-gather study, lightglue_tpu_torch.scripts.micro_gather2,
         at its shapes (S1 against tbl[idx], index_select and the one-hot
         product);
+     e. serving: BatchMatcher (parallel/batching.py) with the trained
+        weights, buckets (512, 1024, 2048), max_batch 16, fixed and
+        adaptive, on 40 planted pairs of 300-2048 keypoints after warmup
+        (one CUDA graph set per bucket, batch and signature,
+        parallel/graphs.py): every padded batch's graph replay equal to
+        the bit to the eager forward on the card, each bucket's kernels
+        from the graphs' launch counts (B5, B6 and B2 up to 1024; B5, K2,
+        B4 and B2 at 2048), no capture during the traffic, precision
+        against the planted truth, one pair per bucket held against the
+        CPU port (matches, stop, prune, scores); then the default grid (8
+        buckets to 4096, batch 16, with and without image_size) captured,
+        its device memory printed, and a request at bucket 4096;
+     f. pipeline.match_sequence on 8 generated 768 x 1024 frames (1024
+        keypoints, fixed, threshold 0), windows 1 and 4: SuperPoint's
+        kernels once per image, each pair against make_end_to_end on that
+        pair alone (keypoints, valid and matches equal to the bit;
+        descriptors and matching scores within their tolerances), and the
+        first three frames through the CPU port;
   4. timing with CUDA events and host clocks: each kernel beside its plain
      version (and the one PyTorch call that computes the same function,
      where there is one), K1 and B5 at head_dim 128 too, the attention
@@ -101,7 +120,10 @@ Phases, any failure raising (non-zero exit, no result line):
      without fused_score_head), the matcher in its default and composed
      configurations and
      with two heads of 128, end-to-end pairs/s and
-     match_pair ms per pair, for SuperPoint and for ALIKED.
+     match_pair ms per pair, for SuperPoint and for ALIKED; BatchMatcher
+     (graphs) against pipeline.LightGlue (eager) at 1024 keypoints, fixed
+     and adaptive, B 1 and B 16, in turns, and match_sequence against
+     make_end_to_end once per pair on 8 frames, windows 1 and 4 (phase 4d).
 A JSON object of the kernels (with each one's bound, from its shapes, and
 the 3xTF32 bound of the tensor-core kernels: the walk, B5, B6, K2, B2, B7,
 B8, B10) and
@@ -114,13 +136,16 @@ fixed and adaptive, default and composed blocks, and the default with two
 heads of 128), over SuperPoint at B 1 and B 8, match_pair at 2048
 keypoints (fixed) and images -> SuperPoint -> LightGlue fixed at B 8, over
 ALIKED at B 1 and B 8 and over images -> ALIKED -> LightGlue fixed at B 8,
-each at the default configuration and with fused_score_head (B11): wall
-and device ms per call, the device's busy share, device ops per call and
-the largest device items.
+each at the default configuration and with fused_score_head (B11), over
+BatchMatcher (CUDA graphs) fixed and adaptive at B 1 and B 16, and over
+match_sequence (8 frames, windows 1 and 4) beside make_end_to_end once per
+pair: wall and device ms per call, the device's busy share, device ops
+per call and the largest device items.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import re
@@ -134,9 +159,11 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from lightglue_tpu_torch import (  # noqa: E402
-    ALIKED, ALIKEDConfig, LightGlue, SuperPoint, SuperPointConfig, _build,
-    lightglue_config, match_pair)
+    ALIKED, ALIKEDConfig, BatchMatcher, LightGlue, SuperPoint,
+    SuperPointConfig, _build, lightglue_config, match_pair, match_sequence)
 from lightglue_tpu_torch import end_to_end, nn  # noqa: E402
+from lightglue_tpu_torch.models import lightglue as lg  # noqa: E402
+from lightglue_tpu_torch.parallel import batching, graphs  # noqa: E402
 from lightglue_tpu_torch import weights as weights_lib  # noqa: E402
 from lightglue_tpu_torch.models import aliked as al  # noqa: E402
 from lightglue_tpu_torch.models import superpoint as sp  # noqa: E402
@@ -299,6 +326,25 @@ KPT_TOL = 1e-3  # px: keypoints of card and CPU paired within this distance
 # Matching scores (exp of a log-assignment entry, in [0, 1]) of card and
 # CPU port on the same inputs: about 8e-6 apart, checked at 1e-4.
 MATCH_SCORE_TOL = 1e-4
+FIXED = dict(depth_confidence=-1.0, width_confidence=-1.0)
+# Serving (phase 3e): BatchMatcher's buckets, each with the kernels its
+# graphs must launch and must not, in MATCHER_PATHS' form: B5, B6 and B2 up
+# to 1024 keypoints; at 2048 B5 and the composed cross block (K2, B4)
+SERVING_BUCKETS = (
+    (512, ("fused_self_block", "fused_cross_block", "fused_filter_matches"),
+     ("fused_cross_attention", "fused_ffn_residual", "flash_sdpa")),
+    (1024, ("fused_self_block", "fused_cross_block", "fused_filter_matches"),
+     ("fused_cross_attention", "fused_ffn_residual", "flash_sdpa")),
+    (2048, ("fused_self_block", "fused_cross_attention", "fused_ffn_residual",
+            "fused_filter_matches"), ("fused_cross_block", "flash_sdpa")),
+)
+SERVING_PAIRS, SERVING_KEYPOINTS = 40, (300, 2048)
+# match_sequence (phase 3f) at 1024 keypoints: SuperPoint's kernels once per
+# image, then B5, B6 and B2
+SEQUENCE_KERNELS = ("fused_stem", "fused_block2", "simple_nms",
+                    "fused_self_block", "fused_cross_block",
+                    "fused_filter_matches")
+SEQUENCE_FRAMES, SEQUENCE_WINDOWS = 8, (1, 4)
 
 
 def phase(name):
@@ -1955,6 +2001,323 @@ def aliked_path_phase(ap, mparams):
     return total
 
 
+def serving_traffic(rng, n):
+    """n planted pairs for the serving phases: image 1's keypoint count
+    drawn from SERVING_KEYPOINTS, image 0's from its low end to it. Returns (pairs of
+    unbatched feats dicts, planted truths)."""
+    pairs, gts = [], []
+    lo, hi = SERVING_KEYPOINTS
+    for _ in range(n):
+        k1 = int(rng.integers(lo, hi + 1))
+        pr = planted_pairs(rng, 1, int(rng.integers(lo, k1 + 1)), k1)
+        pairs.append(tuple({"keypoints": pr[f"keypoints{s}"][0],
+                            "descriptors": pr[f"descriptors{s}"][0],
+                            "image_size": pr["image_size"][0]} for s in (0, 1)))
+        gts.append(pr["gt_matches0"][0])
+    return pairs, gts
+
+
+def eager_forward(bm, f0, f1):
+    """models.lightglue.forward on the card on one of bm's padded batches."""
+    kw = batching.batch_inputs(bm.conf, f0, f1)
+    with torch.inference_mode():
+        out = lg.forward(bm.params, bm.conf, **{
+            k: None if v is None else torch.from_numpy(v).cuda()
+            for k, v in kw.items()})
+    return lg.MatchOutput(*(o if isinstance(o, int) else o.cpu().numpy()
+                            for o in out))
+
+
+def gib(nbytes):
+    return f"{nbytes / 2 ** 30:.2f} GiB"
+
+
+def serving_phase(params):
+    """Phase 3e: BatchMatcher on CUDA graphs, fixed and adaptive. Returns
+    the launch counts of the traffic (graph replays)."""
+    buckets = tuple(b for b, _, _ in SERVING_BUCKETS)
+    total = dict.fromkeys(KERNELS, 0)
+    pairs, gts = serving_traffic(np.random.default_rng(41), SERVING_PAIRS)
+    by_bucket = {b: [i for i, (f0, f1) in enumerate(pairs) if batching.next_bucket(
+        max(f0["keypoints"].shape[0], f1["keypoints"].shape[0]), buckets) == b]
+                 for b in buckets}
+    if not all(by_bucket.values()):
+        raise AssertionError(f"a bucket gets no traffic: {by_bucket}")
+    for mode, c in (("fixed", FIXED), ("adaptive", {})):
+        phase(f"3e main path: BatchMatcher, {mode}, trained weights, "
+              f"{SERVING_PAIRS} planted pairs of {SERVING_KEYPOINTS} keypoints, buckets "
+              f"{buckets}, max_batch 16 (CUDA graphs captured by warmup)")
+        conf = lightglue_config("superpoint", **c)
+        bm = BatchMatcher(conf, params, buckets=buckets, max_batch=16)
+        batches = sorted({f0["keypoints"].shape[0]
+                          for _, f0, _ in bm.padded_batches(pairs)} | {1})
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        n = bm.warmup(batches)
+        torch.cuda.synchronize()
+        print(f"  warmup: {n} programs (batches {batches}) in "
+              f"{time.perf_counter() - t0:.1f} s, {gib(torch.cuda.memory_allocated() - base)}"
+              f" allocated; pairs per bucket "
+              f"{ {b: len(i) for b, i in by_bucket.items()} }", flush=True)
+        captured = dict(bm._matcher.sets)
+        # every replay equal to the bit to the eager forward on the card
+        for chunk, f0, f1 in bm.padded_batches(pairs):
+            got, ref = bm.match_batch(f0, f1), eager_forward(bm, f0, f1)
+            differ = [f for f in graphs.OUTPUTS
+                      if not np.array_equal(getattr(got, f), getattr(ref, f))]
+            b, k = f0["keypoints"].shape[:2]
+            print(f"  bucket {k}, batch {b} ({len(chunk)} pairs): graph replay "
+                  f"{'equal to the bit to' if not differ else 'DIFFERS from'} "
+                  f"eager lg.forward, stop {got.stop} vs {ref.stop}")
+            if differ or got.stop != ref.stop:
+                raise AssertionError(f"{mode} bucket {k} batch {b}: the graphs "
+                                     f"and the eager forward differ in {differ}")
+        # the traffic, bucket by bucket, with the graphs' launch counts
+        for bucket, kernels, must_not in SERVING_BUCKETS:
+            torch.cuda.synchronize()
+            _build.reset_launch_counts()
+            res = bm.match_pairs([pairs[i] for i in by_bucket[bucket]])
+            torch.cuda.synchronize()
+            counts = _build.launch_counts()
+            print(f"  bucket {bucket}: launch counts "
+                  f"{ {k: c for k, c in counts.items() if c} }")
+            for kname in kernels:
+                if counts[kname] < 1:
+                    raise AssertionError(f"{kname} was not launched at {bucket}")
+            for kname in must_not:
+                if counts[kname]:
+                    raise AssertionError(f"{kname} was launched at {bucket}")
+            for k, c in counts.items():
+                total[k] += c
+            # precision over the bucket's matches: one skewed pair (400
+            # against 1211 keypoints) reaches 0.667 on the CPU port too
+            hits = []
+            for i, r in zip(by_bucket[bucket], res):
+                pred = r["matches0"] >= 0
+                if not np.isfinite(r["matching_scores0"]).all() or not pred.any():
+                    raise AssertionError(f"pair {i}: no matches or scores not finite")
+                hits.append((int(pred.sum()), int((r["matches0"][pred] == gts[i][pred]).sum())))
+            prec = sum(h for _, h in hits) / sum(k for k, _ in hits)
+            k, h = min(hits, key=lambda kh: kh[1] / kh[0])
+            print(f"    {len(res)} pairs, stop {sorted({r['stop'] for r in res})}, "
+                  f"{sum(k for k, _ in hits)} matches, precision against the "
+                  f"planted truth {prec:.3f} (lowest pair {h}/{k})")
+            if prec < MIN_PRECISION[4]:
+                raise AssertionError(f"bucket {bucket}: precision {prec}")
+        if bm._matcher.sets != captured:
+            raise AssertionError("the traffic captured a program after warmup")
+        # one pair of each bucket (the batch-1 graphs) against the CPU port
+        cpu = BatchMatcher(conf, params, buckets=buckets, max_batch=16,
+                           device="cpu")
+        for bucket, idx in by_bucket.items():
+            (_, f0, f1), = bm.padded_batches([pairs[idx[0]]])
+            got, ref = bm.match_batch(f0, f1), cpu.match_batch(f0, f1)
+            eager = eager_forward(bm, f0, f1)
+            if eager.stop != got.stop or not all(
+                    np.array_equal(getattr(got, f), getattr(eager, f))
+                    for f in graphs.OUTPUTS):
+                raise AssertionError(f"{mode} bucket {bucket} batch 1: the "
+                                     "graphs and the eager forward differ")
+            agree = float((got.matches0 == ref.matches0).mean())
+            pruned = sum(int((getattr(got, f) != getattr(ref, f)).sum())
+                         for f in ("prune0", "prune1"))
+            gap = max(float(np.abs(getattr(got, f) - getattr(ref, f)).max())
+                      for f in ("matching_scores0", "matching_scores1"))
+            print(f"  bucket {bucket}, pair {idx[0]} (batch 1, its replay equal "
+                  f"to the bit to eager lg.forward) against the CPU port: "
+                  f"matches0 agreement {agree:.6f}, stop {got.stop} vs "
+                  f"{ref.stop}, {pruned} points whose prune differs, score "
+                  f"diff {gap:.2e} (tol {MATCH_SCORE_TOL:g})")
+            if (agree < 0.999 or got.stop != ref.stop or pruned
+                    or gap > MATCH_SCORE_TOL):
+                raise AssertionError(f"{mode} bucket {bucket}: the card "
+                                     "disagrees with the CPU port")
+        del bm, captured
+        gc.collect()
+        torch.cuda.empty_cache()
+    return total
+
+
+def serving_memory_phase(params):
+    """The default grid (8 buckets up to 4096, max_batch 16, with and
+    without image_size) captured and held on the card, fixed and adaptive,
+    with one request at the largest bucket."""
+    phase("3e the default serving grid: BatchMatcher(DEFAULT_BUCKETS, "
+          "max_batch 16).warmup(), device memory")
+    rng = np.random.default_rng(47)
+    (pair,), _ = serving_traffic(rng, 1)
+    pr = planted_pairs(rng, 1, 3000, 4000)
+    big = tuple({"keypoints": pr[f"keypoints{s}"][0],
+                 "descriptors": pr[f"descriptors{s}"][0]} for s in (0, 1))
+    for mode, c in (("fixed", FIXED), ("adaptive", {})):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        bm = BatchMatcher(lightglue_config("superpoint", **c), params)
+        t0 = time.perf_counter()
+        n = bm.warmup()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        total = torch.cuda.get_device_properties(0).total_memory
+        print(f"  {mode}: {n} programs in {secs:.1f} s; allocated "
+              f"{gib(torch.cuda.memory_allocated() - base)}, reserved "
+              f"{gib(torch.cuda.memory_reserved())}, peak "
+              f"{gib(torch.cuda.max_memory_allocated() - base)} of "
+              f"{gib(total)}", flush=True)
+        if n != len(batching.DEFAULT_BUCKETS) * 2 or len(bm._matcher.sets) != n:
+            raise AssertionError(f"{mode}: warmup built {n} programs")
+        # batch 1 was not warmed: these requests capture on first sight
+        out = bm.match_pairs([pair, big])
+        torch.cuda.synchronize()
+        k = max(f["keypoints"].shape[0] for f in pair)
+        print(f"    then a request at bucket {batching.next_bucket(k)} and "
+              f"one at 4096 (no image_size), each captured on first sight: "
+              f"{[int((r['matches0'] >= 0).sum()) for r in out]} matches, "
+              f"stop {[r['stop'] for r in out]}, peak "
+              f"{gib(torch.cuda.max_memory_allocated() - base)}", flush=True)
+        if len(bm._matcher.sets) != n + 2:
+            raise AssertionError(f"{mode}: the requests did not capture")
+        if not all(np.isfinite(r["matching_scores0"]).all() for r in out):
+            raise AssertionError(f"{mode}: scores not finite")
+        del bm, out
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def sequence_frames(rng):
+    """SEQUENCE_FRAMES generated H x W frames: textures and their warps."""
+    return np.stack([img for _ in range(SEQUENCE_FRAMES // 2)
+                     for img in image_pair(rng, H, W)[:2]])
+
+
+def sequence_phase(mparams, sp_params):
+    """Phase 3f: pipeline.match_sequence on the card, each pair against
+    make_end_to_end on that pair, and the first frames against the CPU
+    port. Returns the launch counts of the sequence calls."""
+    phase(f"3f main path: match_sequence(SuperPoint, LightGlue), "
+          f"{SEQUENCE_FRAMES} generated {H}x{W} frames, 1024 keypoints, "
+          f"windows {SEQUENCE_WINDOWS}, fixed, filter_threshold 0")
+    frames = sequence_frames(np.random.default_rng(43))
+    ext = SuperPoint(params=sp_params, max_num_keypoints=1024, device="cuda")
+    mconf = dict(FIXED, filter_threshold=0.0)  # every mutual pair: matches
+    matcher = LightGlue("superpoint", params=mparams, device="cuda", **mconf)
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    outs = {w: match_sequence(ext, matcher, frames, window=w)
+            for w in SEQUENCE_WINDOWS}
+    torch.cuda.synchronize()
+    counts = _build.launch_counts()
+    print(f"  launch counts: { {k: c for k, c in counts.items() if c} }")
+    for kname in SEQUENCE_KERNELS:
+        if counts[kname] < 1:
+            raise AssertionError(f"{kname} was not launched on the path")
+    if counts["fused_stem"] != len(SEQUENCE_WINDOWS):
+        raise AssertionError("an image was extracted more than once")
+
+    # the composition, to the bit: the features are SuperPoint's forward on
+    # the whole sequence, each window's matches one matcher call on them
+    imgs = torch.from_numpy(frames)[..., None].cuda()
+    sizes = torch.tensor([[W, H]] * SEQUENCE_FRAMES, dtype=torch.float32,
+                         device="cuda")
+    with torch.inference_mode():
+        fs = sp.forward(ext.params, ext.conf, imgs, sizes)
+        for w, (f, pr) in outs.items():
+            i0, i1 = (torch.from_numpy(i).cuda().long() for i in (pr["i0"], pr["i1"]))
+            m = lg.forward(matcher.params, matcher.conf,
+                           kpts0=fs.keypoints[i0], kpts1=fs.keypoints[i1],
+                           desc0=fs.descriptors[i0], desc1=fs.descriptors[i1],
+                           size0=sizes[i0], size1=sizes[i1],
+                           mask0=fs.valid[i0], mask1=fs.valid[i1])
+            differ = [k for k, a, b in (
+                ("keypoints", f["keypoints"], fs.keypoints),
+                ("descriptors", f["descriptors"], fs.descriptors),
+                ("valid", f["valid"], fs.valid),
+                ("matches0", pr["matches0"], m.matches0),
+                ("matching_scores0", pr["matching_scores0"], m.matching_scores0))
+                if not np.array_equal(a, b.cpu().numpy())]
+            print(f"  window {w}: {len(pr['i0'])} pairs, "
+                  f"{sum(len(x) for x in pr['matches'])} matches; features and "
+                  f"matches {'equal to the bit to' if not differ else 'DIFFER from'}"
+                  f" one SuperPoint forward and one matcher call on its "
+                  f"gathered features {differ or ''}")
+            if differ:
+                raise AssertionError(f"window {w}: match_sequence differs in {differ}")
+
+    # each pair against make_end_to_end on that pair alone (B 1)
+    run = end_to_end.make_end_to_end(sp.forward, ext.params, ext.conf,
+                                     matcher.params, matcher.conf)
+    size = sizes[:1]
+    for w, (f, pr) in outs.items():
+        same = dict.fromkeys(("keypoints", "descriptors", "matches0",
+                              "matching_scores0"), True)
+        shared, derr, serr, differ = 1.0, 0.0, 0.0, 0
+        for p, (a, c) in enumerate(zip(pr["i0"], pr["i1"])):
+            ref = run(imgs[a:a + 1], imgs[c:c + 1], size, size)
+            side = [{k: getattr(getattr(ref, f"feats{s}"), k)[0].cpu().numpy()
+                     for k in ("keypoints", "descriptors", "valid")} for s in (0, 1)]
+            mine = [{k: f[k][i] for k in ("keypoints", "descriptors", "valid")}
+                    for i in (a, c)]
+            rm0 = ref.matches.matches0[0].cpu().numpy()
+            rs0 = ref.matches.matching_scores0[0].cpu().numpy()
+            for k in ("keypoints", "descriptors"):
+                same[k] &= all(np.array_equal(x[k], y[k]) for x, y in zip(mine, side))
+            same["matches0"] &= bool(np.array_equal(pr["matches0"][p], rm0))
+            same["matching_scores0"] &= bool(np.array_equal(pr["matching_scores0"][p], rs0))
+            common = [common_keypoints(x, y) for x, y in zip(mine, side)]
+            shared = min([shared] + [len(cm) / x["valid"].sum()
+                                     for cm, x in zip(common, mine)])
+            derr = max([derr] + [float(np.abs(x["descriptors"][cm[:, 0]]
+                                              - y["descriptors"][cm[:, 1]]).max())
+                                 for cm, x, y in zip(common, mine, side)])
+            other = {int(i): int(j) for i, j in common[1]}
+            gm = pr["matches0"][p]
+            for i, j in common[0]:
+                differ += (-1 if gm[i] < 0 else other.get(int(gm[i]), -2)) != int(rm0[j])
+                if gm[i] >= 0 and rm0[j] >= 0:
+                    serr = max(serr, abs(float(pr["matching_scores0"][p][i] - rs0[j])))
+        print(f"  window {w} against make_end_to_end on each pair alone: "
+              + ", ".join(f"{k} {'equal to the bit' if v else 'not to the bit'}"
+                          for k, v in same.items())
+              + f"; keypoints shared {shared:.6f}, descriptor max_abs_err at "
+              f"shared keypoints {derr:.3e}, {differ} shared keypoints whose "
+              f"match differs, matching scores max_abs_err {serr:.3e}", flush=True)
+        if shared < 0.99 or derr > 1e-3 or differ or serr > MATCH_SCORE_TOL:
+            raise AssertionError(f"window {w}: match_sequence and "
+                                 "make_end_to_end disagree")
+
+    # the first three frames through the CPU port: shared keypoints, their
+    # descriptors and matches against the card's window-1 pairs
+    cpu_ext = SuperPoint(params={k: {kk: vv.cpu() for kk, vv in v.items()}
+                                 for k, v in sp_params.items()},
+                         max_num_keypoints=1024, device="cpu")
+    cpu_m = LightGlue("superpoint", params=mparams, device="cpu", **mconf)
+    cf, cpr = match_sequence(cpu_ext, cpu_m, frames[:3], window=1)
+    gf, gpr = outs[1]
+    img = lambda fd, i: {"keypoints": fd["keypoints"][i],
+                         "descriptors": fd["descriptors"][i],
+                         "valid": fd["valid"][i]}
+    for p in range(2):
+        common = [common_keypoints(img(gf, p + s), img(cf, p + s)) for s in (0, 1)]
+        shares = [len(cm) / gf["valid"][p + s].sum() for s, cm in enumerate(common)]
+        derr = max(float(np.abs(gf["descriptors"][p + s][cm[:, 0]]
+                                - cf["descriptors"][p + s][cm[:, 1]]).max())
+                   for s, cm in enumerate(common))
+        other = {int(i): int(j) for i, j in common[1]}
+        gm, cm0 = gpr["matches0"][p], cpr["matches0"][p]
+        differ = sum((-1 if gm[i] < 0 else other.get(int(gm[i]), -2)) != int(cm0[j])
+                     for i, j in common[0])
+        print(f"  pair ({p}, {p + 1}) against the CPU port: keypoints shared "
+              f"{shares[0]:.6f} / {shares[1]:.6f}, descriptor max_abs_err "
+              f"{derr:.3e}, {int((gm >= 0).sum())} vs {int((cm0 >= 0).sum())} "
+              f"matches, {differ} shared keypoints whose match differs")
+        if min(shares) < 0.99 or derr > 1e-3 or differ:
+            raise AssertionError("the card disagrees with the CPU port")
+    return counts
+
+
 def time_cuda(fn, iters=20, warmup=3):
     for _ in range(warmup):
         fn()
@@ -2569,6 +2932,75 @@ def aliked_timing_phase(ax, ap):
     return times, graph_times
 
 
+def host_ms(fn, reps, warmup=2):
+    """Host-clock ms of fn (which ends in a host copy or a sync): median
+    and quartiles over reps calls after warmup."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    ms = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return np.percentile(ms, [25, 50, 75])
+
+
+def serving_timing_phase(params, sp_params):
+    phase("4d timing: BatchMatcher (CUDA graphs) against pipeline.LightGlue "
+          "(eager) at 1024 keypoints, and match_sequence against "
+          "make_end_to_end once per pair (host clocks)")
+    rng = np.random.default_rng(11)
+    for bsz, reps in ((1, 40), (16, 10)):
+        pr = planted_pairs(rng, bsz, 1024)
+        data = {"image0": feats(pr, 0), "image1": feats(pr, 1)}
+        pairs = [tuple({k: v[i] for k, v in feats(pr, s).items()} for s in (0, 1))
+                 for i in range(bsz)]
+        for mode, c in (("fixed", FIXED), ("adaptive", {})):
+            bm = BatchMatcher(lightglue_config("superpoint", **c), params,
+                              buckets=(1024,), max_batch=16)
+            bm.warmup([bsz])
+            eager = LightGlue("superpoint", params=params, device="cuda", **c)
+            runs = {"graphs": lambda: bm.match_pairs(pairs),
+                    "eager": lambda: eager(data)}
+            q = {}
+            for name in ("graphs", "eager", "eager", "graphs"):
+                q.setdefault(name, []).append(host_ms(runs[name], reps))
+            stop = bm.match_pairs(pairs)[0]["stop"]
+            for name, qs in q.items():
+                q1, med, q3 = np.mean(qs, 0)
+                print(f"  {'BatchMatcher.match_pairs' if name == 'graphs' else 'pipeline.LightGlue'}"
+                      f" {mode} B {bsz}, 1024 kpts: {med:.2f} ms per request "
+                      f"(quartiles {q1:.2f}-{q3:.2f}; medians "
+                      f"{', '.join(f'{x[1]:.2f}' for x in qs)}), "
+                      f"{bsz * 1e3 / med:.1f} pairs/s, stop {stop}", flush=True)
+            del bm
+            gc.collect()
+
+    frames = sequence_frames(np.random.default_rng(31))
+    ext = SuperPoint(params=sp_params, max_num_keypoints=1024, device="cuda")
+    imgs = torch.from_numpy(frames)[..., None].cuda()
+    size = torch.tensor([[W, H]], dtype=torch.float32, device="cuda")
+    for mode, c in (("fixed", FIXED), ("adaptive", {})):
+        matcher = LightGlue("superpoint", params=params, device="cuda", **c)
+        run = end_to_end.make_end_to_end(sp.forward, ext.params, ext.conf,
+                                         matcher.params, matcher.conf)
+        for w in SEQUENCE_WINDOWS:
+            i0, i1 = end_to_end.sequence_window_pairs(SEQUENCE_FRAMES, w)
+            seq = host_ms(lambda: match_sequence(ext, matcher, frames, window=w), 5)
+            per_pair = host_ms(lambda: [
+                run(imgs[a:a + 1], imgs[b:b + 1], size, size).matches.matches0.cpu()
+                for a, b in zip(i0, i1)], 3)
+            print(f"  {mode}, {SEQUENCE_FRAMES} frames {H}x{W}, window {w} "
+                  f"({len(i0)} pairs): match_sequence {len(i0) * 1e3 / seq[1]:.1f}"
+                  f" pairs/s (median {seq[1]:.2f} ms, quartiles {seq[0]:.2f}-"
+                  f"{seq[2]:.2f}), make_end_to_end per pair "
+                  f"{len(i0) * 1e3 / per_pair[1]:.1f} pairs/s (median "
+                  f"{per_pair[1]:.2f} ms, quartiles {per_pair[0]:.2f}-"
+                  f"{per_pair[2]:.2f})", flush=True)
+
+
 def profile_call(label, fn, calls=5, warmup=3, top=6):
     """torch.profiler over ``calls`` calls of fn after ``warmup``: wall and
     device ms per call, busy share, device ops per call, largest items.
@@ -2671,12 +3103,50 @@ def profile_phase(params):
                      lambda: run(im0, im1, sizes, sizes), calls=3, warmup=2, top=10)
 
 
+def serving_profile_phase(params, sp_params):
+    phase("P profile: BatchMatcher (CUDA graphs) at 1024 keypoints, B 1 and "
+          "B 16, and match_sequence against make_end_to_end per pair")
+    rng = np.random.default_rng(11)
+    for bsz in (1, 16):
+        pr = planted_pairs(rng, bsz, 1024)
+        pairs = [tuple({k: v[i] for k, v in feats(pr, s).items()} for s in (0, 1))
+                 for i in range(bsz)]
+        for mode, c in (("fixed", FIXED), ("adaptive", {})):
+            bm = BatchMatcher(lightglue_config("superpoint", **c), params,
+                              buckets=(1024,), max_batch=16)
+            bm.warmup([bsz])
+            out = profile_call(f"BatchMatcher {mode} B {bsz}, 1024 keypoints",
+                               lambda: bm.match_pairs(pairs))
+            print(f"    (stop {out[0]['stop']})")
+            del bm
+            gc.collect()
+    frames = sequence_frames(np.random.default_rng(31))
+    ext = SuperPoint(params=sp_params, max_num_keypoints=1024, device="cuda")
+    matcher = LightGlue("superpoint", params=params, device="cuda", **FIXED)
+    run = end_to_end.make_end_to_end(sp.forward, ext.params, ext.conf,
+                                     matcher.params, matcher.conf)
+    imgs = torch.from_numpy(frames)[..., None].cuda()
+    size = torch.tensor([[W, H]], dtype=torch.float32, device="cuda")
+    for w in SEQUENCE_WINDOWS:
+        i0, i1 = end_to_end.sequence_window_pairs(SEQUENCE_FRAMES, w)
+        profile_call(f"match_sequence fixed, {SEQUENCE_FRAMES} frames, window "
+                     f"{w} ({len(i0)} pairs)",
+                     lambda: match_sequence(ext, matcher, frames, window=w),
+                     calls=3, warmup=2, top=10)
+        profile_call(f"make_end_to_end fixed once per pair, the same {len(i0)} "
+                     "pairs", lambda: [
+                         run(imgs[a:a + 1], imgs[b:b + 1], size, size)
+                         .matches.matches0.cpu() for a, b in zip(i0, i1)],
+                     calls=2, warmup=1, top=10)
+
+
 def main():
     smi = device_phase()
     build_phase()
     params = weights_lib.load_params(WEIGHTS)
     if sys.argv[1:] == ["--profile"]:
         profile_phase(params)
+        serving_profile_phase(params, superpoint_params())
         return
     if sys.argv[1:]:
         raise SystemExit(f"unknown arguments {sys.argv[1:]}; see the docstring")
@@ -2701,9 +3171,12 @@ def main():
     for path in (lambda: extraction_path_phase(params, sp_params),
                  lambda: two_head_pair_phase(params2, sp_params),
                  lambda: aliked_path_phase(al_params, params),
-                 gather_path_phase):
+                 gather_path_phase,
+                 lambda: serving_phase(params),
+                 lambda: sequence_phase(params, sp_params)):
         for k, c in path().items():
             counts[k] += c
+    serving_memory_phase(params)
     times, graph_times = timing_phase(x, bx, hx, params, params2)
     sp_times, sp_graph = sp_timing_phase(sx, params, sp_params)
     times.update(sp_times)
@@ -2711,6 +3184,7 @@ def main():
     al_times, al_graph = aliked_timing_phase(ax, al_params)
     times.update(al_times)
     graph_times.update(al_graph)
+    serving_timing_phase(params, sp_params)
     kernels, bounds = [], kernel_bounds()
     # the tensor-core kernels: their 3xTF32 bound beside the fp32 one
     tc_rows = (ATTENTION_ROWS + BLOCK_ROWS + CROSS_ROWS + FFN_ROWS

@@ -11,11 +11,14 @@ from .configs import (
     FEATURES, ALIKEDConfig, LightGlueConfig, PreprocessConfig,
     SuperPointConfig, lightglue_config)
 from .pipeline import (
-    ALIKED, LightGlue, SuperPoint, compact_matches, match_pair, rbd)
+    ALIKED, LightGlue, SuperPoint, compact_matches, match_pair, match_sequence,
+    rbd)
+from .parallel.batching import BatchMatcher
 
 __all__ = [
     "ALIKED",
     "ALIKEDConfig",
+    "BatchMatcher",
     "FEATURES",
     "LightGlue",
     "LightGlueConfig",
@@ -25,5 +28,6 @@ __all__ = [
     "compact_matches",
     "lightglue_config",
     "match_pair",
+    "match_sequence",
     "rbd",
 ]

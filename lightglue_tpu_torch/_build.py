@@ -8,7 +8,9 @@ at import: the first kernel launch (or ``build()``) compiles. Each C entry
 point returns a ``cudaError_t``, and ``launch`` raises if it is not 0.
 
 Each op wrapper counts its launches here (``count``), so a caller can show
-that a run went through the kernels.
+that a run went through the kernels. A CUDA graph replays its kernels
+without the wrappers: ``parallel/graphs.py`` records the counts a capture
+made and adds them at each replay (``add_launches``).
 """
 
 from __future__ import annotations
@@ -70,6 +72,12 @@ _lock = threading.Lock()
 
 def count(op: str) -> None:
     _launches[op] += 1
+
+
+def add_launches(counts: Dict[str, int]) -> None:
+    """Add the launches of one CUDA graph replay (its capture's counts)."""
+    for op, n in counts.items():
+        _launches[op] += n
 
 
 def launch_counts() -> Dict[str, int]:

@@ -341,7 +341,42 @@ def forward_adaptive(params, conf: LightGlueConfig, kpts0, kpts1, desc0,
     """Depth early exit (reference break, lightglue.py:547-549) and width
     pruning as mask updates (reference index_select, lightglue.py:551-566).
     The stop decision pools over the batch, as the reference's does;
-    pruning masks are per image."""
+    pruning masks are per image. The loop reads its stop flag on the host
+    once per layer; ``parallel/graphs.py`` captures the same steps
+    (``adaptive_start``, ``adaptive_layer``, ``adaptive_finish``) one CUDA
+    graph each."""
+    state = adaptive_start(params, conf, kpts0, kpts1, desc0, desc1, size0,
+                           size1, mask0, mask1, scales0, oris0, scales1,
+                           oris1)
+    fused = _block_weights(params, conf)
+    for i in range(conf.n_layers):
+        state, stop = adaptive_layer(params, conf, i, state, fused)
+        if stop is None or bool(stop):  # host sync: one per layer
+            break
+    return adaptive_finish(params, conf, i + 1, state)
+
+
+class AdaptiveState(NamedTuple):
+    """The adaptive loop's state between layers: descriptors, active
+    (unpruned, valid) masks, survival depths, and what every layer reads
+    (the rotary tables and the number of valid points)."""
+
+    desc0: torch.Tensor
+    desc1: torch.Tensor
+    act0: torch.Tensor
+    act1: torch.Tensor
+    prune0: torch.Tensor
+    prune1: torch.Tensor
+    enc0: torch.Tensor
+    enc1: torch.Tensor
+    num_points: torch.Tensor
+
+
+def adaptive_start(params, conf: LightGlueConfig, kpts0, kpts1, desc0, desc1,
+                   size0=None, size1=None, mask0=None, mask1=None,
+                   scales0=None, oris0=None, scales1=None, oris1=None
+                   ) -> AdaptiveState:
+    """The adaptive loop's state before its first layer."""
     b, m, _ = kpts0.shape
     n = kpts1.shape[1]
     desc0, desc1, enc0, enc1 = _prepare(
@@ -352,56 +387,58 @@ def forward_adaptive(params, conf: LightGlueConfig, kpts0, kpts1, desc0,
         b, m, dtype=torch.bool, device=dev)
     act1 = mask1 if mask1 is not None else torch.ones(
         b, n, dtype=torch.bool, device=dev)
-    num_points = act0.sum() + act1.sum()
+    num_points = (act0.sum() + act1.sum()).float()
     prune0 = torch.ones(b, m, dtype=torch.int32, device=dev)
     prune1 = torch.ones(b, n, dtype=torch.int32, device=dev)
-    i, desc0, desc1, act0, act1, prune0, prune1 = _adaptive_loop(
-        params, conf, enc0, enc1, num_points,
-        (desc0, desc1, act0, act1, prune0, prune1))
-    la = nn.index_params(params["log_assignment"], i - 1)
-    m0, m1, ms0, ms1 = _assign_and_filter(la, conf, desc0, desc1, act0, act1)
-    if not conf.width_confidence > 0:
-        prune0 = torch.full((b, m), conf.n_layers, dtype=torch.int32, device=dev)
-        prune1 = torch.full((b, n), conf.n_layers, dtype=torch.int32, device=dev)
-    return MatchOutput(m0, m1, ms0, ms1, i, prune0, prune1)
+    return AdaptiveState(desc0, desc1, act0, act1, prune0, prune1, enc0, enc1,
+                         num_points)
 
 
-def _adaptive_loop(params, conf: LightGlueConfig, enc0, enc1, num_points,
-                   state):
-    """The reference's layer loop with break and pruning (lightglue.py:
-    538-566). ``state`` is (d0, d1, act0, act1, prune0, prune1); returns
-    (layers run, *state)."""
-    d0, d1, act0, act1, prune0, prune1 = state
+def adaptive_layer(params, conf: LightGlueConfig, i: int, s: AdaptiveState,
+                   fused):
+    """Layer ``i`` of the reference's loop with break and pruning
+    (lightglue.py:538-566); ``fused``: ``_block_weights(params, conf)``.
+    Returns (state after it, the stop flag as a device bool, or None after
+    the last layer, which has no confidence head)."""
+    d0, d1 = transformer_layer(
+        nn.index_params(params["transformers"], i), s.desc0, s.desc1, s.enc0,
+        s.enc1, conf, s.act0, s.act1, fused[i])
+    s = s._replace(desc0=d0, desc1=d1)
+    if i == conf.n_layers - 1:
+        return s, None
     do_early_stop = conf.depth_confidence > 0
-    do_pruning = conf.width_confidence > 0
-    thresholds = confidence_thresholds(conf.n_layers)
-    num_points = num_points.float()
-    fused = _block_weights(params, conf)
-    for i in range(conf.n_layers):
-        d0, d1 = transformer_layer(
-            nn.index_params(params["transformers"], i), d0, d1, enc0, enc1,
-            conf, act0, act1, fused[i])
-        if i == conf.n_layers - 1:
-            break
-        th = float(thresholds[i])
-        stop = torch.zeros((), dtype=torch.bool, device=d0.device)
-        conf0 = conf1 = None
-        if do_early_stop:
-            tok = nn.index_params(params["token_confidence"], i)
-            conf0, conf1 = token_confidence(tok, d0, d1)
-            # fraction of confident (or pruned/padded) points above
-            # depth_confidence (reference: lightglue.py:645-656)
-            unconf = (act0 & (conf0 < th)).sum() + (act1 & (conf1 < th)).sum()
-            stop = (1.0 - unconf.float() / num_points) > conf.depth_confidence
-        if do_pruning:
-            la = nn.index_params(params["log_assignment"], i)
-            act0, prune0 = _prune(la, conf, d0, act0, prune0, conf0, stop, th,
-                                  do_early_stop)
-            act1, prune1 = _prune(la, conf, d1, act1, prune1, conf1, stop, th,
-                                  do_early_stop)
-        if bool(stop):  # host sync: one per layer
-            break
-    return i + 1, d0, d1, act0, act1, prune0, prune1
+    th = float(confidence_thresholds(conf.n_layers)[i])
+    stop = torch.zeros((), dtype=torch.bool, device=d0.device)
+    conf0 = conf1 = None
+    if do_early_stop:
+        tok = nn.index_params(params["token_confidence"], i)
+        conf0, conf1 = token_confidence(tok, d0, d1)
+        # fraction of confident (or pruned/padded) points above
+        # depth_confidence (reference: lightglue.py:645-656)
+        unconf = (s.act0 & (conf0 < th)).sum() + (s.act1 & (conf1 < th)).sum()
+        stop = (1.0 - unconf.float() / s.num_points) > conf.depth_confidence
+    if conf.width_confidence > 0:
+        la = nn.index_params(params["log_assignment"], i)
+        act0, prune0 = _prune(la, conf, d0, s.act0, s.prune0, conf0, stop, th,
+                              do_early_stop)
+        act1, prune1 = _prune(la, conf, d1, s.act1, s.prune1, conf1, stop, th,
+                              do_early_stop)
+        s = s._replace(act0=act0, act1=act1, prune0=prune0, prune1=prune1)
+    return s, stop
+
+
+def adaptive_finish(params, conf: LightGlueConfig, layers: int,
+                    s: AdaptiveState) -> MatchOutput:
+    """The assignment head of layer ``layers`` - 1 after ``layers`` layers
+    ran."""
+    la = nn.index_params(params["log_assignment"], layers - 1)
+    m0, m1, ms0, ms1 = _assign_and_filter(la, conf, s.desc0, s.desc1, s.act0,
+                                          s.act1)
+    prune0, prune1 = s.prune0, s.prune1
+    if not conf.width_confidence > 0:
+        prune0 = torch.full_like(prune0, conf.n_layers)
+        prune1 = torch.full_like(prune1, conf.n_layers)
+    return MatchOutput(m0, m1, ms0, ms1, layers, prune0, prune1)
 
 
 def _prune(la, conf, desc, act, prune, confidences, stop, th, do_early_stop):

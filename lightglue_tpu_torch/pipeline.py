@@ -6,7 +6,8 @@ return a feats dict of numpy arrays;
 ``LightGlue(...)`` is called on ``{"image0": feats0, "image1": feats1}``
 with numpy or torch feature arrays and returns numpy outputs plus the ragged
 ``matches``/``scores`` lists, built on the host in numpy; ``match_pair``
-does both for two images.
+does both for two images, ``match_sequence`` extracts a sequence once and
+matches its windowed pairs in one batched call.
 """
 
 from __future__ import annotations
@@ -328,3 +329,101 @@ def match_pair(
     feats1 = extractor.extract(image1, **preprocess)
     matches01 = matcher({"image0": feats0, "image1": feats1})
     return rbd(feats0), rbd(feats1), rbd(matches01)
+
+
+def match_sequence(
+    extractor: Extractor,
+    matcher: LightGlue,
+    images,
+    window: int = 1,
+) -> Tuple[dict, dict]:
+    """Extract-once windowed sequential matching (counterpart of
+    lightglue_tpu/pipeline.py:586-684): each image is extracted once and
+    matched against its ``window`` successors in one batched matcher call,
+    per pair about 1/window of an extraction plus one matcher pass, against
+    two extractions and a match for repeated ``match_pair`` calls. Runs
+    eagerly on the extractor's device.
+
+    images: (B, H, W[, C]) float [0, 1] or uint8, same size (no resizing:
+    pre-size the sequence; H and W are padded to the extractor's stride).
+
+    Returns (feats, pairs):
+      feats: per-image arrays: keypoints (B, K, 2) (input pixels),
+        keypoint_scores, descriptors, valid, image_size.
+      pairs: i0/i1 (P,) pair indices for every (i, i+w), w <= window, plus
+        matches0 / matching_scores0 (P, K), the ragged ``matches`` /
+        ``scores`` lists as in LightGlue.__call__, and stop.
+    """
+    from .end_to_end import make_windowed_sequence_end_to_end, \
+        sequence_window_pairs
+
+    imgs = np.asarray(images)
+    if imgs.ndim == 3:
+        imgs = imgs[..., None]
+    if imgs.dtype == np.uint8:
+        imgs = imgs.astype(np.float32) / 255.0
+    # a fresh array: the channel axis gets a stride of 1 element, as in
+    # extract_batch's tensors (a stride of 0 can take another conv path)
+    imgs = imgs.astype(np.float32)
+    b, h, w = imgs.shape[:3]
+    if b < 2:
+        raise ValueError("match_sequence needs at least 2 images")
+    stride = getattr(extractor, "stride", 1)
+    ph, pw = (-h) % stride, (-w) % stride
+    if ph or pw:
+        imgs = np.pad(imgs, [(0, 0), (0, ph), (0, pw), (0, 0)], mode="edge")
+    sizes = np.tile([[w, h]], (b, 1)).astype(np.float32)
+
+    window = min(window, b - 1)
+    conf = extractor._effective_conf(imgs.shape[1], imgs.shape[2])
+    cache = getattr(matcher, "_seq_programs", None)
+    if cache is None:
+        cache = matcher._seq_programs = {}
+    key = (id(extractor), window, conf)
+    entry = cache.get(key)
+    # the entry pins the extractor, so that its id cannot pass to another
+    # extractor while the program (holding the old parameters) is cached
+    if entry is None or entry[0] is not extractor:
+        prog = make_windowed_sequence_end_to_end(
+            extractor._model.forward, extractor.params, conf,
+            matcher.params, matcher.conf, window=window,
+        )
+        cache[key] = entry = (extractor, prog)
+    dev = extractor.device
+    out = entry[1](torch.from_numpy(imgs).to(dev), torch.from_numpy(sizes).to(dev))
+
+    i0, i1 = sequence_window_pairs(b, window)
+    # per-image features: every image is the 0-side of some pair except the
+    # last, which is the 1-side of the last w=1 pair
+    f0, f1 = out.feats0, out.feats1
+
+    def per_image(field):
+        a = getattr(f0, field, None)
+        if a is None:
+            return None
+        return torch.cat([a[: b - 1], getattr(f1, field)[b - 2 : b - 1]]).cpu().numpy()
+
+    feats = {
+        "keypoints": per_image("keypoints"),
+        "keypoint_scores": per_image("keypoint_scores"),
+        "descriptors": per_image("descriptors"),
+        "valid": per_image("valid"),
+        "image_size": sizes,
+    }
+    for extra in ("scales", "oris"):  # SIFT-family
+        v = per_image(extra)
+        if v is not None:
+            feats[extra] = v
+    matches0 = out.matches.matches0.cpu().numpy()
+    mscores0 = out.matches.matching_scores0.cpu().numpy()
+    ragged_m, ragged_s = compact_matches(matches0, mscores0)
+    pairs = {
+        "i0": i0,
+        "i1": i1,
+        "matches0": matches0,
+        "matching_scores0": mscores0,
+        "matches": ragged_m,
+        "scores": ragged_s,
+        "stop": int(out.matches.stop),
+    }
+    return feats, pairs

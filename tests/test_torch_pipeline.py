@@ -129,6 +129,8 @@ def test_import_leaves_jax_out():
             "lightglue_tpu_torch.scripts.cpu_repeat, "
             "lightglue_tpu_torch.scripts.extract_times, "
             "lightglue_tpu_torch.scripts.score_study, "
+            "lightglue_tpu_torch.parallel.batching, "
+            "lightglue_tpu_torch.parallel.graphs, "
             "lightglue_tpu_torch.synthetic; "
             "bad = [m for m, mod in sys.modules.items() if mod is not None "
             "and m.split('.')[0] in ('jax', 'lightglue_tpu')]; "
