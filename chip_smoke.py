@@ -123,10 +123,33 @@ Phases, any failure raising (non-zero exit, no result line):
      match_pair ms per pair, for SuperPoint and for ALIKED; BatchMatcher
      (graphs) against pipeline.LightGlue (eager) at 1024 keypoints, fixed
      and adaptive, B 1 and B 16, in turns, and match_sequence against
-     make_end_to_end once per pair on 8 frames, windows 1 and 4 (phase 4d).
+     make_end_to_end once per pair on 8 frames, windows 1 and 4 (phase 4d);
+  5. the matcher's bf16 path (mp=True): a. each bf16 kernel (B5, B6 at B 1,
+     4 and 16, 1024 keypoints; B4 at (4, 1024, 256) and over both images at
+     B 16; B1 / B1s at (4, 4, 4096, 64), (1, 4, 4096, 64) and (4, 4, 1024,
+     64); B3 / B3s at (4, 4, M 2048 / N 1536, 64) and (4, 4, 1024 / 768),
+     exact and shift 12, masked as phase 2) against its bf16 plain version
+     within 2e-2 max(1, |plain|) and within 2^-6 (|plain| + rms(plain
+     row)), each launch twice bit for bit, and what both bounds read for a
+     K1 or K2 that skips a key tile or leaves its weights unrounded; b.
+     pipeline.LightGlue(mp=True), fixed and adaptive, exact and shift 12, B
+     1 and B 16 at 1024 keypoints: B5 and B6 in bf16 and no fp32 block or
+     attention kernel launched, planted precision and recall within 0.01 of
+     the fp32 path on the card, matches0 >= 0.99 equal to the CPU port at
+     mp with the same stop; c. BatchMatcher at mp
+     (fixed exact, adaptive shift 12) at buckets 512-4096, batches 1 and
+     16: replays equal to the bit to the eager mp forward, each bucket's
+     bf16 kernels (B1, B3, B4 above 1024 and 2048), precision, each
+     bucket's batch-1 pair against the CPU port at mp; d.
+     match_pair and make_end_to_end with fp32 SuperPoint features into the
+     mp matcher; e. each bf16 kernel beside its plain version and its fp32
+     form (events and CUDA-graph device time, the bf16 bound: FLOPs / 989
+     TFLOP/s, bytes at 2 a bf16 element / 3.35 TB/s), and BatchMatcher at
+     mp (exact and shift 12) against fp32 at B 1 and B 16, fixed and
+     adaptive.
 A JSON object of the kernels (with each one's bound, from its shapes, and
 the 3xTF32 bound of the tensor-core kernels: the walk, B5, B6, K2, B2, B7,
-B8, B10) and
+B8, B10; the bf16 forms' rows bounded by the bf16 tensor cores) and
 the card's name and power limit come before the last line,
 {"ok": true, "device": {...}}.
 
@@ -137,10 +160,11 @@ heads of 128), over SuperPoint at B 1 and B 8, match_pair at 2048
 keypoints (fixed) and images -> SuperPoint -> LightGlue fixed at B 8, over
 ALIKED at B 1 and B 8 and over images -> ALIKED -> LightGlue fixed at B 8,
 each at the default configuration and with fused_score_head (B11), over
-BatchMatcher (CUDA graphs) fixed and adaptive at B 1 and B 16, and over
-match_sequence (8 frames, windows 1 and 4) beside make_end_to_end once per
-pair: wall and device ms per call, the device's busy share, device ops
-per call and the largest device items.
+BatchMatcher (CUDA graphs) fixed and adaptive at B 1 and B 16 (fp32, and
+at mp exact and with shift 12), and over match_sequence (8 frames, windows
+1 and 4) beside make_end_to_end once per pair: wall and device ms per
+call, the device's busy share, device ops per call and the largest device
+items.
 """
 
 from __future__ import annotations
@@ -215,6 +239,22 @@ KERNELS = {
                          "lightglue_tpu/ops/flash.py:220"),
     "gather_rows": ("lightglue_tpu_torch/csrc/gather.cu",
                     "scripts/micro_gather2.py:73"),
+    # the bf16 forms (mp): the same TPU kernels fed bf16 operands
+    "flash_sdpa_bf16": ("lightglue_tpu_torch/csrc/flash_sdpa.cu",
+                        "lightglue_tpu/ops/flash.py:94"),
+    "flash_sdpa_shift_bf16": ("lightglue_tpu_torch/csrc/flash_sdpa.cu",
+                              "lightglue_tpu/ops/flash.py:63"),
+    "fused_cross_attention_bf16": ("lightglue_tpu_torch/csrc/flash_cross.cu",
+                                   "lightglue_tpu/ops/flash_cross.py:44"),
+    "fused_cross_attention_shift_bf16": (
+        "lightglue_tpu_torch/csrc/flash_cross.cu",
+        "lightglue_tpu/ops/flash_cross.py:116"),
+    "fused_ffn_residual_bf16": ("lightglue_tpu_torch/csrc/blocks.cu",
+                                "lightglue_tpu/ops/ffn.py:40"),
+    "fused_self_block_bf16": ("lightglue_tpu_torch/csrc/blocks.cu",
+                              "lightglue_tpu/ops/flash_self.py:84"),
+    "fused_cross_block_bf16": ("lightglue_tpu_torch/csrc/blocks.cu",
+                               "lightglue_tpu/ops/flash_cross_block.py:94"),
 }
 # Rows of the redesigned attention walk (K1, B1s, B1') in phase 4
 ATTENTION_ROWS = ("flash_sdpa", "flash_sdpa_shift", "flash_sdpa d 128",
@@ -298,6 +338,24 @@ PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
 # dense TF32 tensor cores: the attention walk's fp32 products as 3xTF32 are
 # three tf32 products each, a second bound of its rows
 PEAK_TF32 = 495e12
+# dense bf16 tensor cores: the bound of the bf16 (mp) rows, beside bytes at
+# 2 a bf16 element
+PEAK_BF16 = 989e12
+BF16 = torch.bfloat16
+# the bf16 kernels against their bf16 plain versions (phase 5): the JAX
+# package's bf16 envelope (docs/PARITY.md), elementwise, relative to
+# max(1, |plain|); the two sum in another order, so an fp32 product near a
+# bf16 rounding boundary can round to the other neighbour
+MP_REL = 2e-2
+# That envelope is a fixed 0.02 for attention outputs, which lie far below
+# 1; so each output is held, besides, to its own scale: |kernel - plain| <=
+# 2^-6 (|plain| + rms(the plain row)), two bf16 steps of the larger. The
+# rms term is the floor of the walk's own rounding: it rounds each weight
+# against the running row maximum where the plain version (and the TPU
+# kernel) rounds against the final one, one bf16 unit apart per weight, a
+# random sum that reaches 2^-7.6 rms at the largest of K1's 4M outputs at
+# 4096 keys (0.65 of the bound). A skipped 64-key tile reads 78-91 of it.
+MP_SCALED = 2.0 ** -6
 # The conv kernels sum each output over (input channel, tap) in another
 # order than cuDNN may: held to a bound relative to the output's size.
 CONV_TOL = 1e-4
@@ -3140,6 +3198,611 @@ def serving_profile_phase(params, sp_params):
                      calls=2, warmup=1, top=10)
 
 
+# --- phase 5: the matcher's bf16 path (mp) ------------------------------------
+
+
+def rel_err(got, ref, rows=None):
+    """(largest |got - ref| / max(1, |ref|), largest |got - ref|) over the
+    rows that ``rows`` keeps ((B, n) of (B, n, ...) values), in fp32."""
+    g, r = got.float(), ref.float()
+    if rows is not None:
+        g, r = g[rows], r[rows]
+    d = (g - r).abs()
+    if not d.numel():
+        return 0.0, 0.0
+    return float((d / r.abs().clamp(min=1.0)).max()), float(d.max())
+
+
+def scaled_err(got, ref, rows=None):
+    """Largest |got - ref| / (MP_SCALED (|ref| + rms(ref's row))) over
+    the rows that ``rows`` keeps, the rms over the last axis."""
+    g, r = got.float(), ref.float()
+    rms = r.square().mean(-1, keepdim=True).sqrt().expand_as(r)
+    if rows is not None:
+        g, r, rms = g[rows], r[rows], rms[rows]
+    d = (g - r).abs()
+    if not d.numel():
+        return 0.0
+    ratio = torch.where(d == 0, torch.zeros_like(d),
+                        d / (MP_SCALED * (r.abs() + rms)))
+    return float(ratio.max())
+
+
+def mp_check(errs, name, label, got, ref, rows=None):
+    """Hold a bf16 launch to its bf16 plain version within MP_REL and
+    within the output's own scale; note its largest absolute error under
+    ``name``."""
+    if got.dtype != BF16 or ref.dtype != BF16:
+        raise AssertionError(f"{label}: {got.dtype} / {ref.dtype}, not bf16")
+    if not bool(torch.isfinite(got.float()).all()):
+        raise AssertionError(f"{label}: not finite")
+    rel, ab = rel_err(got, ref, rows)
+    scaled = scaled_err(got, ref, rows)
+    print(f"  {label}: |kernel - plain| / max(1, |plain|) {rel:.3e} (tol "
+          f"{MP_REL:g}), of the scaled bound {scaled:.3f} (tol 1), "
+          f"max_abs_err {ab:.3e}", flush=True)
+    if not rel <= MP_REL:
+        raise AssertionError(f"{label}: {rel} > {MP_REL}")
+    if not scaled <= 1.0:
+        raise AssertionError(f"{label}: {scaled} of the scaled bound")
+    errs[name] = max(errs.get(name, 0.0), ab)
+
+
+def mp_bound_reach(mx):
+    """What the two bounds read for faults the bf16 attention kernels
+    could have, on phase 5a's inputs: one 64-key tile skipped (the plain
+    version with it masked out, against it whole; the scaled bound must
+    read over 1) and the weights left unrounded (the fp32 plain version on
+    the same bf16 values, rounded at the end)."""
+    for shift in (None, SHIFT):
+        tag = "" if shift is None else " shift 12"
+        q, k, v, valid = mx["k1"]
+        ref = flash.flash_sdpa_plain(q, k, v, valid, shift)
+        drop = valid.clone()
+        drop[:, 64:128] = False
+        faults = {
+            "K1 (4,4,4096,64), a key tile skipped":
+                flash.flash_sdpa_plain(q, k, v, drop, shift),
+            "K1 (4,4,4096,64), the weights unrounded":
+                flash.flash_sdpa_plain(q.float(), k.float(), v.float(), valid,
+                                       shift).to(BF16)}
+        qk0, qk1, v0, v1, va0, va1 = mx["k2"]
+        ref2 = flash_cross.fused_cross_attention_plain(
+            qk0, qk1, v0, v1, va0, va1, shift)[0]
+        drop = va1.clone()
+        drop[:, 64:128] = False
+        faults["K2 (4,4,M 2048 / N 1536) m0, a key tile skipped"] = \
+            flash_cross.fused_cross_attention_plain(
+                qk0, qk1, v0, v1, va0, drop, shift)[0]
+        faults["K2 (4,4,M 2048 / N 1536) m0, the weights unrounded"] = \
+            flash_cross.fused_cross_attention_plain(
+                *(t.float() for t in (qk0, qk1, v0, v1)), va0, va1,
+                shift)[0].to(BF16)
+        for label, bad in faults.items():
+            r = ref if label.startswith("K1") else ref2
+            rel, _ = rel_err(bad, r)
+            scaled = scaled_err(bad, r)
+            print(f"  bound reach{tag}: {label}: {rel / MP_REL:.3f} of "
+                  f"MP_REL's bound, {scaled:.3f} of the scaled bound",
+                  flush=True)
+            if "skipped" in label and not scaled > 1.0:
+                raise AssertionError(f"{label}: the scaled bound cannot "
+                                     "fail it")
+
+
+def mp_inputs(x, bx):
+    """Phase 5's kernel inputs: phase 2's in bf16 (B5 and B6 at B 1, 4 and
+    16, B4 at (4, 1024, 256) and both images at B 16, K2 at (4, 4, M 1024 /
+    N 768)) and the composed paths' larger shapes: K1 at (4, 4, 4096, 64)
+    and (1, 4, 4096, 64), K2 at (4, 4, M 2048 / N 1536), masked, batch
+    entry 1 without a valid key."""
+    g = torch.Generator(device="cuda").manual_seed(51)
+
+    def mask(b, n, p=0.85):
+        m = torch.rand(b, n, generator=g, device="cuda") < p
+        if b > 1:
+            m[1] = False
+        return m
+
+    def bf(*t):
+        return tuple(u.to(BF16) if torch.is_tensor(u) and u.is_floating_point()
+                     else u for u in t)
+
+    k1 = bf(*(rand(g, 4, 4, 4096, 64) for _ in range(3))) + (mask(4, 4096),)
+    k2 = bf(rand(g, 4, 4, 2048, 64), rand(g, 4, 4, 1536, 64),
+            rand(g, 4, 4, 2048, 64), rand(g, 4, 4, 1536, 64)) + (
+        mask(4, 2048, 0.9), mask(4, 1536, 0.9))
+    xx, msg, p = x["k3"]
+    x16 = bf(bx["b6"][16][0], bx["b6"][16][1],
+             rand(g, 16, 1024, 256), rand(g, 16, 768, 256))
+    return {
+        "b5": {b: bf(*bx["b5"][b][:1]) + tuple(bx["b5"][b][1:])
+               for b in BLOCK_BATCHES},
+        "b6": {b: bf(*bx["b6"][b]) for b in BLOCK_BATCHES},
+        "k1": k1,
+        "k1_b1": tuple(t[:1].contiguous() for t in k1),
+        "k1_1024": bf(*x["k1"]),
+        "k2": k2,
+        "k2_1024": bf(*x["k2"]),
+        "k3": bf(xx, msg) + (p,),
+        "k3_pair16": x16,
+        "layer": bx["layer"],
+    }
+
+
+def mp_block_weights(layer, shift):
+    return (flash_self.prepare(layer["self_attn"], 4, shift, mp=True),
+            flash_cross_block.prepare(layer["cross_attn"], 4, shift, mp=True))
+
+
+def mp_kernel_phase(mx):
+    """Each bf16 kernel against its bf16 plain version on the card, each
+    launch twice, bit for bit. Returns {kernel: largest absolute error}."""
+    phase("5a the bf16 kernels (mp) against their bf16 plain versions "
+          f"(|kernel - plain| <= {MP_REL:g} max(1, |plain|) and <= 2^-6 "
+          "(|plain| + rms(plain row)))")
+    errs = {}
+    for shift in (None, SHIFT):
+        w5, w6 = mp_block_weights(mx["layer"], shift)
+        tag = "" if shift is None else " shift 12"
+        for b in BLOCK_BATCHES:
+            xx, enc, valid = mx["b5"][b]
+            for mk in (None, valid):
+                got = flash_self.fused_self_block(w5, xx, enc, mk)
+                same(f"fused_self_block_bf16 B {b}", (got,),
+                     (flash_self.fused_self_block(w5, xx, enc, mk),))
+                mp_check(errs, "fused_self_block_bf16",
+                         f"fused_self_block_bf16 {tuple(xx.shape)}{tag}"
+                         f"{' masked' if mk is not None else ''}", got,
+                         flash_self.fused_self_block_plain(w5, xx, enc, mk))
+            x0, x1, va0, va1 = mx["b6"][b]
+            got = flash_cross_block.fused_cross_block(w6, x0, x1, va0, va1)
+            same(f"fused_cross_block_bf16 B {b}", got,
+                 flash_cross_block.fused_cross_block(w6, x0, x1, va0, va1))
+            ref = flash_cross_block.fused_cross_block_plain(w6, x0, x1, va0,
+                                                            va1)
+            for i, va in ((0, va0), (1, va1)):
+                mp_check(errs, "fused_cross_block_bf16",
+                         f"fused_cross_block_bf16 B {b}, M 1024 / N 768{tag}, "
+                         f"image {i}, valid rows", got[i], ref[i], va)
+        name = "flash_sdpa" + ("" if shift is None else "_shift") + "_bf16"
+        for label, (q, k, v, valid) in (("(4,4,4096,64)", mx["k1"]),
+                                        ("(1,4,4096,64)", mx["k1_b1"])):
+            for mk in (None, valid):
+                got = flash.flash_sdpa(q, k, v, mk, shift=shift)
+                same(f"{name} {label}", (got,),
+                     (flash.flash_sdpa(q, k, v, mk, shift=shift),))
+                mp_check(errs, name, f"{name} {label}"
+                         f"{' masked' if mk is not None else ''}", got,
+                         flash.flash_sdpa_plain(q, k, v, mk, shift))
+        q, k, v = mx["k1_1024"]
+        mp_check(errs, name, f"{name} (4,4,1024,64)",
+                 flash.flash_sdpa(q, k, v, shift=shift),
+                 flash.flash_sdpa_plain(q, k, v, shift=shift))
+        name = ("fused_cross_attention" + ("" if shift is None else "_shift")
+                + "_bf16")
+        for label, args in (("(4,4,M 2048 / N 1536)", mx["k2"]),
+                            ("(4,4,M 1024 / N 768)", mx["k2_1024"])):
+            got = flash_cross.fused_cross_attention(*args, shift=shift)
+            same(f"{name} {label}", got,
+                 flash_cross.fused_cross_attention(*args, shift=shift))
+            ref = flash_cross.fused_cross_attention_plain(*args, shift=shift)
+            for i in (0, 1):
+                mp_check(errs, name, f"{name} {label} masked, m{i}", got[i],
+                         ref[i])
+    xx, msg, p = mx["k3"]
+    got = ffn.fused_ffn_residual(xx, msg, p)
+    same("fused_ffn_residual_bf16", (got,), (ffn.fused_ffn_residual(xx, msg, p),))
+    mp_check(errs, "fused_ffn_residual_bf16", "fused_ffn_residual_bf16 "
+             "(4, 1024, 256)", got, ffn.fused_ffn_residual_plain(xx, msg, p))
+    x0, x1, m0, m1 = mx["k3_pair16"]
+    got = ffn.fused_ffn_residual_pair(x0, m0, x1, m1, p)
+    for i, (xi, mi) in enumerate(((x0, m0), (x1, m1))):
+        mp_check(errs, "fused_ffn_residual_bf16", "fused_ffn_residual_bf16 "
+                 f"both images at B 16 (M 1024 / N 768), image {i}", got[i],
+                 ffn.fused_ffn_residual_plain(xi, mi, p))
+    mp_bound_reach(mx)
+    torch.cuda.synchronize()
+    return errs
+
+
+# The mp matcher's kernels: B5 and B6 at 1024 keypoints; nothing of the
+# fp32 matcher's block and attention kernels (B2 stays fp32)
+MP_DEFAULT_KERNELS = ("fused_self_block_bf16", "fused_cross_block_bf16",
+                      "fused_filter_matches")
+FP32_MATCHER = ("fused_self_block", "fused_cross_block", "flash_sdpa",
+                "flash_sdpa_shift", "fused_cross_attention",
+                "fused_cross_attention_shift", "fused_ffn_residual")
+# BatchMatcher at mp (phase 5c): the bf16 kernels each bucket's graphs must
+# launch (B5 and B6 up to 1024; B5 and the composed cross block, K2 and B4,
+# to 2048; above, K1 and the composed blocks), by softmax form
+MP_SERVING_BUCKETS = (512, 1024, 2048, 4096)
+
+
+def mp_bucket_kernels(bucket, shift):
+    s = "" if shift is None else "_shift"
+    if bucket <= 1024:
+        return MP_DEFAULT_KERNELS
+    cross = (f"fused_cross_attention{s}_bf16", "fused_ffn_residual_bf16",
+             "fused_filter_matches")
+    if bucket <= 2048:
+        return ("fused_self_block_bf16",) + cross
+    return (f"flash_sdpa{s}_bf16",) + cross
+
+
+def recall(out, gt):
+    """Share of the planted pairs (gt >= 0) that were matched correctly."""
+    m0 = out["matches0"]
+    return float(((m0 == gt) & (gt >= 0)).sum() / max(1, (gt >= 0).sum()))
+
+
+def mp_matcher_phase(params):
+    """Phase 5b: pipeline.LightGlue at mp=True on the card (B5 and B6 in
+    bf16), fixed and adaptive, exact and shift 12, B 1 and B 16 at 1024
+    keypoints: the bf16 kernels and no fp32 block kernel launched; against
+    the CPU port at mp matches0 >= 99 % equal and the same stop; against
+    the card's fp32 path planted precision and recall within 0.01.
+    Returns the counts."""
+    total = dict.fromkeys(KERNELS, 0)
+    rng = np.random.default_rng(53)
+    data = {}
+    for bsz in (1, 16):
+        pr = planted_pairs(rng, bsz, 1024)
+        data[bsz] = (pr, {"image0": feats(pr, 0), "image1": feats(pr, 1)})
+    for (mode, c), shift in ((m, s) for m in (("fixed", FIXED), ("adaptive", {}))
+                             for s in (None, SHIFT)):
+        sh = dict(self_softmax_shift=shift, cross_softmax_shift=shift)
+        phase(f"5b main path at mp: pipeline.LightGlue(mp=True), {mode}, "
+              f"{'exact' if shift is None else 'shift 12'}, 1024 keypoints")
+        gpu = LightGlue("superpoint", params=params, device="cuda", mp=True,
+                        **c, **sh)
+        f32 = LightGlue("superpoint", params=params, device="cuda", **c, **sh)
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        outs = {b: gpu(d) for b, (_, d) in data.items()}
+        torch.cuda.synchronize()
+        counts = _build.launch_counts()
+        print(f"  launch counts: { {k: v for k, v in counts.items() if v} }")
+        for k in MP_DEFAULT_KERNELS:
+            if counts[k] < 1:
+                raise AssertionError(f"{k} was not launched at mp")
+        for k in FP32_MATCHER:
+            if counts[k]:
+                raise AssertionError(f"{k} (fp32) was launched at mp")
+        for k, v in counts.items():
+            total[k] += v
+        for b, (pr, d) in data.items():
+            out, ref32 = outs[b], f32(d)
+            gt = pr["gt_matches0"]
+            for f in ("matching_scores0", "matching_scores1"):
+                if not np.isfinite(out[f]).all():
+                    raise AssertionError(f"B {b}: {f} not finite")
+            (k16, p16), (k32, p32) = precision(out, gt), precision(ref32, gt)
+            r16, r32 = recall(out, gt), recall(ref32, gt)
+            print(f"  B {b}: stop {out['stop']} (fp32 {ref32['stop']}), "
+                  f"{k16} matches, precision {p16:.4f} recall {r16:.4f} "
+                  f"against the planted truth; fp32 on the card {k32}, "
+                  f"{p32:.4f}, {r32:.4f}")
+            if abs(p16 - p32) > 0.01 or abs(r16 - r32) > 0.01:
+                raise AssertionError(f"B {b}: mp precision / recall off fp32's")
+            cpu = LightGlue("superpoint", params=params, device="cpu",
+                            mp=True, **c, **sh)(d)
+            agree = float((cpu["matches0"] == out["matches0"]).mean())
+            print(f"  B {b} against the CPU port at mp: matches0 agreement "
+                  f"{agree:.6f}, stop {out['stop']} vs {cpu['stop']}, score "
+                  f"diff {score_gap(out, cpu):.2e}")
+            if agree < 0.99 or cpu["stop"] != out["stop"]:
+                raise AssertionError("mp: the card disagrees with the CPU port")
+        del gpu, f32
+    return total
+
+
+def mp_serving_phase(params):
+    """Phase 5c: BatchMatcher on an mp=True configuration, fixed (exact)
+    and adaptive (shift 12, the JAX headline), buckets 512-4096, batches 1
+    and 16: every replay equal to the bit to the eager mp forward, each
+    bucket's bf16 kernels from the graphs' counts and no fp32 block or
+    attention kernel, precision against the planted truth; each bucket's
+    batch-1 pair against the CPU port at mp (matches0 >= 99 % equal, the
+    same stop). This is the path that reaches K1, K2 and B4 in bf16.
+    Returns the counts."""
+    total = dict.fromkeys(KERNELS, 0)
+    rng = np.random.default_rng(57)
+    traffic = {}
+    for bucket in MP_SERVING_BUCKETS:
+        reqs = []
+        for bsz in (1, 16):  # just under the bucket: padded, ragged
+            pr = planted_pairs(rng, bsz, bucket - 7, bucket - 3)
+            reqs.append(([tuple({"keypoints": pr[f"keypoints{s}"][i],
+                                 "descriptors": pr[f"descriptors{s}"][i],
+                                 "image_size": pr["image_size"][i]}
+                                for s in (0, 1)) for i in range(bsz)],
+                         pr["gt_matches0"]))
+        traffic[bucket] = reqs
+    for mode, c, shift in (("fixed", FIXED, None), ("adaptive", {}, SHIFT)):
+        phase(f"5c BatchMatcher(mp=True), {mode}, "
+              f"{'exact' if shift is None else 'shift 12'}, buckets "
+              f"{MP_SERVING_BUCKETS}, batches 1 and 16 (CUDA graphs)")
+        conf = lightglue_config("superpoint", mp=True, self_softmax_shift=shift,
+                                cross_softmax_shift=shift, **c)
+        bm = BatchMatcher(conf, params, buckets=MP_SERVING_BUCKETS,
+                          max_batch=16)
+        cpu = BatchMatcher(conf, params, buckets=MP_SERVING_BUCKETS,
+                           max_batch=16, device="cpu")
+        for bucket, reqs in traffic.items():
+            for pairs, gt in reqs:
+                res = bm.match_pairs(pairs)  # the first sight captures
+                torch.cuda.synchronize()
+                _build.reset_launch_counts()
+                res = bm.match_pairs(pairs)
+                torch.cuda.synchronize()
+                counts = _build.launch_counts()
+                for k in mp_bucket_kernels(bucket, shift):
+                    if counts[k] < 1:
+                        raise AssertionError(f"{k} not launched at {bucket}")
+                for k in FP32_MATCHER:
+                    if counts[k]:
+                        raise AssertionError(f"{k} (fp32) launched at {bucket}")
+                for k, v in counts.items():
+                    total[k] += v
+                (_, f0, f1), = bm.padded_batches(pairs)
+                got, ref = bm.match_batch(f0, f1), eager_forward(bm, f0, f1)
+                differ = [f for f in graphs.OUTPUTS
+                          if not np.array_equal(getattr(got, f), getattr(ref, f))]
+                out = {"matches0": np.stack([r["matches0"] for r in res])}
+                k, prec = precision(out, gt)
+                print(f"  bucket {bucket}, batch {len(pairs)}: replay "
+                      f"{'equal to the bit to' if not differ else 'DIFFERS from'}"
+                      f" eager lg.forward, stop {got.stop} vs {ref.stop}; "
+                      f"{k} matches, precision {prec:.3f}; launches "
+                      f"{ {n: v for n, v in counts.items() if v} }", flush=True)
+                if differ or got.stop != ref.stop:
+                    raise AssertionError(f"mp {mode} bucket {bucket}: the "
+                                         f"graphs and eager differ in {differ}")
+                if prec < MIN_PRECISION[4]:
+                    raise AssertionError(f"mp bucket {bucket}: precision {prec}")
+                if len(pairs) > 1:
+                    continue
+                # the batch-1 pair against the CPU port at mp
+                want = cpu.match_batch(f0, f1)
+                agree = float((got.matches0 == want.matches0).mean())
+                gap = max(float(np.abs(getattr(got, f) - getattr(want, f)).max())
+                          for f in ("matching_scores0", "matching_scores1"))
+                print(f"  bucket {bucket}, batch 1 against the CPU port at mp: "
+                      f"matches0 agreement {agree:.6f}, stop {got.stop} vs "
+                      f"{want.stop}, score diff {gap:.2e}", flush=True)
+                if agree < 0.99 or got.stop != want.stop:
+                    raise AssertionError(f"mp {mode} bucket {bucket}: the card "
+                                         "disagrees with the CPU port")
+        del bm, cpu
+        gc.collect()
+        torch.cuda.empty_cache()
+    return total
+
+
+def mp_extraction_phase(sp_params):
+    """Phase 5d: images -> SuperPoint (fp32) -> LightGlue(mp=True) through
+    match_pair (2048 keypoints: B5 and the composed cross block in bf16)
+    and make_end_to_end (B 2, 1024 keypoints: B5 and B6 in bf16), the
+    matcher casting the fp32 features. Returns the counts."""
+    phase("5d main path at mp: match_pair and make_end_to_end, SuperPoint "
+          "(fp32) -> LightGlue(mp=True), generated 768 x 1024 pairs")
+    rng = np.random.default_rng(59)
+    a, b, _ = image_pair(rng, H, W)
+    ext = SuperPoint(params=sp_params, device="cuda")
+    matcher = LightGlue("superpoint", device="cuda", mp=True, **FIXED)
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    f0, f1, out = match_pair(ext, matcher, a, b)
+    sizes = torch.tensor([[W, H]] * 2, dtype=torch.float32, device="cuda")
+    im0, im1 = (torch.from_numpy(np.stack(p))[..., None].cuda()
+                for p in ((a, b), (b, a)))
+    run = end_to_end.make_end_to_end(
+        sp.forward, sp_params, SuperPointConfig(max_num_keypoints=1024),
+        matcher.params, matcher.conf)
+    e2e = run(im0, im1, sizes, sizes)
+    torch.cuda.synchronize()
+    counts = _build.launch_counts()
+    print(f"  match_pair: {f0['keypoints'].shape[0]} / "
+          f"{f1['keypoints'].shape[0]} keypoints, {len(out['matches'])} "
+          f"matches; make_end_to_end B 2: matches0 "
+          f"{tuple(e2e.matches.matches0.shape)}; launch counts "
+          f"{ {k: v for k, v in counts.items() if v} }")
+    need = ("fused_stem", "fused_block2", "simple_nms", "fused_self_block_bf16",
+            "fused_cross_attention_bf16", "fused_ffn_residual_bf16",
+            "fused_cross_block_bf16", "fused_filter_matches")
+    for k in need:
+        if counts[k] < 1:
+            raise AssertionError(f"{k} was not launched at mp")
+    for k in FP32_MATCHER:
+        if counts[k]:
+            raise AssertionError(f"{k} (fp32) was launched at mp")
+    if not np.isfinite(out["matching_scores0"]).all() or not bool(
+            torch.isfinite(e2e.matches.matching_scores0).all()):
+        raise AssertionError("mp match_pair / make_end_to_end: not finite")
+    return counts
+
+
+def mp_rows(mx, x, bx):
+    """Phase 5e's rows: {row: (bf16 kernel, bf16 plain version, fp32 form
+    on the same values, library call or None, (FLOPs, bytes))}. The bound
+    counts bf16 activations and weights at 2 bytes, fp32 biases, tables
+    and masks as stored; FLOPs as phase 4's."""
+    f, h, n, m1, d = 4, 4, 1024, 768, 256
+    w5, w6 = mp_block_weights(mx["layer"], None)
+    v5, v6 = block_weights(bx, None)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    ffn_w = (2 * d * 2 * d + 2 * d * d) * 2 + (3 * 2 * d + d) * f
+    rows = {}
+
+    def attn(label, q, k, v, mk, shift, key):
+        b, _, nn_, _ = q.shape
+        q32, k32, v32 = q.float(), k.float(), v.float()
+        kb = torch.zeros(b, 1, 1, nn_, device="cuda", dtype=BF16) if mk is None \
+            else flash.key_bias(mk).to(BF16)[:, None, None, :]
+        rows[label] = (
+            lambda: flash.flash_sdpa(q, k, v, mk, shift=shift),
+            lambda: flash.flash_sdpa_plain(q, k, v, mk, shift),
+            lambda: flash.flash_sdpa(q32, k32, v32, mk, shift=shift),
+            ("SDPA bf16", lambda: sdpa(q, k, v, attn_mask=kb)),
+            (4 * b * h * nn_ * nn_ * 64,
+             4 * b * h * nn_ * 64 * 2 + (0 if mk is None else b * nn_)))
+
+    q, k, v = mx["k1_1024"]
+    attn("flash_sdpa_bf16", q, k, v, None, None, 0)
+    attn("flash_sdpa_shift_bf16", q, k, v, None, SHIFT, 0)
+    q, k, v, mk = mx["k1"]
+    attn("flash_sdpa_bf16 (4,4,4096,64) masked", q, k, v, mk, None, 0)
+    attn("flash_sdpa_shift_bf16 (4,4,4096,64) masked", q, k, v, mk, SHIFT, 0)
+    for label, args in (("", mx["k2_1024"]),
+                        (" (4,4,M 2048 / N 1536)", mx["k2"])):
+        a32 = tuple(t.float() if t.is_floating_point() else t for t in args)
+        b, _, mm, _ = args[0].shape
+        nn_ = args[1].shape[2]
+        bound = (6 * b * h * mm * nn_ * 64,
+                 3 * b * h * (mm + nn_) * 64 * 2 + b * (mm + nn_))
+        for shift in (None, SHIFT):
+            name = ("fused_cross_attention" + ("" if shift is None else
+                                               "_shift") + "_bf16" + label)
+            rows[name] = (
+                lambda a=args, s=shift: flash_cross.fused_cross_attention(*a, shift=s),
+                lambda a=args, s=shift: flash_cross.fused_cross_attention_plain(*a, shift=s),
+                lambda a=a32, s=shift: flash_cross.fused_cross_attention(*a, shift=s),
+                None, bound)
+    x4, msg4, p = mx["k3"]
+    x4f, msg4f = x4.float(), msg4.float()
+    rows["fused_ffn_residual_bf16"] = (
+        lambda: ffn.fused_ffn_residual(x4, msg4, p),
+        lambda: ffn.fused_ffn_residual_plain(x4, msg4, p),
+        lambda: ffn.fused_ffn_residual(x4f, msg4f, p), None,
+        (4 * n * 2 * (2 * d * 2 * d + 2 * d * d), 3 * 4 * n * d * 2 + ffn_w))
+    pair16 = tuple(mx["k3_pair16"][i] for i in (0, 2, 1, 3))  # x0 m0 x1 m1
+    p32 = tuple(t.float() for t in pair16)
+    rows["fused_ffn_residual_bf16 pair B 16, 1024 / 768"] = (
+        lambda: ffn.fused_ffn_residual_pair(*pair16, p),
+        lambda: (ffn.fused_ffn_residual_plain(*pair16[:2], p),
+                 ffn.fused_ffn_residual_plain(*pair16[2:], p)),
+        lambda: ffn.fused_ffn_residual_pair(*p32, p), None,
+        (16 * (n + m1) * 2 * (2 * d * 2 * d + 2 * d * d),
+         3 * 16 * (n + m1) * d * 2 + ffn_w))
+    tail_w = (d * d) * 2 + d * f + ffn_w
+    for b in BLOCK_BATCHES:
+        xx, enc, _ = mx["b5"][b]
+        x32 = xx.float()
+        sfx = "" if b == 4 else f" B {b}"
+        r5, r6 = b * n, b * (n + m1)
+        rows["fused_self_block_bf16" + sfx] = (
+            lambda xx=xx, enc=enc: flash_self.fused_self_block(w5, xx, enc),
+            lambda xx=xx, enc=enc: flash_self.fused_self_block_plain(w5, xx, enc),
+            lambda x32=x32, enc=enc: flash_self.fused_self_block(v5, x32, enc),
+            None,
+            (b * (2 * n * d * 3 * d + 4 * h * n * n * 64 + 2 * n * d * d
+                  + 2 * n * (2 * d * 2 * d + 2 * d * d)),
+             2 * r5 * d * 2 + 2 * r5 * 32 * f + d * 3 * d * 2 + 3 * d * f
+             + tail_w))
+        x0, x1, va0, va1 = mx["b6"][b]
+        c32 = (x0.float(), x1.float(), va0, va1)
+        rows["fused_cross_block_bf16" + sfx] = (
+            lambda a=(x0, x1, va0, va1): flash_cross_block.fused_cross_block(w6, *a),
+            lambda a=(x0, x1, va0, va1): flash_cross_block.fused_cross_block_plain(w6, *a),
+            lambda a=c32: flash_cross_block.fused_cross_block(v6, *a), None,
+            (b * (2 * (n + m1) * d * 2 * d + 6 * n * m1 * d
+                  + 2 * (n + m1) * d * d + 2 * (n + m1) * (2 * d * 2 * d
+                                                           + 2 * d * d)),
+             2 * r6 * d * 2 + r6 + d * 2 * d * 2 + 2 * d * f + tail_w))
+    return rows
+
+
+def mp_timing_phase(mx, x, bx, params):
+    """Phase 5e: each bf16 row beside its bf16 plain version and its fp32
+    form on the same values (CUDA events, plain, kernel, fp32, fp32,
+    kernel, plain; device time from CUDA-graph replays, kernel, fp32 (and
+    the library call), in turns), then BatchMatcher at mp against fp32 at
+    1024 keypoints (host clock, in turns). Returns ({row: (kernel ms,
+    plain ms, library ms)}, {row: (FLOPs, bytes)})."""
+    phase("5e timing at mp: the bf16 kernels beside their plain versions "
+          "and their fp32 forms (CUDA events; device time by CUDA graphs)")
+    rows = mp_rows(mx, x, bx)
+    times, bounds = {}, {}
+    for name, (kern, plain, f32, lib, bound) in rows.items():
+        a, b, c, d, e, g = (time_cuda(fn) for fn in
+                            (plain, kern, f32, f32, kern, plain))
+        lib_ms = None if lib is None else time_cuda(lib[1])
+        kd, fd, fd2, kd2 = (attn_split.graph_ms(fn) for fn in (kern, f32, f32, kern))
+        lib_dev = None if lib is None else attn_split.graph_ms(lib[1])
+        times[name] = ((b + e) / 2, (a + g) / 2, lib_ms)
+        bounds[name] = bound
+        t_ops, t_bytes = bound[0] / PEAK_BF16 * 1e3, bound[1] / PEAK_BYTES * 1e3
+        print(f"  {name}: kernel {(b + e) / 2:.4f} ms, plain {(a + g) / 2:.4f}"
+              f" ms, fp32 form {(c + d) / 2:.4f} ms (runs {b:.4f}/{e:.4f}, "
+              f"{a:.4f}/{g:.4f}, {c:.4f}/{d:.4f})"
+              + ("" if lib is None else f", library ({lib[0]}) {lib_ms:.4f} ms")
+              + f"; device time: kernel {(kd + kd2) / 2:.4f}, fp32 form "
+              f"{(fd + fd2) / 2:.4f}"
+              + ("" if lib is None else f", library {lib_dev:.4f}")
+              + f" ms; bound {max(t_ops, t_bytes):.4f} ms ("
+              f"{'operations' if t_ops >= t_bytes else 'bytes'}; bf16 "
+              f"operations {t_ops:.4f}, bytes {t_bytes:.4f})", flush=True)
+
+    phase("5e end to end at mp: BatchMatcher (CUDA graphs), 1024 keypoints, "
+          "planted pairs, host clock per call, in turns with fp32")
+    rng = np.random.default_rng(61)
+    for bsz, reps in ((1, 40), (16, 10)):
+        pr = planted_pairs(rng, bsz, 1024)
+        pairs = [tuple({k: v[i] for k, v in feats(pr, s).items()}
+                       for s in (0, 1)) for i in range(bsz)]
+        for mode, c in (("fixed", FIXED), ("adaptive", {})):
+            confs = {"fp32": dict(c), "mp": dict(c, mp=True),
+                     "mp, shift 12": dict(c, mp=True, **SHIFTED)}
+            bms = {}
+            for label, cc in confs.items():
+                bms[label] = BatchMatcher(lightglue_config("superpoint", **cc),
+                                          params, buckets=(1024,), max_batch=16)
+                bms[label].warmup([bsz])
+            ms = {label: [] for label in confs}
+            stops = {}
+            for label in list(confs) + list(confs)[::-1]:
+                bm = bms[label]
+                for _ in range(2):
+                    bm.match_pairs(pairs)
+                for _ in range(reps):
+                    t0 = time.perf_counter()
+                    res = bm.match_pairs(pairs)
+                    ms[label].append((time.perf_counter() - t0) * 1e3)
+                stops[label] = res[0]["stop"]
+            for label, m in ms.items():
+                q1, med, q3 = np.percentile(m, [25, 50, 75])
+                print(f"  BatchMatcher {mode} B {bsz}, {label}: "
+                      f"{bsz * 1e3 / med:.1f} pairs/s (median {med:.2f} ms a "
+                      f"call, quartiles {q1:.2f}-{q3:.2f}, {len(m)} calls, "
+                      f"stop {stops[label]})", flush=True)
+            del bms
+            gc.collect()
+            torch.cuda.empty_cache()
+    return times, bounds
+
+
+def mp_profile_phase(params):
+    phase("P profile at mp: BatchMatcher(mp=True) (CUDA graphs) at 1024 "
+          "keypoints, B 1 and B 16, beside fp32")
+    rng = np.random.default_rng(11)
+    for bsz in (1, 16):
+        pr = planted_pairs(rng, bsz, 1024)
+        pairs = [tuple({k: v[i] for k, v in feats(pr, s).items()} for s in (0, 1))
+                 for i in range(bsz)]
+        for mode, c in (("fixed", FIXED), ("adaptive", {})):
+            for label, cc in (("mp", dict(c, mp=True)),
+                              ("mp, shift 12", dict(c, mp=True, **SHIFTED))):
+                bm = BatchMatcher(lightglue_config("superpoint", **cc), params,
+                                  buckets=(1024,), max_batch=16)
+                bm.warmup([bsz])
+                out = profile_call(f"BatchMatcher {mode} B {bsz}, {label}, "
+                                   "1024 keypoints", lambda: bm.match_pairs(pairs))
+                print(f"    (stop {out[0]['stop']})")
+                del bm
+                gc.collect()
+
+
 def main():
     smi = device_phase()
     build_phase()
@@ -3147,6 +3810,7 @@ def main():
     if sys.argv[1:] == ["--profile"]:
         profile_phase(params)
         serving_profile_phase(params, superpoint_params())
+        mp_profile_phase(params)
         return
     if sys.argv[1:]:
         raise SystemExit(f"unknown arguments {sys.argv[1:]}; see the docstring")
@@ -3165,6 +3829,8 @@ def main():
     al_params = aliked_params()
     al_errs, ax = aliked_kernel_phase(al_params)
     errs.update(al_errs)
+    mx = mp_inputs(x, bx)
+    errs.update(mp_kernel_phase(mx))
     for name, err in edge_phase().items():
         errs[name] = max(errs[name], err)
     counts = main_path_phase(params, params2)
@@ -3173,7 +3839,10 @@ def main():
                  lambda: aliked_path_phase(al_params, params),
                  gather_path_phase,
                  lambda: serving_phase(params),
-                 lambda: sequence_phase(params, sp_params)):
+                 lambda: sequence_phase(params, sp_params),
+                 lambda: mp_matcher_phase(params),
+                 lambda: mp_serving_phase(params),
+                 lambda: mp_extraction_phase(sp_params)):
         for k, c in path().items():
             counts[k] += c
     serving_memory_phase(params)
@@ -3185,7 +3854,9 @@ def main():
     times.update(al_times)
     graph_times.update(al_graph)
     serving_timing_phase(params, sp_params)
-    kernels, bounds = [], kernel_bounds()
+    mp_times, mp_bounds = mp_timing_phase(mx, x, bx, params)
+    times.update(mp_times)
+    kernels, bounds = [], {**kernel_bounds(), **mp_bounds}
     # the tensor-core kernels: their 3xTF32 bound beside the fp32 one
     tc_rows = (ATTENTION_ROWS + BLOCK_ROWS + CROSS_ROWS + FFN_ROWS
                + CONV_ROWS + ("fused_aliked_stem",))
@@ -3207,7 +3878,9 @@ def main():
               + ("" if times[name][2] is None else f", library {times[name][2]:.4f}"))
     for name, (src, rep) in KERNELS.items():
         flops, nbytes = bounds[name]
-        t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+        # fp32: the CUDA cores' peak; the bf16 forms: the bf16 tensor cores'
+        peak = PEAK_BF16 if name.endswith("_bf16") else PEAK_FLOPS
+        t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
             "launches": counts[name], "max_abs_err": errs[name],

@@ -56,6 +56,12 @@ SIGNATURES = {
     "lg_score_head_blocks": [_I, ctypes.POINTER(_I), _P],
     "lg_gather_rows": [_P] * 3 + [_I] * 3 + [_P],
 }
+# The bf16 forms (mp) take the arguments of their fp32 entry points.
+SIGNATURES.update({
+    f"{name}_bf16": SIGNATURES[name] for name in (
+        "lg_flash_sdpa", "lg_attention_shape", "lg_fused_cross",
+        "lg_project_heads", "lg_tail_out_proj", "lg_tail_lin1",
+        "lg_tail_lin2")})
 
 # Op wrapper -> launches since the last reset.
 KERNELS = (
@@ -64,6 +70,10 @@ KERNELS = (
     "fused_self_block", "fused_cross_block", "flash_sdpa_shift",
     "fused_cross_attention_shift", "fused_aliked_stem", "score_head_lazy",
     "score_head_cplane", "flash_cross_pair", "gather_rows",
+    # the bf16 forms of the matcher's kernels (mp)
+    "flash_sdpa_bf16", "flash_sdpa_shift_bf16", "fused_cross_attention_bf16",
+    "fused_cross_attention_shift_bf16", "fused_ffn_residual_bf16",
+    "fused_self_block_bf16", "fused_cross_block_bf16",
 )
 _launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 _lib: Optional[ctypes.CDLL] = None
@@ -72,6 +82,12 @@ _lock = threading.Lock()
 
 def count(op: str) -> None:
     _launches[op] += 1
+
+
+def typed(name: str, dtype: torch.dtype) -> str:
+    """The bf16 form's name of an entry point or a launch count (``name``
+    with ``_bf16``) for a bf16 launch, else ``name``."""
+    return name + "_bf16" if dtype == torch.bfloat16 else name
 
 
 def add_launches(counts: Dict[str, int]) -> None:
@@ -169,17 +185,19 @@ def library() -> ctypes.CDLL:
         return _lib
 
 
-def check_cuda(**tensors: Optional[torch.Tensor]) -> torch.device:
-    """Raise unless every given tensor is a contiguous float32 CUDA tensor on
-    one device; return that device."""
+def check_cuda(*, dtype: torch.dtype = torch.float32,
+               **tensors: Optional[torch.Tensor]) -> torch.device:
+    """Raise unless every given tensor is a contiguous CUDA tensor of
+    ``dtype`` (float32 unless a launch takes bf16) on one device; return
+    that device. The type is checked first: nothing converts it."""
+    tensors = {k: t for k, t in tensors.items() if t is not None}
+    for name, t in tensors.items():
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
     device = None
     for name, t in tensors.items():
-        if t is None:
-            continue
         if not t.is_cuda:
             raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
         if device is None:

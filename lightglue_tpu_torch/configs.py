@@ -11,7 +11,13 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
-_ROADMAP = "ROADMAP.md, Queue B (still to be ported)"
+# The ROADMAP entries that hold each refused option
+_ROADMAP_COMPACTION = "ROADMAP.md, Queue A (A.3, two-stage compaction)"
+_ROADMAP_MP_HEAD128 = ("ROADMAP.md, Queue B.3 (head_dim 128 under mp: B1' "
+                       "and the d-128 walk in bf16)")
+_ROADMAP_MP_EXTRACTORS = ("ROADMAP.md, Queue B.3 (the extractors' bf16 "
+                          "kernels: SuperPoint's B7 and B8 next, then "
+                          "ALIKED's B10, B11 and B12)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -29,7 +35,10 @@ class LightGlueConfig:
     (nats) replace the softmax's row maximum by a constant in the kernels
     (exp2 form, no max pass); None is the exact softmax. B1' is always
     exact, as the JAX matcher calls it, so ``cross_softmax_shift`` has no
-    effect at head_dim 128.
+    effect at head_dim 128. ``mp`` computes the transformer in bf16 (the
+    descriptors cast after they are read, as the JAX matcher does) on the
+    bf16 forms of B5, B6, K1, K2 and B4, at head_dim 64 only; the
+    assignment head (B2) stays fp32.
     """
 
     name: str = "lightglue"
@@ -62,15 +71,16 @@ class LightGlueConfig:
         if self.n_layers < 1:
             raise ValueError("n_layers must be >= 1")
         unported = {
-            "mp=True (bf16 compute)": self.mp,
             "compaction_bucket > 0 (two-stage compaction)":
-                self.compaction_bucket > 0,
+                (self.compaction_bucket > 0, _ROADMAP_COMPACTION),
+            f"mp=True at head_dim {self.head_dim} (the bf16 kernels take 64)":
+                (self.mp and self.head_dim != 64, _ROADMAP_MP_HEAD128),
         }
-        for what, asked in unported.items():
+        for what, (asked, where) in unported.items():
             if asked:
                 raise NotImplementedError(
                     f"{what} is not ported to lightglue_tpu_torch yet; see "
-                    f"{_ROADMAP}."
+                    f"{where}."
                 )
 
     @property
@@ -148,7 +158,7 @@ class SuperPointConfig:
         if self.mp:
             raise NotImplementedError(
                 "mp=True (bf16 compute) is not ported to lightglue_tpu_torch "
-                "yet; see ROADMAP.md, Queue B.3.")
+                f"yet for the extractors; see {_ROADMAP_MP_EXTRACTORS}.")
 
     def replace(self, **kw) -> "SuperPointConfig":
         return dataclasses.replace(self, **kw)
@@ -184,7 +194,7 @@ class ALIKEDConfig:
         if self.mp:
             raise NotImplementedError(
                 "mp=True (bf16 compute) is not ported to lightglue_tpu_torch "
-                "yet; see ROADMAP.md, Queue B.3.")
+                f"yet for the extractors; see {_ROADMAP_MP_EXTRACTORS}.")
 
     def replace(self, **kw) -> "ALIKEDConfig":
         return dataclasses.replace(self, **kw)

@@ -16,7 +16,8 @@
 // Replaces the TPU kernels lightglue_tpu/ops/flash_self.py::_kernel
 // (fused_self_block), lightglue_tpu/ops/flash_cross_block.py::_kernel
 // (fused_cross_block) and lightglue_tpu/ops/ffn.py::_ffn_kernel
-// (fused_ffn_residual, out = x + FFN(cat[x, msg])): for one block,
+// (fused_ffn_residual, out = x + FFN(cat[x, msg])), each in fp32 and, under
+// mp, in bf16 (element type E of the templates below): for one block,
 //   out = x + FFN(cat[x, sum_h ctx_h Wo[h] + bo])
 // with the per-head context ctx_h of self attention (rot(q), rot(k), v
 // from Wqkv) or of the shared-QK cross attention (to_qk, to_v), the softmax
@@ -54,6 +55,16 @@
 // and the exact erf GELU to each A tile as it lands. The context, msg and h
 // go through device memory (h: 64 MB a tail at B 16, about 20 us of HBM
 // time).
+//
+// The bf16 form (E = bf16, the TPU kernels fed bf16 under mp): activations
+// and weights bf16 in memory, every product one bf16 pass of gemm_tc.cuh
+// with fp32 sums, biases, LayerNorm and GELU in fp32, rounded to bf16 where
+// the TPU kernels round: q, k and v after bias and rotary (the rotary
+// tables rounded to bf16 in the epilogue), the message after out_proj, the
+// hidden before lin2 (h and its statistics stay fp32; lin2 rounds its A
+// fragments as it reads them), the output after the residual. On an H100 the bf16
+// products run at twice the dense rate of tf32 and one pass instead of
+// three, and the bf16 tiles halve the bytes of every activation and weight.
 #include "gemm_tc.cuh"
 
 namespace {
@@ -61,6 +72,10 @@ namespace {
 using lg::gemm::BK;
 using lg::gemm::LDS;
 using lg::gemm::PART;
+using lg::tc::bf16;
+
+using lg::tc::load2;
+using lg::tc::store2;
 
 __host__ __device__ __forceinline__ int cdiv(int a, int b) {
   return (a + b - 1) / b;
@@ -76,27 +91,31 @@ struct Rows {
 };
 
 // A = rows of x, (B, n_s, ld) for each segment
+template <class E>
 struct XSrc : lg::gemm::NoTransform {
+  using Elem = E;
   Rows rows;
-  const float* x0;
-  const float* x1;
+  const E* x0;
+  const E* x1;
   int ld;
-  using Cursor = const float*;
+  using Cursor = const E*;
   __device__ Cursor at(int r) const {
     return (rows.second(r) ? x1 : x0) + (size_t)rows.local(r) * ld;
   }
-  __device__ const float* src(Cursor c, int k0) const { return c + k0; }
+  __device__ const E* src(Cursor c, int k0) const { return c + k0; }
 };
 
 // A = merge_heads(ctx): channel k = h hd + c of row (b, i) at
 // ctx_s[((b H + h) n_s + i) hd + c]; a 32-channel step lies in one head
+template <class E>
 struct CtxSrc : lg::gemm::NoTransform {
+  using Elem = E;
   Rows rows;
-  const float* c0;
-  const float* c1;
+  const E* c0;
+  const E* c1;
   int n0, n1, H, hd;
   struct Cursor {
-    const float* p;  // the row's channels of head 0
+    const E* p;  // the row's channels of head 0
     int hs;          // n_s hd: from one head to the next
   };
   __device__ Cursor at(int r) const {
@@ -105,7 +124,7 @@ struct CtxSrc : lg::gemm::NoTransform {
     const int b = loc / n, i = loc - b * n;
     return {(s ? c1 : c0) + ((size_t)b * H * n + i) * hd, n * hd};
   }
-  __device__ const float* src(const Cursor& c, int k0) const {
+  __device__ const E* src(const Cursor& c, int k0) const {
     const int h = k0 / hd;
     return c.p + (size_t)h * c.hs + (k0 - h * hd);
   }
@@ -113,33 +132,36 @@ struct CtxSrc : lg::gemm::NoTransform {
 
 // A = [x | msg]: channels below D from the rows of x, the rest from the
 // rows of msg, (B, n_s, D) for each segment
+template <class E>
 struct CatSrc : lg::gemm::NoTransform {
+  using Elem = E;
   Rows rows;
-  const float* x0;
-  const float* x1;
-  const float* m0;
-  const float* m1;
+  const E* x0;
+  const E* x1;
+  const E* m0;
+  const E* m1;
   int D;
   struct Cursor {
-    const float* x;
-    const float* m;
+    const E* x;
+    const E* m;
   };
   __device__ Cursor at(int r) const {
     const bool s = rows.second(r);
     const size_t off = (size_t)rows.local(r) * D;
     return {(s ? x1 : x0) + off, (s ? m1 : m0) + off};
   }
-  __device__ const float* src(const Cursor& c, int k0) const {
+  __device__ const E* src(const Cursor& c, int k0) const {
     return k0 < D ? c.x + k0 : c.m + (k0 - D);
   }
 };
 
-// A = GELU(LN(h)), h (R, C): begin merges each row's `parts` LayerNorm
-// partials (stats (R, parts, 2): mean and M2 of PART columns) in order
-// into the row's mean and 1 / sqrt(var + 1e-5); transform applies the
-// LayerNorm and the exact erf GELU to a landed A tile. gamma and beta
-// 16-byte aligned.
+// A = GELU(LN(h)), h (R, C) fp32 in either form: begin merges each row's
+// `parts` LayerNorm partials (stats (R, parts, 2): mean and M2 of PART
+// columns) in order into the row's mean and 1 / sqrt(var + 1e-5); transform
+// applies the LayerNorm and the exact erf GELU to a landed A tile. gamma and
+// beta 16-byte aligned.
 struct LnSrc {
+  using Elem = float;
   static constexpr bool kTransform = true;
   const float* h;
   const float* stats;
@@ -210,12 +232,14 @@ struct Frag {
 };
 
 // The projection's epilogue: + bias, rotary on the first n_rot groups,
-// written as (G, B, H, n_s, hd) for each segment. Channel ch = g D + h hd +
-// c; a thread's column pair (c, c + 1) is one rotary pair.
+// written as (G, B, H, n_s, hd) for each segment (in E, rounded once after
+// rotary; the bf16 form rounds the fp32 tables to bf16 first). Channel ch =
+// g D + h hd + c; a thread's column pair (c, c + 1) is one rotary pair.
+template <class E>
 struct HeadsEpi {
   Rows rows;
-  float* out0;
-  float* out1;
+  E* out0;
+  E* out1;
   const float* bias;
   const float* cs;  // (B, n0, hd / 2) cos and sin, or null
   const float* sn;
@@ -234,7 +258,7 @@ struct HeadsEpi {
         const bool s = rows.second(r);
         const int loc = rows.local(r), n = s ? n1 : n0;
         const int b = loc / n, i = loc - b * n;
-        float* ob = s ? out1 : out0;
+        E* ob = s ? out1 : out0;
 #pragma unroll
         for (int nt = 0; nt < T::NT; ++nt) {
           const int ch = f.col(wc, nt), grp = ch / D, h = ch % D / hd,
@@ -245,22 +269,26 @@ struct HeadsEpi {
             // ops/rotary.py::apply_rotary: o[2p] = t[2p] c - t[2p+1] s,
             // o[2p+1] = t[2p+1] c + t[2p] s
             const size_t at = ((size_t)b * n + i) * (hd / 2) + (c >> 1);
-            const float co = cs[at], si = sn[at];
+            float co = cs[at], si = sn[at];
+            if constexpr (std::is_same_v<E, bf16>) {  // the TPU's bf16 tables
+              co = lg::tc::round_bf16(co);
+              si = lg::tc::round_bf16(si);
+            }
             const float o0 = v0 * co - v1 * si, o1 = v1 * co + v0 * si;
             v0 = o0;
             v1 = o1;
           }
-          *reinterpret_cast<float2*>(
-              ob + ((((size_t)grp * B + b) * H + h) * n + i) * hd + c) =
-              make_float2(v0, v1);
+          store2(ob + ((((size_t)grp * B + b) * H + h) * n + i) * hd + c, v0,
+                 v1);
         }
       }
   }
 };
 
-// out (R, C) = acc + bias (msg of out_proj)
+// out (R, C) = acc + bias (msg of out_proj), in E
+template <class E>
 struct BiasEpi {
-  float* out;
+  E* out;
   const float* bias;
   int C;
   template <class T>
@@ -276,9 +304,8 @@ struct BiasEpi {
 #pragma unroll
         for (int nt = 0; nt < T::NT; ++nt) {
           const int c = f.col(wc, nt);
-          *reinterpret_cast<float2*>(out + (size_t)r * C + c) =
-              make_float2(acc[mt][nt][2 * half] + bias[c],
-                          acc[mt][nt][2 * half + 1] + bias[c + 1]);
+          store2(out + (size_t)r * C + c, acc[mt][nt][2 * half] + bias[c],
+                 acc[mt][nt][2 * half + 1] + bias[c + 1]);
         }
       }
   }
@@ -336,13 +363,15 @@ struct StatsEpi {
   }
 };
 
-// lin2's epilogue: out_s[row] = x_s[row] + (acc + b2), (B, n_s, C) each
+// lin2's epilogue: out_s[row] = x_s[row] + (acc + b2), (B, n_s, C) each,
+// in E (the sum in fp32, rounded once)
+template <class E>
 struct ResidualEpi {
   Rows rows;
-  const float* x0;
-  const float* x1;
-  float* out0;
-  float* out1;
+  const E* x0;
+  const E* x1;
+  E* out0;
+  E* out1;
   const float* bias;
   int C;
   template <class T>
@@ -357,71 +386,141 @@ struct ResidualEpi {
         if (r >= R) continue;
         const bool s = rows.second(r);
         const size_t off = (size_t)rows.local(r) * C;
-        const float* xr = (s ? x1 : x0) + off;
-        float* orow = (s ? out1 : out0) + off;
+        const E* xr = (s ? x1 : x0) + off;
+        E* orow = (s ? out1 : out0) + off;
 #pragma unroll
         for (int nt = 0; nt < T::NT; ++nt) {
           const int c = f.col(wc, nt);
-          const float2 xv = *reinterpret_cast<const float2*>(xr + c);
-          *reinterpret_cast<float2*>(orow + c) =
-              make_float2(xv.x + (acc[mt][nt][2 * half] + bias[c]),
-                          xv.y + (acc[mt][nt][2 * half + 1] + bias[c + 1]));
+          const float2 xv = load2(xr + c);
+          store2(orow + c, xv.x + (acc[mt][nt][2 * half] + bias[c]),
+                 xv.y + (acc[mt][nt][2 * half + 1] + bias[c + 1]));
         }
       }
   }
 };
 
-template <class T>
+template <class T, class E>
 __global__ void __launch_bounds__(T::THREADS)
-    project_tc_kernel(XSrc a, const float* __restrict__ w, HeadsEpi e, int K,
-                      int R) {
+    project_tc_kernel(XSrc<E> a, const E* __restrict__ w, HeadsEpi<E> e,
+                      int K, int R) {
   lg::gemm::product<T>(a, w, K, R, e);
 }
 
-template <class T>
+template <class T, class E>
 __global__ void __launch_bounds__(T::THREADS)
-    out_proj_tc_kernel(CtxSrc a, const float* __restrict__ w, BiasEpi e,
+    out_proj_tc_kernel(CtxSrc<E> a, const E* __restrict__ w, BiasEpi<E> e,
                        int K, int R) {
   lg::gemm::product<T>(a, w, K, R, e);
 }
 
-template <class T>
+template <class T, class E>
 __global__ void __launch_bounds__(T::THREADS)
-    lin1_tc_kernel(CatSrc a, const float* __restrict__ w, StatsEpi e, int K,
+    lin1_tc_kernel(CatSrc<E> a, const E* __restrict__ w, StatsEpi e, int K,
                    int R) {
   lg::gemm::product<T>(a, w, K, R, e);
 }
 
-template <class T>
+template <class T, class E>
 __global__ void __launch_bounds__(T::THREADS)
-    lin2_tc_kernel(LnSrc a, const float* __restrict__ w, ResidualEpi e,
+    lin2_tc_kernel(LnSrc a, const E* __restrict__ w, ResidualEpi<E> e,
                    int K, int R) {
   lg::gemm::product<T>(a, w, K, R, e);
 }
 
 // One launch of `kernel` with tile T over R rows and C output channels.
-template <class T, class Kernel, class ASrc, class Epi>
-cudaError_t launch_tc(Kernel kernel, const ASrc& a, const float* w,
+template <class T, class Kernel, class ASrc, class E, class Epi>
+cudaError_t launch_tc(Kernel kernel, const ASrc& a, const E* w,
                       const Epi& e, int K, int R, int C,
                       cudaStream_t stream) {
   if (R < 1 || K % BK != 0 || C % T::BN != 0) return cudaErrorInvalidValue;
+  constexpr size_t smem = T::template bytes<typename ASrc::Elem, E>();
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::kBytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(C / T::BN, cdiv(R, T::BM));
-  kernel<<<grid, T::THREADS, T::kBytes, stream>>>(a, w, e, K, R);
+  kernel<<<grid, T::THREADS, smem, stream>>>(a, w, e, K, R);
   return cudaGetLastError();
+}
+
+// The four launches in E (float: 3xTF32; bf16: the mp form), as the C entry
+// points below describe them.
+template <class E>
+cudaError_t project_heads(const E* x0, const E* x1, const E* w,
+                          const float* bias, const float* cs, const float* sn,
+                          E* out0, E* out1, int B, int n0, int n1, int G,
+                          int H, int hd, int n_rot, int tile,
+                          cudaStream_t stream) {
+  if ((n_rot > 0 && (cs == nullptr || sn == nullptr || n1 != 0)) ||
+      hd % 32 != 0 || n0 < 1 || n1 < 0)
+    return cudaErrorInvalidValue;
+  const int D = H * hd, R = B * (n0 + n1);
+  const Rows rows{B * n0};
+  const XSrc<E> a{{}, rows, x0, x1, D};
+  const HeadsEpi<E> e{rows, out0, out1, bias, cs, sn, B, n0, n1, H, hd, n_rot};
+  return lg::gemm::with_tile(tile, [&](auto t) {
+    using T = decltype(t);
+    return launch_tc<T>(project_tc_kernel<T, E>, a, w, e, D, R, G * D,
+                        stream);
+  });
+}
+
+template <class E>
+cudaError_t tail_out_proj(const E* ctx0, const E* ctx1, const E* woT,
+                          const float* bo, E* msg, int B, int n0, int n1,
+                          int H, int hd, int tile, cudaStream_t stream) {
+  if (hd % 32 != 0 || n0 < 1 || n1 < 0) return cudaErrorInvalidValue;
+  const int D = H * hd, R = B * (n0 + n1);
+  const CtxSrc<E> a{{}, Rows{B * n0}, ctx0, ctx1, n0, n1, H, hd};
+  const BiasEpi<E> e{msg, bo, D};
+  return lg::gemm::with_tile(tile, [&](auto t) {
+    using T = decltype(t);
+    return launch_tc<T>(out_proj_tc_kernel<T, E>, a, woT, e, D, R, D, stream);
+  });
+}
+
+template <class E>
+cudaError_t tail_lin1(const E* x0, const E* x1, const E* m0, const E* m1,
+                      const E* w1T, const float* b1, float* h, float* stats,
+                      int B, int n0, int n1, int D, int tile,
+                      cudaStream_t stream) {
+  if (D % 32 != 0 || n0 < 1 || n1 < 0) return cudaErrorInvalidValue;
+  const int R = B * (n0 + n1);
+  const CatSrc<E> a{{}, Rows{B * n0}, x0, x1, m0, m1, D};
+  const StatsEpi e{h, stats, b1, 2 * D};
+  return lg::gemm::with_tile(tile, [&](auto t) {
+    using T = decltype(t);
+    return launch_tc<T>(lin1_tc_kernel<T, E>, a, w1T, e, 2 * D, R, 2 * D,
+                        stream);
+  });
+}
+
+template <class E>
+cudaError_t tail_lin2(const float* h, const float* stats, const float* gamma,
+                      const float* beta, const E* w2T, const float* b2,
+                      const E* x0, const E* x1, E* out0, E* out1, int B,
+                      int n0, int n1, int D, int tile, cudaStream_t stream) {
+  if (D % 32 != 0 || n0 < 1 || n1 < 0) return cudaErrorInvalidValue;
+  const int R = B * (n0 + n1), rows0 = B * n0;
+  const LnSrc a{h, stats, gamma, beta, 2 * D, 2 * D / PART};
+  const ResidualEpi<E> e{Rows{rows0}, x0, x1, out0, out1, b2, D};
+  return lg::gemm::with_tile(tile, [&](auto t) {
+    using T = decltype(t);
+    return launch_tc<T>(lin2_tc_kernel<T, E>, a, w2T, e, 2 * D, R, D, stream);
+  });
 }
 
 }  // namespace
 
 // Rows: B n0 of x0 / out0 (B, n0, ...) then B n1 of x1 / out1 (n1 0: no
 // second segment, x1 and out1 unused). All pointers 16-byte aligned; D =
-// H hd, hd a multiple of 32; `tile` indexes gemm_tc.cuh's tiles.
+// H hd, hd a multiple of 32; `tile` indexes gemm_tc.cuh's tiles. Each entry
+// point has a bf16 twin (suffix _bf16, the mp form) that takes the
+// activations, weights and outputs named below in bf16; biases, the rotary
+// tables, gamma, beta, h and its statistics stay fp32.
 
 // x_s (B, n_s, D); w (G D, D), one row per output channel; bias (G D);
 // cos, sin (B, n0, hd / 2) or null; out_s (G, B, H, n_s, hd); the first
-// n_rot groups get rotary (one segment only).
+// n_rot groups get rotary (one segment only). bf16: x, w, out.
 extern "C" cudaError_t lg_project_heads(const float* x0, const float* x1,
                                         const float* w, const float* bias,
                                         const float* cs, const float* sn,
@@ -429,60 +528,66 @@ extern "C" cudaError_t lg_project_heads(const float* x0, const float* x1,
                                         int n0, int n1, int G, int H, int hd,
                                         int n_rot, int tile,
                                         cudaStream_t stream) {
-  if ((n_rot > 0 && (cs == nullptr || sn == nullptr || n1 != 0)) ||
-      hd % 32 != 0 || n0 < 1 || n1 < 0)
-    return cudaErrorInvalidValue;
-  const int D = H * hd, R = B * (n0 + n1);
-  const Rows rows{B * n0};
-  const XSrc a{{}, rows, x0, x1, D};
-  const HeadsEpi e{rows, out0, out1, bias, cs, sn, B, n0, n1, H, hd, n_rot};
-  return lg::gemm::with_tile(tile, [&](auto t) {
-    using T = decltype(t);
-    return launch_tc<T>(project_tc_kernel<T>, a, w, e, D, R, G * D, stream);
-  });
+  return project_heads<float>(x0, x1, w, bias, cs, sn, out0, out1, B, n0, n1,
+                              G, H, hd, n_rot, tile, stream);
+}
+extern "C" cudaError_t lg_project_heads_bf16(const bf16* x0, const bf16* x1,
+                                             const bf16* w, const float* bias,
+                                             const float* cs, const float* sn,
+                                             bf16* out0, bf16* out1, int B,
+                                             int n0, int n1, int G, int H,
+                                             int hd, int n_rot, int tile,
+                                             cudaStream_t stream) {
+  return project_heads<bf16>(x0, x1, w, bias, cs, sn, out0, out1, B, n0, n1,
+                             G, H, hd, n_rot, tile, stream);
 }
 
 // msg (R, D) = merge_heads(ctx) Wo + bo: ctx_s (B, H, n_s, hd); woT (D, D)
-// with woT[o][k] = Wo[k][o]; bo (D).
+// with woT[o][k] = Wo[k][o]; bo (D). bf16: ctx, woT, msg.
 extern "C" cudaError_t lg_tail_out_proj(const float* ctx0, const float* ctx1,
                                         const float* woT, const float* bo,
                                         float* msg, int B, int n0, int n1,
                                         int H, int hd, int tile,
                                         cudaStream_t stream) {
-  if (hd % 32 != 0 || n0 < 1 || n1 < 0) return cudaErrorInvalidValue;
-  const int D = H * hd, R = B * (n0 + n1);
-  const CtxSrc a{{}, Rows{B * n0}, ctx0, ctx1, n0, n1, H, hd};
-  const BiasEpi e{msg, bo, D};
-  return lg::gemm::with_tile(tile, [&](auto t) {
-    using T = decltype(t);
-    return launch_tc<T>(out_proj_tc_kernel<T>, a, woT, e, D, R, D, stream);
-  });
+  return tail_out_proj<float>(ctx0, ctx1, woT, bo, msg, B, n0, n1, H, hd,
+                              tile, stream);
+}
+extern "C" cudaError_t lg_tail_out_proj_bf16(const bf16* ctx0,
+                                             const bf16* ctx1,
+                                             const bf16* woT, const float* bo,
+                                             bf16* msg, int B, int n0, int n1,
+                                             int H, int hd, int tile,
+                                             cudaStream_t stream) {
+  return tail_out_proj<bf16>(ctx0, ctx1, woT, bo, msg, B, n0, n1, H, hd, tile,
+                             stream);
 }
 
 // h (R, 2D) = [x | msg] W1 + b1 and its LayerNorm partials stats (R, 2D /
 // 16, 2): x_s, m_s (B, n_s, D) (B5's and B6's m_s: rows of out_proj's msg;
 // B4's: the message it is given); w1T (2D, 2D) with w1T[o][k] = W1[k][o];
-// b1 (2D).
+// b1 (2D). bf16: x, m, w1T (h and stats fp32).
 extern "C" cudaError_t lg_tail_lin1(const float* x0, const float* x1,
                                     const float* m0, const float* m1,
                                     const float* w1T, const float* b1,
                                     float* h, float* stats, int B, int n0,
                                     int n1, int D, int tile,
                                     cudaStream_t stream) {
-  if (D % 32 != 0 || n0 < 1 || n1 < 0) return cudaErrorInvalidValue;
-  const int R = B * (n0 + n1);
-  const CatSrc a{{}, Rows{B * n0}, x0, x1, m0, m1, D};
-  const StatsEpi e{h, stats, b1, 2 * D};
-  return lg::gemm::with_tile(tile, [&](auto t) {
-    using T = decltype(t);
-    return launch_tc<T>(lin1_tc_kernel<T>, a, w1T, e, 2 * D, R, 2 * D,
-                        stream);
-  });
+  return tail_lin1<float>(x0, x1, m0, m1, w1T, b1, h, stats, B, n0, n1, D,
+                          tile, stream);
+}
+extern "C" cudaError_t lg_tail_lin1_bf16(const bf16* x0, const bf16* x1,
+                                         const bf16* m0, const bf16* m1,
+                                         const bf16* w1T, const float* b1,
+                                         float* h, float* stats, int B,
+                                         int n0, int n1, int D, int tile,
+                                         cudaStream_t stream) {
+  return tail_lin1<bf16>(x0, x1, m0, m1, w1T, b1, h, stats, B, n0, n1, D,
+                         tile, stream);
 }
 
 // out_s (B, n_s, D) = x_s + GELU(LN(h)) W2 + b2: h (R, 2D) and stats
 // (lg_tail_lin1's); gamma, beta (2D); w2T (D, 2D) with w2T[o][k] =
-// W2[k][o]; b2 (D).
+// W2[k][o]; b2 (D). bf16: w2T, x, out (h and stats fp32).
 extern "C" cudaError_t lg_tail_lin2(const float* h, const float* stats,
                                     const float* gamma, const float* beta,
                                     const float* w2T, const float* b2,
@@ -490,12 +595,17 @@ extern "C" cudaError_t lg_tail_lin2(const float* h, const float* stats,
                                     float* out0, float* out1, int B, int n0,
                                     int n1, int D, int tile,
                                     cudaStream_t stream) {
-  if (D % 32 != 0 || n0 < 1 || n1 < 0) return cudaErrorInvalidValue;
-  const int R = B * (n0 + n1), rows0 = B * n0;
-  const LnSrc a{h, stats, gamma, beta, 2 * D, 2 * D / PART};
-  const ResidualEpi e{Rows{rows0}, x0, x1, out0, out1, b2, D};
-  return lg::gemm::with_tile(tile, [&](auto t) {
-    using T = decltype(t);
-    return launch_tc<T>(lin2_tc_kernel<T>, a, w2T, e, 2 * D, R, D, stream);
-  });
+  return tail_lin2<float>(h, stats, gamma, beta, w2T, b2, x0, x1, out0, out1,
+                          B, n0, n1, D, tile, stream);
+}
+extern "C" cudaError_t lg_tail_lin2_bf16(const float* h, const float* stats,
+                                         const float* gamma,
+                                         const float* beta, const bf16* w2T,
+                                         const float* b2, const bf16* x0,
+                                         const bf16* x1, bf16* out0,
+                                         bf16* out1, int B, int n0, int n1,
+                                         int D, int tile,
+                                         cudaStream_t stream) {
+  return tail_lin2<bf16>(h, stats, gamma, beta, w2T, b2, x0, x1, out0, out1,
+                         B, n0, n1, D, tile, stream);
 }

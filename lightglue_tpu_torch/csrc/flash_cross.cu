@@ -45,26 +45,39 @@
 // order. The shift variant's directions do not depend on each other: one
 // launch over grid z = 2 B. No block writes what another block of the same
 // launch reads, no atomics: the same bits on every run.
+//
+// The bf16 form (lg_fused_cross_bf16; E = bf16 below): the TPU kernels fed
+// bf16 under mp, on attn_tc.cuh's bf16 walk: qk, v and the messages bf16,
+// fp32 scores and softmax, the weights rounded to bf16 before each P V and
+// the row sums adding those rounded weights (kRoundedSums: the TPU kernels
+// sum through a ones column of the bf16 V). The TPU wrapper scales qk0 in
+// bf16 before the kernel and both directions read that product; the
+// caller does the same (qk0 scaled and rounded, scale 1 here).
 #include "attn_tc.cuh"
 
 namespace {
 
+using lg::tc::bf16;
 using lg::tc::THREADS;
 constexpr int D = 64;  // head_dim, as the TPU kernels (the ones column of V)
-using Sh = lg::tc::Shape<D>;
+template <class E>
+using Sh = lg::tc::Shape<D, E>;
+template <class E>
+constexpr bool kRounded = std::is_same_v<E, bf16>;
 
 // Exact messages into image 0. Grid (cdiv(M, 64) splits, H, B).
-__global__ void __launch_bounds__(THREADS, Sh::kBlocksPerSM)
-    cross_rows_kernel(const float* __restrict__ qk0,
-                      const float* __restrict__ qk1,
-                      const float* __restrict__ v1,
-                      const bool* __restrict__ valid1, float* __restrict__ m0,
+template <class E>
+__global__ void __launch_bounds__(THREADS, Sh<E>::kLaunchBlocks)
+    cross_rows_kernel(const E* __restrict__ qk0,
+                      const E* __restrict__ qk1,
+                      const E* __restrict__ v1,
+                      const bool* __restrict__ valid1, E* __restrict__ m0,
                       float* __restrict__ part, float* __restrict__ ml,
                       float* __restrict__ rmax, int H, int M, int N,
                       int splits, float scale, bool zero_empty) {
   const int b = blockIdx.z, h = blockIdx.y;
   const size_t bh = (size_t)b * H + h;
-  lg::tc::attend_block<lg::tc::kExact, D>(
+  lg::tc::attend_block<lg::tc::kExact, D, E, kRounded<E>>(
       qk0 + bh * M * D, qk1 + bh * N * D, v1 + bh * N * D,
       valid1 ? valid1 + (size_t)b * N : nullptr, nullptr, m0 + bh * M * D,
       part, ml, rmax, (int)gridDim.z * H * M, (int)bh * M, M, N,
@@ -74,13 +87,14 @@ __global__ void __launch_bounds__(THREADS, Sh::kBlocksPerSM)
 
 // Exact messages into image 1, shifted by S. Grid (cdiv(N, 64) splits, H,
 // B); rmax (B H M): the row launch's row maxima.
-__global__ void __launch_bounds__(THREADS, Sh::kBlocksPerSM)
-    cross_cols_kernel(const float* __restrict__ qk0,
-                      const float* __restrict__ qk1,
-                      const float* __restrict__ v0,
+template <class E>
+__global__ void __launch_bounds__(THREADS, Sh<E>::kLaunchBlocks)
+    cross_cols_kernel(const E* __restrict__ qk0,
+                      const E* __restrict__ qk1,
+                      const E* __restrict__ v0,
                       const bool* __restrict__ valid0,
                       const bool* __restrict__ valid1,
-                      const float* __restrict__ rmax, float* __restrict__ m1,
+                      const float* __restrict__ rmax, E* __restrict__ m1,
                       float* __restrict__ part, float* __restrict__ ml, int H,
                       int M, int N, int splits, float scale,
                       bool valid_rows_only) {
@@ -100,7 +114,7 @@ __global__ void __launch_bounds__(THREADS, Sh::kBlocksPerSM)
   __syncthreads();
 #pragma unroll
   for (int w = 0; w < THREADS / 32; ++w) mx = fmaxf(mx, warp_max[w]);
-  lg::tc::attend_block<lg::tc::kFixed, D>(
+  lg::tc::attend_block<lg::tc::kFixed, D, E, kRounded<E>>(
       qk1 + bh * N * D, qk0 + bh * M * D, v0 + bh * M * D, va0,
       valid1 ? valid1 + (size_t)b * N : nullptr, m1 + bh * N * D, part, ml,
       nullptr, (int)gridDim.z * H * N, (int)bh * N, N, M, blockIdx.x / splits,
@@ -109,14 +123,15 @@ __global__ void __launch_bounds__(THREADS, Sh::kBlocksPerSM)
 
 // Both directions of the shift variant. Grid (max over directions of
 // cdiv(nq, 64) splits, H, 2 B); z = 2 b + direction, as B1'.
-__global__ void __launch_bounds__(THREADS, Sh::kBlocksPerSM)
-    cross_shift_kernel(const float* __restrict__ qk0,
-                       const float* __restrict__ qk1,
-                       const float* __restrict__ v0,
-                       const float* __restrict__ v1,
+template <class E>
+__global__ void __launch_bounds__(THREADS, Sh<E>::kLaunchBlocks)
+    cross_shift_kernel(const E* __restrict__ qk0,
+                       const E* __restrict__ qk1,
+                       const E* __restrict__ v0,
+                       const E* __restrict__ v1,
                        const bool* __restrict__ valid0,
                        const bool* __restrict__ valid1,
-                       float* __restrict__ m0, float* __restrict__ m1,
+                       E* __restrict__ m0, E* __restrict__ m1,
                        float* __restrict__ part0, float* __restrict__ ml0,
                        float* __restrict__ part1, float* __restrict__ ml1,
                        int H, int M, int N, int splits0, int splits1,
@@ -129,7 +144,7 @@ __global__ void __launch_bounds__(THREADS, Sh::kBlocksPerSM)
   const size_t bh = (size_t)b * H + h;
   const bool* kvalid = dir1 ? valid0 : valid1;
   const bool* qvalid = dir1 ? valid1 : valid0;
-  lg::tc::attend_block<lg::tc::kShift, D>(
+  lg::tc::attend_block<lg::tc::kShift, D, E, kRounded<E>>(
       (dir1 ? qk1 : qk0) + bh * nq * D, (dir1 ? qk0 : qk1) + bh * nk * D,
       (dir1 ? v0 : v1) + bh * nk * D, kvalid ? kvalid + (size_t)b * nk : nullptr,
       qvalid ? qvalid + (size_t)b * nq : nullptr, (dir1 ? m1 : m0) + bh * nq * D,
@@ -138,21 +153,58 @@ __global__ void __launch_bounds__(THREADS, Sh::kBlocksPerSM)
       blockIdx.x / splits, blockIdx.x % splits, splits, scale, shift2, false);
 }
 
-template <typename Kernel>
+template <class E, typename Kernel>
 cudaError_t allow_smem(Kernel kernel) {
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)Sh::kBytes);
+                              (int)Sh<E>::kBytes);
 }
 
 // The merge launch of a split walk (nothing when splits == 1).
-template <bool SHIFT>
-cudaError_t merge(const float* part, const float* ml, float* o, float* rmax,
+template <bool SHIFT, class E>
+cudaError_t merge(const float* part, const float* ml, E* o, float* rmax,
                   int rows, int splits, cudaStream_t stream) {
   if (splits == 1) return cudaSuccess;
   const long n = (long)rows * (D / 4);
-  lg::tc::merge_splits<SHIFT><<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(part, ml, o, rmax, rows, D, splits);
+  lg::tc::merge_splits<SHIFT, E><<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(part, ml, o, rmax, rows, D, splits);
   return cudaGetLastError();
+}
+
+template <class E>
+cudaError_t fused_cross(const E* qk0, const E* qk1, const E* v0, const E* v1,
+                        const bool* valid0, const bool* valid1, E* m0, E* m1,
+                        float* part0, float* ml0, float* part1, float* ml1,
+                        float* rmax, int B, int H, int M, int N, int mode,
+                        int splits0, int splits1, float scale, float shift2,
+                        cudaStream_t stream) {
+  if (mode < 0 || mode > 2 || (mode != 2 && rmax == nullptr))
+    return cudaErrorInvalidValue;
+  using lg::tc::BQ;
+  using lg::tc::cdiv;
+  const size_t smem = Sh<E>::kBytes;
+  cudaError_t err;
+  if (mode == 2) {
+    if ((err = allow_smem<E>(cross_shift_kernel<E>)) != cudaSuccess)
+      return err;
+    const int x0 = cdiv(M, BQ) * splits0, x1 = cdiv(N, BQ) * splits1;
+    const dim3 grid(x0 > x1 ? x0 : x1, H, 2 * B);
+    cross_shift_kernel<E><<<grid, THREADS, smem, stream>>>(qk0, qk1, v0, v1, valid0, valid1, m0, m1, part0, ml0, part1, ml1, H, M, N, splits0, splits1, scale, shift2);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    if ((err = merge<true>(part0, ml0, m0, nullptr, B * H * M, splits0,
+                           stream)) != cudaSuccess)
+      return err;
+    return merge<true>(part1, ml1, m1, nullptr, B * H * N, splits1, stream);
+  }
+  if ((err = allow_smem<E>(cross_rows_kernel<E>)) != cudaSuccess) return err;
+  if ((err = allow_smem<E>(cross_cols_kernel<E>)) != cudaSuccess) return err;
+  cross_rows_kernel<E><<<dim3(cdiv(M, BQ) * splits0, H, B), THREADS, smem, stream>>>(qk0, qk1, v1, valid1, m0, part0, ml0, rmax, H, M, N, splits0, scale, mode == 1);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if ((err = merge<false>(part0, ml0, m0, rmax, B * H * M, splits0,
+                          stream)) != cudaSuccess)
+    return err;
+  cross_cols_kernel<E><<<dim3(cdiv(N, BQ) * splits1, H, B), THREADS, smem, stream>>>(qk0, qk1, v0, valid0, valid1, rmax, m1, part1, ml1, H, M, N, splits1, scale, mode == 1);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  return merge<true>(part1, ml1, m1, nullptr, B * H * N, splits1, stream);
 }
 
 }  // namespace
@@ -171,31 +223,21 @@ extern "C" cudaError_t lg_fused_cross(
     float* part0, float* ml0, float* part1, float* ml1, float* rmax, int B,
     int H, int M, int N, int mode, int splits0, int splits1, float scale,
     float shift2, cudaStream_t stream) {
-  if (mode < 0 || mode > 2 || (mode != 2 && rmax == nullptr))
-    return cudaErrorInvalidValue;
-  using lg::tc::BQ;
-  using lg::tc::cdiv;
-  const size_t smem = Sh::kBytes;
-  cudaError_t err;
-  if (mode == 2) {
-    if ((err = allow_smem(cross_shift_kernel)) != cudaSuccess) return err;
-    const int x0 = cdiv(M, BQ) * splits0, x1 = cdiv(N, BQ) * splits1;
-    const dim3 grid(x0 > x1 ? x0 : x1, H, 2 * B);
-    cross_shift_kernel<<<grid, THREADS, smem, stream>>>(qk0, qk1, v0, v1, valid0, valid1, m0, m1, part0, ml0, part1, ml1, H, M, N, splits0, splits1, scale, shift2);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    if ((err = merge<true>(part0, ml0, m0, nullptr, B * H * M, splits0,
-                           stream)) != cudaSuccess)
-      return err;
-    return merge<true>(part1, ml1, m1, nullptr, B * H * N, splits1, stream);
-  }
-  if ((err = allow_smem(cross_rows_kernel)) != cudaSuccess) return err;
-  if ((err = allow_smem(cross_cols_kernel)) != cudaSuccess) return err;
-  cross_rows_kernel<<<dim3(cdiv(M, BQ) * splits0, H, B), THREADS, smem, stream>>>(qk0, qk1, v1, valid1, m0, part0, ml0, rmax, H, M, N, splits0, scale, mode == 1);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  if ((err = merge<false>(part0, ml0, m0, rmax, B * H * M, splits0,
-                          stream)) != cudaSuccess)
-    return err;
-  cross_cols_kernel<<<dim3(cdiv(N, BQ) * splits1, H, B), THREADS, smem, stream>>>(qk0, qk1, v0, valid0, valid1, rmax, m1, part1, ml1, H, M, N, splits1, scale, mode == 1);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  return merge<true>(part1, ml1, m1, nullptr, B * H * N, splits1, stream);
+  return fused_cross<float>(qk0, qk1, v0, v1, valid0, valid1, m0, m1, part0,
+                            ml0, part1, ml1, rmax, B, H, M, N, mode, splits0,
+                            splits1, scale, shift2, stream);
+}
+
+// lg_fused_cross's bf16 form (mp): qk0, qk1, v0, v1, m0 and m1 bf16; the
+// scratch fp32 as above. The caller hands qk0 scaled (and rounded) and
+// scale 1, as the TPU wrapper scales qk0 in bf16 before its kernel.
+extern "C" cudaError_t lg_fused_cross_bf16(
+    const bf16* qk0, const bf16* qk1, const bf16* v0, const bf16* v1,
+    const bool* valid0, const bool* valid1, bf16* m0, bf16* m1,
+    float* part0, float* ml0, float* part1, float* ml1, float* rmax, int B,
+    int H, int M, int N, int mode, int splits0, int splits1, float scale,
+    float shift2, cudaStream_t stream) {
+  return fused_cross<bf16>(qk0, qk1, v0, v1, valid0, valid1, m0, m1, part0,
+                           ml0, part1, ml1, rmax, B, H, M, N, mode, splits0,
+                           splits1, scale, shift2, stream);
 }

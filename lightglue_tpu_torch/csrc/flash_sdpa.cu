@@ -36,23 +36,31 @@
 // all-masked keys returns mean(v), so the block tracks whether any key is
 // valid and writes 0 when none is, as the TPU kernel does. The shift
 // variant is the same walk without the max and the rescale.
+//
+// K1's bf16 form (lg_flash_sdpa_bf16, head_dim 64): _attn_kernel_4d and
+// _attn_kernel_shift fed bf16 q, k, v under mp. q is scaled in fp32 and
+// rounded to bf16 (the caller passes the scale rounded to bf16, as the TPU
+// wrapper's jnp.asarray(scale, q.dtype)), the weights are rounded before
+// P V, l sums them in fp32, the output is bf16 (attn_tc.cuh's bf16 walk,
+// bf16 m16n8k16 products, one pass where 3xTF32 takes three).
 #include "attn_tc.cuh"
 
 namespace {
 
+using lg::tc::bf16;
 using lg::tc::Shape;
 
 // Grid (cdiv(Nq, 64) splits, H, B): x = query tile * splits + split.
-template <bool SHIFT, int D>
-__global__ void __launch_bounds__(lg::tc::THREADS, Shape<D>::kBlocksPerSM)
-    flash_sdpa_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                      const float* __restrict__ v,
-                      const bool* __restrict__ kvalid, float* __restrict__ o,
+template <bool SHIFT, int D, class E = float>
+__global__ void __launch_bounds__(lg::tc::THREADS, Shape<D, E>::kLaunchBlocks)
+    flash_sdpa_kernel(const E* __restrict__ q, const E* __restrict__ k,
+                      const E* __restrict__ v,
+                      const bool* __restrict__ kvalid, E* __restrict__ o,
                       float* __restrict__ part, float* __restrict__ ml, int H,
                       int Nq, int Nk, int splits, float scale, float shift2) {
   const int b = blockIdx.z, h = blockIdx.y;
   const size_t bh = (size_t)b * H + h;
-  lg::tc::attend_block<SHIFT ? lg::tc::kShift : lg::tc::kExact, D>(
+  lg::tc::attend_block<SHIFT ? lg::tc::kShift : lg::tc::kExact, D, E>(
       q + bh * Nq * D, k + bh * Nk * D, v + bh * Nk * D,
       kvalid ? kvalid + (size_t)b * Nk : nullptr, nullptr, o + bh * Nq * D,
       part, ml, nullptr, (int)(gridDim.z * H) * Nq, (int)bh * Nq, Nq, Nk,
@@ -64,7 +72,7 @@ __global__ void __launch_bounds__(lg::tc::THREADS, Shape<D>::kBlocksPerSM)
 // splits0; direction 1 the reverse. A block past its direction's grid
 // returns at once.
 template <int D>
-__global__ void __launch_bounds__(lg::tc::THREADS, Shape<D>::kBlocksPerSM)
+__global__ void __launch_bounds__(lg::tc::THREADS, Shape<D>::kLaunchBlocks)
     flash_cross_pair_kernel(
         const float* __restrict__ qk0, const float* __restrict__ qk1,
         const float* __restrict__ v0, const float* __restrict__ v1,
@@ -97,39 +105,39 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
 }
 
 // The merge launch of a split walk (nothing when splits == 1).
-template <bool SHIFT>
-cudaError_t merge(const float* part, const float* ml, float* o, int rows,
+template <bool SHIFT, class E>
+cudaError_t merge(const float* part, const float* ml, E* o, int rows,
                   int D, int splits, cudaStream_t stream) {
   if (splits == 1) return cudaSuccess;
   const long n = (long)rows * (D / 4);
-  lg::tc::merge_splits<SHIFT><<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(part, ml, o, nullptr, rows, D, splits);
+  lg::tc::merge_splits<SHIFT, E><<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(part, ml, o, nullptr, rows, D, splits);
   return cudaGetLastError();
 }
 
-template <bool SHIFT, int D>
-cudaError_t launch(const float* q, const float* k, const float* v,
-                   const bool* kvalid, float* o, float* part, float* ml,
+template <bool SHIFT, int D, class E = float>
+cudaError_t launch(const E* q, const E* k, const E* v,
+                   const bool* kvalid, E* o, float* part, float* ml,
                    int B, int H, int Nq, int Nk, int splits, float scale,
                    float shift2, cudaStream_t stream) {
-  constexpr size_t smem = Shape<D>::kBytes;
-  cudaError_t err = allow_smem(flash_sdpa_kernel<SHIFT, D>, smem);
+  constexpr size_t smem = Shape<D, E>::kBytes;
+  cudaError_t err = allow_smem(flash_sdpa_kernel<SHIFT, D, E>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(lg::tc::cdiv(Nq, lg::tc::BQ) * splits, H, B);
-  flash_sdpa_kernel<SHIFT, D><<<grid, lg::tc::THREADS, smem, stream>>>(q, k, v, kvalid, o, part, ml, H, Nq, Nk, splits, scale, shift2);
+  flash_sdpa_kernel<SHIFT, D, E><<<grid, lg::tc::THREADS, smem, stream>>>(q, k, v, kvalid, o, part, ml, H, Nq, Nk, splits, scale, shift2);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return merge<SHIFT>(part, ml, o, B * H * Nq, D, splits, stream);
 }
 
-// Keys of a tile and blocks an SM holds of the walk at head_dim D.
-template <int D>
+// Keys of a tile and blocks an SM holds of the walk at head_dim D in E.
+template <int D, class E = float>
 cudaError_t walk_shape(int* key_tile, int* blocks_per_sm) {
-  constexpr size_t smem = Shape<D>::kBytes;
-  cudaError_t err = allow_smem(flash_sdpa_kernel<false, D>, smem);
+  constexpr size_t smem = Shape<D, E>::kBytes;
+  cudaError_t err = allow_smem(flash_sdpa_kernel<false, D, E>, smem);
   if (err != cudaSuccess) return err;
-  *key_tile = Shape<D>::BK;
+  *key_tile = Shape<D, E>::BK;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_per_sm, flash_sdpa_kernel<false, D>, lg::tc::THREADS, smem);
+      blocks_per_sm, flash_sdpa_kernel<false, D, E>, lg::tc::THREADS, smem);
 }
 
 template <bool SHIFT>
@@ -219,4 +227,29 @@ extern "C" cudaError_t lg_attention_shape(int d, int* key_tile,
   if (d == 64) return walk_shape<64>(key_tile, blocks_per_sm);
   if (d == 128) return walk_shape<128>(key_tile, blocks_per_sm);
   return cudaErrorInvalidValue;
+}
+
+// lg_flash_sdpa's bf16 form (mp): q, k, v and o bf16, d 64 only; part and
+// ml fp32 scratch as above; scale the query scale rounded to bf16.
+extern "C" cudaError_t lg_flash_sdpa_bf16(const bf16* q, const bf16* k,
+                                          const bf16* v, const bool* kvalid,
+                                          bf16* o, float* part, float* ml,
+                                          int B, int H, int Nq, int Nk, int d,
+                                          int shift, int splits, float scale,
+                                          float shift2, cudaStream_t stream) {
+  if (d != 64) return cudaErrorInvalidValue;
+  return shift ? launch<true, 64, bf16>(q, k, v, kvalid, o, part, ml, B, H,
+                                        Nq, Nk, splits, scale, shift2, stream)
+               : launch<false, 64, bf16>(q, k, v, kvalid, o, part, ml, B, H,
+                                         Nq, Nk, splits, scale, shift2,
+                                         stream);
+}
+
+// lg_attention_shape for the bf16 walk (head_dim 64).
+extern "C" cudaError_t lg_attention_shape_bf16(int d, int* key_tile,
+                                               int* blocks_per_sm,
+                                               cudaStream_t stream) {
+  (void)stream;
+  if (d != 64) return cudaErrorInvalidValue;
+  return walk_shape<64, bf16>(key_tile, blocks_per_sm);
 }

@@ -17,6 +17,13 @@ it). The assignment head is kernel ops/assignment_fused.py.
 ``conf.flash=False`` and ``conf.fused_ffn=False`` switch to the composed ops
 of ops/attention.py and ops/assignment.py, as in the JAX package. The
 dispatch follows the JAX package's order of tests (lightglue.py:235-341).
+
+``conf.mp`` casts the descriptors to bf16 after they are read
+(lightglue.py:419-421): the transformer then runs the bf16 forms of those
+kernels (bf16 activations and weights, fp32 sums, rounded where the TPU
+kernels round), the token confidence takes its linear in bf16 and its
+sigmoid in fp32, and the assignment head (B2) casts back to fp32, as the
+JAX matcher does.
 """
 
 from __future__ import annotations
@@ -141,20 +148,56 @@ _PREPARED = WeakIdKeyDictionary()
 def prepared_blocks(params, conf: LightGlueConfig):
     """Per layer, the (B5, B6) kernel weights of ``params``: built once per
     parameter tree and configuration (keyed by the tree's stacked Wqkv
-    tensor), not in every layer call. An edit in place of a tree's tensors
-    is not seen: build a new tree."""
+    tensor, then by heads, shifts and ``mp``, so that fp32 and bf16
+    weights never mix), not in every layer call. An edit in place of a
+    tree's tensors is not seen: build a new tree."""
     key = params["transformers"]["self_attn"]["Wqkv"]["w"]
     per_conf = _PREPARED.setdefault(key, {})
-    ck = (conf.num_heads, conf.self_softmax_shift, conf.cross_softmax_shift)
+    ck = (conf.num_heads, conf.self_softmax_shift, conf.cross_softmax_shift,
+          conf.mp)
     if ck not in per_conf:
         per_conf[ck] = [
             (flash_self_ops.prepare(layer["self_attn"], conf.num_heads,
-                                    conf.self_softmax_shift),
+                                    conf.self_softmax_shift, conf.mp),
              flash_cross_block_ops.prepare(layer["cross_attn"], conf.num_heads,
-                                           conf.cross_softmax_shift))
+                                           conf.cross_softmax_shift, conf.mp))
             for layer in (nn.index_params(params["transformers"], i)
                           for i in range(conf.n_layers))]
     return per_conf[ck]
+
+
+_BF16_TREES = WeakIdKeyDictionary()
+
+
+def compute_params(params, conf: LightGlueConfig):
+    """``params`` as the layers read them under ``conf.mp``: the linears
+    that take bf16 activations (input projection, the attention linears of
+    the composed blocks, token confidence) cast to bf16 once per tree
+    (keyed as prepared_blocks), so that nn.linear's cast to x's type does
+    nothing per call. The rest (the FFN, which B4 prepares, the rotary
+    projection and the assignment head, fp32 under mp) is the tree's own.
+    Without mp: ``params``."""
+    if not conf.mp:
+        return params
+    key = params["transformers"]["self_attn"]["Wqkv"]["w"]
+    tree = _BF16_TREES.get(key)
+    if tree is None:
+        def bf16(p):
+            return nn.map_params(p, lambda t: t.to(torch.bfloat16))
+
+        sa, ca = (params["transformers"][n] for n in ("self_attn",
+                                                      "cross_attn"))
+        tree = dict(params, transformers={
+            "self_attn": dict(sa, Wqkv=bf16(sa["Wqkv"]),
+                              out_proj=bf16(sa["out_proj"])),
+            "cross_attn": dict(ca, to_qk=bf16(ca["to_qk"]),
+                               to_v=bf16(ca["to_v"]),
+                               to_out=bf16(ca["to_out"]))})
+        for n in ("input_proj", "token_confidence"):
+            if n in params:
+                tree[n] = bf16(params[n])
+        _BF16_TREES[key] = tree
+    return tree
 
 
 def _block_weights(params, conf: LightGlueConfig):
@@ -239,7 +282,8 @@ def transformer_layer(p, desc0, desc1, enc0, enc1, conf, mask0=None,
 
 
 def token_confidence(p, desc0, desc1):
-    """Per-point confidence (reference TokenConfidence, lightglue.py:84-94)."""
+    """Per-point confidence (reference TokenConfidence, lightglue.py:84-94):
+    the linear in the descriptors' type, the sigmoid in fp32."""
     c0 = torch.sigmoid(nn.linear(p["token"], desc0).float())[..., 0]
     c1 = torch.sigmoid(nn.linear(p["token"], desc1).float())[..., 0]
     return c0, c1
@@ -299,8 +343,9 @@ def _prepare(params, conf, kpts0, kpts1, desc0, desc1, size0, size1, mask0,
                          oris0[..., None].float()], -1)
         kn1 = torch.cat([kn1, scales1[..., None].float(),
                          oris1[..., None].float()], -1)
-    desc0 = desc0.float()
-    desc1 = desc1.float()
+    dtype = torch.bfloat16 if conf.mp else torch.float32
+    desc0 = desc0.to(dtype)
+    desc1 = desc1.to(dtype)
     if "input_proj" in params:
         desc0 = nn.linear(params["input_proj"], desc0)
         desc1 = nn.linear(params["input_proj"], desc1)
@@ -316,13 +361,14 @@ def forward_fixed(params, conf: LightGlueConfig, kpts0, kpts1, desc0, desc1,
     and width confidence disabled)."""
     b, m, _ = kpts0.shape
     n = kpts1.shape[1]
+    tree = compute_params(params, conf)
     desc0, desc1, enc0, enc1 = _prepare(
-        params, conf, kpts0, kpts1, desc0, desc1, size0, size1, mask0, mask1,
+        tree, conf, kpts0, kpts1, desc0, desc1, size0, size1, mask0, mask1,
         scales0, oris0, scales1, oris1)
     fused = _block_weights(params, conf)
     for i in range(conf.n_layers):
         desc0, desc1 = transformer_layer(
-            nn.index_params(params["transformers"], i), desc0, desc1,
+            nn.index_params(tree["transformers"], i), desc0, desc1,
             enc0, enc1, conf, mask0, mask1, fused[i])
     last = nn.index_params(params["log_assignment"], conf.n_layers - 1)
     m0, m1, ms0, ms1 = _assign_and_filter(last, conf, desc0, desc1, mask0,
@@ -380,8 +426,8 @@ def adaptive_start(params, conf: LightGlueConfig, kpts0, kpts1, desc0, desc1,
     b, m, _ = kpts0.shape
     n = kpts1.shape[1]
     desc0, desc1, enc0, enc1 = _prepare(
-        params, conf, kpts0, kpts1, desc0, desc1, size0, size1, mask0, mask1,
-        scales0, oris0, scales1, oris1)
+        compute_params(params, conf), conf, kpts0, kpts1, desc0, desc1, size0,
+        size1, mask0, mask1, scales0, oris0, scales1, oris1)
     dev = desc0.device
     act0 = mask0 if mask0 is not None else torch.ones(
         b, m, dtype=torch.bool, device=dev)
@@ -400,8 +446,9 @@ def adaptive_layer(params, conf: LightGlueConfig, i: int, s: AdaptiveState,
     (lightglue.py:538-566); ``fused``: ``_block_weights(params, conf)``.
     Returns (state after it, the stop flag as a device bool, or None after
     the last layer, which has no confidence head)."""
+    tree = compute_params(params, conf)
     d0, d1 = transformer_layer(
-        nn.index_params(params["transformers"], i), s.desc0, s.desc1, s.enc0,
+        nn.index_params(tree["transformers"], i), s.desc0, s.desc1, s.enc0,
         s.enc1, conf, s.act0, s.act1, fused[i])
     s = s._replace(desc0=d0, desc1=d1)
     if i == conf.n_layers - 1:
@@ -411,7 +458,7 @@ def adaptive_layer(params, conf: LightGlueConfig, i: int, s: AdaptiveState,
     stop = torch.zeros((), dtype=torch.bool, device=d0.device)
     conf0 = conf1 = None
     if do_early_stop:
-        tok = nn.index_params(params["token_confidence"], i)
+        tok = nn.index_params(tree["token_confidence"], i)
         conf0, conf1 = token_confidence(tok, d0, d1)
         # fraction of confident (or pruned/padded) points above
         # depth_confidence (reference: lightglue.py:645-656)

@@ -36,9 +36,11 @@ def linear_init(
 
 
 def linear(p: Params, x: torch.Tensor) -> torch.Tensor:
-    y = x @ p["w"]
+    """x @ w + b in x's type (w and b cast to it, as lightglue_tpu/nn.py:
+    53-57: a bf16 x gives a bf16 output)."""
+    y = x @ p["w"].to(x.dtype)
     if "b" in p:
-        y = y + p["b"]
+        y = y + p["b"].to(x.dtype)
     return y
 
 

@@ -26,6 +26,16 @@ the weights come K-major from the ops' ``prepare`` (``woT``, ``w1T``,
 check the weights once a call (``check_block_weights``, B4
 ``check_ffn_weights``) and run ``launch_project``, ``launch_tail`` and
 ``launch_ffn``, which check only the activations.
+
+Each launch has a bf16 form (mp; the entry points' ``_bf16`` twins): the
+type of the weights dict's matrices (``ffn_weights``, ``tail_weights``;
+``wtype``) says which, and the activations must be of it (they are
+checked, never converted). In the bf16 form the products are bf16 with
+fp32 sums; biases, LayerNorm, GELU and h stay fp32; the projection's heads
+(after rotary, its tables rounded to bf16), the message and the output are
+rounded to bf16, and the hidden GELU(LN(h)) is rounded before lin2, where
+the TPU kernels round. The plain versions take either type and round at
+the same points.
 """
 
 from __future__ import annotations
@@ -104,16 +114,20 @@ def _segment_args(ts: Sequence[torch.Tensor], dim: int = 1) -> tuple:
 def project_plain(w: dict, xs: Sequence[torch.Tensor], groups: int,
                   enc: Optional[torch.Tensor] = None) -> List[torch.Tensor]:
     """Per segment x (B, n, D): x w_in^T + b_in as (groups, B, H, n, hd),
-    rotary (enc (2, B, 1, n, hd/2), one segment) on the first two groups."""
+    rotary (enc (2, B, 1, n, hd/2), one segment) on the first two groups;
+    bf16 x: fp32 sums, the tables rounded to bf16, the heads rounded after
+    rotary."""
     h = w["num_heads"]
     out = []
     for x in xs:
         b, n, d = x.shape
-        y = (x @ w["w_in"].t() + w["b_in"]).reshape(b, n, groups, h, d // h)
+        y = (x.float() @ w["w_in"].float().t() + w["b_in"]).reshape(
+            b, n, groups, h, d // h)
         y = y.permute(2, 0, 3, 1, 4)
         if enc is not None:
-            y = torch.cat([rotary.apply_rotary(enc, y[:2]), y[2:]])
-        out.append(y)
+            tables = enc.to(x.dtype).float()
+            y = torch.cat([rotary.apply_rotary(tables, y[:2]), y[2:]])
+        out.append(y.to(x.dtype))
     return out
 
 
@@ -127,9 +141,9 @@ def project(w: dict, xs: Sequence[torch.Tensor], groups: int,
                           groups, enc)
 
 
-def _activations(dev: torch.device, **tensors) -> None:
-    """Raise unless the tensors are contiguous float32 on ``dev``."""
-    if _build.check_cuda(**tensors) != dev:
+def _activations(dev: torch.device, dtype: torch.dtype, **tensors) -> None:
+    """Raise unless the tensors are contiguous ``dtype`` on ``dev``."""
+    if _build.check_cuda(dtype=dtype, **tensors) != dev:
         raise ValueError(f"the activations are not on {dev}, the weights' "
                          "device")
 
@@ -142,24 +156,28 @@ def launch_project(dev: torch.device, w: dict, xs: Sequence[torch.Tensor],
     b, _, d = xs[0].shape
     h = w["num_heads"]
     hd = d // h
+    dt = wtype(w)
     cos = sin = None
     if enc is not None:
         if len(xs) != 1:
             raise ValueError("rotary takes one segment")
+        # fp32 tables; the bf16 form's epilogue rounds them to bf16 (the
+        # TPU kernel's cosd, sind) and applies them in fp32
         cos = enc[0][:, 0].contiguous()
         sin = enc[1][:, 0].contiguous()
         if cos.shape != (b, xs[0].shape[1], hd // 2):
             raise ValueError(f"enc {tuple(enc.shape)} does not fit x "
                              f"{tuple(xs[0].shape)}")
-    _activations(dev, cos=cos, sin=sin,
-                 **{f"x{i}": x for i, x in enumerate(xs)})
+        _activations(dev, torch.float32, cos=cos, sin=sin)
+    _activations(dev, dt, **{f"x{i}": x for i, x in enumerate(xs)})
     if w["w_in"].shape[0] != groups * d:
         raise ValueError(f"w_in must have {groups * d} rows")
-    outs = [torch.empty(groups, b, h, x.shape[1], hd, device=dev) for x in xs]
+    outs = [torch.empty(groups, b, h, x.shape[1], hd, device=dev, dtype=dt)
+            for x in xs]
     x0, x1, n0, n1 = _segment_args([aligned16(x) for x in xs])
     o0, o1, _, _ = _segment_args(outs)
-    _build.launch("lg_project_heads", dev, x0, x1, w["w_in"], w["b_in"], cos,
-                  sin, o0, o1, b, n0, n1, groups, h, hd,
+    _build.launch(_build.typed("lg_project_heads", dt), dev, x0, x1, w["w_in"],
+                  w["b_in"], cos, sin, o0, o1, b, n0, n1, groups, h, hd,
                   0 if cos is None else 2,
                   _tile(dev, b * (n0 + n1), groups * d))
     return outs
@@ -171,8 +189,10 @@ def launch_project(dev: torch.device, w: dict, xs: Sequence[torch.Tensor],
 def tail_out_proj_plain(w: dict, ctxs: Sequence[torch.Tensor]
                         ) -> torch.Tensor:
     """msg (R, D) = merge_heads(ctx) Wo + bo over the rows of every
-    segment's context (B, H, n_s, hd)."""
-    return _rows([merge_heads(c) for c in ctxs]) @ w["woT"].t() + w["bo"]
+    segment's context (B, H, n_s, hd), in the context's type (bf16: fp32
+    sums, rounded once)."""
+    rows = _rows([merge_heads(c) for c in ctxs])
+    return (rows.float() @ w["woT"].float().t() + w["bo"]).to(rows.dtype)
 
 
 def tail_out_proj(w: dict, ctxs: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -185,11 +205,13 @@ def tail_out_proj(w: dict, ctxs: Sequence[torch.Tensor]) -> torch.Tensor:
 def _out_proj(dev, w, ctxs):
     b, h, _, hd = ctxs[0].shape
     d = h * hd
-    _activations(dev, **{f"ctx{i}": c for i, c in enumerate(ctxs)})
+    dt = wtype(w)
+    _activations(dev, dt, **{f"ctx{i}": c for i, c in enumerate(ctxs)})
     c0, c1, n0, n1 = _segment_args([aligned16(c) for c in ctxs], 2)
-    msg = torch.empty(b * (n0 + n1), d, device=dev)
-    _build.launch("lg_tail_out_proj", dev, c0, c1, w["woT"], w["bo"], msg, b,
-                  n0, n1, h, hd, _tile(dev, msg.shape[0], d))
+    msg = torch.empty(b * (n0 + n1), d, device=dev, dtype=dt)
+    _build.launch(_build.typed("lg_tail_out_proj", dt), dev, c0, c1, w["woT"],
+                  w["bo"], msg, b, n0, n1, h, hd,
+                  _tile(dev, msg.shape[0], d))
     return msg
 
 
@@ -223,10 +245,12 @@ def tail_lin1_plain(w: dict, xs: Sequence[torch.Tensor],
                     msgs: Sequence[torch.Tensor]
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(h (R, 2D) = [x | msg] W1 + b1, ln_partials_plain(h)) over the rows
-    of every segment x (B, n_s, D) and its message (x's rows of D)."""
+    of every segment x (B, n_s, D) and its message (x's rows of D); h
+    fp32 in either type."""
     d = xs[0].shape[-1]
-    w1T = w["w1T"]
-    h = _rows(xs) @ w1T[:, :d].t() + _rows(msgs) @ w1T[:, d:].t() + w["b1"]
+    w1T = w["w1T"].float()
+    h = (_rows(xs).float() @ w1T[:, :d].t()
+         + _rows(msgs).float() @ w1T[:, d:].t() + w["b1"])
     return h, ln_partials_plain(h)
 
 
@@ -240,7 +264,7 @@ def tail_lin1(w: dict, xs: Sequence[torch.Tensor],
 
 def _lin1(dev, w, xs, msgs):
     b, _, d = xs[0].shape
-    _activations(dev, **{f"x{i}": x for i, x in enumerate(xs)},
+    _activations(dev, wtype(w), **{f"x{i}": x for i, x in enumerate(xs)},
                  **{f"msg{i}": m for i, m in enumerate(msgs)})
     if len(msgs) != len(xs) or any(m.shape[-1] != d or m.numel() != x.numel()
                                    for m, x in zip(msgs, xs)):
@@ -250,18 +274,23 @@ def _lin1(dev, w, xs, msgs):
     rows = b * (n0 + n1)
     h = torch.empty(rows, 2 * d, device=dev)
     stats = torch.empty(rows, 2 * d // LN_PART, 2, device=dev)
-    _build.launch("lg_tail_lin1", dev, x0, x1, m0, m1, w["w1T"], w["b1"], h,
-                  stats, b, n0, n1, d, _tile(dev, rows, 2 * d))
+    _build.launch(_build.typed("lg_tail_lin1", wtype(w)), dev, x0, x1, m0, m1,
+                  w["w1T"], w["b1"], h, stats, b, n0, n1, d,
+                  _tile(dev, rows, 2 * d))
     return h, stats
 
 
 def tail_lin2_plain(w: dict, h: torch.Tensor, stats: torch.Tensor,
                     xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     """Per segment x + GELU(LN(h)) W2 + b2, the LayerNorm from the merged
-    partials."""
+    partials; bf16 x: the hidden rounded before W2, the sum in fp32,
+    rounded once."""
     mean, rstd = merge_stats_plain(stats)
     hn = (h - mean[:, None]) * rstd[:, None] * w["gamma"] + w["beta"]
-    return _segments(_rows(xs) + (nn.gelu(hn) @ w["w2T"].t() + w["b2"]), xs)
+    rows = _rows(xs)
+    hid = nn.gelu(hn).to(rows.dtype).float()
+    out = rows.float() + (hid @ w["w2T"].float().t() + w["b2"])
+    return _segments(out.to(rows.dtype), xs)
 
 
 def tail_lin2(w: dict, h: torch.Tensor, stats: torch.Tensor,
@@ -273,17 +302,17 @@ def tail_lin2(w: dict, h: torch.Tensor, stats: torch.Tensor,
 
 def _lin2(dev, w, h, stats, xs):
     b, _, d = xs[0].shape
-    _activations(dev, h=h, stats=stats,
-                 **{f"x{i}": x for i, x in enumerate(xs)})
+    _activations(dev, torch.float32, h=h, stats=stats)
+    _activations(dev, wtype(w), **{f"x{i}": x for i, x in enumerate(xs)})
     x0, x1, n0, n1 = _segment_args([aligned16(x) for x in xs])
     rows = b * (n0 + n1)
     if h.shape != (rows, 2 * d) or stats.shape != (rows, 2 * d // LN_PART, 2):
         raise ValueError(f"h and stats do not fit {rows} rows of D {d}")
     outs = [torch.empty_like(x) for x in xs]
     o0, o1, _, _ = _segment_args(outs)
-    _build.launch("lg_tail_lin2", dev, aligned16(h), stats, w["gamma"],
-                  w["beta"], w["w2T"], w["b2"], x0, x1, o0, o1, b, n0, n1, d,
-                  _tile(dev, rows, d))
+    _build.launch(_build.typed("lg_tail_lin2", wtype(w)), dev, aligned16(h),
+                  stats, w["gamma"], w["beta"], w["w2T"], w["b2"], x0, x1, o0,
+                  o1, b, n0, n1, d, _tile(dev, rows, d))
     return outs
 
 
@@ -328,40 +357,63 @@ def launch_ffn(dev: torch.device, w: dict, xs: Sequence[torch.Tensor],
 # --- weights ---------------------------------------------------------------
 
 
-def _own(t: torch.Tensor) -> torch.Tensor:
-    """A contiguous tensor of its own (so 16-byte aligned)."""
-    return t.clone(memory_format=torch.contiguous_format)
+def _own(t: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """A contiguous tensor of its own (so 16-byte aligned) in ``dtype``
+    (bf16: rounded to nearest)."""
+    return t.to(dtype).clone(memory_format=torch.contiguous_format)
 
 
-def ffn_weights(ffn: nn.Params) -> dict:
+WEIGHT_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def ffn_weights(ffn: nn.Params, dtype: torch.dtype = torch.float32) -> dict:
     """lin1's and lin2's weights, K-major (one row per output channel),
     from the FFN {"lin1", "ln", "lin2"} as stored (in, out), each a tensor
-    of its own; ``ffn`` itself is left as it is."""
+    of its own; the matrices in ``dtype`` (bf16: the mp form), biases and
+    the LayerNorm's fp32; ``ffn`` itself is left as it is."""
+    if dtype not in WEIGHT_DTYPES:
+        raise TypeError(f"the block and FFN kernels take {WEIGHT_DTYPES}, "
+                        f"got {dtype}")
     return {
-        "w1T": _own(ffn["lin1"]["w"].t()), "b1": _own(ffn["lin1"]["b"]),
+        "w1T": _own(ffn["lin1"]["w"].t(), dtype), "b1": _own(ffn["lin1"]["b"]),
         "gamma": _own(ffn["ln"]["scale"]), "beta": _own(ffn["ln"]["bias"]),
-        "w2T": _own(ffn["lin2"]["w"].t()), "b2": _own(ffn["lin2"]["b"]),
+        "w2T": _own(ffn["lin2"]["w"].t(), dtype), "b2": _own(ffn["lin2"]["b"]),
     }
 
 
-def tail_weights(out_proj: nn.Params, ffn: nn.Params) -> dict:
+def wtype(w: dict) -> torch.dtype:
+    """The type of a weights dict's launches: its matrices' (float32, or
+    bf16 for the mp form)."""
+    return w["w1T"].dtype
+
+
+def tail_weights(out_proj: nn.Params, ffn: nn.Params,
+                 dtype: torch.dtype = torch.float32) -> dict:
     """The tail's weights: the output projection {w (D, D), b} K-major and
-    ``ffn_weights(ffn)``."""
-    return {"woT": _own(out_proj["w"].t()), "bo": _own(out_proj["b"]),
-            **ffn_weights(ffn)}
+    ``ffn_weights(ffn)``, the matrices in ``dtype``."""
+    return {"woT": _own(out_proj["w"].t(), dtype), "bo": _own(out_proj["b"]),
+            **ffn_weights(ffn, dtype)}
 
 
 def _check_weights(w: dict, d: int, want: dict) -> torch.device:
     """Raise unless each w[k] has shape want[k] and all lie on one CUDA
-    device as contiguous float32, the 2-d ones and the LayerNorm's 16-byte
-    aligned; return the device."""
+    device as contiguous tensors, the 2-d ones of ``wtype(w)`` (float32
+    or bf16), the 1-d ones float32, the 2-d ones and the LayerNorm's
+    16-byte aligned; return the device."""
     if d not in DIMS:
         raise ValueError(f"the block and FFN kernels take D in {DIMS}, got "
                          f"{d}")
+    if wtype(w) not in WEIGHT_DTYPES:
+        raise TypeError(f"the block and FFN kernels take {WEIGHT_DTYPES}, "
+                        f"got {wtype(w)}")
     for k, shape in want.items():
         if tuple(w[k].shape) != shape:
             raise ValueError(f"{k} must be {shape}, got {tuple(w[k].shape)}")
-    dev = _build.check_cuda(**{k: w[k] for k in want})
+    dev = _build.check_cuda(
+        dtype=wtype(w), **{k: w[k] for k in want if len(want[k]) == 2})
+    if _build.check_cuda(**{k: w[k] for k in want if len(want[k]) == 1}) \
+            != dev:
+        raise ValueError(f"the biases are not on {dev}")
     for k in want:
         if (len(want[k]) == 2 or k in ("gamma", "beta")) \
                 and w[k].data_ptr() % 16:  # read 16 bytes at a time

@@ -9,8 +9,12 @@ tails end with (ops/block_tc.py over csrc/blocks.cu): lin1 writes h = [x |
 msg] W1 + b1 and its LayerNorm partials, lin2 merges them and adds
 GELU(LN(h)) W2 + b2 to x. ``fused_ffn_residual_pair`` runs the two images
 of a composed cross block through one pair of launches. The weights are
-stored K-major once per parameter tree (``prepared``). On CPU tensors both
-run ``fused_ffn_residual_plain``.
+stored K-major once per parameter tree and type (``prepared``). On CPU
+tensors both run ``fused_ffn_residual_plain``.
+
+Under ``mp`` (bf16 x and msg) B4 has a bf16 form (ffn.py:85-91 fed bf16):
+W1 and W2 in bf16, fp32 sums, h, LayerNorm and GELU in fp32, the hidden
+rounded to bf16 before lin2 (ffn.py:63), the output x + y rounded once.
 """
 
 from __future__ import annotations
@@ -31,15 +35,18 @@ def fused_ffn_residual_plain(
     x: torch.Tensor, msg: torch.Tensor, p: nn.Params
 ) -> torch.Tensor:
     """x, msg (B, N, D); p {"lin1": {w (2D, 2D), b}, "ln": {scale, bias},
-    "lin2": {w (2D, D), b}} (models/lightglue.py::_ffn_init layout)."""
-    d = x.shape[-1]
-    w1 = p["lin1"]["w"]
-    s = x @ w1[:d] + msg @ w1[d:] + p["lin1"]["b"]
+    "lin2": {w (2D, D), b}} (models/lightglue.py::_ffn_init layout). bf16
+    x and msg: the weights rounded to bf16, fp32 sums and LayerNorm, the
+    hidden rounded before lin2, a bf16 output."""
+    d, dt = x.shape[-1], x.dtype
+    w1 = p["lin1"]["w"].to(dt).float()
+    s = x.float() @ w1[:d] + msg.float() @ w1[d:] + p["lin1"]["b"]
     mean = s.mean(-1, keepdim=True)
     c = s - mean
     var = (c * c).mean(-1, keepdim=True)
     hn = c * torch.rsqrt(var + 1e-5) * p["ln"]["scale"] + p["ln"]["bias"]
-    return x + (nn.gelu(hn) @ p["lin2"]["w"] + p["lin2"]["b"])
+    y = nn.gelu(hn).to(dt).float() @ p["lin2"]["w"].to(dt).float()
+    return (x.float() + (y + p["lin2"]["b"])).to(dt)
 
 
 def _sources(p: nn.Params) -> Tuple[torch.Tensor, ...]:
@@ -51,28 +58,36 @@ def _where(t: torch.Tensor) -> tuple:
     return t.data_ptr(), tuple(t.shape), tuple(t.stride())
 
 
-def prepared(p: nn.Params) -> dict:
-    """``block_tc.ffn_weights(p)``, built once per parameter tree: keyed by
-    the lin1 weight tensor (for a layer of stacked parameters, which
-    ``nn.index_params`` hands out as a new view each call, by the stacked
-    tensor and the view's offset), and rebuilt if any tensor it reads lies
-    elsewhere. An edit in place of a tensor is not seen: build a new tree."""
+def prepared(p: nn.Params, dtype: torch.dtype = torch.float32) -> dict:
+    """``block_tc.ffn_weights(p, dtype)``, built once per parameter tree
+    and type: keyed by the lin1 weight tensor (for a layer of stacked
+    parameters, which ``nn.index_params`` hands out as a new view each
+    call, by the stacked tensor and the view's offset) and the type, and
+    rebuilt if any tensor it reads lies elsewhere. An edit in place of a
+    tensor is not seen: build a new tree."""
     w1 = p["lin1"]["w"]
     base = w1 if w1._base is None else w1._base
     per_view = _PREPARED.setdefault(base, {})
     where = tuple(_where(t) for t in _sources(p))
-    got = per_view.get(where[0])
+    got = per_view.get((where[0], dtype))
     if got is None or got[0] != where:
-        got = per_view[where[0]] = (where, block_tc.ffn_weights(p))
+        got = per_view[where[0], dtype] = (where,
+                                           block_tc.ffn_weights(p, dtype))
     return got[1]
 
 
 def _launch(xs: Sequence[torch.Tensor], msgs: Sequence[torch.Tensor],
             p: nn.Params) -> List[torch.Tensor]:
     """B4's two launches over the rows of every segment (one or two images
-    of one batch size) on CUDA tensors: the activations and the weights as
-    given are checked before any preparation."""
-    dev = _build.check_cuda(**{f"x{i}": x for i, x in enumerate(xs)},
+    of one batch size) on CUDA tensors, fp32 or bf16 (the bf16 form): the
+    activations and the weights as given are checked before any
+    preparation."""
+    dt = xs[0].dtype
+    if dt not in block_tc.WEIGHT_DTYPES:
+        raise TypeError(f"fused_ffn_residual takes {block_tc.WEIGHT_DTYPES}, "
+                        f"got {dt}")
+    dev = _build.check_cuda(dtype=dt,
+                            **{f"x{i}": x for i, x in enumerate(xs)},
                             **{f"msg{i}": m for i, m in enumerate(msgs)})
     d = xs[0].shape[-1]
     if d not in DIMS:
@@ -85,10 +100,10 @@ def _launch(xs: Sequence[torch.Tensor], msgs: Sequence[torch.Tensor],
     if _build.check_cuda(**{f"w{i}": t for i, t in enumerate(_sources(p))}) \
             != dev:
         raise ValueError(f"the FFN weights are not on {dev}")
-    w = prepared(p)
+    w = prepared(p, dt)
     block_tc.check_ffn_weights(w, d)
     out = block_tc.launch_ffn(dev, w, xs, msgs)
-    _build.count("fused_ffn_residual")
+    _build.count(_build.typed("fused_ffn_residual", dt))
     return out
 
 

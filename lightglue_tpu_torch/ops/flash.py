@@ -16,6 +16,12 @@ query tiles of a call would leave SMs idle, each tile's keys are walked by
 S blocks whose states a second launch merges in split order.
 ``split_partial_plain`` and ``merge_splits_plain`` state that merge in
 plain PyTorch; only the tests use them.
+
+Under ``mp`` (bf16 q, k, v) K1 has a bf16 form at head_dim 64
+(``lg_flash_sdpa_bf16``): the TPU kernels fed bf16 operands, q scaled in
+bf16, fp32 scores, softmax and sums, the weights rounded to bf16 before
+P V, the output bf16 (``flash_sdpa_plain`` states it for bf16 inputs). B1'
+(head_dim 128) has none: the matcher refuses ``mp`` there.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ LOG2E = 1.4426950408889634  # exp(x) == exp2(x * LOG2E)
 SHIFT_CLAMP = 100.0  # largest exp2 argument of the constant-shift softmax
 QUERY_TILE = 64  # query rows of a block of the walk (csrc/attn_tc.cuh)
 MAX_SPLITS = 8  # key splits of one query tile
+BF16_HEAD_DIM = 64  # the bf16 walk's head_dim (mp)
 # Work of an SM running two blocks of the walk against one alone: 1.18 at
 # head_dim 128 and 1.19-1.24 at 64 (scripts/attn_split.py, H100 SXM: the
 # tile time per SM at B 16 against B 4 or B 1 without splits)
@@ -53,6 +60,26 @@ def shift_weights(s: torch.Tensor, shift2: float) -> torch.Tensor:
     return torch.exp2(torch.clamp(s - shift2, max=SHIFT_CLAMP))
 
 
+def bf16_value(x: float) -> float:
+    """x rounded to bf16 (nearest even), as a Python float."""
+    return float(torch.tensor(x, dtype=torch.bfloat16))
+
+
+def wide(t: torch.Tensor) -> torch.Tensor:
+    """A bf16 tensor as fp32, the type the kernels sum in; any other type
+    as it is."""
+    return t.float() if t.dtype == torch.bfloat16 else t
+
+
+def scaled(t: torch.Tensor, scale: float) -> torch.Tensor:
+    """t * scale as the TPU kernels scale q, in t's type, as fp32 values:
+    for a bf16 t the scale and the product each rounded to bf16 (nearest
+    even)."""
+    if t.dtype == torch.bfloat16:
+        return (t.float() * bf16_value(scale)).to(t.dtype).float()
+    return t * scale
+
+
 def flash_sdpa_plain(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -65,22 +92,25 @@ def flash_sdpa_plain(
     q (B, H, Nq, d); k, v (B, H, Nk, d); k_valid (B, Nk) bool.
     ``shift`` (nats): the constant-shift form, scale * log2(e) folded into
     q and e = exp2(min(s - shift * log2(e), 100)) in place of
-    exp(s - max_j s); an all-masked row is 0 because every e is."""
-    scale = q.shape[-1] ** -0.5
-    if shift is not None:
-        scale *= LOG2E
-    s = (q * scale) @ k.transpose(-1, -2)
+    exp(s - max_j s); an all-masked row is 0 because every e is. bf16
+    inputs (_attn_kernel_4d and _attn_kernel_shift fed bf16): q scaled in
+    bf16, fp32 scores, softmax and row sums, the weights rounded to bf16
+    before P V, a bf16 output."""
+    dt = q.dtype
+    scale = q.shape[-1] ** -0.5 * (1.0 if shift is None else LOG2E)
+    s = scaled(q, scale) @ wide(k).transpose(-1, -2)
     if k_valid is not None:
         s = s + key_bias(k_valid)[:, None, None, :]
     if shift is not None:
         e = shift_weights(s, shift * LOG2E)
-        return (e @ v) / torch.clamp(e.sum(-1, keepdim=True), min=1e-30)
-    e = torch.exp(s - s.amax(-1, keepdim=True))
-    o = (e @ v) / torch.clamp(e.sum(-1, keepdim=True), min=1e-30)
-    if k_valid is not None:
+    else:
+        e = torch.exp(s - s.amax(-1, keepdim=True))
+    o = (wide(e.to(dt)) @ wide(v)) / torch.clamp(
+        e.sum(-1, keepdim=True), min=1e-30)
+    if k_valid is not None and shift is None:
         o = torch.where(k_valid.any(-1)[:, None, None, None], o,
                         torch.zeros_like(o))
-    return o
+    return o.to(dt)
 
 
 def flash_sdpa(
@@ -90,24 +120,38 @@ def flash_sdpa(
     k_valid: Optional[torch.Tensor] = None,
     shift: Optional[float] = None,
 ) -> torch.Tensor:
-    """K1 on CUDA tensors, the plain version on CPU tensors."""
+    """K1 on CUDA tensors (fp32, or its bf16 form for bf16 q, k, v), the
+    plain version on CPU tensors."""
     if q.device.type == "cpu":
         return flash_sdpa_plain(q, k, v, k_valid, shift)
-    dev = _build.check_cuda(q=q, k=k, v=v)
+    bf16 = q.dtype == torch.bfloat16
+    dev = _build.check_cuda(dtype=q.dtype, q=q, k=k, v=v)
     b, h, nq, d = q.shape
     nk = k.shape[2]
     if d not in HEAD_DIMS:
         raise ValueError(f"flash_sdpa kernel takes head_dim in {HEAD_DIMS}, "
                          f"got {d}")
+    check_bf16_head_dim(q.dtype, d)
     if k.shape != (b, h, nk, d) or v.shape != k.shape or nk < 1:
         raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k.shape)} "
                          f"v {tuple(v.shape)}")
     scale = d ** -0.5 * (1.0 if shift is None else LOG2E)
+    if bf16:  # the TPU kernels scale q by the scale in q's dtype
+        scale = bf16_value(scale)
     o = torch.empty_like(q)
     launch_attention(dev, [(q, k, v, mask_arg(k_valid, (b, nk), dev), o)],
                      scale, None if shift is None else shift * LOG2E)
-    _build.count("flash_sdpa_shift" if shift is not None else "flash_sdpa")
+    _build.count(_build.typed(
+        "flash_sdpa_shift" if shift is not None else "flash_sdpa", q.dtype))
     return o
+
+
+def check_bf16_head_dim(dtype: torch.dtype, d: int) -> None:
+    """Raise unless a bf16 launch has the bf16 walk's head_dim."""
+    if dtype == torch.bfloat16 and d != BF16_HEAD_DIM:
+        raise NotImplementedError(
+            f"the bf16 attention kernels take head_dim {BF16_HEAD_DIM}, got "
+            f"{d}; head_dim 128 under mp is in ROADMAP.md, Queue B.3")
 
 
 def flash_cross_pair_plain(
@@ -202,14 +246,15 @@ def split_plan(walks: Tuple[Tuple[int, int], ...], sms: int,
 
 
 @functools.lru_cache(maxsize=None)
-def walk_shape(index: int, d: int) -> Tuple[int, int, int]:
-    """(keys of a tile, blocks an SM holds, SMs) of the walk at head_dim
-    ``d`` on CUDA device ``index``: the kernel's own tile and occupancy,
-    and the card's SMs."""
+def walk_shape(index: int, d: int, dtype: torch.dtype = torch.float32
+               ) -> Tuple[int, int, int]:
+    """(keys of a tile, blocks an SM holds, SMs) of the walk in ``dtype``
+    (fp32, or its bf16 form) at head_dim ``d`` on CUDA device ``index``:
+    the kernel's own tile and occupancy, and the card's SMs."""
     key_tile, per_sm = ctypes.c_int(), ctypes.c_int()
     dev = torch.device("cuda", index)
-    _build.launch("lg_attention_shape", dev, d, ctypes.byref(key_tile),
-                  ctypes.byref(per_sm))
+    _build.launch(_build.typed("lg_attention_shape", dtype), dev, d,
+                  ctypes.byref(key_tile), ctypes.byref(per_sm))
     sms = torch.cuda.get_device_properties(index).multi_processor_count
     return key_tile.value, per_sm.value, sms
 
@@ -218,7 +263,7 @@ def planned_splits(walks) -> Tuple[int, ...]:
     """``split_plan`` for the walks of one launch (each (q, k, ...) on one
     CUDA device), from the card's own key tile, occupancy and SMs."""
     q = walks[0][0]
-    key_tile, per_sm, sms = walk_shape(q.device.index, q.shape[-1])
+    key_tile, per_sm, sms = walk_shape(q.device.index, q.shape[-1], q.dtype)
     return split_plan(tuple(
         (q.shape[0] * q.shape[1] * -(-w[0].shape[2] // QUERY_TILE),
          -(-w[1].shape[2] // key_tile)) for w in walks), sms, per_sm)
@@ -252,9 +297,14 @@ def launch_attention(dev: torch.device, walks, scale: float,
     q and out (B, H, Nq, d), k and v (B, H, Nk, d); queries scaled by
     ``scale``; ``shift2`` (K1 only) selects the constant-shift form. The
     key splits follow ``split_plan`` (``splits``: a study's candidates);
-    the scratch of a split walk is allocated here."""
+    the scratch of a split walk is allocated here. bf16 walks (K1 only)
+    launch the bf16 form; their scratch stays fp32."""
     b, h, _, d = walks[0][0].shape
-    key_tile = walk_shape(walks[0][0].device.index, d)[0]
+    dt = walks[0][0].dtype
+    if dt == torch.bfloat16 and len(walks) != 1:
+        raise NotImplementedError("B1' has no bf16 form (head_dim 128 under "
+                                  "mp: ROADMAP.md, Queue B.3)")
+    key_tile = walk_shape(walks[0][0].device.index, d, dt)[0]
     if splits is None:
         splits = planned_splits(walks)
     scratch = []
@@ -266,10 +316,10 @@ def launch_attention(dev: torch.device, walks, scale: float,
                     else [None, None])
     if len(walks) == 1:
         q, k, v, valid, o = walks[0]
-        _build.launch("lg_flash_sdpa", dev, q, aligned16(k), aligned16(v),
-                      valid, o, *scratch, b, h, q.shape[2], k.shape[2], d,
-                      int(shift2 is not None), splits[0], float(scale),
-                      float(shift2 or 0.0))
+        _build.launch(_build.typed("lg_flash_sdpa", dt), dev, q,
+                      aligned16(k), aligned16(v), valid, o, *scratch, b, h,
+                      q.shape[2], k.shape[2], d, int(shift2 is not None),
+                      splits[0], float(scale), float(shift2 or 0.0))
     else:
         (qk0, qk1, v1, valid1, m0), (_, _, v0, valid0, m1) = walks
         qk0, qk1, v0, v1 = map(aligned16, (qk0, qk1, v0, v1))

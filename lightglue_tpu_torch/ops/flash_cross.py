@@ -18,6 +18,14 @@ leave SMs idle (``cross_splits``). ``cross_launches_plain`` states those
 launches in plain PyTorch (``walk_partial_plain`` for one split's state,
 ``column_shift_plain`` for the column direction's device-side shift, the
 states merged by ``flash.merge_splits_plain``); only the tests use it.
+
+Under ``mp`` (bf16 inputs) K2 has a bf16 form (``lg_fused_cross_bf16``, the
+TPU kernels fed bf16): qk0 scaled in bf16 before the kernel (as the TPU
+wrapper does, and both directions read that product), fp32 scores and
+softmax, the weights rounded to bf16 before each P V and the sums adding
+the rounded weights (the TPU kernels sum through a ones column of the bf16
+V), bf16 messages; ``fused_cross_attention_plain`` states it for bf16
+inputs.
 """
 
 from __future__ import annotations
@@ -29,7 +37,7 @@ import torch
 
 from .. import _build
 from . import flash
-from .flash import LOG2E, key_bias, shift_weights
+from .flash import LOG2E, key_bias, shift_weights, wide
 
 # The only head_dim of K2 and B6, as in the TPU kernels (their ones column
 # in V sits at lane 64); the matcher takes B1' above it.
@@ -56,42 +64,50 @@ def fused_cross_attention_plain(
     shift: Optional[float] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """qk0, v0 (B, H, M, d); qk1, v1 (B, H, N, d); valid0 (B, M),
-    valid1 (B, N) bool. Returns (m0 (B, H, M, d), m1 (B, H, N, d))."""
+    valid1 (B, N) bool. Returns (m0 (B, H, M, d), m1 (B, H, N, d)). bf16
+    inputs (_fused_cross_kernel and _single_pass_cross_kernel fed bf16):
+    q0s = qk0 * scale in bf16; exact, e = exp(s - row max) rounded before
+    P V1 and summed rounded, the column weights (e * exp(row max - S) *
+    valid0) rounded; shift, one rounded exp2 for both directions; bf16
+    messages."""
+    dt = qk0.dtype
     b, _, m, _ = qk0.shape
     n = qk1.shape[2]
     bias0, bias1 = _biases(valid0, valid1, b, m, n, qk0.device)
-    scale = qk0.shape[-1] ** -0.5
-    if shift is not None:
-        scale *= LOG2E
-    s = (qk0 * scale) @ qk1.transpose(-1, -2)
+    scale = qk0.shape[-1] ** -0.5 * (1.0 if shift is None else LOG2E)
+    s = flash.scaled(qk0, scale) @ wide(qk1).transpose(-1, -2)
     if shift is not None:
         if bias0 is not None:
             s = s + bias0[:, None, :, None] + bias1[:, None, None, :]
-        e = shift_weights(s, shift * LOG2E)
-        m0 = (e @ v1) / torch.clamp(e.sum(-1, keepdim=True), min=1e-30)
-        m1 = (e.transpose(-1, -2) @ v0) / torch.clamp(
-            e.sum(-2)[..., None], min=1e-30)
-        return m0, m1
-    if bias1 is not None:
-        s = s + bias1[:, None, None, :]
-    e = torch.exp(s - s.amax(-1, keepdim=True))
-    m0 = (e @ v1) / torch.clamp(e.sum(-1, keepdim=True), min=1e-30)
-    ec = torch.exp(s - s.amax((-2, -1), keepdim=True))
-    if bias0 is not None:
-        ec = ec * (bias0 >= 0).float()[:, None, :, None]
-    m1 = (ec.transpose(-1, -2) @ v0) / torch.clamp(
+        e = ec = wide(shift_weights(s, shift * LOG2E).to(dt))
+    else:
+        if bias1 is not None:
+            s = s + bias1[:, None, None, :]
+        m_row = s.amax(-1, keepdim=True)
+        er = torch.exp(s - m_row)
+        e = wide(er.to(dt))
+        if dt == torch.bfloat16:  # the TPU kernel's e_c: from e, rounded
+            ec = wide((er * torch.exp(m_row - m_row.amax(-2, keepdim=True))
+                       ).to(dt))
+        else:
+            ec = torch.exp(s - s.amax((-2, -1), keepdim=True))
+        if bias0 is not None:
+            ec = ec * (bias0 >= 0).float()[:, None, :, None]
+    m0 = (e @ wide(v1)) / torch.clamp(e.sum(-1, keepdim=True), min=1e-30)
+    m1 = (ec.transpose(-1, -2) @ wide(v0)) / torch.clamp(
         ec.sum(-2)[..., None], min=1e-30)
-    return m0, m1
+    return m0.to(dt), m1.to(dt)
 
 
 def cross_splits(dev: torch.device, b: int, h: int, m: int, n: int,
-                 mode: int) -> Tuple[int, int]:
+                 mode: int, dtype: torch.dtype = torch.float32
+                 ) -> Tuple[int, int]:
     """Key splits (direction 0 over image 1's n keys, direction 1 over
     image 0's m) from ``flash.split_plan`` and the walk's own tile and
-    occupancy on ``dev``: the exact modes' row and column launches are
-    planned each alone, the shift mode's one launch over both directions
-    together."""
-    key_tile, per_sm, sms = flash.walk_shape(dev.index, HEAD_DIM)
+    occupancy on ``dev`` (its bf16 form's for a bf16 ``dtype``): the exact
+    modes' row and column launches are planned each alone, the shift
+    mode's one launch over both directions together."""
+    key_tile, per_sm, sms = flash.walk_shape(dev.index, HEAD_DIM, dtype)
     tiles = lambda k: -(-k // key_tile)  # noqa: E731
     walks = ((b * h * -(-m // flash.QUERY_TILE), tiles(n)),
              (b * h * -(-n // flash.QUERY_TILE), tiles(m)))
@@ -112,10 +128,12 @@ def launch_cross(qk0, qk1, v0, v1, valid0, valid1, mode: int, scale: float,
     maximum over valid rows only, and m0 is 0 where image 1 has no valid
     point) or SHIFT (log2-domain scores, ``shift2`` = shift * log2(e)).
     ``splits`` (direction 0's, direction 1's): a study's candidates, else
-    ``cross_splits``; the scratch of a split walk is allocated here."""
+    ``cross_splits``; the scratch of a split walk is allocated here. bf16
+    inputs launch the bf16 form (its scratch fp32, its messages bf16)."""
     b, h, m, d = qk0.shape
     n = qk1.shape[2]
-    dev = _build.check_cuda(qk0=qk0, qk1=qk1, v0=v0, v1=v1)
+    dt = qk0.dtype
+    dev = _build.check_cuda(dtype=dt, qk0=qk0, qk1=qk1, v0=v0, v1=v1)
     if d != HEAD_DIM:
         raise ValueError(
             f"the cross attention kernel takes head_dim {HEAD_DIM}, got {d}")
@@ -129,8 +147,8 @@ def launch_cross(qk0, qk1, v0, v1, valid0, valid1, mode: int, scale: float,
     valid0 = flash.mask_arg(valid0, (b, m), dev)
     valid1 = flash.mask_arg(valid1, (b, n), dev)
     if splits is None:
-        splits = cross_splits(dev, b, h, m, n, mode)
-    key_tile = flash.walk_shape(dev.index, d)[0]
+        splits = cross_splits(dev, b, h, m, n, mode, dt)
+    key_tile = flash.walk_shape(dev.index, d, dt)[0]
     scratch = []
     for nq, nk, s in ((m, n, splits[0]), (n, m, splits[1])):
         flash.split_ranges(nk, s, key_tile)  # raises unless 1 <= s <= T
@@ -142,9 +160,8 @@ def launch_cross(qk0, qk1, v0, v1, valid0, valid1, mode: int, scale: float,
     qk0, qk1, v0, v1 = map(flash.aligned16, (qk0, qk1, v0, v1))
     m0 = torch.empty_like(qk0)
     m1 = torch.empty_like(qk1)
-    _build.launch("lg_fused_cross", dev, qk0, qk1, v0, v1, valid0, valid1,
-                  m0, m1, *scratch, rmax, b, h, m, n, mode, *splits,
-                  float(scale), float(shift2))
+    _build.launch(_build.typed("lg_fused_cross", dt), dev, qk0, qk1, v0, v1, valid0, valid1, m0, m1, *scratch, rmax, b, h,
+                  m, n, mode, *splits, float(scale), float(shift2))
     return m0, m1
 
 
@@ -157,18 +174,28 @@ def fused_cross_attention(
     valid1: Optional[torch.Tensor] = None,
     shift: Optional[float] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K2 on CUDA tensors, the plain version on CPU tensors."""
+    """K2 on CUDA tensors (fp32, or its bf16 form for bf16 inputs), the
+    plain version on CPU tensors."""
     if qk0.device.type == "cpu":
         return fused_cross_attention_plain(qk0, qk1, v0, v1, valid0, valid1,
                                            shift)
     d = qk0.shape[-1]
+    scale = d ** -0.5 * (1.0 if shift is None else LOG2E)
+    dt = qk0.dtype
+    if dt == torch.bfloat16:
+        # the TPU wrapper's q0s = qk0 * scale in bf16, read by both
+        # directions (the column walk's keys)
+        _build.check_cuda(dtype=qk0.dtype, qk0=qk0)
+        flash.check_bf16_head_dim(qk0.dtype, d)
+        qk0 = qk0 * flash.bf16_value(scale)  # bf16 x bf16, rounded once
+        scale = 1.0
     if shift is None:
-        out = launch_cross(qk0, qk1, v0, v1, valid0, valid1, EXACT, d ** -0.5)
-        _build.count("fused_cross_attention")
+        out = launch_cross(qk0, qk1, v0, v1, valid0, valid1, EXACT, scale)
+        _build.count(_build.typed("fused_cross_attention", dt))
     else:
-        out = launch_cross(qk0, qk1, v0, v1, valid0, valid1, SHIFT,
-                           d ** -0.5 * LOG2E, shift * LOG2E)
-        _build.count("fused_cross_attention_shift")
+        out = launch_cross(qk0, qk1, v0, v1, valid0, valid1, SHIFT, scale,
+                           shift * LOG2E)
+        _build.count(_build.typed("fused_cross_attention_shift", dt))
     return out
 
 

@@ -19,6 +19,14 @@ csrc/flash_cross.cu, ``flash_cross.launch_cross`` in mode EXACT_BLOCK or
 SHIFT; ``block_tc.tail_chain``: the to_out + FFN tail, each
 of its launches over the rows of both images) or raises; on a CPU tensor
 it runs ``fused_cross_block_plain``, the same steps' plain versions.
+
+Under ``mp`` (``prepare(..., mp=True)``, bf16 x0 and x1) B6 runs its bf16
+form, the TPU kernel fed bf16 (flash_cross_block.py:94-183), rounding
+where it rounds: the scaled to_qk rounded to bf16; qk0, qk1 and v rounded
+after the bias (:112-113, :115-116); e, and e_c from the rounded e, rounded
+before each P V, the sums adding them (:124, :131, :135); m0 and m1
+rounded before to_out (:147, :159); the message (:176-179), the FFN's
+hidden (:67) and the output rounded.
 """
 
 from __future__ import annotations
@@ -36,19 +44,21 @@ MAX_FUSED_N = 1024  # the JAX package's limit; it decides which kernels run
 
 
 def prepare(p: nn.Params, num_heads: int,
-            shift: Optional[float] = None) -> dict:
+            shift: Optional[float] = None, mp: bool = False) -> dict:
     """Kernel weights from one layer's cross_attn params {"to_qk", "to_v",
     "to_out": {w (D, D), b}, "ffn": ...}: w_in (2D, D) and b_in (2D) with
     rows [qk | v], qk scaled by sqrt(scale [* log2(e)]); to_out and the FFN
-    K-major (block_tc.tail_weights)."""
+    K-major (block_tc.tail_weights). ``mp``: the matrices rounded to bf16
+    after the scale is folded in, the biases fp32."""
+    dt = torch.bfloat16 if mp else torch.float32
     d = p["to_qk"]["w"].shape[0]
     root = ((d // num_heads) ** -0.5
             * (1.0 if shift is None else LOG2E)) ** 0.5
     return {
         "w_in": torch.cat([p["to_qk"]["w"] * root, p["to_v"]["w"]],
-                          1).t().contiguous(),
+                          1).t().to(dt).contiguous(),
         "b_in": torch.cat([p["to_qk"]["b"] * root, p["to_v"]["b"]]),
-        **block_tc.tail_weights(p["to_out"], p["ffn"]),
+        **block_tc.tail_weights(p["to_out"], p["ffn"], dt),
         "num_heads": num_heads,
         "shift": shift,
     }
@@ -62,30 +72,33 @@ def cross_block_attention_plain(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """B6's attention: (m0, m1) from qk0, v0 (B, H, M, hd) and qk1, v1 (B,
     H, N, hd), the scale already folded into qk0 and qk1; mask0 (B, M),
-    mask1 (B, N) bool."""
+    mask1 (B, N) bool. bf16 inputs: fp32 scores and softmax, e and e_c
+    (from the rounded e) rounded before P V and summed rounded, bf16
+    messages."""
+    dt = qk0.dtype
     b, _, m, _ = qk0.shape
     n = qk1.shape[2]
     bias0, bias1 = _biases(mask0, mask1, b, m, n, qk0.device)
-    s = qk0 @ qk1.transpose(-1, -2)
+    s = qk0.float() @ qk1.float().transpose(-1, -2)
     if bias0 is not None:
         s = s + bias0[:, None, :, None] + bias1[:, None, None, :]
     if shift is not None:
-        e = ec = shift_weights(s, shift * LOG2E)
+        e = ec = shift_weights(s, shift * LOG2E).to(dt).float()
     else:
         m_row = s.amax(-1, keepdim=True)
-        e = torch.exp(s - m_row)
+        e = torch.exp(s - m_row).to(dt).float()
         f = torch.exp(m_row - m_row.amax(-2, keepdim=True))
         if bias0 is not None:
             f = f * (bias0 >= 0).float()[:, None, :, None]
-        ec = e * f
-    m0 = (e @ v1) / torch.clamp(e.sum(-1, keepdim=True), min=1e-30)
-    m1 = (ec.transpose(-1, -2) @ v0) / torch.clamp(
+        ec = (e * f).to(dt).float()
+    m0 = (e @ v1.float()) / torch.clamp(e.sum(-1, keepdim=True), min=1e-30)
+    m1 = (ec.transpose(-1, -2) @ v0.float()) / torch.clamp(
         ec.sum(-2)[..., None], min=1e-30)
     if bias0 is not None and shift is None:
         zero = lambda t, bias: torch.where(  # noqa: E731
             (bias >= 0).any(-1)[:, None, None, None], t, torch.zeros_like(t))
         m0, m1 = zero(m0, bias1), zero(m1, bias0)
-    return m0, m1
+    return m0.to(dt), m1.to(dt)
 
 
 def fused_cross_block_plain(
@@ -106,14 +119,14 @@ def fused_cross_block(
     mask0: Optional[torch.Tensor] = None,
     mask1: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """B6 on CUDA tensors, the plain version on CPU tensors. ``w`` from
-    ``prepare``."""
+    """B6 on CUDA tensors (its bf16 form on bf16 weights and inputs), the
+    plain version on CPU tensors. ``w`` from ``prepare``."""
     if x0.device.type == "cpu":
         return fused_cross_block_plain(w, x0, x1, mask0, mask1)
     b, m, d = x0.shape
     n = x1.shape[1]
     dev = block_tc.check_block_weights(w, d)
-    if _build.check_cuda(x0=x0, x1=x1) != dev:
+    if _build.check_cuda(dtype=block_tc.wtype(w), x0=x0, x1=x1) != dev:
         raise ValueError(f"x0 is on {x0.device}, the weights on {dev}")
     if x1.shape != (b, n, d) or m < 1 or n < 1:
         raise ValueError(f"x0 {tuple(x0.shape)} and x1 {tuple(x1.shape)} "
@@ -127,5 +140,5 @@ def fused_cross_block(
         m0, m1 = launch_cross(p0[0], p1[0], p0[1], p1[1], mask0, mask1,
                               SHIFT, 1.0, shift * LOG2E)
     out0, out1 = block_tc.launch_tail(dev, w, [m0, m1], [x0, x1])
-    _build.count("fused_cross_block")
+    _build.count(_build.typed("fused_cross_block", block_tc.wtype(w)))
     return out0, out1

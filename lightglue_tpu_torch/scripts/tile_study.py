@@ -78,13 +78,13 @@ VARIANTS = {
     # lin1 and lin2 (B4, and the tail's last two launches) with each 8-deep
     # step's products summed apart and added in fp32, as B2 does
     "lin1, lin2 step sums": {"blocks.cu": [
-        ("    lin1_tc_kernel(CatSrc a, const float* __restrict__ w, StatsEpi e, int K,\n"
+        ("    lin1_tc_kernel(CatSrc<E> a, const E* __restrict__ w, StatsEpi e, int K,\n"
          "                   int R) {\n  lg::gemm::product<T>(",
-         "    lin1_tc_kernel(CatSrc a, const float* __restrict__ w, StatsEpi e, int K,\n"
+         "    lin1_tc_kernel(CatSrc<E> a, const E* __restrict__ w, StatsEpi e, int K,\n"
          "                   int R) {\n  lg::gemm::product<T, true>("),
-        ("    lin2_tc_kernel(LnSrc a, const float* __restrict__ w, ResidualEpi e,\n"
+        ("    lin2_tc_kernel(LnSrc a, const E* __restrict__ w, ResidualEpi<E> e,\n"
          "                   int K, int R) {\n  lg::gemm::product<T>(",
-         "    lin2_tc_kernel(LnSrc a, const float* __restrict__ w, ResidualEpi e,\n"
+         "    lin2_tc_kernel(LnSrc a, const E* __restrict__ w, ResidualEpi<E> e,\n"
          "                   int K, int R) {\n  lg::gemm::product<T, true>(")]},
     "3 stages, warp 64x32": {"gemm_tc.cuh": [
         ("constexpr int STAGES = 2;", "constexpr int STAGES = 3;"),

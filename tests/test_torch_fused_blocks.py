@@ -279,7 +279,8 @@ def test_config_defaults_and_refusals():
     conf = configs.LightGlueConfig()
     assert conf.fused_self and conf.fused_cross and conf.fused_ffn
     configs.LightGlueConfig(self_softmax_shift=12.0, cross_softmax_shift=12.0)
-    for bad in (dict(mp=True), dict(compaction_bucket=64)):
+    assert configs.LightGlueConfig(mp=True).mp  # bf16 at head_dim 64
+    for bad in (dict(mp=True, num_heads=2), dict(compaction_bucket=64)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             configs.LightGlueConfig(**bad)
 

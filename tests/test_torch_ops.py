@@ -60,15 +60,19 @@ def test_config_fields_and_presets_match_jax():
     dict(compaction_bucket=256),
 ])
 def test_unported_options_raise(option):
-    """bf16 and two-stage compaction are refused with their ROADMAP entry;
-    the whole-block kernels and both softmax shifts are ported (B5, B6,
-    B1s, B3s) and taken."""
-    if "mp" in option or "compaction_bucket" in option:
+    """Two-stage compaction, and bf16 at head_dim 128, are refused with
+    their ROADMAP entry; the whole-block kernels, both softmax shifts and
+    bf16 at head_dim 64 are ported (B5, B6, B1s, B3s, their bf16 forms)
+    and taken."""
+    if "compaction_bucket" in option:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             configs.lightglue_config("superpoint", **option)
     else:
         conf = configs.lightglue_config("superpoint", **option)
         assert all(getattr(conf, k) == v for k, v in option.items())
+    if "mp" in option:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            configs.lightglue_config("superpoint", num_heads=2, **option)
 
 
 def test_nn_layers():
