@@ -146,7 +146,22 @@ Phases, any failure raising (non-zero exit, no result line):
      form (events and CUDA-graph device time, the bf16 bound: FLOPs / 989
      TFLOP/s, bytes at 2 a bf16 element / 3.35 TB/s), and BatchMatcher at
      mp (exact and shift 12) against fp32 at B 1 and B 16, fixed and
-     adaptive.
+     adaptive; the extractors' bf16 forms likewise (B7, B8, B10 at B 2;
+     B11, B12 at B 1, 2 and 8, their bound the fp32 form's), SuperPoint
+     and ALIKED ms per image at mp and fp32 (B 1, B 8) and
+     make_end_to_end pairs/s at mp and fp32 (B 8), in turns; f. the
+     extractors at mp: the bf16 forms of B7 and B8 (and B8's conv2a launch)
+     at (2, ., 768, 1024) and small ragged shapes, B8 on inputs 1 and 8
+     elements off a 16-byte boundary, B10 at aliked-n16 and t16, B11 and
+     B12 at B 1, 2 and 8, each against its bf16 plain version under both
+     bf16 bounds at all but 1e-4 of the outputs and equal at all but 1e-2
+     (flip_check: a sum rounded before a bias that cancels it flips by one
+     bf16 step of the sum), each launch twice bit for bit, with two probes
+     the check must fail (B7 with a tap dropped; rounded only at its
+     output); SuperPoint(mp=True) -> LightGlue(mp=True) through match_pair
+     (2048 keypoints) and make_end_to_end (B 8, 1024), ALIKED(mp=True) ->
+     LightGlue("aliked", mp=True) in three configurations: only bf16
+     extractor kernels launched, each against the CPU port at mp.
 A JSON object of the kernels (with each one's bound, from its shapes, and
 the 3xTF32 bound of the tensor-core kernels: the walk, B5, B6, K2, B2, B7,
 B8, B10; the bf16 forms' rows bounded by the bf16 tensor cores) and
@@ -255,6 +270,17 @@ KERNELS = {
                               "lightglue_tpu/ops/flash_self.py:84"),
     "fused_cross_block_bf16": ("lightglue_tpu_torch/csrc/blocks.cu",
                                "lightglue_tpu/ops/flash_cross_block.py:94"),
+    # the extractors' bf16 forms (mp)
+    "fused_stem_bf16": ("lightglue_tpu_torch/csrc/stem.cu",
+                        "lightglue_tpu/ops/stem.py:77"),
+    "fused_block2_bf16": ("lightglue_tpu_torch/csrc/stem2.cu",
+                          "lightglue_tpu/ops/stem2.py:46"),
+    "fused_aliked_stem_bf16": ("lightglue_tpu_torch/csrc/aliked_stem.cu",
+                               "lightglue_tpu/ops/aliked_stem.py:56"),
+    "score_head_lazy_bf16": ("lightglue_tpu_torch/csrc/score_head.cu",
+                             "lightglue_tpu/ops/score_head.py:161"),
+    "score_head_cplane_bf16": ("lightglue_tpu_torch/csrc/score_head.cu",
+                               "lightglue_tpu/ops/score_head.py:119"),
 }
 # Rows of the redesigned attention walk (K1, B1s, B1') in phase 4
 ATTENTION_ROWS = ("flash_sdpa", "flash_sdpa_shift", "flash_sdpa d 128",
@@ -356,6 +382,42 @@ MP_REL = 2e-2
 # random sum that reaches 2^-7.6 rms at the largest of K1's 4M outputs at
 # 4096 keys (0.65 of the bound). A skipped 64-key tile reads 78-91 of it.
 MP_SCALED = 2.0 ** -6
+# The extractors' bf16 forms (phase 5f): the share of outputs allowed over
+# either bound, where an fp32 sum rounded to bf16 before a bias or a
+# batch-norm shift flips to the other neighbour and the shift cancels it
+# (flip_check; on an H100 80GB HBM3 at 700 W, B8 at B 2 had 7-9 of 6.3M
+# outputs over the scaled bound). A dropped tap moves most outputs (the
+# probe in phase 5f).
+MP_FLIPS = 1e-4
+# ... and the share of bf16 outputs allowed to differ at all (one in 1e3 on
+# B8 at B 2: the sums that round to the other neighbour)
+MP_DIFFER = 1e-2
+# The extractors at mp against the CPU port at mp (phase 5f): matches0
+# equal on the keypoints in common, and those keypoints' share. Two correct
+# bf16 extractions that sum in other orders part on the keypoints whose
+# scores sit within bf16 noise of the cut (an H100 80GB HBM3 at 700 W,
+# 768 x 1024, 2048 keypoints: 0.983 of SuperPoint's in common with the CPU
+# port at mp, 0.961 with the card's own fp32 path; ALIKED's stand-in
+# weights give a nearly flat score map, 0.53-0.64 and 0.38-0.43), so the
+# share is held at a floor (MP_KPT: SuperPoint's, ALIKED's) and, besides,
+# above the share in common with the card's fp32 extraction of the pair
+MP_AGREE = 0.99
+MP_KPT = (0.97, 0.45)
+# ALIKED's soft-argmax (temperature 0.1) moves a keypoint by a few 1e-2 px
+# when bf16 moves its scores: keypoints pair within half a pixel at mp
+MP_KPT_TOL = 0.5
+# The extractors' fp32 kernels, none of which an mp extractor launches
+FP32_EXTRACT = ("fused_stem", "fused_block2", "fused_aliked_stem",
+                "score_head_lazy", "score_head_cplane")
+# ALIKED at mp in phase 5f: (name, extractor options, bf16 kernels it must
+# launch), besides B9
+MP_ALIKED_PATHS = (
+    ("default (lazy, fused_stem)", {}, ("fused_aliked_stem_bf16",)),
+    ("fused_score_head", dict(fused_score_head=True),
+     ("fused_aliked_stem_bf16", "score_head_lazy_bf16")),
+    ("dense, fused_score_head", dict(lazy_fm=False, fused_score_head=True),
+     ("score_head_cplane_bf16",)),
+)
 # The conv kernels sum each output over (input channel, tap) in another
 # order than cuDNN may: held to a bound relative to the output's size.
 CONV_TOL = 1e-4
@@ -3782,6 +3844,408 @@ def mp_timing_phase(mx, x, bx, params):
     return times, bounds
 
 
+# --- phase 5f: the extractors' bf16 path (mp) ----------------------------------
+
+
+def flip_stats(got, ref):
+    """(largest reach of MP_REL, of the scaled bound, share of outputs over
+    either, share of outputs not equal, largest |got - ref|)."""
+    g, r = got.float(), ref.float()
+    d = (g - r).abs()
+    rms = r.square().mean(-1, keepdim=True).sqrt()
+    rel = d / (MP_REL * r.abs().clamp(min=1.0))
+    scaled = torch.where(d == 0, torch.zeros_like(d),
+                         d / (MP_SCALED * (r.abs() + rms)))
+    n = d.numel()
+    return (float(rel.max()), float(scaled.max()),
+            int(((rel > 1) | (scaled > 1)).sum()) / n, int((d > 0).sum()) / n,
+            float(d.max()))
+
+
+def flip_faults(stats, dtype):
+    """What fails flip_check: outputs over either bound beyond MP_FLIPS, or
+    (bf16 outputs) outputs that differ at all beyond MP_DIFFER."""
+    return stats[2] > MP_FLIPS or (dtype == BF16 and stats[3] > MP_DIFFER)
+
+
+def flip_check(errs, name, label, got, ref, dtype=BF16):
+    """An extractor's bf16 form against its bf16 plain version: both of
+    mp_check's bounds, at all but MP_FLIPS of the outputs, and (bf16
+    outputs) equal at all but MP_DIFFER of them. Each rounds an fp32 sum to
+    bf16 before a bias or a batch-norm shift (as the TPU kernel does); a sum
+    within fp32 noise of a rounding boundary rounds to either neighbour, and
+    where the shift cancels most of it the one bf16 step is large against
+    the output."""
+    if got.dtype != dtype or ref.dtype != dtype:
+        raise AssertionError(f"{label}: {got.dtype} / {ref.dtype}, not {dtype}")
+    if not bool(torch.isfinite(got.float()).all()):
+        raise AssertionError(f"{label}: not finite")
+    stats = flip_stats(got, ref)
+    print(f"  {label}: of |kernel - plain| <= {MP_REL:g} max(1, |plain|) "
+          f"{stats[0]:.3f}, of the scaled bound {stats[1]:.3f}; outputs over "
+          f"either {stats[2]:.2e} (tol {MP_FLIPS:g}), not equal {stats[3]:.2e}"
+          + (f" (tol {MP_DIFFER:g})" if dtype == BF16 else "")
+          + f", max_abs_err {stats[4]:.3e}", flush=True)
+    if flip_faults(stats, dtype):
+        raise AssertionError(f"{label}: {stats}")
+    errs[name] = max(errs.get(name, 0.0), stats[4])
+
+
+def twice(label, fn):
+    """fn() launched twice: the outputs (a tensor or a tuple), equal to the
+    bit."""
+    a, b = fn(), fn()
+    for x, y in zip(*(t if isinstance(t, tuple) else (t,) for t in (a, b))):
+        if not torch.equal(x, y):
+            raise AssertionError(f"{label}: two launches differ")
+    return a
+
+
+def mp_extract_kernel_phase(sp_params, ap, ax):
+    """Phase 5f, kernels: each bf16 form against its bf16 plain version
+    (flip_check), each launch twice equal to the bit: B7 and B8 (and B8's
+    conv2a launch) at (2, ., 768, 1024) and at a small ragged shape, B8 on
+    inputs 1 and 8 elements off a 16-byte boundary, B10 at aliked-n16 and
+    t16 (B 2 and small), B11 and B12 at B 1, 2 and 8 on the ALIKED images'
+    branch parts. Probes: B7 with one of conv1b's taps zeroed, and rounded
+    only at its output, must break the check. Returns (errors, the B 2
+    inputs for timing)."""
+    phase("5f the extractors' bf16 kernels (mp) against their bf16 plain "
+          "versions")
+    errs = {}
+    rng = np.random.default_rng(67)
+    img = torch.from_numpy(np.stack([image_pair(rng, H, W)[0] for _ in range(2)])
+                           ).cuda()[:, None]
+    g = torch.Generator(device="cuda").manual_seed(68)
+    p1 = {"conv1a": sp_params["conv1a"], "conv1b": sp_params["conv1b"]}
+    p2 = {"conv2a": sp_params["conv2a"], "conv2b": sp_params["conv2b"]}
+    for x in (img, torch.rand(1, 1, 36, 76, generator=g, device="cuda")):
+        shape = tuple(x.shape)
+        got = twice("fused_stem_bf16", lambda: stem.fused_stem(p1, x, mp=True))
+        ref = stem.fused_stem_plain(p1, x, mp=True)
+        flip_check(errs, "fused_stem_bf16", f"fused_stem_bf16 {shape}", got, ref)
+        y = ref
+        for off in (0, 1, 8):  # elements off a 16-byte boundary
+            if off:
+                buf = torch.empty(y.numel() + off, device="cuda", dtype=BF16)
+                y = buf[off:].view_as(ref)
+                y.copy_(ref)
+            tag = f"{tuple(y.shape)}" + (f", {off} elements off 16 bytes" if off else "")
+            for name, kern, plain, p in (
+                    ("fused_block2_bf16", stem2.fused_block2,
+                     stem2.fused_block2_plain, p2),
+                    ("fused_block2_bf16", stem2.conv3x3_relu,
+                     stem2.conv3x3_relu_plain, p2["conv2a"])):
+                label = name if kern is stem2.fused_block2 else "its conv2a launch"
+                got = twice(label, lambda: kern(p, y))
+                flip_check(errs, name, f"{label} {tag}", got, plain(p, y))
+            if shape[2] != H:
+                break
+    # probes: what the check reads for a kernel that drops one of conv1b's
+    # taps, or rounds only at its output
+    cut = {"conv1a": p1["conv1a"], "conv1b": {
+        "w": p1["conv1b"]["w"].clone(), "b": p1["conv1b"]["b"]}}
+    cut["conv1b"]["w"][:, :, 1, 1] = 0
+    ref = stem.fused_stem_plain(p1, img, mp=True)
+    for what, bad in (("a tap dropped", stem.fused_stem_plain(cut, img, mp=True)),
+                      ("rounded only at the output",
+                       stem.fused_stem_plain(p1, img).to(BF16))):
+        stats = flip_stats(bad, ref)
+        print(f"  probe, B7 {what}: outputs over either bound {stats[2]:.3e}, "
+              f"not equal {stats[3]:.3e} (flip_check fails above {MP_FLIPS:g} "
+              f"and {MP_DIFFER:g})", flush=True)
+        if not flip_faults(stats, BF16):
+            raise AssertionError(f"the bf16 check cannot see B7 {what}")
+
+    rgbs = torch.from_numpy(np.stack([rgb(image_pair(rng, H, W)[0])
+                                      for _ in range(2)])).cuda()
+    rgbs = rgbs.permute(0, 3, 1, 2).contiguous().to(BF16)
+    t16 = aliked_params("aliked-t16")
+    for name, p in (("aliked-n16", ap), ("aliked-t16", t16)):
+        sp_ = {"block1": p["block1"], "conv1": p["conv1"]}
+        for x in (rgbs, torch.rand(1, 3, 34, 70, generator=g, device="cuda").to(BF16)):
+            got = twice("fused_aliked_stem_bf16",
+                        lambda: aliked_stem.fused_aliked_stem_kernel(sp_, x))
+            ref = aliked_stem.fused_aliked_stem_plain(sp_, x)
+            for part, a, b in (("y1", got[0], ref[0]), ("x1p", got[1], ref[1])):
+                flip_check(errs, "fused_aliked_stem_bf16",
+                           f"fused_aliked_stem_bf16 {name} {tuple(x.shape)} {part}",
+                           a, b)
+    sh = ap["score_head"]
+    for b in (2, 1, 8):
+        parts = [p[:b].contiguous() for p in ax["parts8"]]
+        s0 = score_head.upsampled_sum(*parts)
+        for name, kern, plain in (
+                ("score_head_lazy_bf16",
+                 lambda: score_head.score_head_lazy_kernel(sh, *parts, mp=True),
+                 lambda: score_head.score_head_lazy_plain(sh, *parts, mp=True)),
+                ("score_head_cplane_bf16",
+                 lambda: score_head.score_head_cplane_kernel(sh, s0, mp=True),
+                 lambda: score_head.score_tail_plain(sh, s0, mp=True))):
+            got = twice(name, kern)
+            flip_check(errs, name, f"{name} ({b}, 8, {H}, {W})", got, plain(),
+                       torch.float32)
+    torch.cuda.synchronize()
+    return errs, {"img": img, "stem_out": stem.fused_stem_plain(p1, img, mp=True),
+                  "rgb": rgbs[:2], "parts8": ax["parts8"]}
+
+
+def mp_common(gpu, cpu, tol):
+    """(keypoints in common (least of the two images), matches0 equal on
+    the common keypoints): two (feats0, feats1, matches) of one pair, the
+    card's and the CPU port's."""
+    common = [common_keypoints(gpu[s], cpu[s], tol) for s in (0, 1)]
+    shares = [len(common[s]) / max(1, gpu[s]["valid"].sum()) for s in (0, 1)]
+    other = {int(i): int(j) for i, j in common[1]}
+    gm, cm = gpu[2]["matches0"], cpu[2]["matches0"]
+    same = [(-1 if gm[i] < 0 else other.get(int(gm[i]), -2)) == int(cm[j])
+            for i, j in common[0]]
+    return min(shares), float(np.mean(same)) if same else 1.0
+
+
+def e2e_feats(e2e, i):
+    """Pair i of an E2EOutput as match_pair's (feats0, feats1, matches)."""
+    f = [{"keypoints": getattr(e2e, f"feats{s}").keypoints[i].cpu().numpy(),
+          "descriptors": getattr(e2e, f"feats{s}").descriptors[i].cpu().numpy(),
+          "valid": getattr(e2e, f"feats{s}").valid[i].cpu().numpy()}
+         for s in (0, 1)]
+    m = {k: getattr(e2e.matches, k)[i].cpu().numpy()
+         for k in ("matches0", "matches1", "matching_scores0")}
+    m["stop"] = e2e.matches.stop
+    return (*f, m)
+
+
+def mp_extract_path_phase(mparams, sp_params, ap):
+    """Phase 5f, main paths at mp: images -> SuperPoint(mp=True) ->
+    LightGlue("superpoint", mp=True) through match_pair (2048 keypoints)
+    and make_end_to_end (B 8, 1024 keypoints, fixed), and images ->
+    ALIKED(mp=True) -> LightGlue("aliked", mp=True) in MP_ALIKED_PATHS'
+    configurations: only bf16 extractor kernels launched, each against the
+    CPU port at mp (matches0 on the keypoints in common >= MP_AGREE; their
+    share >= MP_KPT and above the share in common with the card's fp32
+    extraction of the same pair). Returns the launch counts."""
+    rng = np.random.default_rng(71)
+    pairs = [image_pair(rng, H, W) for _ in range(8)]
+    total = dict.fromkeys(KERNELS, 0)
+    phase("5f main path at mp: images -> SuperPoint(mp=True) -> "
+          "LightGlue(mp=True), match_pair and make_end_to_end (B 8, 1024)")
+    ext = SuperPoint(params=sp_params, device="cuda", mp=True)
+    matcher = LightGlue("superpoint", params=mparams, device="cuda", mp=True)
+    run = end_to_end.make_end_to_end(
+        sp.forward, sp_params, SuperPointConfig(max_num_keypoints=1024, mp=True),
+        matcher.params, matcher.conf.replace(**FIXED))
+    im0, im1 = (torch.from_numpy(np.stack([p[i] for p in pairs]))[..., None].cuda()
+                for i in (0, 1))
+    sizes = torch.tensor([[W, H]] * 8, dtype=torch.float32, device="cuda")
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    out = match_pair(ext, matcher, *pairs[0][:2])
+    e2e = run(im0, im1, sizes, sizes)
+    torch.cuda.synchronize()
+    counts = _build.launch_counts()
+    print(f"  launch counts: { {k: c for k, c in counts.items() if c} }")
+    for k in ("fused_stem_bf16", "fused_block2_bf16", "simple_nms",
+              "fused_self_block_bf16", "fused_filter_matches"):
+        if counts[k] < 1:
+            raise AssertionError(f"{k} was not launched at mp")
+    for k in FP32_EXTRACT + FP32_MATCHER:
+        if counts[k]:
+            raise AssertionError(f"{k} (fp32) was launched at mp")
+    for k, c in counts.items():
+        total[k] += c
+    check_pair_output("match_pair at mp", *out, (W, H), (W, H))
+    for i in range(8):
+        check_pair_output(f"make_end_to_end at mp B 8, pair {i}",
+                          *e2e_feats(e2e, i), (W, H), (W, H))
+    cpu_sp = nn.params_to(sp_params, "cpu")
+    cpu_ext = SuperPoint(params=cpu_sp, device="cpu", mp=True)
+    cpu_matcher = LightGlue("superpoint", params=mparams, device="cpu", mp=True)
+    cpu = match_pair(cpu_ext, cpu_matcher, *pairs[0][:2])
+    crun = end_to_end.make_end_to_end(
+        sp.forward, cpu_sp, SuperPointConfig(max_num_keypoints=1024, mp=True),
+        cpu_matcher.params, cpu_matcher.conf.replace(**FIXED))
+    ce2e = crun(im0[:1].cpu(), im1[:1].cpu(), sizes[:1].cpu(), sizes[:1].cpu())
+    f32 = match_pair(SuperPoint(params=sp_params, device="cuda"), matcher,
+                     *pairs[0][:2])
+    fe2e = end_to_end.make_end_to_end(
+        sp.forward, sp_params, SuperPointConfig(max_num_keypoints=1024),
+        matcher.params, matcher.conf.replace(**FIXED))(im0[:1], im1[:1],
+                                                       sizes[:1], sizes[:1])
+    for label, a, b, c in (("match_pair", out, cpu, f32),
+                           ("make_end_to_end pair 0", e2e_feats(e2e, 0),
+                            e2e_feats(ce2e, 0), e2e_feats(fe2e, 0))):
+        mp_agree(label, a, b, c, 0.0, MP_KPT[0])
+
+    views = [(rgb(a), rgb(b)) for a, b, _ in pairs[:2]]
+    amatcher = LightGlue("aliked", device="cuda", mp=True)
+    cpu_amatcher = LightGlue("aliked", device="cpu", mp=True)
+    cpu_ap = nn.params_to(ap, "cpu")
+    for label, cfg, must in MP_ALIKED_PATHS:
+        phase(f"5f main path at mp: images -> ALIKED(mp=True, {label}) -> "
+              "LightGlue('aliked', mp=True), match_pair at 2048 keypoints")
+        ext = ALIKED(params=ap, device="cuda", mp=True, **cfg)
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        out = match_pair(ext, amatcher, *views[0])
+        torch.cuda.synchronize()
+        counts = _build.launch_counts()
+        print(f"  launch counts: { {k: c for k, c in counts.items() if c} }")
+        for k in must + ("simple_nms", "fused_self_block_bf16"):
+            if counts[k] < 1:
+                raise AssertionError(f"ALIKED {label} at mp: {k} not launched")
+        for k in FP32_EXTRACT + FP32_MATCHER:
+            if counts[k]:
+                raise AssertionError(f"ALIKED {label} at mp: {k} (fp32) launched")
+        for k, c in counts.items():
+            total[k] += c
+        check_pair_output(f"ALIKED {label} at mp", *out, (W, H), (W, H))
+        cpu = match_pair(ALIKED(params=cpu_ap, device="cpu", mp=True, **cfg),
+                         cpu_amatcher, *views[0])
+        f32 = match_pair(ALIKED(params=ap, device="cuda", **cfg), amatcher,
+                         *views[0])
+        mp_agree(f"ALIKED {label}", out, cpu, f32, MP_KPT_TOL, MP_KPT[1])
+    return total
+
+
+def mp_agree(label, gpu, cpu, fp32, tol, floor):
+    """The card at mp against the CPU port at mp on one pair: matches0 on
+    the keypoints in common >= MP_AGREE, their share >= floor and above
+    the share the card's mp keypoints have in common with its fp32 ones."""
+    share, same = mp_common(gpu, cpu, tol)
+    ref = mp_common(gpu, fp32, tol)[0]
+    print(f"  {label} against the CPU port at mp: keypoints in common within "
+          f"{tol} px {share:.6f} (tol {floor:g}, and above {ref:.6f}, the "
+          f"share in common with the card's fp32 keypoints), matches0 equal on "
+          f"them {same:.6f} (tol {MP_AGREE:g})", flush=True)
+    if share < floor or share <= ref or same < MP_AGREE:
+        raise AssertionError(f"{label} at mp: the card disagrees with the CPU "
+                             "port")
+
+
+def mp_extract_rows(mx5, sp_params, ap):
+    """Phase 5e's extractor rows: {row: (bf16 form, its plain version, its
+    fp32 form on the same values, (FLOPs, bytes))} at B 2, 768 x 1024 (B11
+    and B12 also at B 1 and 8). The bf16 bound counts the convolutions'
+    products and bf16 maps at 2 bytes (the image of B7 and the score maps
+    fp32); B11's and B12's stays the fp32 form's (FFMA work, fp32 maps)."""
+    img, x2, rgbs = mx5["img"], mx5["stem_out"], mx5["rgb"]
+    p1 = {"conv1a": sp_params["conv1a"], "conv1b": sp_params["conv1b"]}
+    p2 = {"conv2a": sp_params["conv2a"], "conv2b": sp_params["conv2b"]}
+    stem_p = {"block1": ap["block1"], "conv1": ap["conv1"]}
+    x2f, rgbf = x2.float(), rgbs.float()
+    sh = ap["score_head"]
+    n = 2 * H * W
+    fb = kernel_bounds()
+    rows = {
+        "fused_stem_bf16": (
+            lambda: stem.fused_stem(p1, img, mp=True),
+            lambda: stem.fused_stem_plain(p1, img, mp=True),
+            lambda: stem.fused_stem(p1, img),
+            (fb["fused_stem"][0], n * 4 + n // 4 * 64 * 2)),
+        "fused_block2_bf16": (
+            lambda: stem2.fused_block2(p2, x2),
+            lambda: stem2.fused_block2_plain(p2, x2),
+            lambda: stem2.fused_block2(p2, x2f),
+            (fb["fused_block2"][0], n // 4 * 64 * 2 + n // 16 * 64 * 2)),
+        "fused_aliked_stem_bf16": (
+            lambda: aliked_stem.fused_aliked_stem_kernel(stem_p, rgbs),
+            lambda: aliked_stem.fused_aliked_stem_plain(stem_p, rgbs),
+            lambda: aliked_stem.fused_aliked_stem_kernel(stem_p, rgbf),
+            (fb["fused_aliked_stem"][0], n * (3 + 32 + 16 / 4) * 2)),
+    }
+    for b in (2, 1, 8):
+        parts = [p[:b].contiguous() for p in mx5["parts8"]]
+        s0 = score_head.upsampled_sum(*parts)
+        sfx = "" if b == 2 else f" B {b}"
+        rows["score_head_lazy_bf16" + sfx] = (
+            lambda parts=parts: score_head.score_head_lazy_kernel(sh, *parts, mp=True),
+            lambda parts=parts: score_head.score_head_lazy_plain(sh, *parts, mp=True),
+            lambda parts=parts: score_head.score_head_lazy_kernel(sh, *parts),
+            fb["score_head_lazy" + sfx])
+        rows["score_head_cplane_bf16" + sfx] = (
+            lambda s0=s0: score_head.score_head_cplane_kernel(sh, s0, mp=True),
+            lambda s0=s0: score_head.score_tail_plain(sh, s0, mp=True),
+            lambda s0=s0: score_head.score_head_cplane_kernel(sh, s0),
+            fb["score_head_cplane" + sfx])
+    return rows
+
+
+def mp_extract_timing_phase(mx5, mparams, sp_params, ap):
+    """Phase 5e, extractors: each bf16 form beside its plain version and
+    its fp32 form (CUDA events: plain, kernel, fp32, fp32, kernel, plain;
+    device time from CUDA-graph replays, kernel, fp32, fp32, kernel) and
+    its bound; SuperPoint and ALIKED ms per image at mp and fp32, B 1 and
+    8; make_end_to_end pairs/s at mp and fp32, B 8 (host clock, in turns).
+    Returns ({row: (kernel ms, plain ms, None)}, {row: (FLOPs, bytes)},
+    {row: (device ms, None)})."""
+    phase("5e timing at mp: the extractors' bf16 kernels beside their plain "
+          "versions and fp32 forms (CUDA events; device time by CUDA graphs)")
+    times, bounds, graph_times = {}, {}, {}
+    for name, (kern, plain, f32, bound) in mp_extract_rows(
+            mx5, sp_params, ap).items():
+        a, b, c, d, e, g = (time_cuda(fn, iters=10) for fn in
+                            (plain, kern, f32, f32, kern, plain))
+        kd, fd, fd2, kd2 = (attn_split.graph_ms(fn, calls=10)
+                            for fn in (kern, f32, f32, kern))
+        times[name] = ((b + e) / 2, (a + g) / 2, None)
+        bounds[name] = bound
+        graph_times[name] = ((kd + kd2) / 2, None)
+        peak = PEAK_FLOPS if name.startswith("score_head") else PEAK_BF16
+        t_ops, t_bytes = bound[0] / peak * 1e3, bound[1] / PEAK_BYTES * 1e3
+        print(f"  {name}: kernel {(b + e) / 2:.4f} ms, plain {(a + g) / 2:.4f}"
+              f" ms, fp32 form {(c + d) / 2:.4f} ms (runs {b:.4f}/{e:.4f}, "
+              f"{a:.4f}/{g:.4f}, {c:.4f}/{d:.4f}); device time: kernel "
+              f"{(kd + kd2) / 2:.4f}, fp32 form {(fd + fd2) / 2:.4f} ms (runs "
+              f"{kd:.4f}/{kd2:.4f}, {fd:.4f}/{fd2:.4f}); bound "
+              f"{max(t_ops, t_bytes):.4f} ms ({'operations' if t_ops >= t_bytes else 'bytes'}"
+              f"; operations {t_ops:.4f}, bytes {t_bytes:.4f})", flush=True)
+
+    phase("5e end to end at mp: SuperPoint and ALIKED ms per image, "
+          "make_end_to_end pairs/s, mp against fp32 (in turns)")
+    rng = np.random.default_rng(73)
+    pool = [image_pair(rng, H, W) for _ in range(8)]
+    gray = torch.from_numpy(np.stack([p[0] for p in pool]))[..., None].cuda()
+    colour = torch.from_numpy(np.stack([rgb(p[0]) for p in pool])).cuda()
+    for label, fwd, params, conf, imgs in (
+            ("SuperPoint", sp.forward, sp_params, SuperPointConfig(), gray),
+            ("ALIKED", al.forward, ap, ALIKEDConfig(), colour)):
+        for bsz in (1, 8):
+            ms = {}
+            for mp in (False, True, True, False):
+                c = conf.replace(mp=mp)
+                ms.setdefault(mp, []).append(time_cuda(
+                    lambda: fwd(params, c, imgs[:bsz]), iters=5) / bsz)
+            print(f"  {label} extraction B {bsz}, {H}x{W}: fp32 "
+                  f"{np.mean(ms[False]):.3f} ms per image (runs "
+                  f"{ms[False][0]:.3f}/{ms[False][1]:.3f}), mp "
+                  f"{np.mean(ms[True]):.3f} (runs {ms[True][0]:.3f}/"
+                  f"{ms[True][1]:.3f})", flush=True)
+    im1 = torch.from_numpy(np.stack([p[1] for p in pool]))[..., None].cuda()
+    sizes = torch.tensor([[W, H]] * 8, dtype=torch.float32, device="cuda")
+    lgp = LightGlue("superpoint", params=mparams, device="cuda").params
+    runs = {mp: end_to_end.make_end_to_end(
+        sp.forward, sp_params, SuperPointConfig(max_num_keypoints=1024, mp=mp),
+        lgp, lightglue_config("superpoint", mp=mp, **FIXED)) for mp in (False, True)}
+    ms = {False: [], True: []}
+    for mp in (False, True, True, False):
+        run = runs[mp]
+        for _ in range(2):
+            run(gray, im1, sizes, sizes)
+        torch.cuda.synchronize()
+        for _ in range(6):
+            t0 = time.perf_counter()
+            run(gray, im1, sizes, sizes)
+            torch.cuda.synchronize()
+            ms[mp].append((time.perf_counter() - t0) * 1e3)
+    for mp in (False, True):
+        q1, med, q3 = np.percentile(ms[mp], [25, 50, 75])
+        print(f"  make_end_to_end fixed B 8, {H}x{W}, 1024 keypoints, "
+              f"{'mp' if mp else 'fp32'}: {8 * 1e3 / med:.1f} pairs/s (median "
+              f"{med:.2f} ms a call, quartiles {q1:.2f}-{q3:.2f}, "
+              f"{len(ms[mp])} calls)", flush=True)
+    return times, bounds, graph_times
+
+
 def mp_profile_phase(params):
     phase("P profile at mp: BatchMatcher(mp=True) (CUDA graphs) at 1024 "
           "keypoints, B 1 and B 16, beside fp32")
@@ -3831,6 +4295,8 @@ def main():
     errs.update(al_errs)
     mx = mp_inputs(x, bx)
     errs.update(mp_kernel_phase(mx))
+    e_errs, mx5 = mp_extract_kernel_phase(sp_params, al_params, ax)
+    errs.update(e_errs)
     for name, err in edge_phase().items():
         errs[name] = max(errs[name], err)
     counts = main_path_phase(params, params2)
@@ -3842,7 +4308,8 @@ def main():
                  lambda: sequence_phase(params, sp_params),
                  lambda: mp_matcher_phase(params),
                  lambda: mp_serving_phase(params),
-                 lambda: mp_extraction_phase(sp_params)):
+                 lambda: mp_extraction_phase(sp_params),
+                 lambda: mp_extract_path_phase(params, sp_params, al_params)):
         for k, c in path().items():
             counts[k] += c
     serving_memory_phase(params)
@@ -3856,7 +4323,11 @@ def main():
     serving_timing_phase(params, sp_params)
     mp_times, mp_bounds = mp_timing_phase(mx, x, bx, params)
     times.update(mp_times)
-    kernels, bounds = [], {**kernel_bounds(), **mp_bounds}
+    e_times, e_bounds, e_graph = mp_extract_timing_phase(mx5, params, sp_params,
+                                                         al_params)
+    times.update(e_times)
+    graph_times.update(e_graph)
+    kernels, bounds = [], {**kernel_bounds(), **mp_bounds, **e_bounds}
     # the tensor-core kernels: their 3xTF32 bound beside the fp32 one
     tc_rows = (ATTENTION_ROWS + BLOCK_ROWS + CROSS_ROWS + FFN_ROWS
                + CONV_ROWS + ("fused_aliked_stem",))
@@ -3879,7 +4350,9 @@ def main():
     for name, (src, rep) in KERNELS.items():
         flops, nbytes = bounds[name]
         # fp32: the CUDA cores' peak; the bf16 forms: the bf16 tensor cores'
-        peak = PEAK_BF16 if name.endswith("_bf16") else PEAK_FLOPS
+        # (B11's and B12's keep FFMA fp32 work: the CUDA cores')
+        peak = (PEAK_BF16 if name.endswith("_bf16")
+                and not name.startswith("score_head") else PEAK_FLOPS)
         t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -61,7 +61,8 @@ SIGNATURES.update({
     f"{name}_bf16": SIGNATURES[name] for name in (
         "lg_flash_sdpa", "lg_attention_shape", "lg_fused_cross",
         "lg_project_heads", "lg_tail_out_proj", "lg_tail_lin1",
-        "lg_tail_lin2")})
+        "lg_tail_lin2", "lg_fused_stem", "lg_conv3x3", "lg_aliked_stem",
+        "lg_score_head", "lg_score_head_lazy")})
 
 # Op wrapper -> launches since the last reset.
 KERNELS = (
@@ -74,6 +75,9 @@ KERNELS = (
     "flash_sdpa_bf16", "flash_sdpa_shift_bf16", "fused_cross_attention_bf16",
     "fused_cross_attention_shift_bf16", "fused_ffn_residual_bf16",
     "fused_self_block_bf16", "fused_cross_block_bf16",
+    # the bf16 forms of the extractors' kernels (mp)
+    "fused_stem_bf16", "fused_block2_bf16", "fused_aliked_stem_bf16",
+    "score_head_lazy_bf16", "score_head_cplane_bf16",
 )
 _launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 _lib: Optional[ctypes.CDLL] = None

@@ -15,9 +15,6 @@ from typing import Optional
 _ROADMAP_COMPACTION = "ROADMAP.md, Queue A (A.3, two-stage compaction)"
 _ROADMAP_MP_HEAD128 = ("ROADMAP.md, Queue B.3 (head_dim 128 under mp: B1' "
                        "and the d-128 walk in bf16)")
-_ROADMAP_MP_EXTRACTORS = ("ROADMAP.md, Queue B.3 (the extractors' bf16 "
-                          "kernels: SuperPoint's B7 and B8 next, then "
-                          "ALIKED's B10, B11 and B12)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -140,7 +137,9 @@ class SuperPointConfig:
     ``approx_topk > 0`` and ``twolevel_topk`` select keypoints faster on a
     TPU; the port always selects exactly and says so once
     (``ops.sampling.top_k_keypoints``). ``fused_stem`` switches between the
-    conv1/conv2 kernels (B7, B8) and the plain cuDNN conv chain.
+    conv1/conv2 kernels (B7, B8) and the plain cuDNN conv chain. ``mp`` runs
+    the convolutions in bf16 (B7 and B8 in their bf16 forms); scores and
+    descriptors stay fp32.
     """
 
     descriptor_dim: int = 256
@@ -153,12 +152,6 @@ class SuperPointConfig:
     approx_topk: float = 0.0
     twolevel_topk: bool = False
     fused_stem: bool = True
-
-    def __post_init__(self):
-        if self.mp:
-            raise NotImplementedError(
-                "mp=True (bf16 compute) is not ported to lightglue_tpu_torch "
-                f"yet for the extractors; see {_ROADMAP_MP_EXTRACTORS}.")
 
     def replace(self, **kw) -> "SuperPointConfig":
         return dataclasses.replace(self, **kw)
@@ -176,6 +169,8 @@ class ALIKEDConfig:
     kernel B10 on the lazy path. ``fused_score_head`` runs the score head's
     upsampling and 3x3 tail through B11 on the lazy path and its tail
     through B12 on the dense path; otherwise both are plain PyTorch.
+    ``mp`` runs the encoder and the aggregation in bf16 (B10, B11 and B12 in
+    their bf16 forms); scores and descriptors stay fp32.
     """
 
     model_name: str = "aliked-n16"
@@ -189,12 +184,6 @@ class ALIKEDConfig:
     fused_score_head: bool = False
     lazy_fm: bool = True
     fused_stem: bool = True
-
-    def __post_init__(self):
-        if self.mp:
-            raise NotImplementedError(
-                "mp=True (bf16 compute) is not ported to lightglue_tpu_torch "
-                f"yet for the extractors; see {_ROADMAP_MP_EXTRACTORS}.")
 
     def replace(self, **kw) -> "ALIKEDConfig":
         return dataclasses.replace(self, **kw)

@@ -1,5 +1,6 @@
 // B7: SuperPoint's stem, conv3x3 1 -> 64 + ReLU, conv3x3 64 -> 64 + ReLU,
-// 2x2 max-pool, in one launch, fp32 (conv1b by 3xTF32 on the tensor cores).
+// 2x2 max-pool, in one launch, fp32 (conv1b by 3xTF32 on the tensor cores),
+// and its bf16 form (mp: conv1b on bf16 m16n8k16 tiles).
 //
 // Replaces the TPU kernel lightglue_tpu/ops/stem.py::_stem_kernel
 // (fused_stem_pallas): (B, 1, H, W) image -> (B, 64, H/2, W/2), NCHW here.
@@ -19,6 +20,15 @@
 // runs conv1b as 3xTF32 mma.sync tiles over 9 taps x 64 channels while the
 // split weights stream through a cp.async ring; bias, ReLU and the 2x2
 // max-pool happen in registers before the one write.
+//
+// The bf16 form (lg_fused_stem_bf16, the TPU kernel at mp=True): the same
+// launch with conv_tc.cuh's bf16 element type. Bound on an H100: 58.9
+// GFLOP an image at the 989 TFLOP/s dense bf16 peak, 0.060 ms an image
+// (0.119 at B 2), against 3 MB in and 25 MB of bf16 map out (0.0084 ms).
+// It rounds where _stem_kernel rounds: the image read as bf16, conv1a's
+// weights bf16, conv1a's fp32 sum rounded to bf16 before its fp32 bias,
+// ReLU, bf16 into the staged tile; conv1b's weights bf16, its fp32 sum
+// rounded before its bias; the pooled output bf16.
 #include "conv_tc.cuh"
 
 // img (B, 1, H, W); w1a (64, 9); b1a, b1b (64); w1b prepare_conv's
@@ -27,6 +37,18 @@ extern "C" cudaError_t lg_fused_stem(const float* img, const float* w1a,
                                      const float* b1a, const float* w1b,
                                      const float* b1b, float* out, int B,
                                      int H, int W, cudaStream_t stream) {
-  return lg::conv::launch<lg::conv::StemTile, true, true>(
+  return lg::conv::launch<lg::conv::StemTile, float, true, true>(
+      img, w1a, b1a, w1b, b1b, out, B, H, W, stream);
+}
+
+// The bf16 form: img, w1a, b1a, b1b fp32 as above; w1b prepare_conv's bf16
+// layout (9, 64, 64); out (B, 64, H/2, W/2) bf16.
+extern "C" cudaError_t lg_fused_stem_bf16(const float* img, const float* w1a,
+                                          const float* b1a,
+                                          const lg::tc::bf16* w1b,
+                                          const float* b1b, lg::tc::bf16* out,
+                                          int B, int H, int W,
+                                          cudaStream_t stream) {
+  return lg::conv::launch<lg::conv::StemTile, lg::tc::bf16, true, true>(
       img, w1a, b1a, w1b, b1b, out, B, H, W, stream);
 }

@@ -26,6 +26,13 @@ corner-quad table clamps it to a row that does not exist.
 
 Images enter as (B, H, W, C), the JAX package's layout, H and W multiples
 of 32 (the pipeline pads them); ``image_size`` gives the true extent.
+
+With ``conf.mp`` the image becomes bf16 and the encoder, the aggregation and
+the feature rows run in bf16 (lightglue_tpu/models/aliked.py:725-757): B10,
+B11 and B12 in their bf16 forms, the convs and deformable convs in bf16,
+the score parts summed in fp32 and the score map, the offsets, the
+descriptor head's products and the descriptors fp32, as the JAX package
+at mp.
 """
 
 from __future__ import annotations
@@ -40,6 +47,8 @@ from ..ops import aliked_stem, score_head
 from ..ops.deform import deformable_conv_block
 from ..ops.sampling import bilinear_sample, simple_nms, top_k_keypoints, upsample
 from .superpoint import Features
+
+BF16 = torch.bfloat16
 
 # c1, c2, c3, c4, dim, K, M  (reference aliked.py:625-630)
 CFGS = {
@@ -129,34 +138,80 @@ def _branch(p: nn.Params, x: torch.Tensor) -> torch.Tensor:
 
 def _score_parts(sh: nn.Params, ys, channels_last: bool):
     """The score head's 1x1 stage applied to each branch at its own
-    resolution: four (B, 8, hk, wk) parts whose upsampled sum is s0."""
+    resolution: four (B, 8, hk, wk) parts whose upsampled sum is s0, fp32
+    (bf16 branches with the weights in bf16, fp32 sums)."""
     w0 = sh["0"]["w"][:, :, 0, 0]  # (8, dim)
     parts, c = [], 0
     for y in ys:
         ch = y.shape[-1 if channels_last else 1]
-        wk = w0[:, c:c + ch]
+        wk = w0[:, c:c + ch].to(y.dtype).float()
         c += ch
         parts.append(torch.einsum("bhwc,sc->bshw" if channels_last
-                                  else "bchw,sc->bshw", y, wk).contiguous())
+                                  else "bchw,sc->bshw", y.float(), wk).contiguous())
     if "b" in sh["0"]:
         parts[0] = parts[0] + sh["0"]["b"][:, None, None]
     return parts
+
+
+def _tapmat_bf16(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """A 3x3 conv (no bias) of bf16 x as XLA runs the JAX package's
+    ``conv2d_tapmat`` at mp (lightglue_tpu/nn.py:158-189): each tap's
+    product over the input channels rounded to bf16, the nine shifted
+    partials summed in fp32 in tap order, rounded to bf16."""
+    cout, cin = w.shape[:2]
+    _, _, h, wd = x.shape
+    # every tap's partial at once, channels-last: [ci][tap][co] columns
+    wt = w.to(BF16).float().permute(1, 2, 3, 0).reshape(cin, 9 * cout)
+    u = nn.round_bf16(x.float().permute(0, 2, 3, 1) @ wt)  # (B, H, W, 9 cout)
+    u = torch.nn.functional.pad(u, (0, 0, 1, 1, 1, 1))
+    acc = None
+    for t in range(9):
+        dy, dx = divmod(t, 3)
+        ut = u[:, dy:dy + h, dx:dx + wd, t * cout:(t + 1) * cout]
+        acc = ut if acc is None else acc + ut
+    return acc.permute(0, 3, 1, 2).to(BF16)
+
+
+def _score_tail(sh: nn.Params, parts, fused: bool, lazy: bool, mp: bool):
+    """The score map from the 1x1 parts: B11 (lazy) or B12 (dense) when
+    ``fused``, else the composed tail; at mp the composed path rounds and
+    resamples each coarse part in bf16 and runs the tail in bf16, as the
+    JAX package's XLA path (lightglue_tpu/models/aliked.py:268-285,
+    449-467)."""
+    if fused and lazy:
+        return score_head.score_head_lazy(sh, *parts, mp=mp)
+    if not mp:
+        s0 = score_head.upsampled_sum(*parts)
+        tail = score_head.score_head_cplane if fused else score_head.score_tail_plain
+        return tail(sh, s0)
+    size = parts[0].shape[-2:]
+    s0 = parts[0]
+    for sk in parts[1:]:
+        s0 = s0 + upsample(sk.to(BF16), size).float()
+    if fused:
+        return score_head.score_head_cplane(sh, s0, mp=True)
+    s = nn.selu(s0.to(BF16))
+    s = nn.selu(_tapmat_bf16(sh["2"]["w"], s))
+    s = nn.selu(_tapmat_bf16(sh["4"]["w"], s))
+    return torch.sigmoid(_tapmat_bf16(sh["6"]["w"], s).float())[:, 0]
 
 
 def _dense_raw(params: nn.Params, image: torch.Tensor,
                fused_score: bool = False):
     """(B, 3, H, W) image -> (feature map (B, H, W, dim) channels-last,
     before its L2 normalization, score map (B, H, W)) (reference
-    aliked.py:709-740). B12 scores it when ``fused_score``."""
+    aliked.py:709-740). B12 scores it when ``fused_score``. A bf16 image
+    runs the bf16 path (mp)."""
     x1 = aliked_stem.conv_block(params["block1"], image)
     x2 = _res_block(params["block2"], nn.avg_pool(x1, 2), False)
     x3, x4 = _coarse_blocks(params, x2)
     ys = [_branch(params[f"conv{i}"], x) for i, x in enumerate((x1, x2, x3, x4), 1)]
     size = image.shape[2:]
     fm = torch.cat([ys[0]] + [upsample(y, size) for y in ys[1:]], 1)
-    s0 = score_head.upsampled_sum(*_score_parts(params["score_head"], ys, False))
-    tail = score_head.score_head_cplane if fused_score else score_head.score_tail_plain
-    return fm.permute(0, 2, 3, 1).contiguous(), tail(params["score_head"], s0)
+    parts = _score_parts(params["score_head"], ys, False)
+    score = _score_tail(params["score_head"], parts, fused_score, False,
+                        image.dtype == BF16)
+    return fm.permute(0, 2, 3, 1).contiguous(), score
 
 
 def extract_dense_map(params: nn.Params, image: torch.Tensor,
@@ -171,18 +226,18 @@ def _dense_branches(params: nn.Params, image: torch.Tensor,
                     fused_score: bool = False, fused_stem: bool = True):
     """Encoder and aggregation without the full-resolution feature map:
     returns ((y1, y2, y3, y4) channels-last, score map). B10 runs block 1
-    when ``fused_stem``, B11 the score head when ``fused_score``."""
+    when ``fused_stem``, B11 the score head when ``fused_score``. A bf16
+    image runs the bf16 path (mp)."""
     stem = aliked_stem.fused_aliked_stem if fused_stem \
-        else aliked_stem.fused_aliked_stem_plain
+        else aliked_stem.composed_stem
     y1, x1p = stem({"block1": params["block1"], "conv1": params["conv1"]}, image)
     x2 = _res_block(params["block2"], x1p, False)
     x3, x4 = _coarse_blocks(params, x2)
     ys = [y1] + [_branch(params[f"conv{i}"], x).permute(0, 2, 3, 1).contiguous()
                  for i, x in ((2, x2), (3, x3), (4, x4))]
     parts = _score_parts(params["score_head"], ys, True)
-    head = score_head.score_head_lazy if fused_score \
-        else score_head.score_head_lazy_plain
-    return ys, head(params["score_head"], *parts)
+    return ys, _score_tail(params["score_head"], parts, fused_score, True,
+                           image.dtype == BF16)
 
 
 # ---------------------------------------------------------------------------
@@ -272,15 +327,16 @@ def _offsets(p: nn.Params, patches: torch.Tensor, m: int, max_offset: float):
     offsets as (x, y) (reference view(N, 2, M), aliked.py:571)."""
     b, kp = patches.shape[:2]
     w1 = p["offset_conv1"]["w"].permute(2, 3, 1, 0).reshape(-1, 2 * m)
-    x = nn.selu(patches.reshape(b, kp, -1) @ w1 + p["offset_conv1"]["b"])
+    # fp32 (bf16 rows at mp promote against the fp32 weights, as in JAX)
+    x = nn.selu(patches.reshape(b, kp, -1).float() @ w1 + p["offset_conv1"]["b"])
     x = x @ p["offset_conv2"]["w"][:, :, 0, 0].t() + p["offset_conv2"]["b"]
     x = torch.clamp(x, -max_offset, max_offset)
     return x.reshape(b, kp, 2, m).transpose(2, 3)
 
 
 def _aggregate(p: nn.Params, feats: torch.Tensor) -> torch.Tensor:
-    """(B, K, M, C) samples -> (B, K, C) L2-normalized descriptors."""
-    feats = nn.selu(feats @ p["sf_conv"]["w"][:, :, 0, 0].t())
+    """(B, K, M, C) samples -> (B, K, C) L2-normalized descriptors, fp32."""
+    feats = nn.selu(feats.float() @ p["sf_conv"]["w"][:, :, 0, 0].t())
     descs = torch.einsum("bkpc,pcd->bkd", feats, p["agg_weights"])
     return nn.l2_normalize(descs)
 
@@ -321,7 +377,9 @@ def _branch_rows(y: torch.Tensor, cy: torch.Tensor, cx: torch.Tensor):
     single row or column with weight 0 on the (same) second one."""
     _, hk, wk, _ = y.shape
     y0, x0 = torch.floor(cy), torch.floor(cx)
-    wy, wx = (cy - y0)[..., None], (cx - x0)[..., None]
+    # the lerp in the map's type (bf16 at mp), as the JAX package's
+    wy = (cy - y0)[..., None].to(y.dtype)
+    wx = (cx - x0)[..., None].to(y.dtype)
     y0, x0 = y0.long(), x0.long()
     y1, x1 = torch.clamp(y0 + 1, max=hk - 1), torch.clamp(x0 + 1, max=wk - 1)
     q00, q10, q01, q11 = _gather_rows(
@@ -358,7 +416,8 @@ def sddh_describe_lazy(p: nn.Params, ys, keypoints: torch.Tensor,
     pos = keypoints[:, :, None, :] + _offsets(p, patches, m, max(h, w) / 4.0)
     px, py = pos[..., 0].reshape(b, -1), pos[..., 1].reshape(b, -1)
     x0, y0 = torch.floor(px), torch.floor(py)
-    wx, wy = (px - x0)[..., None], (py - y0)[..., None]
+    wdt = ys[0].dtype  # the lerp in the map's type (bf16 at mp)
+    wx, wy = (px - x0)[..., None].to(wdt), (py - y0)[..., None].to(wdt)
     # the four corners' rows in one evaluation, corner by corner along S
     yi = torch.cat([y0, y0, y0 + 1, y0 + 1], 1)
     xi = torch.cat([x0, x0 + 1, x0, x0 + 1], 1)
@@ -390,6 +449,8 @@ def forward(
     if image.shape[-1] == 1:
         image = image.expand(-1, -1, -1, 3)
     x = image.permute(0, 3, 1, 2).contiguous().float()
+    if conf.mp:
+        x = x.to(BF16)
     h, w = x.shape[2:]
     if conf.lazy_fm:
         ys, score_map = _dense_branches(params, x, conf.fused_score_head,

@@ -3,9 +3,12 @@ lightglue_tpu/models/superpoint.py; reference lightglue/superpoint.py:98-227).
 
 The VGG-style encoder and both heads run in NCHW: conv1/conv2 through the
 stem and block-2 kernels (B7, B8) when ``conf.fused_stem``, else as plain
-cuDNN convs; the rest as cuDNN convs, always in full fp32 (no TF32). NMS is
-kernel B9. Detection is a static-shape top-k with a validity mask, and the
-descriptor lookup is the JAX package's gather-based bilinear sampler.
+cuDNN convs; the rest as cuDNN convs, in full fp32 (no TF32), or with
+``conf.mp`` in bf16 (B7 and B8 in their bf16 forms, the cuDNN convs in
+bf16, the softmax and the descriptor norm in fp32, as the JAX package at
+mp). NMS is kernel B9, on fp32 scores in both. Detection is a
+static-shape top-k with a validity mask, and the descriptor lookup is the
+JAX package's gather-based bilinear sampler.
 Images enter as (B, H, W, C), the JAX package's layout.
 """
 
@@ -74,23 +77,32 @@ def rgb_to_grayscale(image: torch.Tensor) -> torch.Tensor:
 
 
 def dense_forward(
-    params: nn.Params, image: torch.Tensor, fused_stem: bool = True
+    params: nn.Params, image: torch.Tensor, fused_stem: bool = True,
+    mp: bool = False,
 ):
     """Encoder and both heads on (B, H, W, C) images. Returns the
     full-resolution score map (B, H, W) before NMS and the L2-normalized
-    descriptor map (B, H/8, W/8, D) (superpoint.py:158-215)."""
+    descriptor map (B, H/8, W/8, D) (superpoint.py:158-215), both fp32.
+
+    ``mp``: the convolutions in bf16 (lightglue_tpu/models/superpoint.py:
+    85-143): B7 reads the fp32 image and rounds it, the rest runs on bf16
+    maps, the logits' softmax and the descriptors' L2 norm in fp32."""
     if image.shape[-1] == 3:
         image = rgb_to_grayscale(image)
     x = image.permute(0, 3, 1, 2).contiguous().float()
 
-    def cbr(name, x):  # conv + ReLU
+    def cbr(name, x):  # conv + ReLU, in x's type
         return torch.relu(nn.conv2d(params[name], x))
 
     if fused_stem:
         x = stem.fused_stem(
-            {"conv1a": params["conv1a"], "conv1b": params["conv1b"]}, x)
+            {"conv1a": params["conv1a"], "conv1b": params["conv1b"]}, x, mp)
         x = stem2.fused_block2(
             {"conv2a": params["conv2a"], "conv2b": params["conv2b"]}, x)
+    elif mp:  # the plain chain in bf16, as XLA runs it
+        x = x.to(torch.bfloat16)
+        for a, b in (("conv1a", "conv1b"), ("conv2a", "conv2b")):
+            x = nn.max_pool(cbr(b, cbr(a, x)), 2)
     else:
         x = stem2.fused_block2_plain(
             {"conv2a": params["conv2a"], "conv2b": params["conv2b"]},
@@ -102,11 +114,11 @@ def dense_forward(
         # detector head: 65-way softmax, dustbin dropped, 8x8 pixel shuffle
         logits = nn.conv2d(params["convPb"], cbr("convPa", x))
         desc = nn.conv2d(params["convDb"], cbr("convDa", x))
-    scores = torch.softmax(logits, dim=1)[:, :-1]
+    scores = torch.softmax(logits.float(), dim=1)[:, :-1]
     b, _, h, w = scores.shape
     scores = scores.reshape(b, 8, 8, h, w).permute(0, 3, 1, 4, 2)
     scores = scores.reshape(b, h * 8, w * 8)
-    desc = nn.l2_normalize(desc.permute(0, 2, 3, 1), dim=-1)
+    desc = nn.l2_normalize(desc.float().permute(0, 2, 3, 1), dim=-1)
     return scores, desc
 
 
@@ -142,7 +154,8 @@ def forward(
     if image.shape[1] % 8 or image.shape[2] % 8:
         raise ValueError(f"H and W must be multiples of 8, got "
                          f"{tuple(image.shape[1:3])}")
-    scores, desc_map = dense_forward(params, image, fused_stem=conf.fused_stem)
+    scores, desc_map = dense_forward(params, image, fused_stem=conf.fused_stem,
+                                     mp=conf.mp)
     scores = simple_nms(scores, conf.nms_radius)
     # border removal (superpoint.py:181-186), from the true extent if padded
     pad = conf.remove_borders

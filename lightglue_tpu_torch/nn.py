@@ -92,18 +92,43 @@ def fold_batch_norm(p: Params, eps: float = 1e-5):
 
 
 def batch_norm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """Inference batch norm (running statistics) over NCHW channels."""
+    """Inference batch norm (running statistics) over NCHW channels, in x's
+    type (a bf16 x takes its scale and bias in bf16, as lightglue_tpu/nn.py:
+    341-348)."""
     scale, bias = fold_batch_norm(p, eps)
-    return x * scale[:, None, None] + bias[:, None, None]
+    return (x * scale.to(x.dtype)[:, None, None]
+            + bias.to(x.dtype)[:, None, None])
+
+
+_SELU_ALPHA = 1.6732632423543772848170429916717
+_SELU_SCALE = 1.0507009873554804934193349852946
 
 
 def selu(x: torch.Tensor) -> torch.Tensor:
-    return F.selu(x)
+    """SELU; a bf16 x as jax.nn.selu computes it in bf16: its constants
+    rounded to bf16 (JAX's weak-typed scalars take the array's type), each
+    op rounded (expm1, times alpha, times scale), where F.selu rounds once."""
+    if x.dtype != torch.bfloat16:
+        return F.selu(x)
+    alpha, scale = (float(torch.tensor(c).bfloat16())
+                    for c in (_SELU_ALPHA, _SELU_SCALE))
+    neg = alpha * torch.expm1(torch.where(x > 0, 0.0, x))
+    return scale * torch.where(x > 0, x, neg)
 
 
 def avg_pool(x: torch.Tensor, window: int) -> torch.Tensor:
-    """NCHW average pooling, stride = window, VALID."""
-    return F.avg_pool2d(x, window, window)
+    """NCHW average pooling, stride = window, VALID. A bf16 x sums its
+    window in bf16 in row-major order, then divides, as the JAX package's
+    reduce_window in bf16 (lightglue_tpu/models/aliked.py:152-155)."""
+    if x.dtype != torch.bfloat16:
+        return F.avg_pool2d(x, window, window)
+    h, w = x.shape[-2] // window * window, x.shape[-1] // window * window
+    s = None
+    for dy in range(window):
+        for dx in range(window):
+            v = x[..., dy:h:window, dx:w:window]
+            s = v if s is None else s + v
+    return s / (window * window)
 
 
 @contextlib.contextmanager
@@ -120,9 +145,36 @@ def fp32_convs():
         torch.backends.cudnn.allow_tf32 = prev
 
 
+def round_bf16(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to bf16 (nearest even), as float32."""
+    return x.to(torch.bfloat16).float()
+
+
 def conv2d(p: Params, x: torch.Tensor) -> torch.Tensor:
-    """Stride-1 SAME convolution, NCHW with an OIHW weight (odd kernels)."""
-    return F.conv2d(x, p["w"], p.get("b"), padding=p["w"].shape[-1] // 2)
+    """Stride-1 SAME convolution, NCHW with an OIHW weight (odd kernels), in
+    x's type. A bf16 x (mp) convolves with the weight in bf16 and fp32 sums,
+    rounds to bf16, then adds the bias in bf16, as lightglue_tpu/nn.py:
+    112-123 (XLA) does: cuDNN's bf16 convolution on the card; on the CPU
+    an fp32 convolution of the bf16 operands, rounded (PyTorch's CPU bf16
+    convolution is slow)."""
+    pad = p["w"].shape[-1] // 2
+    if x.dtype == torch.float32:
+        return F.conv2d(x, p["w"], p.get("b"), padding=pad)
+    w = p["w"].to(x.dtype)
+    if x.is_cuda:
+        y = F.conv2d(x, w, padding=pad)
+    else:
+        y = F.conv2d(x.float(), w.float(), padding=pad).to(x.dtype)
+    return y + p["b"].to(x.dtype)[:, None, None] if "b" in p else y
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w in x's type: a bf16 x takes w in bf16, the fp32 product of the
+    bf16 operands rounded once (as XLA's bf16 dot with fp32 sums; cuBLAS's
+    bf16 product may reduce in bf16)."""
+    if x.dtype == torch.float32:
+        return x @ w
+    return (x.float() @ w.to(x.dtype).float()).to(x.dtype)
 
 
 def max_pool(x: torch.Tensor, window: int) -> torch.Tensor:
@@ -131,9 +183,11 @@ def max_pool(x: torch.Tensor, window: int) -> torch.Tensor:
 
 
 def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Tensor:
-    """x / max(||x||, eps), torch F.normalize(p=2)."""
-    n = torch.linalg.vector_norm(x, dim=dim, keepdim=True)
-    return x / torch.clamp(n, min=eps)
+    """x / max(||x||, eps), torch F.normalize(p=2); in fp32 for a bf16 x,
+    rounded once at the end (lightglue_tpu/nn.py:356-359)."""
+    xf = x.float()
+    n = torch.linalg.vector_norm(xf, dim=dim, keepdim=True)
+    return (xf / torch.clamp(n, min=eps)).to(x.dtype)
 
 
 def stack_params(params_list) -> Params:

@@ -11,6 +11,12 @@ are NCHW, x1p because block 2's cuDNN convs read it. The aggregation branch
 y1 (B, H, W, CY) is channels-last: its readers take whole pixel rows of it,
 the descriptor head's row gathers (``models.aliked._fm_rows_lazy``) and the
 score head's 1x1 partial, a product over its channels.
+
+A bf16 image (mp) takes the bf16 form: y1 and x1p bf16, rounded where
+``_aliked_stem_kernel`` rounds at mp (lightglue_tpu/ops/aliked_stem.py:
+75-141); its plain version is fp32 convolutions of the rounded operands
+with the rounding at those points. ``composed_stem`` is the composition the
+kernel replaces, in the image's type (XLA's at mp).
 """
 
 from __future__ import annotations
@@ -35,24 +41,101 @@ def conv_block(p: nn.Params, x: torch.Tensor) -> torch.Tensor:
         return nn.selu(nn.batch_norm(p["bn2"], nn.conv2d(p["conv2"], x)))
 
 
-def fused_aliked_stem_plain(
+def composed_stem(
     params: nn.Params, image: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """params {"block1": ConvBlock params, "conv1": {w (CY, C1, 1, 1)}};
-    image (B, 3, H, W). Returns (y1 (B, H, W, CY), x1p (B, C1, H/2, W/2))."""
+    image (B, 3, H, W). Returns (y1 (B, H, W, CY), x1p (B, C1, H/2, W/2)),
+    every op in the image's type (lightglue_tpu/models/aliked.py:409-411)."""
     x1 = conv_block(params["block1"], image)
     with nn.fp32_convs():
         y1 = nn.selu(nn.conv2d(params["conv1"], x1))
     return y1.permute(0, 2, 3, 1).contiguous(), nn.avg_pool(x1, 2)
 
 
+def _folded_bf16(p: nn.Params):
+    """A batch norm's folded scale and bias, rounded to bf16 (as fp32)."""
+    return tuple(nn.round_bf16(v) for v in nn.fold_batch_norm(p))
+
+
+def _stem_plain_mp(params: nn.Params, image: torch.Tensor):
+    """B10's bf16 form in plain PyTorch: fp32 convolutions of bf16 operands,
+    BN as round(round(round(sum) x s) + b) then SELU, conv1's output stored
+    bf16, x1 fp32, the 1x1 on round(x1) rounded before its SELU, the pool
+    (round(upper) + lower) / 2 then the column pair's mean."""
+    r, conv = nn.round_bf16, torch.nn.functional.conv2d
+    bp = params["block1"]
+    bn = [_folded_bf16(bp[k]) for k in ("bn1", "bn2")]
+
+    def bn_selu(acc, sb):
+        s, b = (v[:, None, None] for v in sb)
+        return nn.selu(r(r(r(acc) * s) + b))
+
+    with nn.fp32_convs():
+        a = r(bn_selu(conv(r(image.float()), r(bp["conv1"]["w"]), padding=1),
+                      bn[0]))
+        x1 = bn_selu(conv(a, r(bp["conv2"]["w"]), padding=1), bn[1])
+        y1 = nn.selu(r(conv(r(x1), r(params["conv1"]["w"]))))
+    p = (r(x1[:, :, 0::2]) + x1[:, :, 1::2]) * 0.5
+    x1p = (p[..., 0::2] + p[..., 1::2]) * 0.5
+    bf = torch.bfloat16
+    return y1.permute(0, 2, 3, 1).contiguous().to(bf), x1p.to(bf)
+
+
+def fused_aliked_stem_plain(
+    params: nn.Params, image: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """B10's plain version: ``composed_stem`` on an fp32 image, the bf16
+    form's rounding on a bf16 one (outputs bf16)."""
+    if image.dtype == torch.bfloat16:
+        return _stem_plain_mp(params, image)
+    return composed_stem(params, image)
+
+
 def fused_aliked_stem(
     params: nn.Params, image: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """B10 on CUDA tensors, the plain version on CPU tensors."""
+    """B10 on CUDA tensors (its bf16 form for a bf16 image), the plain
+    version on CPU tensors."""
     if image.device.type == "cpu":
         return fused_aliked_stem_plain(params, image)
     return fused_aliked_stem_kernel(params, image)
+
+
+def prepare_bf16(params: nn.Params) -> Tuple[torch.Tensor, torch.Tensor,
+                                             torch.Tensor]:
+    """The bf16 form's weights, as ``csrc/aliked_stem.cu``'s
+    ``aliked_stem_bf16_kernel`` reads them:
+
+    - ``k1`` (fp32 values, each rounded to bf16): conv1's own weights
+      [ci dy dx][co] (27 C1; bn1's scale is applied after the sum is
+      rounded, not folded), then bn1's and bn2's folded scales and biases
+      (s1, b1, s2, b2);
+    - ``w2`` bf16 (steps, C1 / 8, 32, 4): lane (g, t)'s B fragment {b0, b1}
+      of each k-step and n8 tile nt, output channel 8 nt + g. At C1 16 a
+      step is a tap: (ci 2t, 2t + 1), (2t + 8, 2t + 9). At C1 8 step s
+      pairs taps 2s and 2s + 1 (the tenth zero): (tap 2s, ci 2t, 2t + 1),
+      (tap 2s + 1, ci 2t, 2t + 1);
+    - ``wy`` bf16 (CY / 8, 32, 4): the 1x1's, (ci 2t, 2t + 1), (2t + 8,
+      2t + 9), zero past C1."""
+    bp = params["block1"]
+    c1 = bp["conv2"]["w"].shape[0]
+    cy = params["conv1"]["w"].shape[0]
+    r, bf = nn.round_bf16, torch.bfloat16
+    w1 = bp["conv1"]["w"].float().permute(1, 2, 3, 0).reshape(-1)
+    k1 = r(torch.cat([w1, *nn.fold_batch_norm(bp["bn1"]),
+                      *nn.fold_batch_norm(bp["bn2"])])).contiguous()
+    wt = bp["conv2"]["w"].float().permute(2, 3, 0, 1).reshape(9, c1, c1)
+    if c1 == 16:  # (tap, nt, g, h, t, j) -> (tap, nt, g, t, h, j)
+        w2 = wt.reshape(9, 2, 8, 2, 4, 2).permute(0, 1, 2, 4, 3, 5)
+    else:  # taps padded to 10: (s, h, g, t, j) -> (s, g, t, h, j)
+        w2 = torch.cat([wt, wt.new_zeros(1, c1, c1)]).reshape(5, 2, 8, 4, 2)
+        w2 = w2.permute(0, 2, 3, 1, 4)
+    w2 = w2.reshape(-1, c1 // 8, 32, 4).to(bf).contiguous()
+    wy = params["conv1"]["w"].float()[:, :, 0, 0]
+    wy = torch.cat([wy, wy.new_zeros(cy, 16 - c1)], 1)  # K padded to 16
+    wy = wy.reshape(cy // 8, 8, 2, 4, 2).permute(0, 1, 3, 2, 4)
+    return k1, w2, wy.reshape(cy // 8, 32, 4).to(bf).contiguous()
 
 
 def prepare(params: nn.Params) -> Tuple[torch.Tensor, torch.Tensor,
@@ -92,24 +175,28 @@ def prepare(params: nn.Params) -> Tuple[torch.Tensor, torch.Tensor,
     return k1, w2.contiguous(), wy.contiguous()
 
 
-def prepared(params: nn.Params):
-    """``prepare(params)``, built once per parameter tree (keyed by its
-    conv2 weight tensor, and rebuilt if any other tensor it reads is
-    another object): an edit in place of a tensor is not seen, build a new
-    tree."""
+def prepared(params: nn.Params, dtype: torch.dtype = torch.float32):
+    """``prepare(params)`` (``prepare_bf16`` for the bf16 form), built once
+    per parameter tree and type (keyed by its conv2 weight tensor, and
+    rebuilt if any other tensor it reads is another object): an edit in
+    place of a tensor is not seen, build a new tree."""
     bp = params["block1"]
     srcs = (bp["conv1"]["w"], *bp["bn1"].values(), *bp["bn2"].values(),
             params["conv1"]["w"])
     got = _PREPARED.get(bp["conv2"]["w"])
     if got is None or any(a is not b for a, b in zip(got[0], srcs)):
-        got = _PREPARED[bp["conv2"]["w"]] = (srcs, prepare(params))
-    return got[1]
+        got = _PREPARED[bp["conv2"]["w"]] = (srcs, {})
+    if dtype not in got[1]:
+        got[1][dtype] = (prepare_bf16 if dtype == torch.bfloat16
+                         else prepare)(params)
+    return got[1][dtype]
 
 
 def fused_aliked_stem_kernel(
     params: nn.Params, image: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """B10: one launch over CUDA tensors, H and W even."""
+    """B10: one launch over CUDA tensors, H and W even; the bf16 form for a
+    bf16 image (bf16 outputs)."""
     bp, wy = params["block1"], params["conv1"]["w"]
     c1, cy = wy.shape[1], wy.shape[0]
     if (c1, cy) not in WIDTHS:
@@ -126,13 +213,18 @@ def fused_aliked_stem_kernel(
             or image.shape[2] % 2 or image.shape[3] % 2:
         raise ValueError(f"image must be (B >= 1, 3, H, W), H and W even, "
                          f"got {tuple(image.shape)}")
-    dev = _build.check_cuda(image=image, **{
-        name: p["w"].contiguous() for name, (p, _) in convs.items()})
-    k1, w2, wyp = prepared(params)
+    dt = image.dtype
+    if dt not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"image must be float32 or bfloat16, got {dt}")
+    dev = _build.check_cuda(dtype=dt, image=image)
+    if _build.check_cuda(**{name: p["w"].contiguous()
+                            for name, (p, _) in convs.items()}) != dev:
+        raise ValueError("the weights are on another device than the image")
+    k1, w2, wyp = prepared(params, dt)
     b, _, h, w = image.shape
-    y1 = torch.empty(b, h, w, cy, device=dev)
-    x1p = torch.empty(b, c1, h // 2, w // 2, device=dev)
-    _build.launch("lg_aliked_stem", dev, image, k1, w2, wyp, y1, x1p,
-                  b, h, w, c1, cy)
-    _build.count("fused_aliked_stem")
+    y1 = torch.empty(b, h, w, cy, device=dev, dtype=dt)
+    x1p = torch.empty(b, c1, h // 2, w // 2, device=dev, dtype=dt)
+    _build.launch(_build.typed("lg_aliked_stem", dt), dev, image, k1, w2,
+                  wyp, y1, x1p, b, h, w, c1, cy)
+    _build.count(_build.typed("fused_aliked_stem", dt))
     return y1, x1p

@@ -10,6 +10,11 @@ corners outside the map weighted 0, and one matrix product contracts the
 samples with the weights. The JAX package's
 corner-quad table and its coordinate clamp are a TPU gather layout with the
 same values.
+
+A bf16 x (mp) runs as the JAX package's at mp: the offsets from a bf16
+conv, the bilinear samples formed in fp32 and rounded to bf16, then the
+product with the bf16 weights in fp32 sums, rounded to bf16
+(lightglue_tpu/ops/deform.py:126-141).
 """
 
 from __future__ import annotations
@@ -26,7 +31,7 @@ def bilinear_taps(x: torch.Tensor, fy: torch.Tensor, fx: torch.Tensor
     """x (B, C, H, W) sampled at pixel coordinates fy, fx (B, ...), zero
     outside the map. Returns (B, ..., C)."""
     b, c, h, w = x.shape
-    flat = x.permute(0, 2, 3, 1).reshape(b, h * w, c)
+    flat = x.float().permute(0, 2, 3, 1).reshape(b, h * w, c)
     y0, x0 = torch.floor(fy), torch.floor(fx)
     wy, wx = fy - y0, fx - x0
     # the four corners along a new last axis, gathered at once
@@ -58,13 +63,13 @@ def deform_conv2d(
     xs = torch.arange(w, dtype=torch.float32, device=dev)[None, None, :, None]
     tap_y = torch.arange(kh, dtype=torch.float32, device=dev).repeat_interleave(kw)
     tap_x = torch.arange(kw, dtype=torch.float32, device=dev).repeat(kh)
-    fy = ys - padding + tap_y + off[..., 0]  # (B, H, W, kh kw)
-    fx = xs - padding + tap_x + off[..., 1]
-    patches = bilinear_taps(x, fy, fx)  # (B, H, W, kh kw, C)
+    fy = ys - padding + tap_y + off[..., 0].float()  # (B, H, W, kh kw)
+    fx = xs - padding + tap_x + off[..., 1].float()
+    patches = bilinear_taps(x, fy, fx).to(x.dtype)  # (B, H, W, kh kw, C)
     wmat = weight.permute(2, 3, 1, 0).reshape(kh * kw * c, o)
-    out = patches.reshape(b, h * w, kh * kw * c) @ wmat
+    out = nn.matmul(patches.reshape(b, h * w, kh * kw * c), wmat)
     if bias is not None:
-        out = out + bias
+        out = out + bias.to(out.dtype)
     return out.reshape(b, h, w, o).permute(0, 3, 1, 2)
 
 

@@ -37,8 +37,9 @@ def bilinear_sample(
         fy = (y + 1.0) * 0.5 * h - 0.5
     x0 = torch.floor(fx)
     y0 = torch.floor(fy)
-    wx = (fx - x0)[..., None]
-    wy = (fy - y0)[..., None]
+    # the lerp in the map's type, as the JAX package's (bf16 at mp)
+    wx = (fx - x0)[..., None].to(fmap.dtype)
+    wy = (fy - y0)[..., None].to(fmap.dtype)
     flat = fmap.reshape(b, h * w, c)
 
     def gather(yi, xi):
@@ -66,7 +67,11 @@ def upsample(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
     first, then columns. The two-point weights come from a float64
     linspace, as the JAX package's lerp matrices and B11's per-pixel
     weights do: ``F.interpolate`` forms the source coordinate in float32,
-    which moves ALIKED's score map by about 2e-5 at 768 x 1024."""
+    which moves ALIKED's score map by about 2e-5 at 768 x 1024.
+
+    bf16 planes (mp) are resampled as the JAX package's bf16 lerp matrices
+    do it: the two weights rounded to bf16, each output the fp32 sum of
+    the two products, rounded to bf16 after each axis."""
 
     def taps(n_out: int, n_in: int):
         pos = torch.linspace(0.0, n_in - 1.0, n_out, dtype=torch.float64,
@@ -76,8 +81,14 @@ def upsample(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
 
     r0, r1, wr = taps(size[0], x.shape[-2])
     c0, c1, wc = taps(size[1], x.shape[-1])
-    rows = torch.lerp(x.index_select(2, r0), x.index_select(2, r1), wr[:, None])
-    return torch.lerp(rows.index_select(3, c0), rows.index_select(3, c1), wc)
+    if x.dtype == torch.bfloat16:
+        def lerp(a, c, wt):
+            w1, w0 = (v.to(torch.bfloat16).float() for v in (wt, 1 - wt))
+            return (w0 * a.float() + w1 * c.float()).to(torch.bfloat16)
+    else:
+        lerp = torch.lerp
+    rows = lerp(x.index_select(2, r0), x.index_select(2, r1), wr[:, None])
+    return lerp(rows.index_select(3, c0), rows.index_select(3, c1), wc)
 
 
 def simple_nms(scores: torch.Tensor, nms_radius: int) -> torch.Tensor:

@@ -362,10 +362,9 @@ def test_mp_refusals():
     assert configs.lightglue_config("superpoint", mp=True).head_dim == 64
     with pytest.raises(NotImplementedError, match="Queue B.3"):
         configs.lightglue_config("superpoint", mp=True, num_heads=2)
-    with pytest.raises(NotImplementedError, match="Queue B.3"):
-        configs.SuperPointConfig(mp=True)
-    with pytest.raises(NotImplementedError, match="Queue B.3"):
-        configs.ALIKEDConfig(mp=True)
+    # the extractors' bf16 path is ported: accepted
+    assert configs.SuperPointConfig(mp=True).mp
+    assert configs.ALIKEDConfig(mp=True).mp
     with pytest.raises(NotImplementedError, match="Queue A"):
         configs.LightGlueConfig(mp=True, compaction_bucket=64)
 

@@ -268,8 +268,7 @@ def test_configs_match_jax():
         assert set(mine.__dataclass_fields__) == set(theirs.__dataclass_fields__)
         for f in mine.__dataclass_fields__:
             assert getattr(mine, f) == getattr(theirs, f), (name, f)
-    with pytest.raises(NotImplementedError, match="Queue B.3"):
-        configs.SuperPointConfig(mp=True)
+    assert configs.SuperPointConfig(mp=True).mp  # the bf16 path is ported
 
 
 def test_cpu_never_builds_and_other_devices_raise(both_params):
