@@ -161,7 +161,32 @@ Phases, any failure raising (non-zero exit, no result line):
      output); SuperPoint(mp=True) -> LightGlue(mp=True) through match_pair
      (2048 keypoints) and make_end_to_end (B 8, 1024), ALIKED(mp=True) ->
      LightGlue("aliked", mp=True) in three configurations: only bf16
-     extractor kernels launched, each against the CPU port at mp.
+     extractor kernels launched, each against the CPU port at mp; then the
+     margins of every keypoint that the card's mp extraction keeps and the
+     CPU port's does not, or the reverse (SuperPoint on two images, ALIKED
+     in the three configurations; scripts/keypoint_margins.py): a keypoint
+     that clears both the top-k's cut and its NMS window's runner-up by
+     more than 4 steps of its score fails the run (ALIKED: with its two
+     deformable blocks' outputs from the CPU, the deformable conv held to
+     the bit on its own; the whole chain's count printed); g.
+     head_dim 128 at mp: the bf16 forms of K1 (exact and shift 12 at (4,
+     2, 1024, 128), (1, 2, 1024, 128), (4, 2, 4096, 128) masked and ragged
+     shapes), B1' ((4, 2, M 1024 / N 768, 128), B 1, ragged) and B5 at two
+     heads of 128 (B 1, 4 and 16 x 1024) against their bf16 plain versions
+     within both bounds, the share of outputs not equal printed, each
+     launch twice bit for bit, and a skipped 32-key tile read by the scaled
+     bound; then the two-head matcher at mp (the trained layers
+     regrouped): pipeline.LightGlue default and composed, exact and shift
+     12, B 1 and B 16, BatchMatcher at buckets 1024 and 4096 (replays equal
+     to the bit to the eager forward) and match_pair, each against the CPU
+     port at mp, the d-128 bf16 kernels launched and no fp32 or d-64 block
+     kernel; their timing beside the fp32 forms and SDPA in bf16; h.
+     two-stage compaction (prefix 3, bucket 640, shift 12) in fp32 and at
+     mp through BatchMatcher (the prefix at 1024, one compaction graph, the
+     suffix at 640; adaptive and with width pruning only, B 8 and B 1,
+     every replay equal to the bit to the eager forward, matches0 against
+     the CPU port) and make_end_to_end (SuperPoint, B 8), and its timing
+     beside the masked adaptive forward, with the two-head matcher at mp.
 A JSON object of the kernels (with each one's bound, from its shapes, and
 the 3xTF32 bound of the tensor-core kernels: the walk, B5, B6, K2, B2, B7,
 B8, B10; the bf16 forms' rows bounded by the bf16 tensor cores) and
@@ -210,10 +235,11 @@ from lightglue_tpu_torch.ops import assignment_fused as af  # noqa: E402
 from lightglue_tpu_torch.ops import ffn, flash, flash_cross  # noqa: E402
 from lightglue_tpu_torch.ops import block_tc  # noqa: E402
 from lightglue_tpu_torch.ops import flash_cross_block, flash_self  # noqa: E402
-from lightglue_tpu_torch.ops import aliked_stem, score_head  # noqa: E402
+from lightglue_tpu_torch.ops import aliked_stem, deform, score_head  # noqa: E402
 from lightglue_tpu_torch.ops import gather, nms, stem, stem2  # noqa: E402
 from lightglue_tpu_torch.scripts import attn_split, extract_times  # noqa: E402
 from lightglue_tpu_torch.scripts import micro_gather2, walk_sums  # noqa: E402
+from lightglue_tpu_torch.scripts import keypoint_margins as km  # noqa: E402
 from lightglue_tpu_torch.synthetic import image_pair, planted_pairs  # noqa: E402
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -281,6 +307,15 @@ KERNELS = {
                              "lightglue_tpu/ops/score_head.py:161"),
     "score_head_cplane_bf16": ("lightglue_tpu_torch/csrc/score_head.cu",
                                "lightglue_tpu/ops/score_head.py:119"),
+    # the matcher's bf16 forms at head_dim 128 (two heads under mp)
+    "flash_sdpa_bf16_d128": ("lightglue_tpu_torch/csrc/flash_sdpa.cu",
+                             "lightglue_tpu/ops/flash.py:94"),
+    "flash_sdpa_shift_bf16_d128": ("lightglue_tpu_torch/csrc/flash_sdpa.cu",
+                                   "lightglue_tpu/ops/flash.py:63"),
+    "flash_cross_pair_bf16": ("lightglue_tpu_torch/csrc/flash_sdpa.cu",
+                              "lightglue_tpu/ops/flash.py:220"),
+    "fused_self_block_bf16_d128": ("lightglue_tpu_torch/csrc/blocks.cu",
+                                   "lightglue_tpu/ops/flash_self.py:84"),
 }
 # Rows of the redesigned attention walk (K1, B1s, B1') in phase 4
 ATTENTION_ROWS = ("flash_sdpa", "flash_sdpa_shift", "flash_sdpa d 128",
@@ -4267,6 +4302,654 @@ def mp_profile_phase(params):
                 gc.collect()
 
 
+# --- phase 5g: head_dim 128 at mp -----------------------------------------------
+
+
+# The bf16 forms at head_dim 128 and the matcher paths that launch them
+HEAD128_MP = ("flash_sdpa_bf16_d128", "flash_sdpa_shift_bf16_d128",
+              "flash_cross_pair_bf16", "fused_self_block_bf16_d128")
+# pipeline.LightGlue(mp=True, num_heads=2) in phase 5g: (name, config,
+# kernels it must launch), never an fp32 matcher kernel or B6 / K2
+MP_HEAD128_PATHS = (
+    ("default, exact, fixed", FIXED,
+     ("fused_self_block_bf16_d128", "flash_cross_pair_bf16",
+      "fused_ffn_residual_bf16", "fused_filter_matches")),
+    ("default, shift 12, adaptive", SHIFTED,
+     ("fused_self_block_bf16_d128", "flash_cross_pair_bf16",
+      "fused_ffn_residual_bf16", "fused_filter_matches")),
+    ("composed, exact, fixed", dict(FIXED, **COMPOSED),
+     ("flash_sdpa_bf16_d128", "flash_cross_pair_bf16",
+      "fused_ffn_residual_bf16", "fused_filter_matches")),
+    ("composed, shift 12, fixed", dict(FIXED, **COMPOSED, **SHIFTED),
+     ("flash_sdpa_shift_bf16_d128", "flash_cross_pair_bf16",
+      "fused_ffn_residual_bf16", "fused_filter_matches")),
+)
+NOT_HEAD128_MP = FP32_MATCHER + ("flash_cross_pair", "fused_cross_block_bf16",
+                                 "fused_cross_attention_bf16",
+                                 "fused_cross_attention_shift_bf16",
+                                 "fused_self_block_bf16", "flash_sdpa_bf16",
+                                 "flash_sdpa_shift_bf16")
+
+
+def differ_share(got, ref):
+    """Share of outputs not equal to the plain version's (the flips of a
+    sum that rounds to the other bf16 neighbour)."""
+    return float((got != ref).float().mean())
+
+
+def mp_head128_kernel_phase(params2):
+    """Phase 5g: the bf16 forms at head_dim 128 against their bf16 plain
+    versions on the card (both bounds of mp_check, the share of outputs
+    not equal printed), each launch twice bit for bit: K1 exact and shift
+    12 at (4, 2, 1024, 128) masked and not, (1, 2, 1024, 128), (4, 2, 4096,
+    128) masked and ragged shapes; B1' at (4, 2, M 1024 / N 768, 128)
+    masked, B 1 and ragged; B5 at two heads of 128 (the trained layer 0)
+    at B 1, 4 and 16 x 1024, exact and shift 12, masked and not. Then what
+    both bounds read for K1 at d 128 with one 32-key tile skipped (the
+    scaled bound must fail it). Returns (errors, the inputs for timing)."""
+    phase("5g the bf16 kernels at head_dim 128 (mp, two heads) against their "
+          f"bf16 plain versions (|kernel - plain| <= {MP_REL:g} max(1, "
+          "|plain|) and <= 2^-6 (|plain| + rms(plain row)))")
+    g = torch.Generator(device="cuda").manual_seed(57)
+    errs = {}
+
+    def mask(b, n, p=0.85):
+        m = torch.rand(b, n, generator=g, device="cuda") < p
+        m[:, 0] = True
+        if b > 1:
+            m[1] = False  # batch entry 1 without a valid point
+        return m
+
+    def note(name, label, got, ref, rows=None):
+        mp_check(errs, name, label, got, ref, rows)
+        print(f"    {differ_share(got, ref):.2e} of the outputs not equal",
+              flush=True)
+
+    inputs = {}
+    for shift, name in ((None, "flash_sdpa_bf16_d128"),
+                        (SHIFT, "flash_sdpa_shift_bf16_d128")):
+        for b, nq, nk, masked in ((4, 1024, 1024, True),
+                                  (4, 1024, 1024, False),
+                                  (1, 1024, 1024, False),
+                                  (4, 4096, 4096, True), (2, 65, 130, True),
+                                  (2, 1, 1, True), (1, 130, 3, False)):
+            q, k, v = (rand(g, b, 2, n, 128).to(BF16) for n in (nq, nk, nk))
+            mk = mask(b, nk) if masked else None
+            inputs.setdefault((b, nq, masked), (q, k, v, mk))
+            got = flash.flash_sdpa(q, k, v, mk, shift=shift)
+            same(f"{name} {(b, nq, nk)}", (got,),
+                 (flash.flash_sdpa(q, k, v, mk, shift=shift),))
+            note(name, f"{name} {(b, 2, nq, nk)}{' masked' if masked else ''}",
+                 got, flash.flash_sdpa_plain(q, k, v, mk, shift))
+    q, k, v, mk = inputs[(4, 4096, True)]
+    for shift in (None, SHIFT):
+        ref = flash.flash_sdpa_plain(q, k, v, mk, shift)
+        drop = mk.clone()
+        drop[:, 32:64] = False
+        bad = flash.flash_sdpa_plain(q, k, v, drop, shift)
+        rel, _ = rel_err(bad, ref)
+        scaled = scaled_err(bad, ref)
+        print(f"  bound reach{'' if shift is None else ' shift 12'}: K1 "
+              f"(4,2,4096,128), a 32-key tile skipped: {rel / MP_REL:.3f} of "
+              f"MP_REL's bound, {scaled:.3f} of the scaled bound", flush=True)
+        if not scaled > 1.0:
+            raise AssertionError("d 128: the scaled bound cannot fail a "
+                                 "skipped key tile")
+    for b, m, n in ((4, 1024, 768), (1, 1024, 768), (2, 65, 130), (1, 130, 3)):
+        qk0, v0 = (rand(g, b, 2, m, 128).to(BF16) for _ in range(2))
+        qk1, v1 = (rand(g, b, 2, n, 128).to(BF16) for _ in range(2))
+        va0, va1 = mask(b, m), mask(b, n)
+        inputs.setdefault(("pair", b), (qk0, qk1, v0, v1, va0, va1))
+        for masks in ((va0, va1), (None, None)):
+            got = flash.flash_cross_pair(qk0, qk1, v0, v1, *masks)
+            same(f"flash_cross_pair_bf16 B {b}", got,
+                 flash.flash_cross_pair(qk0, qk1, v0, v1, *masks))
+            ref = flash.flash_cross_pair_plain(qk0, qk1, v0, v1, *masks)
+            for i, va in ((0, masks[0]), (1, masks[1])):
+                rows = None if va is None else va[:, None, :].expand(-1, 2, -1)
+                note("flash_cross_pair_bf16",
+                     f"flash_cross_pair_bf16 B {b}, M {m} / N {n}"
+                     f"{' masked' if va is not None else ''}, m{i}"
+                     f"{', valid rows' if va is not None else ''}",
+                     got[i], ref[i], rows)
+    layer = nn.params_to(nn.index_params(params2["transformers"], 0), "cuda")
+    w5 = {shift: flash_self.prepare(layer["self_attn"], 2, shift, mp=True)
+          for shift in (None, SHIFT)}
+    for b in BLOCK_BATCHES:
+        x = rand(g, b, 1024, 256).to(BF16)
+        ang = torch.rand(b, 1, 1024, 64, generator=g, device="cuda") * 6 - 3
+        enc = torch.stack([ang.cos(), ang.sin()])
+        valid = mask(b, 1024)
+        inputs[("b5", b)] = (x, enc)
+        for shift, w in w5.items():
+            for mk in (None, valid):
+                got = flash_self.fused_self_block(w, x, enc, mk)
+                same(f"fused_self_block_bf16_d128 B {b}", (got,),
+                     (flash_self.fused_self_block(w, x, enc, mk),))
+                note("fused_self_block_bf16_d128",
+                     f"fused_self_block_bf16_d128 2 x 128 {(b, 1024, 256)}"
+                     f"{'' if shift is None else ' shift 12'}"
+                     f"{' masked' if mk is not None else ''}", got,
+                     flash_self.fused_self_block_plain(w, x, enc, mk))
+    torch.cuda.synchronize()
+    inputs["w5"] = w5
+    inputs["w5_32"] = flash_self.prepare(layer["self_attn"], 2, None)
+    return errs, inputs
+
+
+def mp_head128_rows(hx):
+    """Phase 5g's timing rows, in mp_rows' form: K1 at d 128 (B 4 and B 1
+    at 1024 keys, B 4 at 4096 masked; shift 12 at B 4), B1' (B 4 and B 1,
+    M 1024 / N 768; the library: two SDPA calls in bf16), B5 at two heads
+    of 128 at B 1, 4 and 16. The bound counts bf16 elements at 2 bytes."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = {}
+
+    def bias(mk, b, n):
+        return (torch.zeros(b, 1, 1, n, device="cuda", dtype=BF16)
+                if mk is None else flash.key_bias(mk).to(BF16)[:, None, None, :])
+
+    for key, label, shift in (((4, 1024, False), "", None),
+                              ((1, 1024, False), " B 1", None),
+                              ((4, 4096, True), " (4,2,4096,128) masked", None),
+                              ((4, 1024, False), "", SHIFT)):
+        q, k, v, mk = hx[key]
+        b, _, n, _ = q.shape
+        q32, k32, v32 = q.float(), k.float(), v.float()
+        kb = bias(mk, b, n)
+        name = ("flash_sdpa_bf16_d128" if shift is None
+                else "flash_sdpa_shift_bf16_d128") + label
+        rows[name] = (
+            lambda q=q, k=k, v=v, mk=mk, s=shift: flash.flash_sdpa(q, k, v, mk, shift=s),
+            lambda q=q, k=k, v=v, mk=mk, s=shift: flash.flash_sdpa_plain(q, k, v, mk, s),
+            lambda a=(q32, k32, v32, mk), s=shift: flash.flash_sdpa(*a, shift=s),
+            ("SDPA bf16", lambda q=q, k=k, v=v, kb=kb: sdpa(q, k, v, attn_mask=kb)),
+            (4 * b * 2 * n * n * 128, 4 * b * 2 * n * 128 * 2
+             + (0 if mk is None else b * n)))
+    for b, label in ((4, ""), (1, " B 1")):
+        qk0, qk1, v0, v1, va0, va1 = hx[("pair", b)]
+        a32 = (qk0.float(), qk1.float(), v0.float(), v1.float(), va0, va1)
+        m, n = qk0.shape[2], qk1.shape[2]
+        b0, b1 = bias(va0, b, m), bias(va1, b, n)
+        rows["flash_cross_pair_bf16" + label] = (
+            lambda a=(qk0, qk1, v0, v1, va0, va1): flash.flash_cross_pair(*a),
+            lambda a=(qk0, qk1, v0, v1, va0, va1): flash.flash_cross_pair_plain(*a),
+            lambda a=a32: flash.flash_cross_pair(*a),
+            ("2 SDPA bf16", lambda a=(qk0, qk1, v0, v1, b0, b1): (
+                sdpa(a[0], a[1], a[3], attn_mask=a[5]),
+                sdpa(a[1], a[0], a[2], attn_mask=a[4]))),
+            (2 * 4 * b * 2 * m * n * 128,
+             3 * b * 2 * (m + n) * 128 * 2 + b * (m + n) * 2
+             + b * 2 * (m + n) * 128 * 2))
+    n, d, f = 1024, 256, 4
+    ffn_w = (2 * d * 2 * d + 2 * d * d) * 2 + (3 * 2 * d + d) * f
+    tail_w = (d * d) * 2 + d * f + ffn_w
+    w5, w5_32 = hx["w5"][None], hx["w5_32"]
+    for b in BLOCK_BATCHES:
+        xx, enc = hx[("b5", b)]
+        x32 = xx.float()
+        r5 = b * n
+        rows["fused_self_block_bf16_d128" + ("" if b == 4 else f" B {b}")] = (
+            lambda xx=xx, enc=enc: flash_self.fused_self_block(w5, xx, enc),
+            lambda xx=xx, enc=enc: flash_self.fused_self_block_plain(w5, xx, enc),
+            lambda x32=x32, enc=enc: flash_self.fused_self_block(w5_32, x32, enc),
+            None,
+            (b * (2 * n * d * 3 * d + 4 * 2 * n * n * 128 + 2 * n * d * d
+                  + 2 * n * (2 * d * 2 * d + 2 * d * d)),
+             2 * r5 * d * 2 + 2 * r5 * 64 * f + d * 3 * d * 2 + 3 * d * f
+             + tail_w))
+    return rows
+
+
+def mp_head128_timing_phase(hx):
+    """Phase 5g timing: each d-128 bf16 row beside its plain version, its
+    fp32 form on the same values and the library call (CUDA events,
+    plain, kernel, fp32, fp32, kernel, plain; device time by CUDA graphs,
+    kernel, fp32, fp32, kernel, and the library). Returns ({row: (kernel
+    ms, plain ms, library ms)}, {row: (FLOPs, bytes)}, {row: (device ms,
+    library device ms)})."""
+    phase("5g timing: the bf16 kernels at head_dim 128 beside their plain "
+          "versions, fp32 forms and SDPA in bf16 (CUDA events; device time "
+          "by CUDA graphs)")
+    times, bounds, graph_times = {}, {}, {}
+    for name, (kern, plain, f32, lib, bound) in mp_head128_rows(hx).items():
+        a, b, c, d, e, g = (time_cuda(fn, iters=10) for fn in
+                            (plain, kern, f32, f32, kern, plain))
+        lib_ms = None if lib is None else time_cuda(lib[1], iters=10)
+        kd, fd, fd2, kd2 = (attn_split.graph_ms(fn, calls=10)
+                            for fn in (kern, f32, f32, kern))
+        lib_dev = None if lib is None else attn_split.graph_ms(lib[1], calls=10)
+        times[name] = ((b + e) / 2, (a + g) / 2, lib_ms)
+        bounds[name] = bound
+        graph_times[name] = ((kd + kd2) / 2, lib_dev)
+        t_ops, t_bytes = bound[0] / PEAK_BF16 * 1e3, bound[1] / PEAK_BYTES * 1e3
+        print(f"  {name}: kernel {(b + e) / 2:.4f} ms, plain {(a + g) / 2:.4f}"
+              f" ms, fp32 form {(c + d) / 2:.4f} ms (runs {b:.4f}/{e:.4f}, "
+              f"{a:.4f}/{g:.4f}, {c:.4f}/{d:.4f})"
+              + ("" if lib is None else f", library ({lib[0]}) {lib_ms:.4f} ms")
+              + f"; device time: kernel {(kd + kd2) / 2:.4f}, fp32 form "
+              f"{(fd + fd2) / 2:.4f}"
+              + ("" if lib is None else f", library {lib_dev:.4f}")
+              + f" ms; bound {max(t_ops, t_bytes):.4f} ms ("
+              f"{'operations' if t_ops >= t_bytes else 'bytes'}; bf16 "
+              f"operations {t_ops:.4f}, bytes {t_bytes:.4f})", flush=True)
+    return times, bounds, graph_times
+
+
+def mp_head128_path_phase(params2, sp_params):
+    """Phase 5g main paths: the two-head matcher at mp (the trained layers
+    regrouped) through pipeline.LightGlue in MP_HEAD128_PATHS'
+    configurations (B 1 and B 16 at 1024 keypoints), BatchMatcher (CUDA
+    graphs, adaptive, shift 12, buckets 1024 and 4096: every replay equal
+    to the bit to the eager forward) and match_pair from generated images:
+    the d-128 bf16 kernels launched and no fp32 matcher kernel, B6 or K2;
+    one pair of each against the CPU port at mp (matches0 >= MP_AGREE,
+    the same stop). Returns the launch counts."""
+    total = dict.fromkeys(KERNELS, 0)
+    rng = np.random.default_rng(77)
+    data = {}
+    for bsz in (1, 16):
+        pr = planted_pairs(rng, bsz, 1024)
+        data[bsz] = (pr, {"image0": feats(pr, 0), "image1": feats(pr, 1)})
+
+    def tally(label, counts, must):
+        print(f"  launch counts: { {k: c for k, c in counts.items() if c} }")
+        for k in must:
+            if counts[k] < 1:
+                raise AssertionError(f"{label}: {k} was not launched")
+        for k in NOT_HEAD128_MP:
+            if counts[k]:
+                raise AssertionError(f"{label}: {k} was launched")
+        for k, c in counts.items():
+            total[k] += c
+
+    def against_cpu(label, out, cpu):
+        agree = float((cpu["matches0"] == out["matches0"]).mean())
+        print(f"  {label} against the CPU port at mp: matches0 agreement "
+              f"{agree:.6f}, stop {out['stop']} vs {cpu['stop']}, score diff "
+              f"{score_gap(out, cpu):.2e}", flush=True)
+        if agree < MP_AGREE or cpu["stop"] != out["stop"]:
+            raise AssertionError(f"{label}: the card disagrees with the CPU "
+                                 "port")
+
+    for label, c, must in MP_HEAD128_PATHS:
+        phase(f"5g main path at mp, two heads of 128: pipeline.LightGlue("
+              f"mp=True, num_heads=2), {label}, 1024 keypoints")
+        gpu = LightGlue("superpoint", params=params2, device="cuda", mp=True,
+                        **TWO_HEADS, **c)
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        outs = {b: gpu(d) for b, (_, d) in data.items()}
+        torch.cuda.synchronize()
+        tally(label, _build.launch_counts(), must)
+        for b, (pr, _) in data.items():
+            k, p = precision(outs[b], pr["gt_matches0"])
+            print(f"  B {b}: stop {outs[b]['stop']}, {k} matches, precision "
+                  f"{p:.4f}")
+            if p < MIN_PRECISION[2]:
+                raise AssertionError(f"{label} B {b}: precision {p}")
+        cpu = LightGlue("superpoint", params=params2, device="cpu", mp=True,
+                        **TWO_HEADS, **c)(data[1][1])
+        against_cpu(f"{label}, B 1", outs[1], cpu)
+        del gpu
+
+    phase("5g main path at mp, two heads of 128: BatchMatcher (CUDA graphs), "
+          "adaptive, shift 12, buckets 1024 and 4096")
+    conf = lightglue_config("superpoint", mp=True, **TWO_HEADS, **SHIFTED)
+    bm = BatchMatcher(conf, params2, buckets=(1024, 4096), max_batch=16)
+    pr = planted_pairs(rng, 2, 1000)
+    big = planted_pairs(rng, 1, 3000)
+    pairs = [tuple({k: v[i] for k, v in feats(pr, s).items()} for s in (0, 1))
+             for i in range(2)]
+    pairs.append(tuple({k: v[0] for k, v in feats(big, s).items()}
+                       for s in (0, 1)))
+    bm.warmup([1, 2])
+    for chunk, f0, f1 in bm.padded_batches(pairs):
+        got, ref = bm.match_batch(f0, f1), eager_forward(bm, f0, f1)
+        differ = [f for f in graphs.OUTPUTS
+                  if not np.array_equal(getattr(got, f), getattr(ref, f))]
+        print(f"  bucket {f0['keypoints'].shape[1]}, batch {len(chunk)}: graph "
+              f"replay {'equal to the bit to' if not differ else 'DIFFERS from'}"
+              f" eager lg.forward, stop {got.stop} vs {ref.stop}")
+        if differ or got.stop != ref.stop:
+            raise AssertionError(f"two heads at mp: the graphs and the eager "
+                                 f"forward differ in {differ}")
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    res = bm.match_pairs(pairs)
+    torch.cuda.synchronize()
+    tally("BatchMatcher at mp, two heads", _build.launch_counts(),
+          ("fused_self_block_bf16_d128", "flash_sdpa_shift_bf16_d128",
+           "flash_cross_pair_bf16", "fused_ffn_residual_bf16"))
+    (_, f0, f1), = bm.padded_batches(pairs[:1])
+    cpu = BatchMatcher(conf, params2, buckets=(1024, 4096), max_batch=16,
+                       device="cpu").match_batch(f0, f1)
+    got = bm.match_batch(f0, f1)
+    against_cpu("BatchMatcher pair 0 (batch 1)",
+                {"matches0": got.matches0, "stop": got.stop,
+                 "matching_scores0": got.matching_scores0,
+                 "matching_scores1": got.matching_scores1},
+                {"matches0": cpu.matches0, "stop": cpu.stop,
+                 "matching_scores0": cpu.matching_scores0,
+                 "matching_scores1": cpu.matching_scores1})
+    print(f"  stops {[r['stop'] for r in res]}")
+    del bm
+
+    phase("5g main path at mp, two heads of 128: images -> SuperPoint -> "
+          "LightGlue('superpoint', mp=True, num_heads=2) (match_pair), 2048 "
+          "keypoints")
+    a, b, _ = image_pair(np.random.default_rng(23), H, W)
+    ext = SuperPoint(params=sp_params, device="cuda")
+    matcher = LightGlue("superpoint", params=params2, device="cuda", mp=True,
+                        **TWO_HEADS)
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    f0, f1, m = match_pair(ext, matcher, a, b)
+    torch.cuda.synchronize()
+    tally("match_pair, two heads at mp", _build.launch_counts(),
+          ("fused_self_block_bf16_d128", "flash_cross_pair_bf16",
+           "fused_filter_matches"))
+    check_pair_output(f"match_pair {H}x{W}, two heads at mp", f0, f1, m,
+                      (W, H), (W, H))
+    cpu = LightGlue("superpoint", params=params2, device="cpu", mp=True,
+                    **TWO_HEADS)({"image0": {k: v[None] for k, v in f0.items()},
+                                  "image1": {k: v[None] for k, v in f1.items()}})
+    against_cpu("match_pair, the same features",
+                m, {k: v[0] if isinstance(v, np.ndarray) else v
+                    for k, v in cpu.items()})
+    return total
+
+
+# --- phase 5h: two-stage compaction ---------------------------------------------
+
+
+# the JAX bench's headline configuration at 1024 keypoints: prefix 3, bucket
+# 640 (benchmarks/compaction_accuracy.json, bench.py:194), shift 12
+TWOSTAGE = dict(compaction_bucket=640, compaction_prefix=3, **SHIFTED)
+
+
+def twostage_serving(params, pr, pairs, tag, mode, conf, total):
+    """Phase 5h's BatchMatcher part for one configuration: B 8 and B 1 of
+    ``pairs`` through the two-stage graph set, each replay equal to the
+    bit to the eager forward, the batch of one against the CPU port
+    (matches0 equal in fp32, >= MP_AGREE at mp; the same stop); its
+    launch counts added to ``total``."""
+    phase(f"5h main path: two-stage compaction ({tag}, {mode}, prefix 3, "
+          "bucket 640, shift 12), BatchMatcher (CUDA graphs) at 1024 "
+          "keypoints, B 8 and B 1")
+    bm = BatchMatcher(conf, params, buckets=(1024,), max_batch=8)
+    t0 = time.perf_counter()
+    bm.warmup([1, 8])
+    gs = bm._matcher.sets[graphs.Signature(8, 1024, 1024, True, False)]
+    print(f"  warmup {time.perf_counter() - t0:.1f} s; graph set: "
+          f"{len(gs.segments)} layer graphs (prefix {gs.prefix} at 1024, the "
+          f"suffix at {gs.states[-1].desc0.shape[1]}), {len(gs.compaction)} "
+          f"compaction graph, {len(gs.exits)} exits")
+    if gs.prefix != 3 or gs.states[-1].desc0.shape[1] != 640:
+        raise AssertionError("the graph set is not two-stage")
+    for sel in (pairs, pairs[:1]):
+        (_, f0, f1), = bm.padded_batches(sel)
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        got = bm.match_batch(f0, f1)
+        torch.cuda.synchronize()
+        counts = _build.launch_counts()
+        print(f"  launch counts: { {k: c for k, c in counts.items() if c} }")
+        for k, c in counts.items():
+            total[k] += c
+        ref = eager_forward(bm, f0, f1)
+        differ = [f for f in graphs.OUTPUTS
+                  if not np.array_equal(getattr(got, f), getattr(ref, f))]
+        hits = precision({"matches0": got.matches0[0]}, pr["gt_matches0"][0])
+        print(f"  B {len(sel)}: replay {'equal to the bit to' if not differ else 'DIFFERS from'}"
+              f" eager lg.forward, stop {got.stop} vs {ref.stop}; pair 0 "
+              f"{hits[0]} matches, precision {hits[1]:.4f}", flush=True)
+        if differ or got.stop != ref.stop:
+            raise AssertionError(f"two-stage {tag} {mode}: the graphs and the "
+                                 f"eager forward differ in {differ}")
+        if hits[1] < MIN_PRECISION[4]:
+            raise AssertionError(f"two-stage {tag} {mode}: precision {hits[1]}")
+    want = BatchMatcher(conf, params, buckets=(1024,), max_batch=8,
+                        device="cpu").match_batch(f0, f1)  # B 1
+    agree = float((got.matches0 == want.matches0).mean())
+    print(f"  B 1 against the CPU port: matches0 agreement {agree:.6f}, stop "
+          f"{got.stop} vs {want.stop}, prune differs at "
+          f"{int((got.prune0 != want.prune0).sum())} points", flush=True)
+    if agree < (1.0 if tag == "fp32" else MP_AGREE) or got.stop != want.stop:
+        raise AssertionError(f"two-stage {tag} {mode}: the card disagrees "
+                             "with the CPU port")
+
+
+def twostage_path_phase(params, sp_params):
+    """Phase 5h: two-stage compaction (prefix 3, bucket 640, shift 12) at
+    1024 keypoints, fp32 and mp, through BatchMatcher (CUDA graphs: the
+    prefix layers at 1024, one compaction graph, the suffix at 640; B 8
+    and B 1 of planted pairs, adaptive and with width pruning only, every
+    replay equal to the bit to the eager forward, matches0 equal to the
+    CPU port's: twostage_serving) and make_end_to_end
+    (SuperPoint at B 8, the card's matcher output against the CPU port's
+    on the card's features). Returns the launch counts."""
+    total = dict.fromkeys(KERNELS, 0)
+    rng = np.random.default_rng(79)
+    pr = planted_pairs(rng, 8, 1024)
+    pairs = [tuple({k: v[i] for k, v in feats(pr, s).items()} for s in (0, 1))
+             for i in range(8)]
+    imgs = [image_pair(rng, H, W) for _ in range(8)]
+    im0, im1 = (torch.from_numpy(np.stack([p[i] for p in imgs]))[..., None].cuda()
+                for i in (0, 1))
+    sizes = torch.tensor([[W, H]] * 8, dtype=torch.float32, device="cuda")
+    for mp in (False, True):
+        tag = "mp" if mp else "fp32"
+        # the headline stops inside the prefix on these pairs; without the
+        # depth exit every suffix layer runs at 640
+        for mode, extra in (("adaptive", {}),
+                            ("prune only", dict(depth_confidence=-1.0))):
+            twostage_serving(params, pr, pairs, tag, mode,
+                             lightglue_config("superpoint", mp=mp,
+                                              **TWOSTAGE, **extra), total)
+        phase(f"5h main path: two-stage compaction ({tag}), images -> "
+              "SuperPoint -> LightGlue (make_end_to_end), B 8, 1024 keypoints")
+        mconf = lightglue_config("superpoint", mp=mp, **TWOSTAGE)
+        lgp = nn.params_to(params, "cuda")
+        run = end_to_end.make_end_to_end(
+            sp.forward, sp_params, SuperPointConfig(max_num_keypoints=1024,
+                                                    mp=mp), lgp, mconf)
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        e2e = run(im0, im1, sizes, sizes)
+        torch.cuda.synchronize()
+        counts = _build.launch_counts()
+        print(f"  launch counts: { {k: c for k, c in counts.items() if c} }")
+        for k, c in counts.items():
+            total[k] += c
+        valid = int(min(e2e.feats0.valid.sum(1).min(), e2e.feats1.valid.sum(1).min()))
+        if not lg.twostage(mconf, 1024, 1024) or valid < 700:
+            raise AssertionError(f"two-stage {tag}: {valid} keypoints")
+        for i in range(8):
+            check_pair_output(f"make_end_to_end two-stage {tag} pair {i}",
+                              *e2e_feats(e2e, i), (W, H), (W, H))
+        kw = dict(kpts0=e2e.feats0.keypoints, kpts1=e2e.feats1.keypoints,
+                  desc0=e2e.feats0.descriptors, desc1=e2e.feats1.descriptors,
+                  size0=sizes, size1=sizes, mask0=e2e.feats0.valid,
+                  mask1=e2e.feats1.valid)
+        # all eight pairs: the stop is the batch's
+        with torch.inference_mode():
+            want = lg.forward(params, mconf, **{k: v.cpu()
+                                                 for k, v in kw.items()})
+        agree = float((e2e.matches.matches0.cpu() == want.matches0)
+                      .float().mean())
+        print(f"  against the CPU port's matcher on the card's features: "
+              f"matches0 agreement {agree:.6f}, stop {e2e.matches.stop} vs "
+              f"{want.stop}", flush=True)
+        if agree < (1.0 if not mp else MP_AGREE) \
+                or e2e.matches.stop != want.stop:
+            raise AssertionError(f"two-stage {tag} e2e: the card disagrees "
+                                 "with the CPU port")
+    return total
+
+
+def serving_ms(bm, pairs, reps):
+    """Host ms per BatchMatcher call on ``pairs`` (after two warm calls):
+    the median and quartiles of ``reps`` calls, and the stop."""
+    for _ in range(2):
+        bm.match_pairs(pairs)
+    ms = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        res = bm.match_pairs(pairs)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return ms, res[0]["stop"]
+
+
+def twostage_timing_phase(params, params2, sp_params):
+    """Phase 5h timing (host clock, in turns): BatchMatcher at 1024
+    keypoints, B 1 and B 16, shift 12, the masked adaptive forward against
+    two-stage compaction (prefix 3, bucket 640), adaptive and with width
+    pruning only, fp32 and mp; the two-head matcher at mp (fixed and
+    adaptive) beside the four-head one; make_end_to_end (SuperPoint, B 8, 1024 keypoints,
+    adaptive, shift 12) masked against two-stage, fp32 and mp."""
+    phase("5h timing: BatchMatcher (CUDA graphs), 1024 keypoints, planted "
+          "pairs, host clock per call, in turns: two-stage compaction and "
+          "two heads at mp")
+    rng = np.random.default_rng(89)
+    for bsz, reps in ((1, 30), (16, 8)):
+        pr = planted_pairs(rng, bsz, 1024)
+        pairs = [tuple({k: v[i] for k, v in feats(pr, s).items()}
+                       for s in (0, 1)) for i in range(bsz)]
+        confs = {}
+        for tag, mp in (("fp32", False), ("mp", True)):
+            for mode, c in (("adaptive", {}),
+                            ("prune only", dict(depth_confidence=-1.0))):
+                confs[f"{tag}, {mode}, masked"] = (
+                    params, dict(mp=mp, **SHIFTED, **c))
+                confs[f"{tag}, {mode}, two-stage"] = (
+                    params, dict(mp=mp, **TWOSTAGE, **c))
+        confs["mp, two heads, adaptive"] = (params2, dict(
+            mp=True, **TWO_HEADS, **SHIFTED))
+        confs["mp, two heads, fixed"] = (params2, dict(
+            mp=True, **TWO_HEADS, **SHIFTED, **FIXED))
+        confs["mp, fixed"] = (params, dict(mp=True, **SHIFTED, **FIXED))
+        bms = {}
+        for label, (p, c) in confs.items():
+            bms[label] = BatchMatcher(lightglue_config("superpoint", **c), p,
+                                      buckets=(1024,), max_batch=16)
+            bms[label].warmup([bsz])
+        ms, stops = {label: [] for label in confs}, {}
+        for label in list(confs) + list(confs)[::-1]:
+            m, stops[label] = serving_ms(bms[label], pairs, reps)
+            ms[label] += m
+        for label, m in ms.items():
+            q1, med, q3 = np.percentile(m, [25, 50, 75])
+            print(f"  BatchMatcher shift 12, B {bsz}, {label}: "
+                  f"{bsz * 1e3 / med:.1f} pairs/s (median {med:.2f} ms a call, "
+                  f"quartiles {q1:.2f}-{q3:.2f}, {len(m)} calls, stop "
+                  f"{stops[label]})", flush=True)
+        del bms
+        gc.collect()
+        torch.cuda.empty_cache()
+    phase("5h timing: make_end_to_end (SuperPoint, B 8, 768 x 1024, 1024 "
+          "keypoints, adaptive, shift 12), masked against two-stage, in turns")
+    imgs = [image_pair(rng, H, W) for _ in range(8)]
+    im0, im1 = (torch.from_numpy(np.stack([p[i] for p in imgs]))[..., None].cuda()
+                for i in (0, 1))
+    sizes = torch.tensor([[W, H]] * 8, dtype=torch.float32, device="cuda")
+    lgp = nn.params_to(params, "cuda")
+    runs = {}
+    for tag, mp in (("fp32", False), ("mp", True)):
+        for form, c in (("masked", SHIFTED), ("two-stage", TWOSTAGE)):
+            runs[f"{tag}, {form}"] = end_to_end.make_end_to_end(
+                sp.forward, sp_params,
+                SuperPointConfig(max_num_keypoints=1024, mp=mp), lgp,
+                lightglue_config("superpoint", mp=mp, **c))
+    ms, stops = {label: [] for label in runs}, {}
+    for label in list(runs) + list(runs)[::-1]:
+        run = runs[label]
+        for _ in range(2):
+            run(im0, im1, sizes, sizes)
+        torch.cuda.synchronize()
+        for _ in range(4):
+            t0 = time.perf_counter()
+            stops[label] = run(im0, im1, sizes, sizes).matches.stop
+            torch.cuda.synchronize()
+            ms[label].append((time.perf_counter() - t0) * 1e3)
+    for label, m in ms.items():
+        q1, med, q3 = np.percentile(m, [25, 50, 75])
+        print(f"  make_end_to_end B 8, {label}: {8 * 1e3 / med:.1f} pairs/s "
+              f"(median {med:.2f} ms a call, quartiles {q1:.2f}-{q3:.2f}, "
+              f"{len(m)} calls, stop {stops[label]})", flush=True)
+
+
+# --- phase 5f: keypoint margins -------------------------------------------------
+
+
+def margin_phase(sp_params, ap):
+    """Phase 5f margins: the keypoints that the card's extraction at mp
+    keeps and the CPU port's at mp does not (and the reverse), SuperPoint
+    (two 768 x 1024 images, 2048 keypoints) and ALIKED in MP_ALIKED_PATHS'
+    configurations (one image, 2048), each with its margins against the
+    top-k's cut and its NMS window's runner-up (scripts/keypoint_margins):
+    the counts above 1, 2 and 4 steps of the score (one bf16 step, or what
+    one bf16 step of SuperPoint's logits or of ALIKED's sigmoid input
+    moves it) and of bf16 steps of the score alone. A keypoint that clears
+    both margins by more than 4 steps of its score is a fault, and fails
+    the run: SuperPoint's whole chain; ALIKED's with the outputs of its two
+    deformable blocks taken from the CPU (every kernel and every other
+    layer run on the card), its whole chain's count printed beside. The
+    deformable blocks are held on their own: the card's deformable conv,
+    given the CPU's input and offsets, equal to the CPU's to the bit."""
+    rng = np.random.default_rng(83)
+    imgs = [image_pair(rng, H, W)[0] for _ in range(2)]
+    gray = torch.from_numpy(np.stack(imgs))[..., None]
+    cases = [("SuperPoint", "superpoint", sp_params,
+              SuperPointConfig(max_num_keypoints=2048, mp=True), gray)]
+    cases += [(f"ALIKED {label}", "aliked", ap,
+               ALIKEDConfig(max_num_keypoints=2048, mp=True, **cfg),
+               torch.from_numpy(rgb(imgs[0]))[None])
+              for label, cfg, _ in MP_ALIKED_PATHS]
+    for label, kind, p, conf, img in cases:
+        phase(f"5f keypoint margins at mp: {label}, the card against the CPU "
+              "port")
+        record = []
+        with km.deformable_blocks(record=record):
+            cpu = km.detection_maps(kind, nn.params_to(p, "cpu"), conf, img)
+        card = km.detection_maps(kind, p, conf, img.cuda())
+        args = (conf.max_num_keypoints, conf.detection_threshold,
+                conf.nms_radius)
+        m = km.unshared_margins(card, cpu, *args)
+        moved = (card[0].cpu() - cpu[0]).abs()
+        print(f"  {km.summary(m)}", flush=True)
+        print(f"  score maps: |card - CPU| mean {float(moved.mean()):.3e}, "
+              f"largest {float(moved.max()):.3e}, "
+              f"{float((moved / cpu[2]).max()):.2f} steps of the score at "
+              "most", flush=True)
+        if kind == "aliked":
+            with km.deformable_blocks(outputs=record[0][1]):
+                card = km.detection_maps(kind, p, conf, img.cuda())
+            m = km.unshared_margins(card, cpu, *args)
+            moved = (card[0].cpu() - cpu[0]).abs()
+            print(f"  blocks 3 and 4 from the CPU: {km.summary(m)}; score "
+                  f"maps mean {float(moved.mean()):.3e}, largest "
+                  f"{float(moved.max()):.3e}", flush=True)
+            x3in = nn.avg_pool(record[0][0], 4)
+            dp = nn.params_to(p, "cpu")["block3"]["conv1"]
+            with torch.inference_mode(), nn.fp32_convs():
+                off = nn.conv2d(dp["offset_conv"], x3in).clamp(
+                    -max(x3in.shape[2:]) / 4.0, max(x3in.shape[2:]) / 4.0)
+                rc = p["block3"]["conv1"]["regular_conv"]
+                want = deform.deform_conv2d(x3in, off, dp["regular_conv"]["w"],
+                                            dp["regular_conv"].get("b"))
+                got = deform.deform_conv2d(x3in.cuda(), off.cuda(), rc["w"],
+                                           rc.get("b")).cpu()
+            print(f"  block 3's deformable conv on the card, given the CPU's "
+                  f"input and offsets: equal to the bit "
+                  f"{bool(torch.equal(got, want))}", flush=True)
+            if not torch.equal(got, want):
+                raise AssertionError(f"{label}: the deformable conv differs")
+        if km.faults(m["a"]) or km.faults(m["b"]):
+            raise AssertionError(f"{label}: a keypoint lost beyond 4 steps "
+                                 "of its score on both margins")
+
+
 def main():
     smi = device_phase()
     build_phase()
@@ -4295,6 +4978,8 @@ def main():
     errs.update(al_errs)
     mx = mp_inputs(x, bx)
     errs.update(mp_kernel_phase(mx))
+    h16_errs, hx16 = mp_head128_kernel_phase(params2)
+    errs.update(h16_errs)
     e_errs, mx5 = mp_extract_kernel_phase(sp_params, al_params, ax)
     errs.update(e_errs)
     for name, err in edge_phase().items():
@@ -4309,9 +4994,12 @@ def main():
                  lambda: mp_matcher_phase(params),
                  lambda: mp_serving_phase(params),
                  lambda: mp_extraction_phase(sp_params),
-                 lambda: mp_extract_path_phase(params, sp_params, al_params)):
+                 lambda: mp_extract_path_phase(params, sp_params, al_params),
+                 lambda: mp_head128_path_phase(params2, sp_params),
+                 lambda: twostage_path_phase(params, sp_params)):
         for k, c in path().items():
             counts[k] += c
+    margin_phase(sp_params, al_params)
     serving_memory_phase(params)
     times, graph_times = timing_phase(x, bx, hx, params, params2)
     sp_times, sp_graph = sp_timing_phase(sx, params, sp_params)
@@ -4327,7 +5015,12 @@ def main():
                                                          al_params)
     times.update(e_times)
     graph_times.update(e_graph)
-    kernels, bounds = [], {**kernel_bounds(), **mp_bounds, **e_bounds}
+    h_times, h_bounds, h_graph = mp_head128_timing_phase(hx16)
+    times.update(h_times)
+    graph_times.update(h_graph)
+    twostage_timing_phase(params, params2, sp_params)
+    kernels, bounds = [], {**kernel_bounds(), **mp_bounds, **e_bounds,
+                           **h_bounds}
     # the tensor-core kernels: their 3xTF32 bound beside the fp32 one
     tc_rows = (ATTENTION_ROWS + BLOCK_ROWS + CROSS_ROWS + FFN_ROWS
                + CONV_ROWS + ("fused_aliked_stem",))
@@ -4351,7 +5044,7 @@ def main():
         flops, nbytes = bounds[name]
         # fp32: the CUDA cores' peak; the bf16 forms: the bf16 tensor cores'
         # (B11's and B12's keep FFMA fp32 work: the CUDA cores')
-        peak = (PEAK_BF16 if name.endswith("_bf16")
+        peak = (PEAK_BF16 if "_bf16" in name
                 and not name.startswith("score_head") else PEAK_FLOPS)
         t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
         kernels.append({

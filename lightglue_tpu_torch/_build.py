@@ -59,7 +59,8 @@ SIGNATURES = {
 # The bf16 forms (mp) take the arguments of their fp32 entry points.
 SIGNATURES.update({
     f"{name}_bf16": SIGNATURES[name] for name in (
-        "lg_flash_sdpa", "lg_attention_shape", "lg_fused_cross",
+        "lg_flash_sdpa", "lg_flash_cross_pair", "lg_attention_shape",
+        "lg_fused_cross",
         "lg_project_heads", "lg_tail_out_proj", "lg_tail_lin1",
         "lg_tail_lin2", "lg_fused_stem", "lg_conv3x3", "lg_aliked_stem",
         "lg_score_head", "lg_score_head_lazy")})
@@ -75,6 +76,9 @@ KERNELS = (
     "flash_sdpa_bf16", "flash_sdpa_shift_bf16", "fused_cross_attention_bf16",
     "fused_cross_attention_shift_bf16", "fused_ffn_residual_bf16",
     "fused_self_block_bf16", "fused_cross_block_bf16",
+    # B1''s bf16 form, and K1's and B5's at head_dim 128 (two heads)
+    "flash_cross_pair_bf16", "flash_sdpa_bf16_d128",
+    "flash_sdpa_shift_bf16_d128", "fused_self_block_bf16_d128",
     # the bf16 forms of the extractors' kernels (mp)
     "fused_stem_bf16", "fused_block2_bf16", "fused_aliked_stem_bf16",
     "score_head_lazy_bf16", "score_head_cplane_bf16",
@@ -88,10 +92,13 @@ def count(op: str) -> None:
     _launches[op] += 1
 
 
-def typed(name: str, dtype: torch.dtype) -> str:
+def typed(name: str, dtype: torch.dtype, head_dim: int = 64) -> str:
     """The bf16 form's name of an entry point or a launch count (``name``
-    with ``_bf16``) for a bf16 launch, else ``name``."""
-    return name + "_bf16" if dtype == torch.bfloat16 else name
+    with ``_bf16``) for a bf16 launch, else ``name``; a count of a bf16
+    attention launch at ``head_dim`` 128 ends in ``_d128``."""
+    if dtype != torch.bfloat16:
+        return name
+    return name + ("_bf16_d128" if head_dim == 128 else "_bf16")
 
 
 def add_launches(counts: Dict[str, int]) -> None:

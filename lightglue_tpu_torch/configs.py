@@ -2,19 +2,13 @@
 of lightglue_tpu/configs.py:16-162, 184-213).
 
 The same frozen dataclasses with the same fields, so one set of keyword
-arguments configures both packages. Options whose kernels the port does not
-have yet are refused at construction with the ROADMAP entry that adds them.
+arguments configures both packages.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional
-
-# The ROADMAP entries that hold each refused option
-_ROADMAP_COMPACTION = "ROADMAP.md, Queue A (A.3, two-stage compaction)"
-_ROADMAP_MP_HEAD128 = ("ROADMAP.md, Queue B.3 (head_dim 128 under mp: B1' "
-                       "and the d-128 walk in bf16)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -34,8 +28,12 @@ class LightGlueConfig:
     exact, as the JAX matcher calls it, so ``cross_softmax_shift`` has no
     effect at head_dim 128. ``mp`` computes the transformer in bf16 (the
     descriptors cast after they are read, as the JAX matcher does) on the
-    bf16 forms of B5, B6, K1, K2 and B4, at head_dim 64 only; the
-    assignment head (B2) stays fp32.
+    bf16 forms of B5, B6, K1, K2 and B4 at head_dim 64, and of B5, K1 and
+    B1' at 128; the assignment head (B2) stays fp32.
+    ``compaction_bucket`` > 0 (with ``width_confidence`` > 0 and both
+    images above the bucket) runs ``compaction_prefix`` layers at full
+    size, then the survivors of each image, most matchable first, in a
+    bucket of that many points (``models.lightglue.forward_adaptive_twostage``).
     """
 
     name: str = "lightglue"
@@ -67,18 +65,6 @@ class LightGlueConfig:
             )
         if self.n_layers < 1:
             raise ValueError("n_layers must be >= 1")
-        unported = {
-            "compaction_bucket > 0 (two-stage compaction)":
-                (self.compaction_bucket > 0, _ROADMAP_COMPACTION),
-            f"mp=True at head_dim {self.head_dim} (the bf16 kernels take 64)":
-                (self.mp and self.head_dim != 64, _ROADMAP_MP_HEAD128),
-        }
-        for what, (asked, where) in unported.items():
-            if asked:
-                raise NotImplementedError(
-                    f"{what} is not ported to lightglue_tpu_torch yet; see "
-                    f"{where}."
-                )
 
     @property
     def head_dim(self) -> int:
@@ -166,9 +152,11 @@ class ALIKEDConfig:
     feature-map rows from the four branch maps instead of building the
     full-resolution concat (``False``: the dense dataflow of the
     reference). ``fused_stem`` runs block 1 and its two consumers through
-    kernel B10 on the lazy path. ``fused_score_head`` runs the score head's
-    upsampling and 3x3 tail through B11 on the lazy path and its tail
-    through B12 on the dense path; otherwise both are plain PyTorch.
+    kernel B10 on the lazy path where block 1 has 16 channels (not at
+    aliked-t16, as in the JAX package). ``fused_score_head`` runs the
+    score head's upsampling and 3x3 tail through B11 on the lazy path and
+    its tail through B12 on the dense path; otherwise both are plain
+    PyTorch.
     ``mp`` runs the encoder and the aggregation in bf16 (B10, B11 and B12 in
     their bf16 forms); scores and descriptors stay fp32.
     """

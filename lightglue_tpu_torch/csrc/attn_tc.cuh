@@ -56,11 +56,14 @@
 // direction). K2's query-row mask enters the two shifted forms as an
 // additive -1e30 on the row's scores, as the TPU kernels' bias0 does.
 //
-// The bf16 form (E = bf16, head_dim 64: the TPU kernels fed bf16 under mp):
-// q, k, v and the output bf16 in memory, both products m16n8k16 bf16 tiles
-// with fp32 accumulators, the softmax in fp32. Q is scaled in fp32 and
-// rounded to bf16 (the TPU kernels scale q in its own dtype), then kept in
-// registers as A fragments (16 registers at d 64). The m16n8k16
+// The bf16 form (E = bf16, head_dim 64 or 128: the TPU kernels fed bf16
+// under mp): q, k, v and the output bf16 in memory, both products m16n8k16
+// bf16 tiles with fp32 accumulators, the softmax in fp32. Q is scaled in
+// fp32 and rounded to bf16 (the TPU kernels scale q in its own dtype), then
+// kept in registers as A fragments (16 registers at d 64, 32 at d 128:
+// beside O's 64, the P V tile's 64 and the 32-key tile's 16 scores that
+// leaves room under the launch bound's 255, so Q stays out of shared
+// memory at d 128 too; chip_smoke.py's phase 1 reads the spills). The m16n8k16
 // accumulator of two adjacent 8-key score tiles is the A fragment of one
 // 16-key step, so P goes from the accumulator into P V as it is, packed to
 // bf16x2 (the rounding of the TPU kernels' e.astype(v.dtype)); no key
@@ -120,12 +123,12 @@ struct Config<128> {
   static constexpr bool kTileSums = true;
 };
 
-// E: float (3xTF32) or bf16 (the mp form, head_dim 64 only).
+// E: float (3xTF32) or bf16 (the mp form). The bf16 form keeps the key
+// tile of Config<D>: at d 128 two 16-key steps a 32-key tile.
 template <int D, class E = float>
 struct Shape {
   static_assert(D == 64 || D == 128, "the attention takes head_dim 64 or 128");
   static constexpr bool kBf16 = std::is_same_v<E, bf16>;
-  static_assert(!kBf16 || D == 64, "the bf16 walk takes head_dim 64");
   static constexpr int BK = Config<D>::BK;
   static constexpr bool kSplitQ = Config<D>::kSplitQ;
   static constexpr int NJ = BK / 8;      // 8-key steps of a tile
@@ -144,8 +147,9 @@ struct Shape {
   // of an SM's 228 KB, with 1 KB reserved a block
   static constexpr int kBlocksPerSM = (228 * 1024) / (kBytes + 1024);
   // the launch bound's blocks an SM: the bf16 walk's shared memory would
-  // allow 6, whose 85 registers a thread would spill its 96 of O, the P V
-  // tile and S; 2 leave the compiler 255
+  // allow 6 at d 64 and at d 128, whose 85 registers a thread would spill
+  // O, the P V tile and S (96 at d 64, 144 at d 128); 2 leave the compiler
+  // 255
   static constexpr int kLaunchBlocks = kBf16 ? 2 : kBlocksPerSM;
 };
 

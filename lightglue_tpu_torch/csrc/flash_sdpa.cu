@@ -37,12 +37,15 @@
 // valid and writes 0 when none is, as the TPU kernel does. The shift
 // variant is the same walk without the max and the rescale.
 //
-// K1's bf16 form (lg_flash_sdpa_bf16, head_dim 64): _attn_kernel_4d and
-// _attn_kernel_shift fed bf16 q, k, v under mp. q is scaled in fp32 and
-// rounded to bf16 (the caller passes the scale rounded to bf16, as the TPU
-// wrapper's jnp.asarray(scale, q.dtype)), the weights are rounded before
-// P V, l sums them in fp32, the output is bf16 (attn_tc.cuh's bf16 walk,
-// bf16 m16n8k16 products, one pass where 3xTF32 takes three).
+// The bf16 forms (lg_flash_sdpa_bf16, lg_flash_cross_pair_bf16, head_dim
+// 64 or 128): _attn_kernel_4d and _attn_kernel_shift fed bf16 q, k, v
+// under mp, and flash_cross_pair's two exact calls of them. q is scaled in
+// fp32 and rounded to bf16 (the caller passes the scale rounded to bf16, as
+// the TPU wrapper's jnp.asarray(scale, q.dtype)), the weights are rounded
+// before P V, l sums them in fp32, the output is bf16 (attn_tc.cuh's bf16
+// walk, bf16 m16n8k16 products, one pass where 3xTF32 takes three). B1'
+// is two K1 walks, so its row sums add the unrounded weights (K2's
+// kRoundedSums is not its).
 #include "attn_tc.cuh"
 
 namespace {
@@ -71,13 +74,13 @@ __global__ void __launch_bounds__(lg::tc::THREADS, Shape<D, E>::kLaunchBlocks)
 // direction. Direction 0 (messages into image 0) has M queries, N keys and
 // splits0; direction 1 the reverse. A block past its direction's grid
 // returns at once.
-template <int D>
-__global__ void __launch_bounds__(lg::tc::THREADS, Shape<D>::kLaunchBlocks)
+template <int D, class E = float>
+__global__ void __launch_bounds__(lg::tc::THREADS, Shape<D, E>::kLaunchBlocks)
     flash_cross_pair_kernel(
-        const float* __restrict__ qk0, const float* __restrict__ qk1,
-        const float* __restrict__ v0, const float* __restrict__ v1,
+        const E* __restrict__ qk0, const E* __restrict__ qk1,
+        const E* __restrict__ v0, const E* __restrict__ v1,
         const bool* __restrict__ valid0, const bool* __restrict__ valid1,
-        float* __restrict__ m0, float* __restrict__ m1,
+        E* __restrict__ m0, E* __restrict__ m1,
         float* __restrict__ part0, float* __restrict__ ml0,
         float* __restrict__ part1, float* __restrict__ ml1, int H, int M,
         int N, int splits0, int splits1, float scale) {
@@ -88,7 +91,7 @@ __global__ void __launch_bounds__(lg::tc::THREADS, Shape<D>::kLaunchBlocks)
   if ((int)blockIdx.x >= lg::tc::cdiv(nq, lg::tc::BQ) * splits) return;
   const size_t bh = (size_t)b * H + h;
   const bool* kvalid = dir1 ? valid0 : valid1;
-  lg::tc::attend_block<lg::tc::kExact, D>(
+  lg::tc::attend_block<lg::tc::kExact, D, E>(
       (dir1 ? qk1 : qk0) + bh * nq * D, (dir1 ? qk0 : qk1) + bh * nk * D,
       (dir1 ? v0 : v1) + bh * nk * D, kvalid ? kvalid + (size_t)b * nk : nullptr,
       nullptr, (dir1 ? m1 : m0) + bh * nq * D, dir1 ? part1 : part0,
@@ -140,39 +143,74 @@ cudaError_t walk_shape(int* key_tile, int* blocks_per_sm) {
       blocks_per_sm, flash_sdpa_kernel<false, D, E>, lg::tc::THREADS, smem);
 }
 
-template <bool SHIFT>
-cudaError_t launch_d(int d, const float* q, const float* k, const float* v,
-                     const bool* kvalid, float* o, float* part, float* ml,
+template <bool SHIFT, class E>
+cudaError_t launch_d(int d, const E* q, const E* k, const E* v,
+                     const bool* kvalid, E* o, float* part, float* ml,
                      int B, int H, int Nq, int Nk, int splits, float scale,
                      float shift2, cudaStream_t stream) {
   if (d == 64)
-    return launch<SHIFT, 64>(q, k, v, kvalid, o, part, ml, B, H, Nq, Nk,
-                             splits, scale, shift2, stream);
+    return launch<SHIFT, 64, E>(q, k, v, kvalid, o, part, ml, B, H, Nq, Nk,
+                                splits, scale, shift2, stream);
   if (d == 128)
-    return launch<SHIFT, 128>(q, k, v, kvalid, o, part, ml, B, H, Nq, Nk,
-                              splits, scale, shift2, stream);
+    return launch<SHIFT, 128, E>(q, k, v, kvalid, o, part, ml, B, H, Nq, Nk,
+                                 splits, scale, shift2, stream);
   return cudaErrorInvalidValue;
 }
 
-template <int D>
-cudaError_t launch_pair(const float* qk0, const float* qk1, const float* v0,
-                        const float* v1, const bool* valid0,
-                        const bool* valid1, float* m0, float* m1,
+template <int D, class E = float>
+cudaError_t launch_pair(const E* qk0, const E* qk1, const E* v0,
+                        const E* v1, const bool* valid0,
+                        const bool* valid1, E* m0, E* m1,
                         float* part0, float* ml0, float* part1, float* ml1,
                         int B, int H, int M, int N, int splits0, int splits1,
                         float scale, cudaStream_t stream) {
-  constexpr size_t smem = Shape<D>::kBytes;
-  cudaError_t err = allow_smem(flash_cross_pair_kernel<D>, smem);
+  constexpr size_t smem = Shape<D, E>::kBytes;
+  cudaError_t err = allow_smem(flash_cross_pair_kernel<D, E>, smem);
   if (err != cudaSuccess) return err;
   const int x0 = lg::tc::cdiv(M, lg::tc::BQ) * splits0;
   const int x1 = lg::tc::cdiv(N, lg::tc::BQ) * splits1;
   const dim3 grid(x0 > x1 ? x0 : x1, H, 2 * B);
-  flash_cross_pair_kernel<D><<<grid, lg::tc::THREADS, smem, stream>>>(qk0, qk1, v0, v1, valid0, valid1, m0, m1, part0, ml0, part1, ml1, H, M, N, splits0, splits1, scale);
+  flash_cross_pair_kernel<D, E><<<grid, lg::tc::THREADS, smem, stream>>>(qk0, qk1, v0, v1, valid0, valid1, m0, m1, part0, ml0, part1, ml1, H, M, N, splits0, splits1, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   err = merge<false>(part0, ml0, m0, B * H * M, D, splits0, stream);
   if (err != cudaSuccess) return err;
   return merge<false>(part1, ml1, m1, B * H * N, D, splits1, stream);
+}
+
+template <class E>
+cudaError_t sdpa(const E* q, const E* k, const E* v, const bool* kvalid,
+                 E* o, float* part, float* ml, int B, int H, int Nq, int Nk,
+                 int d, int shift, int splits, float scale, float shift2,
+                 cudaStream_t stream) {
+  return shift ? launch_d<true>(d, q, k, v, kvalid, o, part, ml, B, H, Nq, Nk,
+                                splits, scale, shift2, stream)
+               : launch_d<false>(d, q, k, v, kvalid, o, part, ml, B, H, Nq,
+                                 Nk, splits, scale, shift2, stream);
+}
+
+template <class E>
+cudaError_t pair(const E* qk0, const E* qk1, const E* v0, const E* v1,
+                 const bool* valid0, const bool* valid1, E* m0, E* m1,
+                 float* part0, float* ml0, float* part1, float* ml1, int B,
+                 int H, int M, int N, int d, int splits0, int splits1,
+                 float scale, cudaStream_t stream) {
+  if (d == 64)
+    return launch_pair<64, E>(qk0, qk1, v0, v1, valid0, valid1, m0, m1, part0,
+                              ml0, part1, ml1, B, H, M, N, splits0, splits1,
+                              scale, stream);
+  if (d == 128)
+    return launch_pair<128, E>(qk0, qk1, v0, v1, valid0, valid1, m0, m1,
+                               part0, ml0, part1, ml1, B, H, M, N, splits0,
+                               splits1, scale, stream);
+  return cudaErrorInvalidValue;
+}
+
+template <class E>
+cudaError_t shape(int d, int* key_tile, int* blocks_per_sm) {
+  if (d == 64) return walk_shape<64, E>(key_tile, blocks_per_sm);
+  if (d == 128) return walk_shape<128, E>(key_tile, blocks_per_sm);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -190,10 +228,8 @@ extern "C" cudaError_t lg_flash_sdpa(const float* q, const float* k,
                                      int H, int Nq, int Nk, int d, int shift,
                                      int splits, float scale, float shift2,
                                      cudaStream_t stream) {
-  return shift ? launch_d<true>(d, q, k, v, kvalid, o, part, ml, B, H, Nq, Nk,
-                                splits, scale, shift2, stream)
-               : launch_d<false>(d, q, k, v, kvalid, o, part, ml, B, H, Nq,
-                                 Nk, splits, scale, shift2, stream);
+  return sdpa<float>(q, k, v, kvalid, o, part, ml, B, H, Nq, Nk, d, shift,
+                     splits, scale, shift2, stream);
 }
 
 // qk0, v0, m0: (B, H, M, d); qk1, v1, m1: (B, H, N, d); valid0 (B, M),
@@ -207,15 +243,9 @@ extern "C" cudaError_t lg_flash_cross_pair(
     float* part0, float* ml0, float* part1, float* ml1, int B, int H, int M,
     int N, int d, int splits0, int splits1, float scale,
     cudaStream_t stream) {
-  if (d == 64)
-    return launch_pair<64>(qk0, qk1, v0, v1, valid0, valid1, m0, m1, part0,
-                           ml0, part1, ml1, B, H, M, N, splits0, splits1,
-                           scale, stream);
-  if (d == 128)
-    return launch_pair<128>(qk0, qk1, v0, v1, valid0, valid1, m0, m1, part0,
-                            ml0, part1, ml1, B, H, M, N, splits0, splits1,
-                            scale, stream);
-  return cudaErrorInvalidValue;
+  return pair<float>(qk0, qk1, v0, v1, valid0, valid1, m0, m1, part0, ml0,
+                     part1, ml1, B, H, M, N, d, splits0, splits1, scale,
+                     stream);
 }
 
 // The walk's key tile and the blocks an SM holds of it at head_dim d (64
@@ -224,32 +254,36 @@ extern "C" cudaError_t lg_attention_shape(int d, int* key_tile,
                                           int* blocks_per_sm,
                                           cudaStream_t stream) {
   (void)stream;
-  if (d == 64) return walk_shape<64>(key_tile, blocks_per_sm);
-  if (d == 128) return walk_shape<128>(key_tile, blocks_per_sm);
-  return cudaErrorInvalidValue;
+  return shape<float>(d, key_tile, blocks_per_sm);
 }
 
-// lg_flash_sdpa's bf16 form (mp): q, k, v and o bf16, d 64 only; part and
-// ml fp32 scratch as above; scale the query scale rounded to bf16.
+// The bf16 forms (mp) of the three entry points above: q, k, v, o (qk, v,
+// m) bf16, d 64 or 128; part and ml fp32 scratch as above; scale the
+// query scale rounded to bf16.
 extern "C" cudaError_t lg_flash_sdpa_bf16(const bf16* q, const bf16* k,
                                           const bf16* v, const bool* kvalid,
                                           bf16* o, float* part, float* ml,
                                           int B, int H, int Nq, int Nk, int d,
                                           int shift, int splits, float scale,
                                           float shift2, cudaStream_t stream) {
-  if (d != 64) return cudaErrorInvalidValue;
-  return shift ? launch<true, 64, bf16>(q, k, v, kvalid, o, part, ml, B, H,
-                                        Nq, Nk, splits, scale, shift2, stream)
-               : launch<false, 64, bf16>(q, k, v, kvalid, o, part, ml, B, H,
-                                         Nq, Nk, splits, scale, shift2,
-                                         stream);
+  return sdpa<bf16>(q, k, v, kvalid, o, part, ml, B, H, Nq, Nk, d, shift,
+                    splits, scale, shift2, stream);
 }
 
-// lg_attention_shape for the bf16 walk (head_dim 64).
+extern "C" cudaError_t lg_flash_cross_pair_bf16(
+    const bf16* qk0, const bf16* qk1, const bf16* v0, const bf16* v1,
+    const bool* valid0, const bool* valid1, bf16* m0, bf16* m1,
+    float* part0, float* ml0, float* part1, float* ml1, int B, int H, int M,
+    int N, int d, int splits0, int splits1, float scale,
+    cudaStream_t stream) {
+  return pair<bf16>(qk0, qk1, v0, v1, valid0, valid1, m0, m1, part0, ml0,
+                    part1, ml1, B, H, M, N, d, splits0, splits1, scale,
+                    stream);
+}
+
 extern "C" cudaError_t lg_attention_shape_bf16(int d, int* key_tile,
                                                int* blocks_per_sm,
                                                cudaStream_t stream) {
   (void)stream;
-  if (d != 64) return cudaErrorInvalidValue;
-  return walk_shape<64, bf16>(key_tile, blocks_per_sm);
+  return shape<bf16>(d, key_tile, blocks_per_sm);
 }

@@ -5,7 +5,7 @@ Shiaoming/ALIKED).
 * Encoder: a ConvBlock and three ResBlocks, the last two with the
   deformable conv of ``ops/deform.py``, NCHW, cuDNN convs in full fp32.
   Block 1 and its two consumers run through kernel B10 on the lazy path
-  when ``conf.fused_stem``.
+  when ``conf.fused_stem`` and block 1 has 16 channels (aliked-n16).
 * Aggregation: each branch through a 1x1 conv and SELU (y1 at full
   resolution, y2-y4 at 1/2, 1/8, 1/32). The score head's 1x1 stage is
   applied per branch at the branch's resolution and the 8-channel parts
@@ -226,8 +226,11 @@ def _dense_branches(params: nn.Params, image: torch.Tensor,
                     fused_score: bool = False, fused_stem: bool = True):
     """Encoder and aggregation without the full-resolution feature map:
     returns ((y1, y2, y3, y4) channels-last, score map). B10 runs block 1
-    when ``fused_stem``, B11 the score head when ``fused_score``. A bf16
-    image runs the bf16 path (mp)."""
+    when ``fused_stem`` and block 1 has 16 channels, as in the JAX package
+    (lightglue_tpu/models/aliked.py:397-400), so that aliked-t16 rounds
+    block 1 where the JAX package does. B11 runs the score head when
+    ``fused_score``. A bf16 image runs the bf16 path (mp)."""
+    fused_stem = fused_stem and params["conv1"]["w"].shape[1] == 16
     stem = aliked_stem.fused_aliked_stem if fused_stem \
         else aliked_stem.composed_stem
     y1, x1p = stem({"block1": params["block1"], "conv1": params["conv1"]}, image)
@@ -265,10 +268,11 @@ def _gather_patches(maps: torch.Tensor, iy: torch.Tensor, ix: torch.Tensor,
     return torch.gather(padded, 1, idx.reshape(b, -1)).reshape(b, -1, ks * ks)
 
 
-def dkd_detect(score_map: torch.Tensor, conf: ALIKEDConfig,
-               image_size: Optional[torch.Tensor] = None):
-    """Static-k detection with sub-pixel refinement. score_map (B, H, W).
-    Returns (keypoints (B, K, 2) in pixels, scores (B, K), valid (B, K))."""
+def detection_map(score_map: torch.Tensor, conf: ALIKEDConfig,
+                  image_size: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The map the top-k reads: ``simple_nms`` of the score map (B, H, W),
+    then the border band of nms_radius at 0, measured from the true extent
+    when the image is padded."""
     b, h, w = score_map.shape
     r = conf.nms_radius
     dev = score_map.device
@@ -282,10 +286,20 @@ def dkd_detect(score_map: torch.Tensor, conf: ALIKEDConfig,
         tw = torch.full((b, 1, 1), float(w), device=dev)
         th = torch.full((b, 1, 1), float(h), device=dev)
     border = (ys < r) | (ys >= th - r) | (xs < r) | (xs >= tw - r)
-    nms = torch.where(border, torch.zeros_like(nms), nms)
+    return torch.where(border, torch.zeros_like(nms), nms)
+
+
+def dkd_detect(score_map: torch.Tensor, conf: ALIKEDConfig,
+               image_size: Optional[torch.Tensor] = None):
+    """Static-k detection with sub-pixel refinement. score_map (B, H, W).
+    Returns (keypoints (B, K, 2) in pixels, scores (B, K), valid (B, K))."""
+    _, h, w = score_map.shape
+    r = conf.nms_radius
+    dev = score_map.device
     kpts, _, valid = top_k_keypoints(
-        nms, conf.max_num_keypoints, conf.detection_threshold,
-        approx_recall=conf.approx_topk, twolevel=conf.twolevel_topk)
+        detection_map(score_map, conf, image_size), conf.max_num_keypoints,
+        conf.detection_threshold, approx_recall=conf.approx_topk,
+        twolevel=conf.twolevel_topk)
 
     # sub-pixel refinement: soft-argmax over the raw scores around each peak
     ks = 2 * r + 1

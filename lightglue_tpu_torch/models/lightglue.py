@@ -1,5 +1,5 @@
 """LightGlue matcher in PyTorch (counterpart of
-lightglue_tpu/models/lightglue.py:91-615, 662-677).
+lightglue_tpu/models/lightglue.py:91-615, 626-815).
 
 Same parameter tree and the same masked static-shape semantics as the JAX
 package: variable keypoint counts are validity masks, and width pruning is a
@@ -24,6 +24,14 @@ kernels (bf16 activations and weights, fp32 sums, rounded where the TPU
 kernels round), the token confidence takes its linear in bf16 and its
 sigmoid in fp32, and the assignment head (B2) casts back to fp32, as the
 JAX matcher does.
+
+``conf.compaction_bucket`` > 0 selects two-stage compaction
+(``forward_adaptive_twostage``, JAX lightglue.py:751-815): the first
+``compaction_prefix`` layers at full size, then each image's points,
+active ones first and most matchable first, gathered into a bucket of
+``compaction_bucket`` on the device, the remaining layers and the
+assignment at that size, and the outputs scattered back to the original
+numbering.
 """
 
 from __future__ import annotations
@@ -36,6 +44,7 @@ from torch.utils.weak import WeakIdKeyDictionary
 
 from .. import nn
 from ..configs import LightGlueConfig
+from ..utils import diagnostics
 from ..ops import assignment as asg
 from ..ops import assignment_fused as fasg_ops
 from ..ops import attention as attn_ops
@@ -166,37 +175,52 @@ def prepared_blocks(params, conf: LightGlueConfig):
     return per_conf[ck]
 
 
-_BF16_TREES = WeakIdKeyDictionary()
+_BF16 = WeakIdKeyDictionary()  # an fp32 weight tensor -> its bf16 copy
+_BF16_TREES = WeakIdKeyDictionary()  # a stacked Wqkv -> the trees built on it
+
+
+def _bf16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in bf16, cast once per tensor and kept while ``t`` lives (a
+    CUDA graph may hold the copy's address)."""
+    c = _BF16.get(t)
+    if c is None:
+        c = _BF16[t] = t.to(torch.bfloat16)
+    return c
 
 
 def compute_params(params, conf: LightGlueConfig):
     """``params`` as the layers read them under ``conf.mp``: the linears
     that take bf16 activations (input projection, the attention linears of
-    the composed blocks, token confidence) cast to bf16 once per tree
-    (keyed as prepared_blocks), so that nn.linear's cast to x's type does
-    nothing per call. The rest (the FFN, which B4 prepares, the rotary
-    projection and the assignment head, fp32 under mp) is the tree's own.
+    the composed blocks, token confidence) cast to bf16 once per tensor,
+    so that nn.linear's cast to x's type does nothing per call. The rest
+    (the FFN, which B4 prepares, the rotary projection and the assignment
+    head, fp32 under mp) is the tree's own. One tree is built per
+    parameter tree: trees that share their layers but not the rest (the
+    two-head regrouping's rotary projection) get trees of their own.
     Without mp: ``params``."""
     if not conf.mp:
         return params
     key = params["transformers"]["self_attn"]["Wqkv"]["w"]
-    tree = _BF16_TREES.get(key)
-    if tree is None:
-        def bf16(p):
-            return nn.map_params(p, lambda t: t.to(torch.bfloat16))
+    trees = _BF16_TREES.setdefault(key, [])
+    for src, tree in trees:
+        if src.keys() == params.keys() - {"transformers"} and all(
+                src[k] is params[k] for k in src):
+            return tree
 
-        sa, ca = (params["transformers"][n] for n in ("self_attn",
-                                                      "cross_attn"))
-        tree = dict(params, transformers={
-            "self_attn": dict(sa, Wqkv=bf16(sa["Wqkv"]),
-                              out_proj=bf16(sa["out_proj"])),
-            "cross_attn": dict(ca, to_qk=bf16(ca["to_qk"]),
-                               to_v=bf16(ca["to_v"]),
-                               to_out=bf16(ca["to_out"]))})
-        for n in ("input_proj", "token_confidence"):
-            if n in params:
-                tree[n] = bf16(params[n])
-        _BF16_TREES[key] = tree
+    def bf16(p):
+        return nn.map_params(p, _bf16)
+
+    sa, ca = (params["transformers"][n] for n in ("self_attn", "cross_attn"))
+    tree = dict(params, transformers={
+        "self_attn": dict(sa, Wqkv=bf16(sa["Wqkv"]),
+                          out_proj=bf16(sa["out_proj"])),
+        "cross_attn": dict(ca, to_qk=bf16(ca["to_qk"]), to_v=bf16(ca["to_v"]),
+                           to_out=bf16(ca["to_out"]))})
+    for n in ("input_proj", "token_confidence"):
+        if n in params:
+            tree[n] = bf16(params[n])
+    trees.append(({k: v for k, v in params.items() if k != "transformers"},
+                  tree))
     return tree
 
 
@@ -351,7 +375,7 @@ def _prepare(params, conf, kpts0, kpts1, desc0, desc1, size0, size1, mask0,
         desc1 = nn.linear(params["input_proj"], desc1)
     enc0 = rotary.fourier_posenc(params["posenc"], kn0)
     enc1 = rotary.fourier_posenc(params["posenc"], kn1)
-    return desc0.contiguous(), desc1.contiguous(), enc0, enc1
+    return desc0.contiguous(), desc1.contiguous(), enc0, enc1, kn0, kn1
 
 
 def forward_fixed(params, conf: LightGlueConfig, kpts0, kpts1, desc0, desc1,
@@ -362,7 +386,7 @@ def forward_fixed(params, conf: LightGlueConfig, kpts0, kpts1, desc0, desc1,
     b, m, _ = kpts0.shape
     n = kpts1.shape[1]
     tree = compute_params(params, conf)
-    desc0, desc1, enc0, enc1 = _prepare(
+    desc0, desc1, enc0, enc1, _, _ = _prepare(
         tree, conf, kpts0, kpts1, desc0, desc1, size0, size1, mask0, mask1,
         scales0, oris0, scales1, oris1)
     fused = _block_weights(params, conf)
@@ -394,18 +418,30 @@ def forward_adaptive(params, conf: LightGlueConfig, kpts0, kpts1, desc0,
     state = adaptive_start(params, conf, kpts0, kpts1, desc0, desc1, size0,
                            size1, mask0, mask1, scales0, oris0, scales1,
                            oris1)
+    i, _, state = _adaptive_loop(params, conf, 0, False, state,
+                                 conf.n_layers)
+    return adaptive_finish(params, conf, i, state)
+
+
+def _adaptive_loop(params, conf: LightGlueConfig, i: int, stop: bool,
+                   s: "AdaptiveState", i_max: int):
+    """The layers i .. i_max - 1 of the reference's loop with break and
+    pruning (JAX ``_adaptive_loop``), the stop flag read on the host once
+    per layer. Returns (the next layer, whether the loop stopped early,
+    the state)."""
     fused = _block_weights(params, conf)
-    for i in range(conf.n_layers):
-        state, stop = adaptive_layer(params, conf, i, state, fused)
-        if stop is None or bool(stop):  # host sync: one per layer
-            break
-    return adaptive_finish(params, conf, i + 1, state)
+    while i < i_max and not stop:
+        s, flag = adaptive_layer(params, conf, i, s, fused)
+        i += 1
+        stop = flag is not None and bool(flag)  # host sync: one per layer
+    return i, stop, s
 
 
 class AdaptiveState(NamedTuple):
     """The adaptive loop's state between layers: descriptors, active
     (unpruned, valid) masks, survival depths, and what every layer reads
-    (the rotary tables and the number of valid points)."""
+    (the rotary tables and the number of valid points), with the
+    normalized keypoints (B, N, 2|4) the tables are made from."""
 
     desc0: torch.Tensor
     desc1: torch.Tensor
@@ -416,6 +452,8 @@ class AdaptiveState(NamedTuple):
     enc0: torch.Tensor
     enc1: torch.Tensor
     num_points: torch.Tensor
+    kn0: torch.Tensor
+    kn1: torch.Tensor
 
 
 def adaptive_start(params, conf: LightGlueConfig, kpts0, kpts1, desc0, desc1,
@@ -425,7 +463,7 @@ def adaptive_start(params, conf: LightGlueConfig, kpts0, kpts1, desc0, desc1,
     """The adaptive loop's state before its first layer."""
     b, m, _ = kpts0.shape
     n = kpts1.shape[1]
-    desc0, desc1, enc0, enc1 = _prepare(
+    desc0, desc1, enc0, enc1, kn0, kn1 = _prepare(
         compute_params(params, conf), conf, kpts0, kpts1, desc0, desc1, size0,
         size1, mask0, mask1, scales0, oris0, scales1, oris1)
     dev = desc0.device
@@ -437,7 +475,7 @@ def adaptive_start(params, conf: LightGlueConfig, kpts0, kpts1, desc0, desc1,
     prune0 = torch.ones(b, m, dtype=torch.int32, device=dev)
     prune1 = torch.ones(b, n, dtype=torch.int32, device=dev)
     return AdaptiveState(desc0, desc1, act0, act1, prune0, prune1, enc0, enc1,
-                         num_points)
+                         num_points, kn0, kn1)
 
 
 def adaptive_layer(params, conf: LightGlueConfig, i: int, s: AdaptiveState,
@@ -500,8 +538,179 @@ def _prune(la, conf, desc, act, prune, confidences, stop, th, do_early_stop):
     return act, prune + (ran & act).int()
 
 
+def twostage(conf: LightGlueConfig, m: int, n: int) -> bool:
+    """Whether ``forward`` takes two-stage compaction for M and N
+    keypoints (JAX lightglue.py:665-670): a bucket, width pruning on, and
+    both images above the bucket."""
+    return (conf.compaction_bucket > 0 and conf.width_confidence > 0
+            and m > conf.compaction_bucket and n > conf.compaction_bucket)
+
+
 def forward(params, conf: LightGlueConfig, **kw) -> MatchOutput:
-    """Adaptive when either confidence is on, else fixed."""
+    """Two-stage compaction (``twostage``), else adaptive when either
+    confidence is on, else fixed."""
+    m, n = kw["kpts0"].shape[1], kw["kpts1"].shape[1]
+    if twostage(conf, m, n):
+        _check_compaction_config(conf, m)
+        return forward_adaptive_twostage(
+            params, conf, conf.compaction_prefix, conf.compaction_bucket,
+            **kw)
     if conf.depth_confidence > 0 or conf.width_confidence > 0:
         return forward_adaptive(params, conf, **kw)
     return forward_fixed(params, conf, **kw)
+
+
+# ---------------------------------------------------------------------------
+# Two-stage compaction
+# ---------------------------------------------------------------------------
+
+# Measured match agreement (f1) of the two-stage path against the exact
+# masked adaptive path, keyed (keypoints, prefix, bucket): the JAX
+# package's benchmarks/compaction_accuracy.json (its
+# scripts/compaction_accuracy.py, the trained checkpoint on its synthetic
+# workload). f1 does not fall as prefix or bucket grows, so a measured row
+# at (prefix' <= prefix, bucket' <= bucket) bounds a configuration from
+# below.
+_COMPACTION_F1 = {
+    (1024, 1, 256): 0.29, (1024, 1, 384): 0.43, (1024, 1, 512): 0.59,
+    (1024, 1, 640): 0.71, (1024, 3, 256): 0.77, (1024, 3, 384): 0.91,
+    (1024, 3, 512): 0.97, (1024, 3, 640): 1.00,
+    (2048, 1, 256): 0.15, (2048, 1, 384): 0.23, (2048, 1, 512): 0.30,
+    (2048, 1, 640): 0.37, (2048, 3, 256): 0.45, (2048, 3, 384): 0.64,
+    (2048, 3, 512): 0.78, (2048, 3, 640): 0.86,
+}
+
+
+def _check_compaction_config(conf: LightGlueConfig, m: int) -> None:
+    """Warn once per configuration when its measured agreement bound is
+    below 0.99 (JAX lightglue.py:636-659): the bucket cap drops points
+    that survived pruning."""
+    rows = sorted({k for k, _, _ in _COMPACTION_F1})
+    near = min(rows, key=lambda k: abs(k - m))
+    lower = [f1 for (k, p, bkt), f1 in _COMPACTION_F1.items()
+             if k == near and p <= conf.compaction_prefix
+             and bkt <= conf.compaction_bucket]
+    bound = max(lower) if lower else 0.0
+    if bound < 0.99:
+        diagnostics.warn_once(
+            f"compaction_{conf.compaction_prefix}_{conf.compaction_bucket}_{m}",
+            f"two-stage compaction (prefix={conf.compaction_prefix}, "
+            f"bucket={conf.compaction_bucket}) at {m} keypoints is in a "
+            f"measured <0.99 match-agreement region (best measured lower "
+            f"bound f1={bound:.2f} @{near} kpts, "
+            f"benchmarks/compaction_accuracy.json): the bucket cap drops "
+            f"surviving points. Use a larger bucket / later prefix, or "
+            f"compaction_bucket=0 for the exact masked adaptive path.")
+
+
+class PrefixState(NamedTuple):
+    """The adaptive loop after its prefix (JAX ``PrefixState``): ``i`` the
+    next layer and ``stop`` whether the loop stopped early (host values,
+    as the loop reads them), ``state`` the descriptors, masks, survival
+    depths, normalized keypoints and the original valid count."""
+
+    i: int
+    stop: bool
+    state: AdaptiveState
+
+
+def forward_prefix(params, conf: LightGlueConfig, n_prefix: int, kpts0,
+                   kpts1, desc0, desc1, size0=None, size1=None, mask0=None,
+                   mask1=None, scales0=None, oris0=None, scales1=None,
+                   oris1=None) -> PrefixState:
+    """The first ``n_prefix`` adaptive layers (JAX lightglue.py:696-724)."""
+    state = adaptive_start(params, conf, kpts0, kpts1, desc0, desc1, size0,
+                           size1, mask0, mask1, scales0, oris0, scales1,
+                           oris1)
+    return PrefixState(*_adaptive_loop(params, conf, 0, False, state,
+                                       n_prefix))
+
+
+def forward_suffix(params, conf: LightGlueConfig,
+                   st: PrefixState) -> MatchOutput:
+    """The adaptive loop from a (compacted) ``PrefixState`` to its end and
+    the assignment (JAX lightglue.py:727-748). ``st.state``'s rotary
+    tables are its keypoints' (``compact`` recomputes them)."""
+    i, _, s = _adaptive_loop(params, conf, st.i, st.stop, st.state,
+                             conf.n_layers)
+    return adaptive_finish(params, conf, i, s)
+
+
+def compact(params, conf: LightGlueConfig, s: AdaptiveState, n_prefix: int,
+            bucket: int):
+    """Each image's points after the prefix gathered into ``bucket`` slots
+    (JAX lightglue.py:786-803): ordered by (inactive, -matchability) with a
+    stable sort, active points first and the most matchable first, so that
+    an overflow drops the least matchable. Matchability is the last prefix
+    layer's, on the descriptors in fp32 (also under mp). Returns (the
+    compacted state, its rotary tables recomputed from the gathered
+    keypoints, ind0 (B, bucket), ind1: the original index of each slot)."""
+    la = nn.index_params(params["log_assignment"], n_prefix - 1)
+
+    def gather(desc, kn, prune, act):
+        sc = asg.get_matchability(la, desc.float())
+        key = torch.where(act, -sc, 2.0 - sc)
+        ind = torch.sort(key, dim=1, stable=True)[1][:, :bucket]
+        rows = lambda a: torch.take_along_dim(  # noqa: E731
+            a, ind[..., None], 1).contiguous()
+        return (rows(desc), rows(kn), torch.take_along_dim(prune, ind, 1),
+                torch.take_along_dim(act, ind, 1), ind)
+
+    d0, kn0, p0, a0, ind0 = gather(s.desc0, s.kn0, s.prune0, s.act0)
+    d1, kn1, p1, a1, ind1 = gather(s.desc1, s.kn1, s.prune1, s.act1)
+    enc0 = rotary.fourier_posenc(params["posenc"], kn0)
+    enc1 = rotary.fourier_posenc(params["posenc"], kn1)
+    return (AdaptiveState(d0, d1, a0, a1, p0, p1, enc0, enc1, s.num_points,
+                          kn0, kn1), ind0, ind1)
+
+
+def scatter_back(out: MatchOutput, prune0, prune1, ind0,
+                 ind1) -> MatchOutput:
+    """A compacted forward's outputs in the original numbering (JAX
+    lightglue.py:806-815): matches mapped through the other image's
+    indices, scores 0 and matches -1 at points not in the bucket, their
+    survival depths those of the prefix (``prune0``, ``prune1``)."""
+    b, m = prune0.shape
+    n = prune1.shape[1]
+    bucket = ind0.shape[1]
+
+    def back(mt, ind_self, ind_other, k):
+        mapped = torch.take_along_dim(
+            ind_other, mt.long().clamp(0, bucket - 1), 1).int()
+        full = torch.full((b, k), -1, dtype=mt.dtype, device=mt.device)
+        return full.scatter(1, ind_self, torch.where(mt >= 0, mapped, -1))
+
+    zeros = lambda k, ms: torch.zeros(  # noqa: E731
+        b, k, dtype=ms.dtype, device=ms.device)
+    return MatchOutput(
+        back(out.matches0, ind0, ind1, m), back(out.matches1, ind1, ind0, n),
+        zeros(m, out.matching_scores0).scatter(1, ind0,
+                                               out.matching_scores0),
+        zeros(n, out.matching_scores1).scatter(1, ind1,
+                                               out.matching_scores1),
+        out.stop, prune0.scatter(1, ind0, out.prune0),
+        prune1.scatter(1, ind1, out.prune1))
+
+
+def forward_adaptive_twostage(params, conf: LightGlueConfig, n_prefix: int,
+                              bucket: int, kpts0, kpts1, desc0, desc1,
+                              size0=None, size1=None, mask0=None, mask1=None,
+                              scales0=None, oris0=None, scales1=None,
+                              oris1=None) -> MatchOutput:
+    """The adaptive forward with width-pruning compaction on the device
+    (JAX lightglue.py:751-815): ``n_prefix`` layers at full size
+    (``forward_prefix``), the survivors of each image gathered into
+    ``bucket`` slots (``compact``), the remaining layers and the
+    assignment at that size (``forward_suffix``), the outputs scattered
+    back to the original numbering (``scatter_back``). ``parallel/graphs.py``
+    captures the same steps."""
+    m, n = kpts0.shape[1], kpts1.shape[1]
+    if not (bucket <= m and bucket <= n and 1 <= n_prefix <= conf.n_layers):
+        raise ValueError(f"bucket {bucket} and prefix {n_prefix} for M {m}, "
+                         f"N {n} and {conf.n_layers} layers")
+    st = forward_prefix(params, conf, n_prefix, kpts0, kpts1, desc0, desc1,
+                        size0, size1, mask0, mask1, scales0, oris0, scales1,
+                        oris1)
+    small, ind0, ind1 = compact(params, conf, st.state, n_prefix, bucket)
+    out = forward_suffix(params, conf, st._replace(state=small))
+    return scatter_back(out, st.state.prune0, st.state.prune1, ind0, ind1)

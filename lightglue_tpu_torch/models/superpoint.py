@@ -87,6 +87,22 @@ def dense_forward(
     ``mp``: the convolutions in bf16 (lightglue_tpu/models/superpoint.py:
     85-143): B7 reads the fp32 image and rounds it, the rest runs on bf16
     maps, the logits' softmax and the descriptors' L2 norm in fp32."""
+    logits, desc = dense_heads(params, image, fused_stem, mp)
+    scores = torch.softmax(logits.float(), dim=1)[:, :-1]
+    b, _, h, w = scores.shape
+    scores = scores.reshape(b, 8, 8, h, w).permute(0, 3, 1, 4, 2)
+    scores = scores.reshape(b, h * 8, w * 8)
+    desc = nn.l2_normalize(desc.float().permute(0, 2, 3, 1), dim=-1)
+    return scores, desc
+
+
+def dense_heads(
+    params: nn.Params, image: torch.Tensor, fused_stem: bool = True,
+    mp: bool = False,
+):
+    """``dense_forward`` up to its heads' last convolutions: the detector's
+    65 logits (B, 65, H/8, W/8) and the descriptor map (B, D, H/8, W/8),
+    in the convolutions' type (bf16 under ``mp``)."""
     if image.shape[-1] == 3:
         image = rgb_to_grayscale(image)
     x = image.permute(0, 3, 1, 2).contiguous().float()
@@ -114,12 +130,7 @@ def dense_forward(
         # detector head: 65-way softmax, dustbin dropped, 8x8 pixel shuffle
         logits = nn.conv2d(params["convPb"], cbr("convPa", x))
         desc = nn.conv2d(params["convDb"], cbr("convDa", x))
-    scores = torch.softmax(logits.float(), dim=1)[:, :-1]
-    b, _, h, w = scores.shape
-    scores = scores.reshape(b, 8, 8, h, w).permute(0, 3, 1, 4, 2)
-    scores = scores.reshape(b, h * 8, w * 8)
-    desc = nn.l2_normalize(desc.float().permute(0, 2, 3, 1), dim=-1)
-    return scores, desc
+    return logits, desc
 
 
 def sample_descriptors(
@@ -139,6 +150,29 @@ def sample_descriptors(
     return nn.l2_normalize(bilinear_sample(desc_map, kp, align_corners=True))
 
 
+def detection_map(scores: torch.Tensor, conf: SuperPointConfig,
+                  image_size: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The map the top-k reads: ``simple_nms`` of the dense scores (B, H,
+    W), then the border band at -1 (superpoint.py:181-186), measured from
+    the true extent when the image is padded."""
+    scores = simple_nms(scores, conf.nms_radius)
+    pad = conf.remove_borders
+    b, h, w = scores.shape
+    dev = scores.device
+    ys = torch.arange(h, device=dev, dtype=torch.float32)[None, :, None]
+    xs = torch.arange(w, device=dev, dtype=torch.float32)[None, None, :]
+    if image_size is not None:
+        size = image_size.to(dev, torch.float32)
+        tw, th = size[:, 0, None, None], size[:, 1, None, None]
+    else:
+        tw = torch.full((b, 1, 1), float(w), device=dev)
+        th = torch.full((b, 1, 1), float(h), device=dev)
+    if pad or image_size is not None:
+        border = (ys < pad) | (ys >= th - pad) | (xs < pad) | (xs >= tw - pad)
+        scores = torch.where(border, torch.full_like(scores, -1.0), scores)
+    return scores
+
+
 @torch.inference_mode()
 def forward(
     params: nn.Params,
@@ -156,22 +190,7 @@ def forward(
                          f"{tuple(image.shape[1:3])}")
     scores, desc_map = dense_forward(params, image, fused_stem=conf.fused_stem,
                                      mp=conf.mp)
-    scores = simple_nms(scores, conf.nms_radius)
-    # border removal (superpoint.py:181-186), from the true extent if padded
-    pad = conf.remove_borders
-    b, h, w = scores.shape
-    dev = scores.device
-    ys = torch.arange(h, device=dev, dtype=torch.float32)[None, :, None]
-    xs = torch.arange(w, device=dev, dtype=torch.float32)[None, None, :]
-    if image_size is not None:
-        size = image_size.to(dev, torch.float32)
-        tw, th = size[:, 0, None, None], size[:, 1, None, None]
-    else:
-        tw = torch.full((b, 1, 1), float(w), device=dev)
-        th = torch.full((b, 1, 1), float(h), device=dev)
-    if pad or image_size is not None:
-        border = (ys < pad) | (ys >= th - pad) | (xs < pad) | (xs >= tw - pad)
-        scores = torch.where(border, torch.full_like(scores, -1.0), scores)
+    scores = detection_map(scores, conf, image_size)
     kpts, kscores, valid = top_k_keypoints(
         scores, conf.max_num_keypoints, conf.detection_threshold,
         approx_recall=conf.approx_topk, twolevel=conf.twolevel_topk,

@@ -42,8 +42,20 @@ def bilinear_taps(x: torch.Tensor, fy: torch.Tensor, fx: torch.Tensor
     vals = torch.gather(flat, 1, idx.reshape(b, -1, 1).expand(-1, -1, c))
     wts = torch.stack([(1 - wy) * (1 - wx), (1 - wy) * wx,
                        wy * (1 - wx), wy * wx], -1)
-    wts = torch.where(inside, wts, 0.0)
-    return (vals.reshape(*idx.shape, c) * wts[..., None]).sum(-2)
+    wts = torch.where(inside, wts, 0.0)[..., None]
+    vals = vals.reshape(*idx.shape, c)
+    # the corners combined as XLA compiles the JAX package's sum of four
+    # products: fused multiply-adds, fma(v3, w3, fma(v2, w2, fma(v0, w0,
+    # round(v1 w1)))). ``addcmul`` fuses its multiply and add on the CPU
+    # and on CUDA (tests/test_torch_mp_extract.py holds the samples to the
+    # JAX package's bit for bit, chip_smoke.py's phase 5f the card's to the
+    # CPU's). Summed in another way the sample moves by an fp32 step, and
+    # at mp its bf16 rounding can land on the other neighbour.
+    out = torch.addcmul(vals[..., 1, :] * wts[..., 1, :], vals[..., 0, :],
+                        wts[..., 0, :])
+    for k in (2, 3):
+        out = torch.addcmul(out, vals[..., k, :], wts[..., k, :])
+    return out
 
 
 def deform_conv2d(

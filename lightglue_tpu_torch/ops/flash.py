@@ -17,11 +17,12 @@ S blocks whose states a second launch merges in split order.
 ``split_partial_plain`` and ``merge_splits_plain`` state that merge in
 plain PyTorch; only the tests use them.
 
-Under ``mp`` (bf16 q, k, v) K1 has a bf16 form at head_dim 64
-(``lg_flash_sdpa_bf16``): the TPU kernels fed bf16 operands, q scaled in
-bf16, fp32 scores, softmax and sums, the weights rounded to bf16 before
-P V, the output bf16 (``flash_sdpa_plain`` states it for bf16 inputs). B1'
-(head_dim 128) has none: the matcher refuses ``mp`` there.
+Under ``mp`` (bf16 q, k, v) K1 and B1' have bf16 forms at head_dim 64 and
+128 (``lg_flash_sdpa_bf16``, ``lg_flash_cross_pair_bf16``): the TPU kernels
+fed bf16 operands, q scaled in bf16, fp32 scores, softmax and sums, the
+weights rounded to bf16 before P V, the output bf16 (``flash_sdpa_plain``
+states it for bf16 inputs; B1' is two such walks, as the TPU pair is two
+calls of flash_sdpa).
 """
 
 from __future__ import annotations
@@ -36,12 +37,12 @@ import torch
 from .. import _build
 
 NEG_INF = -1e30  # additive bias of a masked key
-HEAD_DIMS = (64, 128)  # head_dims of the attention kernels (K1, B1', B5)
+HEAD_DIMS = (64, 128)  # head_dims of the attention kernels (K1, B1', B5),
+# fp32 and bf16
 LOG2E = 1.4426950408889634  # exp(x) == exp2(x * LOG2E)
 SHIFT_CLAMP = 100.0  # largest exp2 argument of the constant-shift softmax
 QUERY_TILE = 64  # query rows of a block of the walk (csrc/attn_tc.cuh)
 MAX_SPLITS = 8  # key splits of one query tile
-BF16_HEAD_DIM = 64  # the bf16 walk's head_dim (mp)
 # Work of an SM running two blocks of the walk against one alone: 1.18 at
 # head_dim 128 and 1.19-1.24 at 64 (scripts/attn_split.py, H100 SXM: the
 # tile time per SM at B 16 against B 4 or B 1 without splits)
@@ -131,7 +132,6 @@ def flash_sdpa(
     if d not in HEAD_DIMS:
         raise ValueError(f"flash_sdpa kernel takes head_dim in {HEAD_DIMS}, "
                          f"got {d}")
-    check_bf16_head_dim(q.dtype, d)
     if k.shape != (b, h, nk, d) or v.shape != k.shape or nk < 1:
         raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k.shape)} "
                          f"v {tuple(v.shape)}")
@@ -142,16 +142,8 @@ def flash_sdpa(
     launch_attention(dev, [(q, k, v, mask_arg(k_valid, (b, nk), dev), o)],
                      scale, None if shift is None else shift * LOG2E)
     _build.count(_build.typed(
-        "flash_sdpa_shift" if shift is not None else "flash_sdpa", q.dtype))
+        "flash_sdpa_shift" if shift is not None else "flash_sdpa", q.dtype, d))
     return o
-
-
-def check_bf16_head_dim(dtype: torch.dtype, d: int) -> None:
-    """Raise unless a bf16 launch has the bf16 walk's head_dim."""
-    if dtype == torch.bfloat16 and d != BF16_HEAD_DIM:
-        raise NotImplementedError(
-            f"the bf16 attention kernels take head_dim {BF16_HEAD_DIM}, got "
-            f"{d}; head_dim 128 under mp is in ROADMAP.md, Queue B.3")
 
 
 def flash_cross_pair_plain(
@@ -178,11 +170,11 @@ def flash_cross_pair(
     valid0: Optional[torch.Tensor] = None,
     valid1: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """B1' on CUDA tensors (both directions in one launch), the plain
-    version on CPU tensors."""
+    """B1' on CUDA tensors (both directions in one launch; its bf16 form
+    for bf16 inputs), the plain version on CPU tensors."""
     if qk0.device.type == "cpu":
         return flash_cross_pair_plain(qk0, qk1, v0, v1, valid0, valid1)
-    dev = _build.check_cuda(qk0=qk0, qk1=qk1, v0=v0, v1=v1)
+    dev = _build.check_cuda(dtype=qk0.dtype, qk0=qk0, qk1=qk1, v0=v0, v1=v1)
     b, h, m, d = qk0.shape
     n = qk1.shape[2]
     if d not in HEAD_DIMS:
@@ -195,11 +187,14 @@ def flash_cross_pair(
             f"v0 {tuple(v0.shape)} v1 {tuple(v1.shape)}")
     valid0 = mask_arg(valid0, (b, m), dev)
     valid1 = mask_arg(valid1, (b, n), dev)
+    scale = d ** -0.5
+    if qk0.dtype == torch.bfloat16:  # each TPU call scales q in bf16
+        scale = bf16_value(scale)
     m0 = torch.empty_like(qk0)
     m1 = torch.empty_like(qk1)
     launch_attention(dev, [(qk0, qk1, v1, valid1, m0),
-                           (qk1, qk0, v0, valid0, m1)], d ** -0.5, None)
-    _build.count("flash_cross_pair")
+                           (qk1, qk0, v0, valid0, m1)], scale, None)
+    _build.count(_build.typed("flash_cross_pair", qk0.dtype))
     return m0, m1
 
 
@@ -297,13 +292,10 @@ def launch_attention(dev: torch.device, walks, scale: float,
     q and out (B, H, Nq, d), k and v (B, H, Nk, d); queries scaled by
     ``scale``; ``shift2`` (K1 only) selects the constant-shift form. The
     key splits follow ``split_plan`` (``splits``: a study's candidates);
-    the scratch of a split walk is allocated here. bf16 walks (K1 only)
-    launch the bf16 form; their scratch stays fp32."""
+    the scratch of a split walk is allocated here. bf16 walks launch the
+    bf16 form; their scratch stays fp32."""
     b, h, _, d = walks[0][0].shape
     dt = walks[0][0].dtype
-    if dt == torch.bfloat16 and len(walks) != 1:
-        raise NotImplementedError("B1' has no bf16 form (head_dim 128 under "
-                                  "mp: ROADMAP.md, Queue B.3)")
     key_tile = walk_shape(walks[0][0].device.index, d, dt)[0]
     if splits is None:
         splits = planned_splits(walks)
@@ -323,7 +315,7 @@ def launch_attention(dev: torch.device, walks, scale: float,
     else:
         (qk0, qk1, v1, valid1, m0), (_, _, v0, valid0, m1) = walks
         qk0, qk1, v0, v1 = map(aligned16, (qk0, qk1, v0, v1))
-        _build.launch("lg_flash_cross_pair", dev, qk0, qk1, v0, v1, valid0,
+        _build.launch(_build.typed("lg_flash_cross_pair", dt), dev, qk0, qk1, v0, v1, valid0,
                       valid1, m0, m1, *scratch, b, h, qk0.shape[2],
                       qk1.shape[2], d, *splits, float(scale))
 

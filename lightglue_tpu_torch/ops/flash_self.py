@@ -30,7 +30,9 @@ q, k and v rounded after bias and rotary (:106, :110, :121); fp32 scores,
 softmax and row sums (:130); the weights rounded before P V (:132); the
 context rounded before out_proj (:141); the message rounded once after the
 heads' fp32 sum (:155); the LN + GELU hidden rounded before lin2 (:172); the
-output rounded (:176). Head_dim 64 only (the bf16 walk).
+output rounded (:176). At head_dim 64 and 128 (two heads of 128: the
+bf16 walk at d 128; out_proj sums both heads in fp32 and rounds once, as
+the TPU kernel's per-head sum at :155).
 """
 
 from __future__ import annotations
@@ -41,7 +43,7 @@ from typing import Optional
 import torch
 
 from .. import _build, nn
-from . import block_tc, flash
+from . import block_tc
 from .flash import LOG2E, key_bias, launch_attention, mask_arg, shift_weights
 
 MAX_FUSED_N = 2048  # the JAX package's limit; it decides which kernels run
@@ -115,7 +117,6 @@ def fused_self_block(
         return fused_self_block_plain(w, x, enc, key_mask)
     b, n, d = x.shape
     dev = block_tc.check_block_weights(w, d)
-    flash.check_bf16_head_dim(block_tc.wtype(w), d // w["num_heads"])
     if _build.check_cuda(dtype=block_tc.wtype(w), x=x) != dev or n < 1:
         raise ValueError(f"x {tuple(x.shape)} is on {x.device}, the weights "
                          f"on {dev}")
@@ -127,5 +128,6 @@ def fused_self_block(
                             mask_arg(key_mask, (b, n), dev), ctx)], 1.0,
                      None if shift is None else shift * LOG2E)
     out = block_tc.launch_tail(dev, w, [ctx], [x])[0]
-    _build.count(_build.typed("fused_self_block", block_tc.wtype(w)))
+    _build.count(_build.typed("fused_self_block", block_tc.wtype(w),
+                              d // w["num_heads"]))
     return out

@@ -244,7 +244,8 @@ class BatchMatcher:
         """Build every (bucket, batch) program this matcher can dispatch,
         with and without ``image_size``, before any traffic arrives: on a
         CUDA device each is captured as a CUDA graph set (after one eager
-        run), on the CPU each runs once. Graphs live in this process: no
+        run; a bucket above ``compaction_bucket`` as the two-stage set), on
+        the CPU each runs once. Graphs live in this process: no
         cache carries them across processes, as JAX's persistent
         compilation cache carries compiled programs.
 

@@ -18,6 +18,13 @@ launches a few graphs instead of the eager matcher's 250-310 kernels.
   ``adaptive_finish`` per layer the loop may exit after (each reads its own
   ``log_assignment`` layer). The stop decision pools over the whole batch,
   dummy pairs included, as the JAX loop's does.
+- **Two-stage compaction** (``models.lightglue.twostage`` true for the
+  signature): the prefix layers' graphs at the full bucket; one graph of
+  ``compact`` after the last prefix layer, replayed before its stop flag
+  is read (the JAX path compacts even when the prefix stopped); the suffix
+  layers' and their exit graphs at the compaction bucket, each exit with
+  ``scatter_back`` to the original numbering. An exit after an earlier
+  prefix layer holds its own compaction of that layer's state.
 - **Static buffers:** a signature's inputs are packed in one pinned host
   buffer and one device buffer (``Staging``): numpy arrays are copied into
   the pinned one and sent in one copy. The outputs come back the same way,
@@ -40,6 +47,7 @@ forward. Graphs live in their process; nothing persists across processes.
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -94,6 +102,16 @@ def input_specs(sig: Signature, dim: int) -> Specs:
         if sig.with_scale_ori:
             specs[f"scales{side}"] = ((sig.batch, k), torch.float32)
             specs[f"oris{side}"] = ((sig.batch, k), torch.float32)
+    return specs
+
+
+def output_specs(sig: Signature) -> Specs:
+    """The matcher's outputs (``OUTPUTS``) for ``sig``."""
+    specs: Specs = {}
+    for f in OUTPUTS:
+        k = sig.n if f.endswith("1") else sig.m
+        dtype = torch.float32 if f.startswith("matching") else torch.int32
+        specs[f] = ((sig.batch, k), dtype)
     return specs
 
 
@@ -178,9 +196,12 @@ class GraphSet(NamedTuple):
     forward. Adaptive: ``segments[i]`` runs layer i (segment 0 from the
     inputs) into ``states[i]``, ``stops[i]`` is its stop flag (None where
     no layer reads one), ``exits[i]`` the assignment after i + 1 layers;
-    the last graph of a call writes ``outputs``. ``states`` and ``stops``
-    are tensors of the pool that later graphs read: they stay referenced
-    here, or a later capture would reuse their memory."""
+    the last graph of a call writes ``outputs``. Two-stage: ``prefix``
+    layers at full size, then ``compaction`` (one graph) into
+    ``compacted`` (the state and the original indices); 0 and empty
+    otherwise. ``states``, ``stops`` and ``compacted`` are tensors of the
+    pool that later graphs read: they stay referenced here, or a later
+    capture would reuse their memory."""
 
     inputs: Staging
     outputs: Staging
@@ -188,6 +209,9 @@ class GraphSet(NamedTuple):
     exits: List[Captured]
     states: List[lg.AdaptiveState]
     stops: List[Optional[torch.Tensor]]
+    prefix: int
+    compaction: List[Captured]
+    compacted: list
 
 
 class GraphMatcher:
@@ -239,6 +263,8 @@ class GraphMatcher:
             return self.conf.n_layers
         for i, seg in enumerate(gs.segments):
             seg.replay()
+            if i + 1 == gs.prefix:
+                gs.compaction[0].replay()
             if gs.stops[i] is not None and self._read_stop(gs.stops[i], i):
                 break
         gs.exits[i].replay()
@@ -269,46 +295,66 @@ class GraphMatcher:
     def _capture(self, sig: Signature) -> GraphSet:
         """Stage seeded inputs, run every step once eagerly, then capture
         them."""
-        conf, params = self.conf, self.params
-        staged = Staging(input_specs(sig, conf.input_dim), self.device)
-        copy_inputs(example_inputs(sig, conf.input_dim))(staged.host_np)
+        staged = Staging(input_specs(sig, self.conf.input_dim), self.device)
+        copy_inputs(example_inputs(sig, self.conf.input_dim))(staged.host_np)
         staged.to_device()
+        outputs = Staging(output_specs(sig), self.device)
+        # every step once eagerly, outside the capture
+        self._steps(sig, staged, outputs, lambda fn: (None, fn()))
+        torch.cuda.synchronize(self.device)
+        gs = self.sets[sig] = self._steps(sig, staged, outputs, self._graph)
+        return gs
+
+    def _steps(self, sig: Signature, staged: Staging, outputs: Staging,
+               run: Callable[[Callable[[], object]], Tuple[object, object]]
+               ) -> GraphSet:
+        """Every step of ``sig``'s forward on the staged inputs, each
+        through ``run(fn) -> (graph, fn's result)``: ``_graph`` captures,
+        an eager run calls."""
+        conf, params = self.conf, self.params
         kw = self._kwargs(staged.tensors)
         fused = lg._block_weights(params, conf)
-        # every step once eagerly, outside the capture
-        if self.adaptive:
-            states = [lg.adaptive_start(params, conf, **kw)]
-            for i in range(conf.n_layers):
-                states.append(lg.adaptive_layer(params, conf, i, states[-1],
-                                                fused)[0])
-            for layers in range(1, conf.n_layers + 1):
-                out = lg.adaptive_finish(params, conf, layers, states[layers])
-            del states
-        else:
-            out = lg.forward_fixed(params, conf, **kw)
-        outputs = Staging({f: (tuple(getattr(out, f).shape), getattr(out, f).dtype)
-                           for f in OUTPUTS}, self.device)
-        del out
-        torch.cuda.synchronize(self.device)
 
         def write(out: lg.MatchOutput) -> None:
             for f in OUTPUTS:
                 outputs.tensors[f].copy_(getattr(out, f))
 
-        gs = GraphSet(staged, outputs, [], [], [], [])
+        prefix = (conf.compaction_prefix if lg.twostage(conf, sig.m, sig.n)
+                  else 0)
+        gs = GraphSet(staged, outputs, [], [], [], [], prefix, [], [])
         if not self.adaptive:
-            gs.segments.append(self._graph(
+            gs.segments.append(run(
                 lambda: write(lg.forward_fixed(params, conf, **kw)))[0])
-        state = None
-        for i in range(conf.n_layers if self.adaptive else 0):
+            return gs
+
+        def compact(s):
+            return lg.compact(params, conf, s, prefix, conf.compaction_bucket)
+
+        def finish(i, s, full=None, ind=None):
+            out = lg.adaptive_finish(params, conf, i + 1, s)
+            if full is not None:
+                out = lg.scatter_back(out, full.prune0, full.prune1, *ind)
+            write(out)
+
+        state = full = ind = None
+        for i in range(conf.n_layers):
             def segment(i=i, prev=state):
                 s = lg.adaptive_start(params, conf, **kw) if i == 0 else prev
                 return lg.adaptive_layer(params, conf, i, s, fused)
-            seg, (state, stop) = self._graph(segment)
+            seg, (state, stop) = run(segment)
             gs.segments.append(seg)
             gs.states.append(state)
             gs.stops.append(stop if conf.depth_confidence > 0 else None)
-            gs.exits.append(self._graph(lambda i=i, s=state: write(
-                lg.adaptive_finish(params, conf, i + 1, s)))[0])
-        self.sets[sig] = gs
+            if i + 1 < prefix:  # a stop in the prefix compacts, then exits
+                def exit_(i=i, s=state):
+                    small, *idx = compact(s)
+                    finish(i, small, s, idx)
+            else:
+                if i + 1 == prefix:
+                    graph, (small, *ind) = run(lambda s=state: compact(s))
+                    gs.compaction.append(graph)
+                    gs.compacted.append((small, *ind))
+                    full, state = state, small
+                exit_ = functools.partial(finish, i, state, full, ind)
+            gs.exits.append(run(exit_)[0])
         return gs

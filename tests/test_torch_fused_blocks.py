@@ -280,9 +280,10 @@ def test_config_defaults_and_refusals():
     assert conf.fused_self and conf.fused_cross and conf.fused_ffn
     configs.LightGlueConfig(self_softmax_shift=12.0, cross_softmax_shift=12.0)
     assert configs.LightGlueConfig(mp=True).mp  # bf16 at head_dim 64
-    for bad in (dict(mp=True, num_heads=2), dict(compaction_bucket=64)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            configs.LightGlueConfig(**bad)
+    # ... and at 128, and two-stage compaction: accepted, nothing refused
+    for ok in (dict(mp=True, num_heads=2), dict(compaction_bucket=64)):
+        conf = configs.LightGlueConfig(**ok)
+        assert all(getattr(conf, k) == v for k, v in ok.items())
 
 
 def test_block_ops_on_other_devices_raise():

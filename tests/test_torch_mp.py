@@ -358,15 +358,17 @@ def test_output_dtypes(monkeypatch):
 
 
 def test_mp_refusals():
+    """Every mp configuration of the JAX package is accepted: head_dim 128
+    (B.3) and two-stage compaction (A.3) are ported."""
     assert configs.LightGlueConfig(mp=True).mp
     assert configs.lightglue_config("superpoint", mp=True).head_dim == 64
-    with pytest.raises(NotImplementedError, match="Queue B.3"):
-        configs.lightglue_config("superpoint", mp=True, num_heads=2)
+    conf = configs.lightglue_config("superpoint", mp=True, num_heads=2)
+    assert conf.mp and conf.head_dim == 128
     # the extractors' bf16 path is ported: accepted
     assert configs.SuperPointConfig(mp=True).mp
     assert configs.ALIKEDConfig(mp=True).mp
-    with pytest.raises(NotImplementedError, match="Queue A"):
-        configs.LightGlueConfig(mp=True, compaction_bucket=64)
+    conf = configs.LightGlueConfig(mp=True, compaction_bucket=64)
+    assert conf.mp and conf.compaction_bucket == 64
 
 
 def test_fp32_launch_checks_refuse_bf16():
@@ -390,8 +392,9 @@ def test_fp32_launch_checks_refuse_bf16():
     assert wb["b1"].dtype == torch.float32 and wb["gamma"].dtype == torch.float32
     with pytest.raises(ValueError, match="CUDA"):  # types fit: the device
         block_tc.check_ffn_weights(wb, 128)
-    with pytest.raises(NotImplementedError, match="head_dim 64"):
-        flash.check_bf16_head_dim(BF, 128)
+    # both attention head_dims have a bf16 walk: nothing refuses d 128
+    lg._check_conf(configs.lightglue_config("superpoint", mp=True,
+                                            num_heads=2))
 
 
 def test_prepared_blocks_per_mp():

@@ -32,9 +32,21 @@ lightglue_tpu on the CPU, on seeded numpy inputs.
   how far the JAX package's own mp output lies from its fp32 output.
 - Images to matches: ``make_end_to_end`` at mp (SuperPoint into the mp
   matcher) against the JAX ``make_end_to_end`` at mp.
+- Every keypoint that the port at mp keeps and the JAX package at mp does
+  not (or the reverse), on the images above, with its margins against the
+  top-k's cut and its NMS window's runner-up
+  (``scripts/keypoint_margins.py``), the JAX package run with the Pallas
+  counterparts of the port's kernels engaged (interpret mode): none clears
+  both by more than 4 steps of its score, on any path. Two faults that
+  moved such keypoints are held here too: the deformable conv's bilinear
+  samples equal the JAX package's to the bit (XLA fuses their four
+  products into multiply-adds), and aliked-t16 runs the composed block 1,
+  as the JAX package does, not B10.
 """
 
+import contextlib
 import functools
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -46,7 +58,13 @@ from lightglue_tpu import configs as jconfigs
 from lightglue_tpu import end_to_end as jend_to_end
 from lightglue_tpu import weights as jweights
 from lightglue_tpu.models import aliked as jal
+from lightglue_tpu.models import lightglue as jlg
 from lightglue_tpu.models import superpoint as jsp
+from lightglue_tpu.ops import aliked_stem as jops_astem
+from lightglue_tpu.ops import deform as jdeform
+from lightglue_tpu.ops import score_head as jops_score
+from lightglue_tpu.ops import stem as jops_stem
+from lightglue_tpu.ops import stem2 as jops_stem2
 from lightglue_tpu.ops.aliked_stem import fused_aliked_stem as jstem
 from lightglue_tpu.ops.score_head import (score_head_pallas_cplane,
                                           score_head_pallas_lazy)
@@ -55,7 +73,8 @@ from lightglue_tpu.ops.stem2 import fused_block2_pallas
 from lightglue_tpu_torch import configs, end_to_end, weights
 from lightglue_tpu_torch.models import aliked as al
 from lightglue_tpu_torch.models import superpoint as sp
-from lightglue_tpu_torch.ops import aliked_stem, score_head, stem, stem2
+from lightglue_tpu_torch.ops import aliked_stem, deform, score_head, stem, stem2
+from lightglue_tpu_torch.scripts import keypoint_margins as km
 from lightglue_tpu_torch.synthetic import image_pair, texture
 
 torch.set_num_threads(1)
@@ -466,3 +485,169 @@ def test_make_end_to_end_mp_vs_jax():
             agree.append((to_b1[gm] if gm >= 0 else -1) == wm)
     assert len(agree) > 100 and np.mean(agree) >= 0.95, np.mean(agree)
     assert (m0 >= 0).sum() > 0
+
+
+# --- the keypoints the two extractions do not share ---------------------------
+
+
+@contextlib.contextmanager
+def _tpu_kernels_interpreted():
+    """The JAX package's dense forwards with their Pallas kernels engaged
+    where the TPU engages them, run in interpret mode: the TPU check and
+    the kernels' shape gates opened (interpret mode runs any size), block
+    2's lanes padded to 128 (as test_stem_to_block2_bf16_plain_vs_pallas
+    pads them), and an einsum of bf16 operands into fp32 given the same
+    values in fp32 (XLA on the CPU has no bf16 dot into the score head's
+    channel-plane fp32 output; a product of two bf16 values is exact in
+    fp32, so the products and their fp32 sums are the ones asked for)."""
+    einsum, block2 = jnp.einsum, jops_stem2.fused_block2_pallas
+
+    def einsum_f32(spec, *ops, preferred_element_type=None, **kw):
+        if preferred_element_type == jnp.float32:
+            ops = [o.astype(jnp.float32) for o in ops]
+        return einsum(spec, *ops, preferred_element_type=preferred_element_type,
+                      **kw)
+
+    def block2_padded(p, x, **kw):
+        pad = -(-x.shape[-1] // 128) * 128 - x.shape[-1]
+        return block2(p, jnp.pad(x, ((0, 0), (0, 0), (0, 0), (0, pad))),
+                      interpret=True, **kw)
+
+    interpreted = lambda f: functools.partial(f, interpret=True)  # noqa: E731
+    patches = [(jlg, "_on_tpu", lambda: True), (jnp, "einsum", einsum_f32),
+               (jops_stem2, "fused_block2_pallas", block2_padded)]
+    for mod, name in ((jops_stem, "stem_pallas_ok"),
+                      (jops_stem2, "block2_pallas_ok"),
+                      (jops_astem, "aliked_stem_ok"),
+                      (jops_score, "score_head_lazy_ok"),
+                      (jops_score, "score_head_cplane_ok")):
+        patches.append((mod, name, lambda h, w: True))
+    for mod, name in ((jops_stem, "fused_stem_pallas"),
+                      (jops_astem, "fused_aliked_stem"),
+                      (jops_score, "score_head_pallas_lazy"),
+                      (jops_score, "score_head_pallas_cplane")):
+        patches.append((mod, name, interpreted(getattr(mod, name))))
+    with contextlib.ExitStack() as stack:
+        for mod, name, f in patches:
+            stack.enter_context(mock.patch.object(mod, name, f))
+        yield
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_reference_map(kind, which, opts):
+    """The JAX package's dense score map at mp on the images of
+    test_unshared_keypoints_are_near_ties, with its Pallas kernels
+    engaged (interpret mode) where the port's options run the port's:
+    B7 and B8 (SuperPoint's fused stem), B10 (aliked-n16's fused stem),
+    B11 and B12 (the fused score head); XLA's composition elsewhere."""
+    opts = dict(opts)
+    if kind == "superpoint":
+        jp, _ = _sp_params()
+        x = jnp.asarray(_sp_images(0, *which))
+        fn = lambda p, x: jsp.dense_forward(  # noqa: E731
+            p, x, mp=True, fused_stem=opts["fused_stem"])[0]
+    else:
+        jp, _ = _al_params(which)
+        x = jnp.asarray(np.repeat(_al_images(0, 2, 64, 96), 3, -1)
+                        ).astype(jnp.bfloat16)
+        fused = opts.get("fused_score_head", False)
+        fn = (lambda p, x: jal._dense_branches(  # noqa: E731
+            p, x, fused_score=fused, fused_stem=opts.get("fused_stem", True))[1]
+        ) if opts["lazy_fm"] else (lambda p, x: jal._dense_raw(  # noqa: E731
+            p, x, fused_score=fused)[1])
+    with _tpu_kernels_interpreted():
+        return np.asarray(_strict(fn, jp, x))
+
+
+ALIKED_PATHS = (dict(lazy_fm=True), dict(lazy_fm=True, fused_score_head=True),
+                dict(lazy_fm=True, fused_stem=False), dict(lazy_fm=False),
+                dict(lazy_fm=False, fused_score_head=True))
+MARGIN_CASES = (
+    [("superpoint", shape, dict(fused_stem=fs))
+     for shape in ((1, 64, 256), (2, 96, 128)) for fs in (True, False)]
+    + [("aliked", name, opts) for name in ("aliked-n16", "aliked-t16")
+       for opts in ALIKED_PATHS])
+
+
+@pytest.mark.parametrize("kind, which, opts", MARGIN_CASES)
+def test_unshared_keypoints_are_near_ties(kind, which, opts):
+    """The keypoints one side keeps and the other does not, at mp, the
+    port against the JAX package with the Pallas counterparts of the
+    port's kernels engaged: none clears both margins, against the cut and
+    against its NMS window's runner-up, by more than 4 steps of its score
+    (one bf16 step, or what one bf16 step of SuperPoint's logits or of
+    ALIKED's sigmoid input moves it). Measured: SuperPoint 0-5 unshared of
+    128 or 256, none over 4 steps on both (in bf16 steps of the score
+    alone, one at (2, 96, 128) with the fused stem: 89 and 6.7 steps);
+    aliked-n16 101 and 84 unshared of 256 on its B10 and B10 + B11 paths,
+    none on the others; aliked-t16 one of 117 with B11, none elsewhere;
+    none over 4 steps on both."""
+    if kind == "superpoint":
+        _, tp = _sp_params()
+        img = torch.from_numpy(_sp_images(0, *which))
+        conf = configs.SuperPointConfig(max_num_keypoints=128, mp=True, **opts)
+        mine = km.detection_maps(kind, tp, conf, img)
+        raw = torch.from_numpy(_jax_reference_map(kind, which,
+                                                  tuple(opts.items())))
+        # the steps of JAX's scores from the port's logits: both round the
+        # same logits to bf16, within a step of each other
+        theirs = (raw, sp.detection_map(raw, conf), mine[2])
+    else:
+        _, tp = _al_params(which)
+        conf = configs.ALIKEDConfig(model_name=which, max_num_keypoints=128,
+                                    mp=True, **opts)
+        mine = km.detection_maps(kind, tp, conf,
+                                 torch.from_numpy(_al_images(0, 2, 64, 96)))
+        raw = torch.from_numpy(_jax_reference_map(kind, which,
+                                                  tuple(opts.items())))
+        theirs = (raw, al.detection_map(raw, conf),
+                  km.score_steps(raw, sigmoid=True))
+    m = km.unshared_margins(mine, theirs, conf.max_num_keypoints,
+                            conf.detection_threshold, conf.nms_radius)
+    print(km.summary(m))
+    assert km.faults(m["a"]) == 0 and km.faults(m["b"]) == 0, km.summary(m)
+
+
+@pytest.mark.parametrize("dtype", [BF, torch.float32])
+def test_bilinear_taps_equal_jax_to_the_bit(dtype):
+    """The deformable conv's bilinear samples against the JAX package's
+    (``_bilinear_gather``, compiled by XLA, which fuses its sum of four
+    products into multiply-adds), inside the map, across its edges and
+    off it: equal to the bit. Summed as four rounded products, one sample
+    in six differed by an fp32 step, and at mp a one-step flip of a
+    sample in aliked-t16's block 3 moved keypoint scores by up to 17 of
+    their steps."""
+    rng = np.random.default_rng(77)
+    b, h, w, c = 2, 8, 12, 16
+    x = rng.standard_normal((b, h, w, c)).astype(np.float32)
+    x = np.asarray(jnp.asarray(x).astype(jnp.bfloat16).astype(jnp.float32)) \
+        if dtype == BF else x
+    fy = rng.uniform(-3, h + 2, (b, 50, 9)).astype(np.float32)
+    fx = rng.uniform(-3, w + 2, (b, 50, 9)).astype(np.float32)
+    jx = jnp.asarray(x).astype(jnp.bfloat16 if dtype == BF else jnp.float32)
+    want = np.asarray(_strict(jdeform._bilinear_gather, jx, fy, fx))
+    got = deform.bilinear_taps(torch.from_numpy(x).to(dtype).permute(0, 3, 1, 2),
+                               torch.from_numpy(fy), torch.from_numpy(fx))
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("mp", [True, False])
+def test_aliked_t16_runs_the_composed_block1(mp, monkeypatch):
+    """B10 runs block 1 only where it has 16 channels, as in the JAX
+    package: aliked-t16 with ``fused_stem`` equals its composed block 1 to
+    the bit, and B10 is not called; aliked-n16 calls it."""
+    calls = []
+    op = aliked_stem.fused_aliked_stem
+    monkeypatch.setattr(aliked_stem, "fused_aliked_stem", lambda *a: (
+        calls.append(a[0]["conv1"]["w"].shape[1]), op(*a))[1])
+    x = _nchw(np.repeat(_al_images(2, 1, 32, 64), 3, -1))
+    x = x.to(BF) if mp else x
+    with torch.inference_mode():
+        for name in ("aliked-t16", "aliked-n16"):
+            tp = _al_params(name)[1]
+            fused = al._dense_branches(tp, x, fused_stem=True)[1]
+            composed = al._dense_branches(tp, x, fused_stem=False)[1]
+            if name == "aliked-t16":
+                assert torch.equal(fused, composed) and calls == []
+    assert calls == [16]
