@@ -9,8 +9,10 @@ Phases, any failure raising (non-zero exit, no result line):
      library's own fp32 scoping of its convs;
   1. build: nvcc compiles csrc/*.cu into _build/, one process per source
      (timed), each kernel's registers and spills (a spilling tensor-core
-     kernel of B5, B6, K2, B2, B7, B8 or B10, or a spilling B9, B11 or B12,
-     fails the run; the score head's line names its tile);
+     kernel of B5, B6, K2, B2, B7, B8 or B10, the bf16 walk and tile
+     product on wgmma among them, or a spilling B9, B11 or B12, fails the
+     run, as does a setmaxnreg that ptxas ignores; the score head's line
+     names its tile);
   2. each kernel against its plain PyTorch version at the main paths'
      shapes, then at tiny and ragged shapes and, for the matcher's kernels,
      at 2048 keypoints; B4 (lin1 + lin2 on the tile product) at (4, 1024,
@@ -186,7 +188,13 @@ Phases, any failure raising (non-zero exit, no result line):
      suffix at 640; adaptive and with width pruning only, B 8 and B 1,
      every replay equal to the bit to the eager forward, matches0 against
      the CPU port) and make_end_to_end (SuperPoint, B 8), and its timing
-     beside the masked adaptive forward, with the two-head matcher at mp.
+     beside the masked adaptive forward, with the two-head matcher at mp;
+     i. the bf16 walk and tile product on wgmma + TMA at their edges (K1,
+     B1s and B1' at d 64 and 128, K2's three walks, B4, B5, B6): one key,
+     query and key counts no multiple of the tiles, an all-masked batch
+     entry, B 1 at every split count, rows 16 bytes past a 128-byte
+     boundary inside a larger allocation, each against its bf16 plain
+     version under both bounds and twice bit for bit.
 A JSON object of the kernels (with each one's bound, from its shapes, and
 the 3xTF32 bound of the tensor-core kernels: the walk, B5, B6, K2, B2, B7,
 B8, B10; the bf16 forms' rows bounded by the bf16 tensor cores) and
@@ -563,14 +571,19 @@ def build_phase():
     # and spills; a tensor-core kernel (blocks.cu's tile kernels, the
     # attention walks of K1, B1' and K2, and B2's) that spills or has a stack
     # frame fails the run
+    # (the wgmma kernels too: the bf16 walk and tile product; and a
+    # setmaxnreg that ptxas ignores fails it)
     name, spills = "?", ""
     tc = ("_tc_kernel", "cross_rows", "cross_cols", "cross_shift",
           "assign_tile", "flash_sdpa_kernel", "flash_cross_pair_kernel",
-          "conv_tc_kernel", "nms_kernel", "score_head_kernel")
+          "conv_tc_kernel", "nms_kernel", "score_head_kernel", "_wg_kernel")
     for line in log.splitlines():
+        if "setmaxnreg" in line and "ignored" in line:
+            raise AssertionError(f"ptxas: {line.strip()}")
         if "Compiling entry function" in line:
             name = re.sub(r"IN2lg4gemm4TileILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E",
                           r"<\1x\2 / \3x\4>", kernel_name(line.split("'")[1]))
+            name = re.sub(r"IN2lg5wgemm4TileILi(\d+)EEE", r"<128x\1>", name)
             name = re.sub(r"INS0_4TileILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)"
                           r"EEELb(\d)ELb(\d)E",
                           r"<\1x\2, NQ \3, \4 stages, image \5, pool \6>", name)
@@ -4302,6 +4315,174 @@ def mp_profile_phase(params):
                 gc.collect()
 
 
+# --- phase 5i: the bf16 walk and tile product at TMA's edges -------------------
+
+
+def off128(t):
+    """t's values in a tensor of its own whose data starts 16 bytes past a
+    128-byte boundary inside a larger allocation (TMA takes 16-byte aligned
+    rows; the tiles land 128-byte swizzled all the same)."""
+    buf = torch.empty(t.numel() + 128, dtype=t.dtype, device=t.device)
+    e = ((16 - buf.data_ptr() % 128) % 128) // t.element_size()
+    out = buf[e:e + t.numel()].view(t.shape)
+    out.copy_(t)
+    assert out.data_ptr() % 128 == 16
+    return out
+
+
+def mp_tma_edge_phase(bx):
+    """The wgmma walk (K1, B1s, B1', K2's three walks) and the wgmma tile
+    product (B4, B5, B6) where TMA and the tiles have edges: one key; query
+    and key counts that are no multiple of the tiles; a batch entry with no
+    valid key; B 1 at every split count; rows 16 bytes past a 128-byte
+    boundary inside a larger allocation. Each against its bf16 plain
+    version under both bounds, each launch twice bit for bit."""
+    phase("5i the bf16 walk and tile product (wgmma, TMA) at their edges: "
+          "one key, ragged counts, an all-masked entry, B 1 at every split "
+          "count, rows off a 128-byte boundary")
+    g = torch.Generator(device="cuda").manual_seed(61)
+    errs = {}
+
+    def r(*shape):
+        return rand(g, *shape).to(BF16)
+
+    def mask(b, n):
+        m = torch.rand(b, n, generator=g, device="cuda") < 0.8
+        m[:, 0] = True
+        if b > 1:
+            m[1] = False
+        return m
+
+    def twice(label, fn):
+        got = fn()
+        same(label, got, fn())
+        return got
+
+    def rows(valid, h):
+        return None if valid is None else valid[:, None].expand(
+            -1, h, -1)
+
+    for d in (64, 128):
+        dtag = "" if d == 64 else "_d128"
+        for b, nq, nk in ((2, 5, 1), (2, 200, 77), (3, 129, 1000)):
+            q, k, v = r(b, 2, nq, d), r(b, 2, nk, d), r(b, 2, nk, d)
+            for valid in (None, mask(b, nk)):
+                for shift in (None, SHIFT):
+                    name = ("flash_sdpa" + ("" if shift is None else "_shift")
+                            + "_bf16" + dtag)
+                    label = (f"{name} {(b, 2, nq, nk)}"
+                             f"{'' if valid is None else ' masked'}")
+                    got, = twice(label, lambda: (flash.flash_sdpa(
+                        q, k, v, valid, shift=shift),))
+                    mp_check(errs, name, label, got,
+                             flash.flash_sdpa_plain(q, k, v, valid, shift))
+            v0, va0, va1 = r(b, 2, nq, d), mask(b, nq), mask(b, nk)
+            label = f"flash_cross_pair_bf16 d {d} {(b, 2, nq, nk)} masked"
+            got = twice(label, lambda: flash.flash_cross_pair(
+                q, k, v0, v, va0, va1))
+            ref = flash.flash_cross_pair_plain(q, k, v0, v, va0, va1)
+            for i, va in ((0, va0), (1, va1)):
+                mp_check(errs, "flash_cross_pair_bf16", f"{label}, m{i}, "
+                         "valid rows", got[i], ref[i], rows(va, 2))
+        # rows off a 128-byte boundary
+        q, k, v = (off128(r(2, 2, n, d)) for n in (300, 333, 333))
+        valid = mask(2, 333)
+        name = "flash_sdpa_bf16" + dtag
+        label = f"{name} (2, 2, 300, 333), rows off a 128-byte boundary"
+        got, = twice(label, lambda: (flash.flash_sdpa(q, k, v, valid),))
+        mp_check(errs, name, label, got, flash.flash_sdpa_plain(q, k, v,
+                                                                valid))
+        v0 = off128(r(2, 2, 300, d))
+        label = f"flash_cross_pair_bf16 d {d}, rows off a 128-byte boundary"
+        got = twice(label, lambda: flash.flash_cross_pair(q, k, v0, v, None,
+                                                          valid))
+        ref = flash.flash_cross_pair_plain(q, k, v0, v, None, valid)
+        for i in (0, 1):
+            mp_check(errs, "flash_cross_pair_bf16", f"{label}, m{i}", got[i],
+                     ref[i])
+        # B 1 at every split count
+        q, k, v = r(1, 2, 256, d), r(1, 2, 1000, d), r(1, 2, 1000, d)
+        valid = mask(1, 1000)
+        key_tile = flash.walk_shape(0, d, BF16).key_tile
+        ref = flash.flash_sdpa_plain(q, k, v, valid)
+        for sp in range(1, min(flash.MAX_SPLITS, -(-1000 // key_tile)) + 1):
+            def split_call():
+                o = torch.empty_like(q)
+                flash.launch_attention(q.device, [(q, k, v, valid, o)],
+                                       flash.bf16_value(d ** -0.5), None, [sp])
+                return (o,)
+            label = f"flash_sdpa_bf16{dtag} (1, 2, 256, 1000), {sp} splits"
+            got, = twice(label, split_call)
+            mp_check(errs, "flash_sdpa_bf16" + dtag, label, got, ref)
+    # K2's three walks: launch_cross in each mode, against its plain launches
+    scale = 64 ** -0.5
+    for b, m, n in ((2, 5, 1), (2, 200, 77), (3, 129, 1000), (1, 1000, 300)):
+        qk0, qk1, v0, v1 = r(b, 4, m, 64), r(b, 4, n, 64), r(b, 4, m, 64), \
+            r(b, 4, n, 64)
+        va0, va1 = mask(b, m), mask(b, n)
+        if b == 1 and m == 1000:
+            qk0, qk1, v0, v1 = map(off128, (qk0, qk1, v0, v1))
+        tiles0 = -(-n // flash.walk_shape(0, 64, BF16).key_tile)
+        tiles1 = -(-m // flash.walk_shape(0, 64, BF16).key_tile)
+        splits = [None] + ([(s0, s1) for s0 in range(1, min(8, tiles0) + 1)
+                            for s1 in (1, min(8, tiles1))] if b == 1 else [])
+        for mode, name in ((flash_cross.EXACT, "fused_cross_attention_bf16"),
+                           (flash_cross.EXACT_BLOCK, "fused_cross_block_bf16"),
+                           (flash_cross.SHIFT,
+                            "fused_cross_attention_shift_bf16")):
+            s2 = SHIFT * flash.LOG2E if mode == flash_cross.SHIFT else 0.0
+            sc = scale * (flash.LOG2E if mode == flash_cross.SHIFT else 1.0)
+            q0 = (qk0.float() * flash.bf16_value(sc)).to(BF16)
+            for sp in splits:
+                label = (f"K2 mode {mode} {(b, 4, m, n)}"
+                         + ("" if sp is None else f", splits {sp}")
+                         + (", rows off a 128-byte boundary"
+                            if b == 1 and m == 1000 else ""))
+                got = twice(label, lambda: flash_cross.launch_cross(
+                    q0, qk1, v0, v1, va0, va1, mode, 1.0, s2, splits=sp))
+                if mode == flash_cross.EXACT_BLOCK:
+                    ref = flash_cross_block.cross_block_attention_plain(
+                        q0, qk1, v0, v1, va0, va1)
+                else:
+                    ref = flash_cross.fused_cross_attention_plain(
+                        qk0, qk1, v0, v1, va0, va1,
+                        None if mode == flash_cross.EXACT else SHIFT)
+                for i, va in ((0, va0), (1, va1)):
+                    mp_check(errs, name, f"{label}, m{i}, valid rows", got[i],
+                             ref[i], rows(va, 4))
+    # the tile product: B4, B5 and B6 at ragged rows and rows off 128 bytes
+    layer = bx["layer"]
+    pf = layer["self_attn"]["ffn"]
+    w5 = flash_self.prepare(layer["self_attn"], 4, None, mp=True)
+    w6 = flash_cross_block.prepare(layer["cross_attn"], 4, None, mp=True)
+    for b, n, off in ((1, 77, False), (3, 1000, False), (2, 333, True)):
+        x, msg = r(b, n, 256), r(b, n, 256)
+        if off:
+            x, msg = off128(x), off128(msg)
+        tag = f"{(b, n, 256)}{', rows off a 128-byte boundary' if off else ''}"
+        got, = twice(f"B4 {tag}", lambda: (ffn.fused_ffn_residual(x, msg, pf),))
+        mp_check(errs, "fused_ffn_residual_bf16", f"fused_ffn_residual_bf16 "
+                 f"{tag}", got, ffn.fused_ffn_residual_plain(x, msg, pf))
+        ang = torch.rand(b, 1, n, 32, generator=g, device="cuda") * 6 - 3
+        enc = torch.stack([ang.cos(), ang.sin()])
+        valid = mask(b, n)
+        got, = twice(f"B5 {tag}", lambda: (flash_self.fused_self_block(
+            w5, x, enc, valid),))
+        mp_check(errs, "fused_self_block_bf16", f"fused_self_block_bf16 {tag}",
+                 got, flash_self.fused_self_block_plain(w5, x, enc, valid))
+        x1 = r(b, 129, 256)
+        va1 = mask(b, 129)
+        got = twice(f"B6 {tag}", lambda: flash_cross_block.fused_cross_block(
+            w6, x, x1, valid, va1))
+        ref = flash_cross_block.fused_cross_block_plain(w6, x, x1, valid, va1)
+        for i, va in ((0, valid), (1, va1)):
+            mp_check(errs, "fused_cross_block_bf16", f"fused_cross_block_bf16 "
+                     f"{tag} / N 129, image {i}, valid rows", got[i], ref[i],
+                     va)
+    torch.cuda.synchronize()
+    return errs
+
+
 # --- phase 5g: head_dim 128 at mp -----------------------------------------------
 
 
@@ -4980,6 +5161,8 @@ def main():
     errs.update(mp_kernel_phase(mx))
     h16_errs, hx16 = mp_head128_kernel_phase(params2)
     errs.update(h16_errs)
+    for name, err in mp_tma_edge_phase(bx).items():
+        errs[name] = max(errs.get(name, 0.0), err)
     e_errs, mx5 = mp_extract_kernel_phase(sp_params, al_params, ax)
     errs.update(e_errs)
     for name, err in edge_phase().items():

@@ -38,7 +38,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "lg_flash_sdpa": [_P] * 7 + [_I] * 7 + [_F] * 2 + [_P],
     "lg_flash_cross_pair": [_P] * 12 + [_I] * 7 + [_F] + [_P],
-    "lg_attention_shape": [_I] + [ctypes.POINTER(_I)] * 2 + [_P],
+    "lg_attention_shape": [_I] + [ctypes.POINTER(_I)] * 3 + [_P],
     "lg_fused_cross": [_P] * 13 + [_I] * 7 + [_F] * 2 + [_P],
     "lg_project_heads": [_P] * 8 + [_I] * 8 + [_P],
     "lg_tail_out_proj": [_P] * 5 + [_I] * 6 + [_P],
@@ -56,14 +56,17 @@ SIGNATURES = {
     "lg_score_head_blocks": [_I, ctypes.POINTER(_I), _P],
     "lg_gather_rows": [_P] * 3 + [_I] * 3 + [_P],
 }
-# The bf16 forms (mp) take the arguments of their fp32 entry points.
+# The bf16 forms (mp) take the arguments of their fp32 entry points; the
+# block launches' take one more, the persistent grid after the tile.
 SIGNATURES.update({
     f"{name}_bf16": SIGNATURES[name] for name in (
         "lg_flash_sdpa", "lg_flash_cross_pair", "lg_attention_shape",
-        "lg_fused_cross",
-        "lg_project_heads", "lg_tail_out_proj", "lg_tail_lin1",
-        "lg_tail_lin2", "lg_fused_stem", "lg_conv3x3", "lg_aliked_stem",
+        "lg_fused_cross", "lg_fused_stem", "lg_conv3x3", "lg_aliked_stem",
         "lg_score_head", "lg_score_head_lazy")})
+SIGNATURES.update({
+    f"{name}_bf16": SIGNATURES[name][:-1] + [_I, _P] for name in (
+        "lg_project_heads", "lg_tail_out_proj", "lg_tail_lin1",
+        "lg_tail_lin2")})
 
 # Op wrapper -> launches since the last reset.
 KERNELS = (

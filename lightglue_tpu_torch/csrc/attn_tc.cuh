@@ -56,26 +56,8 @@
 // direction). K2's query-row mask enters the two shifted forms as an
 // additive -1e30 on the row's scores, as the TPU kernels' bias0 does.
 //
-// The bf16 form (E = bf16, head_dim 64 or 128: the TPU kernels fed bf16
-// under mp): q, k, v and the output bf16 in memory, both products m16n8k16
-// bf16 tiles with fp32 accumulators, the softmax in fp32. Q is scaled in
-// fp32 and rounded to bf16 (the TPU kernels scale q in its own dtype), then
-// kept in registers as A fragments (16 registers at d 64, 32 at d 128:
-// beside O's 64, the P V tile's 64 and the 32-key tile's 16 scores that
-// leaves room under the launch bound's 255, so Q stays out of shared
-// memory at d 128 too; chip_smoke.py's phase 1 reads the spills). The m16n8k16
-// accumulator of two adjacent 8-key score tiles is the A fragment of one
-// 16-key step, so P goes from the accumulator into P V as it is, packed to
-// bf16x2 (the rounding of the TPU kernels' e.astype(v.dtype)); no key
-// permutation is needed. K's B fragments are 4-byte reads of a key row;
-// V's come from ldmatrix.trans (two 8-channel tiles an instruction). Rows
-// of 72 bf16 put both reads' words on distinct banks. The row sum l adds
-// the fp32 weights (K1, as _attn_kernel_4d's jnp.sum(e)) or, with
-// kRoundedSums, the weights rounded to bf16 (K2: its TPU kernels sum
-// through a ones column of the bf16 V, so l sums what P V multiplies). The
-// key tile's P V is summed apart (kTileSums) as in the fp32 form. The
-// output is rounded to bf16 once, after the division by l (or in
-// merge_splits).
+// The bf16 walk (mp) is attn_wgmma.cuh's (wgmma fed by TMA); it shares
+// this file's weightings, split bounds and merge_splits.
 #pragma once
 
 #include <math.h>
@@ -123,34 +105,23 @@ struct Config<128> {
   static constexpr bool kTileSums = true;
 };
 
-// E: float (3xTF32) or bf16 (the mp form). The bf16 form keeps the key
-// tile of Config<D>: at d 128 two 16-key steps a 32-key tile.
-template <int D, class E = float>
+template <int D>
 struct Shape {
   static_assert(D == 64 || D == 128, "the attention takes head_dim 64 or 128");
-  static constexpr bool kBf16 = std::is_same_v<E, bf16>;
   static constexpr int BK = Config<D>::BK;
   static constexpr bool kSplitQ = Config<D>::kSplitQ;
   static constexpr int NJ = BK / 8;      // 8-key steps of a tile
   static constexpr int KS = D / 8;       // 8-deep steps of Q K^T, 8-wide tiles of O
-  // padded rows: fp32 K is read as (key g, channels 2t, 2t + 1) in 8-byte
+  // padded rows: K is read as (key g, channels 2t, 2t + 1) in 8-byte
   // words, V as (keys 2t and 2t + 1, channel g); D + 8 and D + 4 put each
-  // read's words on distinct banks. bf16: 4-byte reads of K and
-  // ldmatrix.trans rows of V, both at D + 8 (rows 4 banks apart)
-  static constexpr int LDK = D + 8, LDV = kBf16 ? D + 8 : D + 4;
-  static constexpr int kStage = BK * (LDK + LDV);  // elements of a K and a V tile
-  // Q's fragments in shared memory (fp32 form; the bf16 form keeps them in
-  // registers), floats
-  static constexpr int kQ = kBf16 ? 0 : (kSplitQ ? 2 : 1) * BQ * D;
-  static constexpr size_t kBytes =
-      kQ * sizeof(float) + 2 * kStage * sizeof(E);
+  // read's words on distinct banks
+  static constexpr int LDK = D + 8, LDV = D + 4;
+  static constexpr int kStage = BK * (LDK + LDV);  // floats of a K and a V tile
+  // Q's fragments in shared memory, floats
+  static constexpr int kQ = (kSplitQ ? 2 : 1) * BQ * D;
+  static constexpr size_t kBytes = (kQ + 2 * kStage) * sizeof(float);
   // of an SM's 228 KB, with 1 KB reserved a block
   static constexpr int kBlocksPerSM = (228 * 1024) / (kBytes + 1024);
-  // the launch bound's blocks an SM: the bf16 walk's shared memory would
-  // allow 6 at d 64 and at d 128, whose 85 registers a thread would spill
-  // O, the P V tile and S (96 at d 64, 144 at d 128); 2 leave the compiler
-  // 255
-  static constexpr int kLaunchBlocks = kBf16 ? 2 : kBlocksPerSM;
 };
 
 __host__ __device__ __forceinline__ int cdiv(int a, int b) {
@@ -163,14 +134,14 @@ __host__ __device__ __forceinline__ int split_begin(int s, int S, int T) {
 }
 
 // Rows k0 .. k0 + BK - 1 of k and v (Nk, D) into the tiles Ks and Vs.
-template <int D, class E>
-__device__ __forceinline__ void load_kv(E* Ks, E* Vs,
-                                        const E* __restrict__ k,
-                                        const E* __restrict__ v, int k0,
+template <int D>
+__device__ __forceinline__ void load_kv(float* Ks, float* Vs,
+                                        const float* __restrict__ k,
+                                        const float* __restrict__ v, int k0,
                                         int Nk) {
-  using S = Shape<D, E>;
-  constexpr int EPC = 16 / sizeof(E);  // elements of a 16-byte chunk
-  constexpr int CH = D / EPC;          // chunks of a row
+  using S = Shape<D>;
+  constexpr int EPC = 4;       // floats of a 16-byte chunk
+  constexpr int CH = D / EPC;  // chunks of a row
 #pragma unroll
   for (int i = 0; i < S::BK * CH / THREADS; ++i) {
     const int idx = threadIdx.x + i * THREADS;
@@ -182,9 +153,6 @@ __device__ __forceinline__ void load_kv(E* Ks, E* Vs,
   }
   cp_async_commit();
 }
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(bf16 x) { return __bfloat162float(x); }
 
 __device__ __forceinline__ void unpack(const float4& f, uint32_t a[4]) {
   a[0] = __float_as_uint(f.x);
@@ -207,35 +175,28 @@ __device__ __forceinline__ void unpack(const float4& f, uint32_t a[4]) {
 // -inf when zero_empty and the split has no valid key; merge_splits writes
 // rmax.
 // q, out: this (batch, head)'s (Nq, D); k, v: (Nk, D); kvalid (Nk),
-// qvalid (Nq); dynamic shared memory Shape<D, E>::kBytes. E: q, k, v and
-// out's element type (part, ml and rmax stay fp32); kRoundedSums (bf16):
-// the row sum adds the weights rounded to bf16.
-template <int MODE, int D, class E = float, bool kRoundedSums = false>
+// qvalid (Nq); dynamic shared memory Shape<D>::kBytes.
+template <int MODE, int D>
 __device__ __forceinline__ void attend_block(
-    const E* __restrict__ q, const E* __restrict__ k,
-    const E* __restrict__ v, const bool* __restrict__ kvalid,
-    const bool* __restrict__ qvalid, E* __restrict__ out,
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const bool* __restrict__ kvalid,
+    const bool* __restrict__ qvalid, float* __restrict__ out,
     float* __restrict__ part, float* __restrict__ ml, float* __restrict__ rmax,
     int rows, int row0, int Nq, int Nk, int tile, int split, int splits,
     float scale, float shift2, bool zero_empty) {
-  using S = Shape<D, E>;
-  constexpr bool kBf16 = S::kBf16;
+  using S = Shape<D>;
   constexpr int BK = S::BK, NJ = S::NJ;
-  // a weight as P V multiplies it and l sums it
-  auto weight = [](float e) {
-    return kBf16 && kRoundedSums ? round_bf16(e) : e;
-  };
   extern __shared__ __align__(16) float lg_smem[];
   float4* Qf = reinterpret_cast<float4*>(lg_smem);  // [KS][THREADS] (x2)
   // stage st at st kStage: K, then V
-  E* KV = reinterpret_cast<E*>(lg_smem + S::kQ);
+  float* KV = lg_smem + S::kQ;
   const int tid = threadIdx.x, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
   const int T = cdiv(Nk, BK);
   const int t0 = split_begin(split, splits, T);
   const int t1 = split_begin(split + 1, splits, T);
 
-  load_kv<D, E>(KV, KV + BK * S::LDK, k, v, t0 * BK, Nk);
+  load_kv<D>(KV, KV + BK * S::LDK, k, v, t0 * BK, Nk);
 
   // Q's A fragments of the warp's 16 rows, the channels of each 8-deep
   // step taken in the order 0 2 4 6 1 3 5 7 (A column t is channel 2t,
@@ -248,28 +209,13 @@ __device__ __forceinline__ void attend_block(
     qb[0] = r0 < Nq && !qvalid[r0] ? MASKED : 0.f;
     qb[1] = r1 < Nq && !qvalid[r1] ? MASKED : 0.f;
   }
-  // bf16: Q's A fragments of the 16-deep steps in registers, (g, c), (g +
-  // 8, c), (g, c + 8), (g + 8, c + 8), c = 16 ks + 2t, scaled and rounded
-  uint32_t qa[kBf16 ? D / 16 : 1][4];
-  if constexpr (kBf16) {
 #pragma unroll
-    for (int ks = 0; ks < D / 16; ++ks)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = (i & 1) ? r1 : r0, c = 16 * ks + 2 * t + 8 * (i >> 1);
-        const float2 f =
-            r < Nq ? load2(q + (size_t)r * D + c) : make_float2(0.f, 0.f);
-        qa[ks][i] = pack_bf16(scale * f.x, scale * f.y);
-      }
-  }
-#pragma unroll
-  for (int ks = 0; ks < (kBf16 ? 0 : S::KS); ++ks) {
+  for (int ks = 0; ks < S::KS; ++ks) {
     const int c = 8 * ks + 2 * t;
-    const float a[4] = {
-        r0 < Nq ? scale * to_float(q[(size_t)r0 * D + c]) : 0.f,
-        r1 < Nq ? scale * to_float(q[(size_t)r1 * D + c]) : 0.f,
-        r0 < Nq ? scale * to_float(q[(size_t)r0 * D + c + 1]) : 0.f,
-        r1 < Nq ? scale * to_float(q[(size_t)r1 * D + c + 1]) : 0.f};
+    const float a[4] = {r0 < Nq ? scale * q[(size_t)r0 * D + c] : 0.f,
+                        r1 < Nq ? scale * q[(size_t)r1 * D + c] : 0.f,
+                        r0 < Nq ? scale * q[(size_t)r0 * D + c + 1] : 0.f,
+                        r1 < Nq ? scale * q[(size_t)r1 * D + c + 1] : 0.f};
     if constexpr (S::kSplitQ) {
       uint32_t ab[4], as[4];
 #pragma unroll
@@ -295,34 +241,22 @@ __device__ __forceinline__ void attend_block(
   for (int kt = t0; kt < t1; ++kt) {
     const int st = (kt - t0) & 1;
     if (kt + 1 < t1) {
-      E* nxt = KV + (st ^ 1) * S::kStage;
-      load_kv<D, E>(nxt, nxt + BK * S::LDK, k, v, (kt + 1) * BK, Nk);
+      float* nxt = KV + (st ^ 1) * S::kStage;
+      load_kv<D>(nxt, nxt + BK * S::LDK, k, v, (kt + 1) * BK, Nk);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();  // tile kt has landed for every thread
-    const E* Ks = KV + st * S::kStage;
-    const E* Vs = Ks + BK * S::LDK;
+    const float* Ks = KV + st * S::kStage;
+    const float* Vs = Ks + BK * S::LDK;
 
     // s[j]: rows g (0, 1) and g + 8 (2, 3), keys 8 j + 2t (+1)
     float s[NJ][4];
 #pragma unroll
     for (int j = 0; j < NJ; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-    if constexpr (kBf16) {
-      // B (k x n) = K^T: (channels c, c + 1 of key g), (c + 8, c + 9)
-#pragma unroll
-      for (int ks = 0; ks < D / 16; ++ks)
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-          const E* kp = Ks + (8 * j + g) * S::LDK + 16 * ks + 2 * t;
-          const uint32_t b[2] = {*reinterpret_cast<const uint32_t*>(kp),
-                                 *reinterpret_cast<const uint32_t*>(kp + 8)};
-          mma_bf16(s[j], qa[ks], b);
-        }
-    }
 #pragma unroll(Config<D>::kUnrollKs)
-    for (int ks = 0; ks < (kBf16 ? 0 : S::KS); ++ks) {
+    for (int ks = 0; ks < S::KS; ++ks) {
       uint32_t ab[4], as[4];
       if constexpr (S::kSplitQ) {
         unpack(Qf[ks * THREADS + tid], ab);
@@ -371,9 +305,8 @@ __device__ __forceinline__ void attend_block(
       for (int j = 0; j < NJ; ++j)
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
-          s[j][c] = weight(MODE == kShift
-                               ? exp2f(fminf(s[j][c] - shift2, 100.f))
-                               : expf(s[j][c] - shift2));
+          s[j][c] = MODE == kShift ? exp2f(fminf(s[j][c] - shift2, 100.f))
+                                   : expf(s[j][c] - shift2);
           l_run[c >> 1] += s[j][c];
         }
     } else {
@@ -393,7 +326,7 @@ __device__ __forceinline__ void attend_block(
         for (int j = 0; j < NJ; ++j)
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
-            s[j][2 * r + e] = weight(expf(s[j][2 * r + e] - m_new));
+            s[j][2 * r + e] = expf(s[j][2 * r + e] - m_new);
             ps += s[j][2 * r + e];
           }
         l_run[r] = l_run[r] * alpha + ps;
@@ -408,10 +341,7 @@ __device__ __forceinline__ void attend_block(
 
     // O += P V, keys of step j taken as 2t (A column t) and 2t + 1 (A
     // column t + 4): a = (s0, s2, s1, s3), b0 = V[2t], b1 = V[2t + 1]; with
-    // kTileSums into the tile pv, then added to O. bf16: 16-key steps,
-    // a = (s[2jj] 0 1, s[2jj] 2 3, s[2jj + 1] 0 1, s[2jj + 1] 2 3) packed,
-    // V's fragments of two 8-channel tiles from one ldmatrix.trans (lanes
-    // 0-15: keys 16 jj + lane % 16 of the first tile, 16-31 of the second)
+    // kTileSums into the tile pv, then added to O
     constexpr bool kTileSums = Config<D>::kTileSums;
     float pv[kTileSums ? S::KS : 1][4];
     if constexpr (kTileSums) {
@@ -419,36 +349,19 @@ __device__ __forceinline__ void attend_block(
       for (int n = 0; n < S::KS; ++n)
         pv[n][0] = pv[n][1] = pv[n][2] = pv[n][3] = 0.f;
     }
-    if constexpr (kBf16) {
 #pragma unroll
-      for (int jj = 0; jj < NJ / 2; ++jj) {
-        const uint32_t pa[4] = {pack_bf16(s[2 * jj][0], s[2 * jj][1]),
-                                pack_bf16(s[2 * jj][2], s[2 * jj][3]),
-                                pack_bf16(s[2 * jj + 1][0], s[2 * jj + 1][1]),
-                                pack_bf16(s[2 * jj + 1][2], s[2 * jj + 1][3])};
-        const E* vrow = Vs + (16 * jj + (lane & 15)) * S::LDV + 8 * (lane >> 4);
-#pragma unroll
-        for (int n = 0; n < S::KS; n += 2) {
-          uint32_t vb[4];
-          ldsm_x4_trans(vb, vrow + 8 * n);
-          mma_bf16(kTileSums ? pv[n] : o[n], pa, vb);
-          mma_bf16(kTileSums ? pv[n + 1] : o[n + 1], pa, vb + 2);
-        }
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < (kBf16 ? 0 : NJ); ++j) {
+    for (int j = 0; j < NJ; ++j) {
       uint32_t pb[4], ps[4];
       split_tf32(s[j][0], pb[0], ps[0]);
       split_tf32(s[j][2], pb[1], ps[1]);
       split_tf32(s[j][1], pb[2], ps[2]);
       split_tf32(s[j][3], pb[3], ps[3]);
-      const E* vp = Vs + (8 * j + 2 * t) * S::LDV + g;
+      const float* vp = Vs + (8 * j + 2 * t) * S::LDV + g;
 #pragma unroll
       for (int n = 0; n < S::KS; ++n) {
         uint32_t bb[2], bs[2];
-        split_tf32(to_float(vp[8 * n]), bb[0], bs[0]);
-        split_tf32(to_float(vp[S::LDV + 8 * n]), bb[1], bs[1]);
+        split_tf32(vp[8 * n], bb[0], bs[0]);
+        split_tf32(vp[S::LDV + 8 * n], bb[1], bs[1]);
         if constexpr (kTileSums)
           mma3(pv[n], pb, ps, bb, bs);
         else
@@ -479,7 +392,7 @@ __device__ __forceinline__ void attend_block(
     if (row >= Nq) continue;
     if (splits == 1) {
       const float l = fmaxf(l_run[r], 1e-30f);
-      E* dst = out + (size_t)row * D + 2 * t;
+      float* dst = out + (size_t)row * D + 2 * t;
 #pragma unroll
       for (int n = 0; n < S::KS; ++n) {
         if (empty)

@@ -57,15 +57,16 @@
 // time).
 //
 // The bf16 form (E = bf16, the TPU kernels fed bf16 under mp): activations
-// and weights bf16 in memory, every product one bf16 pass of gemm_tc.cuh
-// with fp32 sums, biases, LayerNorm and GELU in fp32, rounded to bf16 where
-// the TPU kernels round: q, k and v after bias and rotary (the rotary
-// tables rounded to bf16 in the epilogue), the message after out_proj, the
-// hidden before lin2 (h and its statistics stay fp32; lin2 rounds its A
-// fragments as it reads them), the output after the residual. On an H100 the bf16
-// products run at twice the dense rate of tf32 and one pass instead of
-// three, and the bf16 tiles halve the bytes of every activation and weight.
+// and weights bf16 in memory, every product a wgmma tile product of
+// gemm_wgmma.cuh (TMA weights, cp.async activations through the same A
+// hooks, a persistent grid) with fp32 sums, biases, LayerNorm and GELU in
+// fp32, rounded to bf16 where the TPU kernels round: q, k and v after bias
+// and rotary (the rotary tables rounded to bf16 in the epilogue), the
+// message after out_proj, the hidden before lin2 (h and its statistics stay
+// fp32; lin2 rounds its A fragments as it reads them), the output after the
+// residual.
 #include "gemm_tc.cuh"
+#include "gemm_wgmma.cuh"
 
 namespace {
 
@@ -79,6 +80,31 @@ using lg::tc::store2;
 
 __host__ __device__ __forceinline__ int cdiv(int a, int b) {
   return (a + b - 1) / b;
+}
+
+// The epilogues read biases, rotary tables and the residual's x, which a
+// launch never writes. The bf16 form (gemm_wgmma.cuh's tiles, T) reads them
+// through the read-only path, so that the compiler may issue them ahead of
+// the stores before them: a plain load waits for every store that may
+// alias it, one round trip to memory a column tile, most of an epilogue's
+// time. The fp32 form reads them as before.
+template <class T>
+__device__ __forceinline__ float ld_ro(const float* p) {
+  if constexpr (lg::wgemm::kIsTile<T>)
+    return __ldg(p);
+  else
+    return *p;
+}
+template <class T, class E>
+__device__ __forceinline__ float2 ld_ro2(const E* p) {
+  if constexpr (!lg::wgemm::kIsTile<T>) {
+    return load2(p);
+  } else if constexpr (std::is_same_v<E, float>) {
+    return __ldg(reinterpret_cast<const float2*>(p));
+  } else {
+    const unsigned u = __ldg(reinterpret_cast<const unsigned*>(p));
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
+  }
 }
 
 // The rows of a launch: B n0 rows of segment 0 (image 0), then B n1 of
@@ -172,26 +198,38 @@ struct LnSrc {
   __device__ Cursor at(int r) const { return h + (size_t)r * C; }
   __device__ const float* src(Cursor c, int k0) const { return c + k0; }
 
+  // Chan's merge of (n, mean, M2) with (PART, mb, m2b), in order, of row
+  // `row`'s partials: its mean and 1 / sqrt(var + 1e-5)
+  __device__ void row_stats(int row, float& mean, float& rstd) const {
+    const float* st = stats + (size_t)row * parts * 2;
+    float n = PART, m2 = st[1];
+    mean = st[0];
+    for (int p = 1; p < parts; ++p) {
+      const float nn = n + PART, delta = st[2 * p] - mean;
+      mean = mean + delta * (PART / nn);
+      m2 = m2 + (st[2 * p + 1] + delta * delta * (n * PART / nn));
+      n = nn;
+    }
+    rstd = 1.0f / sqrtf(m2 / n + 1e-5f);
+  }
+
   template <class T>
   __device__ void begin(float* extra, int m0, int R) const {
     for (int r = threadIdx.x; r < T::BM; r += T::THREADS) {
       float mean = 0.f, rstd = 0.f;
-      if (m0 + r < R) {
-        // Chan's merge of (n, mean, M2) with (PART, mb, m2b), in order
-        const float* st = stats + (size_t)(m0 + r) * parts * 2;
-        float n = PART, m2 = st[1];
-        mean = st[0];
-        for (int p = 1; p < parts; ++p) {
-          const float nn = n + PART, delta = st[2 * p] - mean;
-          mean = mean + delta * (PART / nn);
-          m2 = m2 + (st[2 * p + 1] + delta * delta * (n * PART / nn));
-          n = nn;
-        }
-        rstd = 1.0f / sqrtf(m2 / n + 1e-5f);
-      }
+      if (m0 + r < R) row_stats(m0 + r, mean, rstd);
       extra[r] = mean;
       extra[T::BM + r] = rstd;
     }
+  }
+
+  // GELU(LN(h)) of channels k, k + 1 of a row (the wgmma product's A from
+  // registers), as transform computes it
+  __device__ float2 ln_gelu(float2 v, int k, float mean, float rstd) const {
+    const float2 ga = *reinterpret_cast<const float2*>(gamma + k);
+    const float2 be = *reinterpret_cast<const float2*>(beta + k);
+    return make_float2(gelu((v.x - mean) * rstd * ga.x + be.x),
+                       gelu((v.y - mean) * rstd * ga.y + be.y));
   }
 
   // a thread keeps one 4-channel column of the step (its gamma and beta)
@@ -249,6 +287,11 @@ struct HeadsEpi {
                         int R) const {
     const Frag f;
     const int D = H * hd;
+    // the bf16 form (gemm_wgmma.cuh's tiles): the warp's columns lie in one
+    // group (its tile's channels divide D) and hd is 64 or 128, so the
+    // group is the warp's and a head and channel take a shift and a mask
+    constexpr bool kFast = std::is_same_v<E, bf16>;
+    const int grp0 = kFast ? wc / D : 0, hd_shift = __ffs(hd) - 1;
 #pragma unroll
     for (int mt = 0; mt < T::MT; ++mt)
 #pragma unroll
@@ -261,15 +304,17 @@ struct HeadsEpi {
         E* ob = s ? out1 : out0;
 #pragma unroll
         for (int nt = 0; nt < T::NT; ++nt) {
-          const int ch = f.col(wc, nt), grp = ch / D, h = ch % D / hd,
-                    c = ch % hd;
-          float v0 = acc[mt][nt][2 * half] + bias[ch];
-          float v1 = acc[mt][nt][2 * half + 1] + bias[ch + 1];
+          const int ch = f.col(wc, nt);
+          const int grp = kFast ? grp0 : ch / D;
+          const int h = kFast ? (ch - grp0 * D) >> hd_shift : ch % D / hd;
+          const int c = kFast ? ch & (hd - 1) : ch % hd;
+          float v0 = acc[mt][nt][2 * half] + ld_ro<T>(bias + ch);
+          float v1 = acc[mt][nt][2 * half + 1] + ld_ro<T>(bias + ch + 1);
           if (grp < n_rot) {
             // ops/rotary.py::apply_rotary: o[2p] = t[2p] c - t[2p+1] s,
             // o[2p+1] = t[2p+1] c + t[2p] s
             const size_t at = ((size_t)b * n + i) * (hd / 2) + (c >> 1);
-            float co = cs[at], si = sn[at];
+            float co = ld_ro<T>(cs + at), si = ld_ro<T>(sn + at);
             if constexpr (std::is_same_v<E, bf16>) {  // the TPU's bf16 tables
               co = lg::tc::round_bf16(co);
               si = lg::tc::round_bf16(si);
@@ -304,8 +349,9 @@ struct BiasEpi {
 #pragma unroll
         for (int nt = 0; nt < T::NT; ++nt) {
           const int c = f.col(wc, nt);
-          store2(out + (size_t)r * C + c, acc[mt][nt][2 * half] + bias[c],
-                 acc[mt][nt][2 * half + 1] + bias[c + 1]);
+          store2(out + (size_t)r * C + c,
+                 acc[mt][nt][2 * half] + ld_ro<T>(bias + c),
+                 acc[mt][nt][2 * half + 1] + ld_ro<T>(bias + c + 1));
         }
       }
   }
@@ -329,37 +375,63 @@ struct StatsEpi {
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         const int r = f.row(wr, mt, half);
-        float v[T::NT][2];
+        if constexpr (lg::wgemm::kIsTile<T>) {
+          // the bf16 form: a partial's 16 columns at a time, so that only
+          // their values stay live (its read-only bias loads may be issued
+          // early; the values of a whole row would spill)
 #pragma unroll
-        for (int nt = 0; nt < T::NT; ++nt) {
-          const int c = f.col(wc, nt);
-          v[nt][0] = acc[mt][nt][2 * half] + bias[c];
-          v[nt][1] = acc[mt][nt][2 * half + 1] + bias[c + 1];
-          if (r < R)
-            *reinterpret_cast<float2*>(h + (size_t)r * C + c) =
-                make_float2(v[nt][0], v[nt][1]);
-        }
+          for (int j = 0; j < T::NT / 2; ++j) {
+            float v[2][2];
 #pragma unroll
-        for (int j = 0; j < T::NT / 2; ++j) {
-          float s = ((v[2 * j][0] + v[2 * j][1]) + v[2 * j + 1][0]) +
-                    v[2 * j + 1][1];
-          s += __shfl_xor_sync(0xffffffffu, s, 1);
-          s += __shfl_xor_sync(0xffffffffu, s, 2);
-          const float mean = s * (1.0f / PART);
-          float q = 0.f;
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const float d = v[2 * j + (e >> 1)][e & 1] - mean;
-            q += d * d;
+            for (int e = 0; e < 2; ++e) {
+              const int c = f.col(wc, 2 * j + e);
+              v[e][0] = acc[mt][2 * j + e][2 * half] + ld_ro<T>(bias + c);
+              v[e][1] =
+                  acc[mt][2 * j + e][2 * half + 1] + ld_ro<T>(bias + c + 1);
+              if (r < R)
+                *reinterpret_cast<float2*>(h + (size_t)r * C + c) =
+                    make_float2(v[e][0], v[e][1]);
+            }
+            partial(&v[0][0], r, wc + 16 * j, R, f.t);
           }
-          q += __shfl_xor_sync(0xffffffffu, q, 1);
-          q += __shfl_xor_sync(0xffffffffu, q, 2);
-          if (f.t == 0 && r < R)
-            *reinterpret_cast<float2*>(
-                stats + ((size_t)r * (C / PART) + (wc + 16 * j) / PART) * 2) =
-                make_float2(mean, q);
+        } else {
+          float v[T::NT][2];
+#pragma unroll
+          for (int nt = 0; nt < T::NT; ++nt) {
+            const int c = f.col(wc, nt);
+            v[nt][0] = acc[mt][nt][2 * half] + bias[c];
+            v[nt][1] = acc[mt][nt][2 * half + 1] + bias[c + 1];
+            if (r < R)
+              *reinterpret_cast<float2*>(h + (size_t)r * C + c) =
+                  make_float2(v[nt][0], v[nt][1]);
+          }
+#pragma unroll
+          for (int j = 0; j < T::NT / 2; ++j)
+            partial(&v[2 * j][0], r, wc + 16 * j, R, f.t);
         }
       }
+  }
+
+  // The partial of row r's 16 columns from c0 (a quad's four pairs v[0..3]
+  // of channels c0 + 2t, +1, c0 + 8 + 2t, +1), written by lane t 0.
+  __device__ __forceinline__ void partial(const float* v, int r, int c0,
+                                          int R, int t) const {
+    float s = ((v[0] + v[1]) + v[2]) + v[3];
+    s += __shfl_xor_sync(0xffffffffu, s, 1);
+    s += __shfl_xor_sync(0xffffffffu, s, 2);
+    const float mean = s * (1.0f / PART);
+    float q = 0.f;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float d = v[e] - mean;
+      q += d * d;
+    }
+    q += __shfl_xor_sync(0xffffffffu, q, 1);
+    q += __shfl_xor_sync(0xffffffffu, q, 2);
+    if (t == 0 && r < R)
+      *reinterpret_cast<float2*>(
+          stats + ((size_t)r * (C / PART) + c0 / PART) * 2) =
+          make_float2(mean, q);
   }
 };
 
@@ -391,9 +463,10 @@ struct ResidualEpi {
 #pragma unroll
         for (int nt = 0; nt < T::NT; ++nt) {
           const int c = f.col(wc, nt);
-          const float2 xv = load2(xr + c);
-          store2(orow + c, xv.x + (acc[mt][nt][2 * half] + bias[c]),
-                 xv.y + (acc[mt][nt][2 * half + 1] + bias[c + 1]));
+          const float2 xv = ld_ro2<T>(xr + c);
+          const float b0 = ld_ro<T>(bias + c), b1 = ld_ro<T>(bias + c + 1);
+          store2(orow + c, xv.x + (acc[mt][nt][2 * half] + b0),
+                 xv.y + (acc[mt][nt][2 * half + 1] + b1));
         }
       }
   }
@@ -427,13 +500,22 @@ __global__ void __launch_bounds__(T::THREADS)
   lg::gemm::product<T>(a, w, K, R, e);
 }
 
+// The bf16 form of any of the four: the wgmma product with tile T over the
+// weights' map.
+template <class T, class ASrc, class Epi>
+__global__ void __launch_bounds__(T::THREADS, T::BLOCKS)
+    product_wg_kernel(const __grid_constant__ CUtensorMap wmap, ASrc a,
+                      Epi e, int K, int R, int C) {
+  lg::wgemm::product<T>(&wmap, a, e, K, R, C);
+}
+
 // One launch of `kernel` with tile T over R rows and C output channels.
-template <class T, class Kernel, class ASrc, class E, class Epi>
-cudaError_t launch_tc(Kernel kernel, const ASrc& a, const E* w,
+template <class T, class Kernel, class ASrc, class Epi>
+cudaError_t launch_tc(Kernel kernel, const ASrc& a, const float* w,
                       const Epi& e, int K, int R, int C,
                       cudaStream_t stream) {
   if (R < 1 || K % BK != 0 || C % T::BN != 0) return cudaErrorInvalidValue;
-  constexpr size_t smem = T::template bytes<typename ASrc::Elem, E>();
+  constexpr size_t smem = T::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -442,71 +524,109 @@ cudaError_t launch_tc(Kernel kernel, const ASrc& a, const E* w,
   return cudaGetLastError();
 }
 
+// One launch of the wgmma product with tile T (bf16 weights w (C, K)): a
+// persistent grid of `grid` blocks (ops/block_tc.py::bf16_plan: at most
+// T::BLOCKS an SM, no more than the tiles).
+template <class T, class ASrc, class Epi>
+cudaError_t launch_wg(const ASrc& a, const bf16* w, const Epi& e, int K,
+                      int R, int C, int grid, cudaStream_t stream) {
+  if (R < 1 || K % lg::wgemm::BK != 0 || K < T::KS * lg::wgemm::BK ||
+      C % T::BN != 0 || grid < 1)
+    return cudaErrorInvalidValue;
+  CUtensorMap wmap;
+  cudaError_t err = lg::wgemm::weight_map(&wmap, w, C, K, T::BN);
+  if (err != cudaSuccess) return err;
+  constexpr size_t smem = T::template bytes<typename ASrc::Elem>();
+  auto kernel = product_wg_kernel<T, ASrc, Epi>;
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, T::THREADS, smem, stream>>>(wmap, a, e, K, R, C);
+  return cudaGetLastError();
+}
+
+// `tile`'s launch of a product in E: gemm_tc.cuh's (fp32, `kernel32`<T>
+// for its tile T) or gemm_wgmma.cuh's (bf16, `grid` blocks).
+template <class E, class K32, class ASrc, class Epi>
+cudaError_t launch_any(int tile, int grid, K32 kernel32, const ASrc& a,
+                       const E* w, const Epi& e, int K, int R, int C,
+                       cudaStream_t stream) {
+  if constexpr (std::is_same_v<E, bf16>) {
+    return lg::wgemm::with_tile(tile, [&](auto t) {
+      return launch_wg<decltype(t)>(a, w, e, K, R, C, grid, stream);
+    });
+  } else {
+    return lg::gemm::with_tile(tile, [&](auto t) {
+      using T = decltype(t);
+      return launch_tc<T>(kernel32(t), a, w, e, K, R, C, stream);
+    });
+  }
+}
+
 // The four launches in E (float: 3xTF32; bf16: the mp form), as the C entry
 // points below describe them.
 template <class E>
 cudaError_t project_heads(const E* x0, const E* x1, const E* w,
                           const float* bias, const float* cs, const float* sn,
                           E* out0, E* out1, int B, int n0, int n1, int G,
-                          int H, int hd, int n_rot, int tile,
+                          int H, int hd, int n_rot, int tile, int grid,
                           cudaStream_t stream) {
   if ((n_rot > 0 && (cs == nullptr || sn == nullptr || n1 != 0)) ||
-      hd % 32 != 0 || n0 < 1 || n1 < 0)
+      hd % 32 != 0 || n0 < 1 || n1 < 0 ||
+      (std::is_same_v<E, bf16> && (hd & (hd - 1)) != 0))
     return cudaErrorInvalidValue;
   const int D = H * hd, R = B * (n0 + n1);
   const Rows rows{B * n0};
   const XSrc<E> a{{}, rows, x0, x1, D};
   const HeadsEpi<E> e{rows, out0, out1, bias, cs, sn, B, n0, n1, H, hd, n_rot};
-  return lg::gemm::with_tile(tile, [&](auto t) {
-    using T = decltype(t);
-    return launch_tc<T>(project_tc_kernel<T, E>, a, w, e, D, R, G * D,
-                        stream);
-  });
+  return launch_any<E>(
+      tile, grid,
+      [](auto t) { return project_tc_kernel<decltype(t), float>; }, a, w, e,
+      D, R, G * D, stream);
 }
 
 template <class E>
 cudaError_t tail_out_proj(const E* ctx0, const E* ctx1, const E* woT,
                           const float* bo, E* msg, int B, int n0, int n1,
-                          int H, int hd, int tile, cudaStream_t stream) {
+                          int H, int hd, int tile, int grid,
+                          cudaStream_t stream) {
   if (hd % 32 != 0 || n0 < 1 || n1 < 0) return cudaErrorInvalidValue;
   const int D = H * hd, R = B * (n0 + n1);
   const CtxSrc<E> a{{}, Rows{B * n0}, ctx0, ctx1, n0, n1, H, hd};
   const BiasEpi<E> e{msg, bo, D};
-  return lg::gemm::with_tile(tile, [&](auto t) {
-    using T = decltype(t);
-    return launch_tc<T>(out_proj_tc_kernel<T, E>, a, woT, e, D, R, D, stream);
-  });
+  return launch_any<E>(
+      tile, grid,
+      [](auto t) { return out_proj_tc_kernel<decltype(t), float>; }, a, woT,
+      e, D, R, D, stream);
 }
 
 template <class E>
 cudaError_t tail_lin1(const E* x0, const E* x1, const E* m0, const E* m1,
                       const E* w1T, const float* b1, float* h, float* stats,
-                      int B, int n0, int n1, int D, int tile,
+                      int B, int n0, int n1, int D, int tile, int grid,
                       cudaStream_t stream) {
   if (D % 32 != 0 || n0 < 1 || n1 < 0) return cudaErrorInvalidValue;
   const int R = B * (n0 + n1);
   const CatSrc<E> a{{}, Rows{B * n0}, x0, x1, m0, m1, D};
   const StatsEpi e{h, stats, b1, 2 * D};
-  return lg::gemm::with_tile(tile, [&](auto t) {
-    using T = decltype(t);
-    return launch_tc<T>(lin1_tc_kernel<T, E>, a, w1T, e, 2 * D, R, 2 * D,
-                        stream);
-  });
+  return launch_any<E>(
+      tile, grid, [](auto t) { return lin1_tc_kernel<decltype(t), float>; },
+      a, w1T, e, 2 * D, R, 2 * D, stream);
 }
 
 template <class E>
 cudaError_t tail_lin2(const float* h, const float* stats, const float* gamma,
                       const float* beta, const E* w2T, const float* b2,
                       const E* x0, const E* x1, E* out0, E* out1, int B,
-                      int n0, int n1, int D, int tile, cudaStream_t stream) {
+                      int n0, int n1, int D, int tile, int grid,
+                      cudaStream_t stream) {
   if (D % 32 != 0 || n0 < 1 || n1 < 0) return cudaErrorInvalidValue;
   const int R = B * (n0 + n1), rows0 = B * n0;
   const LnSrc a{h, stats, gamma, beta, 2 * D, 2 * D / PART};
   const ResidualEpi<E> e{Rows{rows0}, x0, x1, out0, out1, b2, D};
-  return lg::gemm::with_tile(tile, [&](auto t) {
-    using T = decltype(t);
-    return launch_tc<T>(lin2_tc_kernel<T, E>, a, w2T, e, 2 * D, R, D, stream);
-  });
+  return launch_any<E>(
+      tile, grid, [](auto t) { return lin2_tc_kernel<decltype(t), float>; },
+      a, w2T, e, 2 * D, R, D, stream);
 }
 
 }  // namespace
@@ -516,7 +636,10 @@ cudaError_t tail_lin2(const float* h, const float* stats, const float* gamma,
 // H hd, hd a multiple of 32; `tile` indexes gemm_tc.cuh's tiles. Each entry
 // point has a bf16 twin (suffix _bf16, the mp form) that takes the
 // activations, weights and outputs named below in bf16; biases, the rotary
-// tables, gamma, beta, h and its statistics stay fp32.
+// tables, gamma, beta, h and its statistics stay fp32; its `tile` indexes
+// gemm_wgmma.cuh's tiles, one more argument after it, `grid`, is the
+// persistent grid's blocks (ops/block_tc.py::bf16_plan), and the weights
+// are read by TMA (16-byte aligned, cudaErrorInvalidValue otherwise).
 
 // x_s (B, n_s, D); w (G D, D), one row per output channel; bias (G D);
 // cos, sin (B, n0, hd / 2) or null; out_s (G, B, H, n_s, hd); the first
@@ -529,7 +652,7 @@ extern "C" cudaError_t lg_project_heads(const float* x0, const float* x1,
                                         int n_rot, int tile,
                                         cudaStream_t stream) {
   return project_heads<float>(x0, x1, w, bias, cs, sn, out0, out1, B, n0, n1,
-                              G, H, hd, n_rot, tile, stream);
+                              G, H, hd, n_rot, tile, 0, stream);
 }
 extern "C" cudaError_t lg_project_heads_bf16(const bf16* x0, const bf16* x1,
                                              const bf16* w, const float* bias,
@@ -537,9 +660,9 @@ extern "C" cudaError_t lg_project_heads_bf16(const bf16* x0, const bf16* x1,
                                              bf16* out0, bf16* out1, int B,
                                              int n0, int n1, int G, int H,
                                              int hd, int n_rot, int tile,
-                                             cudaStream_t stream) {
+                                             int grid, cudaStream_t stream) {
   return project_heads<bf16>(x0, x1, w, bias, cs, sn, out0, out1, B, n0, n1,
-                             G, H, hd, n_rot, tile, stream);
+                             G, H, hd, n_rot, tile, grid, stream);
 }
 
 // msg (R, D) = merge_heads(ctx) Wo + bo: ctx_s (B, H, n_s, hd); woT (D, D)
@@ -550,16 +673,16 @@ extern "C" cudaError_t lg_tail_out_proj(const float* ctx0, const float* ctx1,
                                         int H, int hd, int tile,
                                         cudaStream_t stream) {
   return tail_out_proj<float>(ctx0, ctx1, woT, bo, msg, B, n0, n1, H, hd,
-                              tile, stream);
+                              tile, 0, stream);
 }
 extern "C" cudaError_t lg_tail_out_proj_bf16(const bf16* ctx0,
                                              const bf16* ctx1,
                                              const bf16* woT, const float* bo,
                                              bf16* msg, int B, int n0, int n1,
                                              int H, int hd, int tile,
-                                             cudaStream_t stream) {
+                                             int grid, cudaStream_t stream) {
   return tail_out_proj<bf16>(ctx0, ctx1, woT, bo, msg, B, n0, n1, H, hd, tile,
-                             stream);
+                             grid, stream);
 }
 
 // h (R, 2D) = [x | msg] W1 + b1 and its LayerNorm partials stats (R, 2D /
@@ -573,16 +696,16 @@ extern "C" cudaError_t lg_tail_lin1(const float* x0, const float* x1,
                                     int n1, int D, int tile,
                                     cudaStream_t stream) {
   return tail_lin1<float>(x0, x1, m0, m1, w1T, b1, h, stats, B, n0, n1, D,
-                          tile, stream);
+                          tile, 0, stream);
 }
 extern "C" cudaError_t lg_tail_lin1_bf16(const bf16* x0, const bf16* x1,
                                          const bf16* m0, const bf16* m1,
                                          const bf16* w1T, const float* b1,
                                          float* h, float* stats, int B,
                                          int n0, int n1, int D, int tile,
-                                         cudaStream_t stream) {
+                                         int grid, cudaStream_t stream) {
   return tail_lin1<bf16>(x0, x1, m0, m1, w1T, b1, h, stats, B, n0, n1, D,
-                         tile, stream);
+                         tile, grid, stream);
 }
 
 // out_s (B, n_s, D) = x_s + GELU(LN(h)) W2 + b2: h (R, 2D) and stats
@@ -596,7 +719,7 @@ extern "C" cudaError_t lg_tail_lin2(const float* h, const float* stats,
                                     int n1, int D, int tile,
                                     cudaStream_t stream) {
   return tail_lin2<float>(h, stats, gamma, beta, w2T, b2, x0, x1, out0, out1,
-                          B, n0, n1, D, tile, stream);
+                          B, n0, n1, D, tile, 0, stream);
 }
 extern "C" cudaError_t lg_tail_lin2_bf16(const float* h, const float* stats,
                                          const float* gamma,
@@ -604,8 +727,8 @@ extern "C" cudaError_t lg_tail_lin2_bf16(const float* h, const float* stats,
                                          const float* b2, const bf16* x0,
                                          const bf16* x1, bf16* out0,
                                          bf16* out1, int B, int n0, int n1,
-                                         int D, int tile,
+                                         int D, int tile, int grid,
                                          cudaStream_t stream) {
   return tail_lin2<bf16>(h, stats, gamma, beta, w2T, b2, x0, x1, out0, out1,
-                         B, n0, n1, D, tile, stream);
+                         B, n0, n1, D, tile, grid, stream);
 }

@@ -46,38 +46,59 @@
 // launch over grid z = 2 B. No block writes what another block of the same
 // launch reads, no atomics: the same bits on every run.
 //
-// The bf16 form (lg_fused_cross_bf16; E = bf16 below): the TPU kernels fed
-// bf16 under mp, on attn_tc.cuh's bf16 walk: qk, v and the messages bf16,
-// fp32 scores and softmax, the weights rounded to bf16 before each P V and
-// the row sums adding those rounded weights (kRoundedSums: the TPU kernels
-// sum through a ones column of the bf16 V). The TPU wrapper scales qk0 in
-// bf16 before the kernel and both directions read that product; the
-// caller does the same (qk0 scaled and rounded, scale 1 here).
+// The bf16 form (lg_fused_cross_bf16): the TPU kernels fed bf16 under mp,
+// on attn_wgmma.cuh's walk (wgmma fed by TMA, 128 query rows a block, the
+// same three launches): qk, v and the messages bf16, fp32 scores and
+// softmax, the weights rounded to bf16 before each P V and the row sums
+// adding those rounded weights (kRoundedSums: the TPU kernels sum through a
+// ones column of the bf16 V). The TPU wrapper scales qk0 in bf16 before the
+// kernel and both directions read that product; the caller does the same
+// (qk0 scaled and rounded, scale 1 here).
 #include "attn_tc.cuh"
+#include "attn_wgmma.cuh"
 
 namespace {
 
 using lg::tc::bf16;
 using lg::tc::THREADS;
+using lg::wg::WalkShape;
 constexpr int D = 64;  // head_dim, as the TPU kernels (the ones column of V)
-template <class E>
-using Sh = lg::tc::Shape<D, E>;
-template <class E>
-constexpr bool kRounded = std::is_same_v<E, bf16>;
+using Sh = lg::tc::Shape<D>;
+using Wk = WalkShape<D>;
+
+// The column launch's shift S: the largest row max of this (batch, head)'s
+// M rows rm (over the valid rows only when `only` is given), -inf when there
+// is none. Every thread of the block calls it.
+template <int kThreads>
+__device__ float column_shift(const float* rm, const bool* only, int M) {
+  __shared__ float warp_max[kThreads / 32];
+  float mx = -INFINITY;
+  for (int i = threadIdx.x; i < M; i += kThreads)
+    if (only == nullptr || only[i]) mx = fmaxf(mx, rm[i]);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+  if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = mx;
+  __syncthreads();
+#pragma unroll
+  for (int w = 0; w < kThreads / 32; ++w) mx = fmaxf(mx, warp_max[w]);
+  return mx;
+}
+
+// --- fp32 (attn_tc.cuh) -----------------------------------------------------
 
 // Exact messages into image 0. Grid (cdiv(M, 64) splits, H, B).
-template <class E>
-__global__ void __launch_bounds__(THREADS, Sh<E>::kLaunchBlocks)
-    cross_rows_kernel(const E* __restrict__ qk0,
-                      const E* __restrict__ qk1,
-                      const E* __restrict__ v1,
-                      const bool* __restrict__ valid1, E* __restrict__ m0,
+__global__ void __launch_bounds__(THREADS, Sh::kBlocksPerSM)
+    cross_rows_kernel(const float* __restrict__ qk0,
+                      const float* __restrict__ qk1,
+                      const float* __restrict__ v1,
+                      const bool* __restrict__ valid1, float* __restrict__ m0,
                       float* __restrict__ part, float* __restrict__ ml,
                       float* __restrict__ rmax, int H, int M, int N,
                       int splits, float scale, bool zero_empty) {
   const int b = blockIdx.z, h = blockIdx.y;
   const size_t bh = (size_t)b * H + h;
-  lg::tc::attend_block<lg::tc::kExact, D, E, kRounded<E>>(
+  lg::tc::attend_block<lg::tc::kExact, D>(
       qk0 + bh * M * D, qk1 + bh * N * D, v1 + bh * N * D,
       valid1 ? valid1 + (size_t)b * N : nullptr, nullptr, m0 + bh * M * D,
       part, ml, rmax, (int)gridDim.z * H * M, (int)bh * M, M, N,
@@ -87,34 +108,22 @@ __global__ void __launch_bounds__(THREADS, Sh<E>::kLaunchBlocks)
 
 // Exact messages into image 1, shifted by S. Grid (cdiv(N, 64) splits, H,
 // B); rmax (B H M): the row launch's row maxima.
-template <class E>
-__global__ void __launch_bounds__(THREADS, Sh<E>::kLaunchBlocks)
-    cross_cols_kernel(const E* __restrict__ qk0,
-                      const E* __restrict__ qk1,
-                      const E* __restrict__ v0,
+__global__ void __launch_bounds__(THREADS, Sh::kBlocksPerSM)
+    cross_cols_kernel(const float* __restrict__ qk0,
+                      const float* __restrict__ qk1,
+                      const float* __restrict__ v0,
                       const bool* __restrict__ valid0,
                       const bool* __restrict__ valid1,
-                      const float* __restrict__ rmax, E* __restrict__ m1,
+                      const float* __restrict__ rmax, float* __restrict__ m1,
                       float* __restrict__ part, float* __restrict__ ml, int H,
                       int M, int N, int splits, float scale,
                       bool valid_rows_only) {
-  __shared__ float warp_max[THREADS / 32];
   const int b = blockIdx.z, h = blockIdx.y;
   const size_t bh = (size_t)b * H + h;
   const bool* va0 = valid0 ? valid0 + (size_t)b * M : nullptr;
-  const bool* only = valid_rows_only ? va0 : nullptr;
-  const float* rm = rmax + bh * M;
-  float mx = -INFINITY;
-  for (int i = threadIdx.x; i < M; i += THREADS)
-    if (only == nullptr || only[i]) mx = fmaxf(mx, rm[i]);
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-  if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = mx;
-  __syncthreads();
-#pragma unroll
-  for (int w = 0; w < THREADS / 32; ++w) mx = fmaxf(mx, warp_max[w]);
-  lg::tc::attend_block<lg::tc::kFixed, D, E, kRounded<E>>(
+  const float mx =
+      column_shift<THREADS>(rmax + bh * M, valid_rows_only ? va0 : nullptr, M);
+  lg::tc::attend_block<lg::tc::kFixed, D>(
       qk1 + bh * N * D, qk0 + bh * M * D, v0 + bh * M * D, va0,
       valid1 ? valid1 + (size_t)b * N : nullptr, m1 + bh * N * D, part, ml,
       nullptr, (int)gridDim.z * H * N, (int)bh * N, N, M, blockIdx.x / splits,
@@ -123,15 +132,14 @@ __global__ void __launch_bounds__(THREADS, Sh<E>::kLaunchBlocks)
 
 // Both directions of the shift variant. Grid (max over directions of
 // cdiv(nq, 64) splits, H, 2 B); z = 2 b + direction, as B1'.
-template <class E>
-__global__ void __launch_bounds__(THREADS, Sh<E>::kLaunchBlocks)
-    cross_shift_kernel(const E* __restrict__ qk0,
-                       const E* __restrict__ qk1,
-                       const E* __restrict__ v0,
-                       const E* __restrict__ v1,
+__global__ void __launch_bounds__(THREADS, Sh::kBlocksPerSM)
+    cross_shift_kernel(const float* __restrict__ qk0,
+                       const float* __restrict__ qk1,
+                       const float* __restrict__ v0,
+                       const float* __restrict__ v1,
                        const bool* __restrict__ valid0,
                        const bool* __restrict__ valid1,
-                       E* __restrict__ m0, E* __restrict__ m1,
+                       float* __restrict__ m0, float* __restrict__ m1,
                        float* __restrict__ part0, float* __restrict__ ml0,
                        float* __restrict__ part1, float* __restrict__ ml1,
                        int H, int M, int N, int splits0, int splits1,
@@ -144,7 +152,7 @@ __global__ void __launch_bounds__(THREADS, Sh<E>::kLaunchBlocks)
   const size_t bh = (size_t)b * H + h;
   const bool* kvalid = dir1 ? valid0 : valid1;
   const bool* qvalid = dir1 ? valid1 : valid0;
-  lg::tc::attend_block<lg::tc::kShift, D, E, kRounded<E>>(
+  lg::tc::attend_block<lg::tc::kShift, D>(
       (dir1 ? qk1 : qk0) + bh * nq * D, (dir1 ? qk0 : qk1) + bh * nk * D,
       (dir1 ? v0 : v1) + bh * nk * D, kvalid ? kvalid + (size_t)b * nk : nullptr,
       qvalid ? qvalid + (size_t)b * nq : nullptr, (dir1 ? m1 : m0) + bh * nq * D,
@@ -153,11 +161,93 @@ __global__ void __launch_bounds__(THREADS, Sh<E>::kLaunchBlocks)
       blockIdx.x / splits, blockIdx.x % splits, splits, scale, shift2, false);
 }
 
-template <class E, typename Kernel>
+// --- bf16 (attn_wgmma.cuh) --------------------------------------------------
+// The same three kernels on the wgmma walk; k0map, v0map: qk0 and v0 as
+// (B H, M, 64), k1map, v1map: qk1 and v1 as (B H, N, 64).
+
+// Grid (cdiv(M, 128) splits, H, B).
+__global__ void __launch_bounds__(Wk::THREADS, 1)
+    cross_rows_wg_kernel(const __grid_constant__ CUtensorMap k1map,
+                         const __grid_constant__ CUtensorMap v1map,
+                         const bf16* __restrict__ qk0,
+                         const bool* __restrict__ valid1,
+                         bf16* __restrict__ m0, float* __restrict__ part,
+                         float* __restrict__ ml, float* __restrict__ rmax,
+                         int H, int M, int N, int splits, float scale,
+                         bool zero_empty) {
+  const int b = blockIdx.z, h = blockIdx.y;
+  const int bh = b * H + h;
+  lg::wg::attend_wg<lg::tc::kExact, D, true>(
+      &k1map, &v1map, bh, qk0 + (size_t)bh * M * D,
+      valid1 ? valid1 + (size_t)b * N : nullptr, nullptr,
+      m0 + (size_t)bh * M * D, part, ml, rmax, (int)gridDim.z * H * M, bh * M,
+      M, N, blockIdx.x / splits, blockIdx.x % splits, splits, scale, 0.f,
+      zero_empty);
+}
+
+// Grid (cdiv(N, 128) splits, H, B).
+__global__ void __launch_bounds__(Wk::THREADS, 1)
+    cross_cols_wg_kernel(const __grid_constant__ CUtensorMap k0map,
+                         const __grid_constant__ CUtensorMap v0map,
+                         const bf16* __restrict__ qk1,
+                         const bool* __restrict__ valid0,
+                         const bool* __restrict__ valid1,
+                         const float* __restrict__ rmax, bf16* __restrict__ m1,
+                         float* __restrict__ part, float* __restrict__ ml,
+                         int H, int M, int N, int splits, float scale,
+                         bool valid_rows_only) {
+  const int b = blockIdx.z, h = blockIdx.y;
+  const int bh = b * H + h;
+  const bool* va0 = valid0 ? valid0 + (size_t)b * M : nullptr;
+  const float mx = column_shift<Wk::THREADS>(
+      rmax + (size_t)bh * M, valid_rows_only ? va0 : nullptr, M);
+  lg::wg::attend_wg<lg::tc::kFixed, D, true>(
+      &k0map, &v0map, bh, qk1 + (size_t)bh * N * D, va0,
+      valid1 ? valid1 + (size_t)b * N : nullptr, m1 + (size_t)bh * N * D,
+      part, ml, nullptr, (int)gridDim.z * H * N, bh * N, N, M,
+      blockIdx.x / splits, blockIdx.x % splits, splits, scale,
+      mx == -INFINITY ? 0.f : mx, false);
+}
+
+// Grid (max over directions of cdiv(nq, 128) splits, H, 2 B).
+__global__ void __launch_bounds__(Wk::THREADS, 1)
+    cross_shift_wg_kernel(const __grid_constant__ CUtensorMap k0map,
+                          const __grid_constant__ CUtensorMap k1map,
+                          const __grid_constant__ CUtensorMap v0map,
+                          const __grid_constant__ CUtensorMap v1map,
+                          const bf16* __restrict__ qk0,
+                          const bf16* __restrict__ qk1,
+                          const bool* __restrict__ valid0,
+                          const bool* __restrict__ valid1,
+                          bf16* __restrict__ m0, bf16* __restrict__ m1,
+                          float* __restrict__ part0, float* __restrict__ ml0,
+                          float* __restrict__ part1, float* __restrict__ ml1,
+                          int H, int M, int N, int splits0, int splits1,
+                          float scale, float shift2) {
+  const int b = blockIdx.z >> 1, h = blockIdx.y;
+  const bool dir1 = blockIdx.z & 1;  // messages into image 1
+  const int nq = dir1 ? N : M, nk = dir1 ? M : N;
+  const int splits = dir1 ? splits1 : splits0;
+  if ((int)blockIdx.x >= lg::tc::cdiv(nq, Wk::BQ) * splits) return;
+  const int bh = b * H + h;
+  const bool* kvalid = dir1 ? valid0 : valid1;
+  const bool* qvalid = dir1 ? valid1 : valid0;
+  lg::wg::attend_wg<lg::tc::kShift, D, true>(
+      dir1 ? &k0map : &k1map, dir1 ? &v0map : &v1map, bh,
+      (dir1 ? qk1 : qk0) + (size_t)bh * nq * D,
+      kvalid ? kvalid + (size_t)b * nk : nullptr,
+      qvalid ? qvalid + (size_t)b * nq : nullptr,
+      (dir1 ? m1 : m0) + (size_t)bh * nq * D, dir1 ? part1 : part0,
+      dir1 ? ml1 : ml0, nullptr, (int)(gridDim.z >> 1) * H * nq, bh * nq, nq,
+      nk, blockIdx.x / splits, blockIdx.x % splits, splits, scale, shift2,
+      false);
+}
+
+template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel) {
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)Sh<E>::kBytes);
+                              (int)Sh::kBytes);
 }
 
 // The merge launch of a split walk (nothing when splits == 1).
@@ -170,6 +260,82 @@ cudaError_t merge(const float* part, const float* ml, E* o, float* rmax,
   return cudaGetLastError();
 }
 
+// One mode's walk launches and their merges, fp32 (attn_tc.cuh's walk) and
+// bf16 (attn_wgmma.cuh's).
+cudaError_t walks(const float* qk0, const float* qk1, const float* v0,
+                  const float* v1, const bool* valid0, const bool* valid1,
+                  float* m0, float* m1, float* part0, float* ml0,
+                  float* part1, float* ml1, float* rmax, int B, int H, int M,
+                  int N, int mode, int splits0, int splits1, float scale,
+                  float shift2, cudaStream_t stream) {
+  using lg::tc::BQ;
+  using lg::tc::cdiv;
+  const size_t smem = Sh::kBytes;
+  cudaError_t err;
+  if (mode == 2) {
+    if ((err = allow_smem(cross_shift_kernel)) != cudaSuccess) return err;
+    const int x0 = cdiv(M, BQ) * splits0, x1 = cdiv(N, BQ) * splits1;
+    const dim3 grid(x0 > x1 ? x0 : x1, H, 2 * B);
+    cross_shift_kernel<<<grid, THREADS, smem, stream>>>(qk0, qk1, v0, v1, valid0, valid1, m0, m1, part0, ml0, part1, ml1, H, M, N, splits0, splits1, scale, shift2);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    if ((err = merge<true>(part0, ml0, m0, nullptr, B * H * M, splits0,
+                           stream)) != cudaSuccess)
+      return err;
+    return merge<true>(part1, ml1, m1, nullptr, B * H * N, splits1, stream);
+  }
+  if ((err = allow_smem(cross_rows_kernel)) != cudaSuccess) return err;
+  if ((err = allow_smem(cross_cols_kernel)) != cudaSuccess) return err;
+  cross_rows_kernel<<<dim3(cdiv(M, BQ) * splits0, H, B), THREADS, smem, stream>>>(qk0, qk1, v1, valid1, m0, part0, ml0, rmax, H, M, N, splits0, scale, mode == 1);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if ((err = merge<false>(part0, ml0, m0, rmax, B * H * M, splits0,
+                          stream)) != cudaSuccess)
+    return err;
+  cross_cols_kernel<<<dim3(cdiv(N, BQ) * splits1, H, B), THREADS, smem, stream>>>(qk0, qk1, v0, valid0, valid1, rmax, m1, part1, ml1, H, M, N, splits1, scale, mode == 1);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  return merge<true>(part1, ml1, m1, nullptr, B * H * N, splits1, stream);
+}
+
+cudaError_t walks(const bf16* qk0, const bf16* qk1, const bf16* v0,
+                  const bf16* v1, const bool* valid0, const bool* valid1,
+                  bf16* m0, bf16* m1, float* part0, float* ml0, float* part1,
+                  float* ml1, float* rmax, int B, int H, int M, int N,
+                  int mode, int splits0, int splits1, float scale,
+                  float shift2, cudaStream_t stream) {
+  using lg::tc::cdiv;
+  constexpr int BQ = Wk::BQ;
+  CUtensorMap k0map, k1map, v0map, v1map;
+  cudaError_t err = lg::wg::walk_map(&k0map, qk0, B * H, M, D);
+  if (err == cudaSuccess) err = lg::wg::walk_map(&k1map, qk1, B * H, N, D);
+  if (err == cudaSuccess) err = lg::wg::walk_map(&v0map, v0, B * H, M, D);
+  if (err == cudaSuccess) err = lg::wg::walk_map(&v1map, v1, B * H, N, D);
+  if (err != cudaSuccess) return err;
+  if (mode == 2) {
+    if ((err = lg::wg::allow_walk_smem<D>(cross_shift_wg_kernel)) !=
+        cudaSuccess)
+      return err;
+    const int x0 = cdiv(M, BQ) * splits0, x1 = cdiv(N, BQ) * splits1;
+    const dim3 grid(x0 > x1 ? x0 : x1, H, 2 * B);
+    cross_shift_wg_kernel<<<grid, Wk::THREADS, Wk::kBytes, stream>>>(k0map, k1map, v0map, v1map, qk0, qk1, valid0, valid1, m0, m1, part0, ml0, part1, ml1, H, M, N, splits0, splits1, scale, shift2);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    if ((err = merge<true>(part0, ml0, m0, nullptr, B * H * M, splits0,
+                           stream)) != cudaSuccess)
+      return err;
+    return merge<true>(part1, ml1, m1, nullptr, B * H * N, splits1, stream);
+  }
+  if ((err = lg::wg::allow_walk_smem<D>(cross_rows_wg_kernel)) != cudaSuccess)
+    return err;
+  if ((err = lg::wg::allow_walk_smem<D>(cross_cols_wg_kernel)) != cudaSuccess)
+    return err;
+  cross_rows_wg_kernel<<<dim3(cdiv(M, BQ) * splits0, H, B), Wk::THREADS, Wk::kBytes, stream>>>(k1map, v1map, qk0, valid1, m0, part0, ml0, rmax, H, M, N, splits0, scale, mode == 1);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if ((err = merge<false>(part0, ml0, m0, rmax, B * H * M, splits0,
+                          stream)) != cudaSuccess)
+    return err;
+  cross_cols_wg_kernel<<<dim3(cdiv(N, BQ) * splits1, H, B), Wk::THREADS, Wk::kBytes, stream>>>(k0map, v0map, qk1, valid0, valid1, rmax, m1, part1, ml1, H, M, N, splits1, scale, mode == 1);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  return merge<true>(part1, ml1, m1, nullptr, B * H * N, splits1, stream);
+}
+
 template <class E>
 cudaError_t fused_cross(const E* qk0, const E* qk1, const E* v0, const E* v1,
                         const bool* valid0, const bool* valid1, E* m0, E* m1,
@@ -179,36 +345,12 @@ cudaError_t fused_cross(const E* qk0, const E* qk1, const E* v0, const E* v1,
                         cudaStream_t stream) {
   if (mode < 0 || mode > 2 || (mode != 2 && rmax == nullptr))
     return cudaErrorInvalidValue;
-  using lg::tc::BQ;
-  using lg::tc::cdiv;
-  const size_t smem = Sh<E>::kBytes;
-  cudaError_t err;
-  if (mode == 2) {
-    if ((err = allow_smem<E>(cross_shift_kernel<E>)) != cudaSuccess)
-      return err;
-    const int x0 = cdiv(M, BQ) * splits0, x1 = cdiv(N, BQ) * splits1;
-    const dim3 grid(x0 > x1 ? x0 : x1, H, 2 * B);
-    cross_shift_kernel<E><<<grid, THREADS, smem, stream>>>(qk0, qk1, v0, v1, valid0, valid1, m0, m1, part0, ml0, part1, ml1, H, M, N, splits0, splits1, scale, shift2);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    if ((err = merge<true>(part0, ml0, m0, nullptr, B * H * M, splits0,
-                           stream)) != cudaSuccess)
-      return err;
-    return merge<true>(part1, ml1, m1, nullptr, B * H * N, splits1, stream);
-  }
-  if ((err = allow_smem<E>(cross_rows_kernel<E>)) != cudaSuccess) return err;
-  if ((err = allow_smem<E>(cross_cols_kernel<E>)) != cudaSuccess) return err;
-  cross_rows_kernel<E><<<dim3(cdiv(M, BQ) * splits0, H, B), THREADS, smem, stream>>>(qk0, qk1, v1, valid1, m0, part0, ml0, rmax, H, M, N, splits0, scale, mode == 1);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  if ((err = merge<false>(part0, ml0, m0, rmax, B * H * M, splits0,
-                          stream)) != cudaSuccess)
-    return err;
-  cross_cols_kernel<E><<<dim3(cdiv(N, BQ) * splits1, H, B), THREADS, smem, stream>>>(qk0, qk1, v0, valid0, valid1, rmax, m1, part1, ml1, H, M, N, splits1, scale, mode == 1);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  return merge<true>(part1, ml1, m1, nullptr, B * H * N, splits1, stream);
+  return walks(qk0, qk1, v0, v1, valid0, valid1, m0, m1, part0, ml0, part1,
+               ml1, rmax, B, H, M, N, mode, splits0, splits1, scale, shift2,
+               stream);
 }
 
 }  // namespace
-
 // qk0, v0, m0: (B, H, M, 64); qk1, v1, m1: (B, H, N, 64); valid0 (B, M),
 // valid1 (B, N) bool, each or null; qk0, qk1, v0, v1 16-byte aligned.
 // mode: 0 exact, 1 exact as the CrossBlock kernel, 2 shift. splits0 splits
@@ -230,7 +372,9 @@ extern "C" cudaError_t lg_fused_cross(
 
 // lg_fused_cross's bf16 form (mp): qk0, qk1, v0, v1, m0 and m1 bf16; the
 // scratch fp32 as above. The caller hands qk0 scaled (and rounded) and
-// scale 1, as the TPU wrapper scales qk0 in bf16 before its kernel.
+// scale 1, as the TPU wrapper scales qk0 in bf16 before its kernel. qk0,
+// qk1, v0 and v1 are read by TMA: 16-byte aligned (cudaErrorInvalidValue
+// otherwise).
 extern "C" cudaError_t lg_fused_cross_bf16(
     const bf16* qk0, const bf16* qk1, const bf16* v0, const bf16* v1,
     const bool* valid0, const bool* valid1, bf16* m0, bf16* m1,

@@ -42,28 +42,31 @@
 // under mp, and flash_cross_pair's two exact calls of them. q is scaled in
 // fp32 and rounded to bf16 (the caller passes the scale rounded to bf16, as
 // the TPU wrapper's jnp.asarray(scale, q.dtype)), the weights are rounded
-// before P V, l sums them in fp32, the output is bf16 (attn_tc.cuh's bf16
-// walk, bf16 m16n8k16 products, one pass where 3xTF32 takes three). B1'
-// is two K1 walks, so its row sums add the unrounded weights (K2's
-// kRoundedSums is not its).
+// before P V, l sums them in fp32, the output is bf16: attn_wgmma.cuh's
+// walk (wgmma fed by TMA, 128 query rows a block). B1' is two K1 walks, so
+// its row sums add the unrounded weights (K2's kRoundedSums is not its).
 #include "attn_tc.cuh"
+#include "attn_wgmma.cuh"
 
 namespace {
 
 using lg::tc::bf16;
 using lg::tc::Shape;
+using lg::wg::WalkShape;
+
+// --- fp32 (attn_tc.cuh) -----------------------------------------------------
 
 // Grid (cdiv(Nq, 64) splits, H, B): x = query tile * splits + split.
-template <bool SHIFT, int D, class E = float>
-__global__ void __launch_bounds__(lg::tc::THREADS, Shape<D, E>::kLaunchBlocks)
-    flash_sdpa_kernel(const E* __restrict__ q, const E* __restrict__ k,
-                      const E* __restrict__ v,
-                      const bool* __restrict__ kvalid, E* __restrict__ o,
+template <bool SHIFT, int D>
+__global__ void __launch_bounds__(lg::tc::THREADS, Shape<D>::kBlocksPerSM)
+    flash_sdpa_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v,
+                      const bool* __restrict__ kvalid, float* __restrict__ o,
                       float* __restrict__ part, float* __restrict__ ml, int H,
                       int Nq, int Nk, int splits, float scale, float shift2) {
   const int b = blockIdx.z, h = blockIdx.y;
   const size_t bh = (size_t)b * H + h;
-  lg::tc::attend_block<SHIFT ? lg::tc::kShift : lg::tc::kExact, D, E>(
+  lg::tc::attend_block<SHIFT ? lg::tc::kShift : lg::tc::kExact, D>(
       q + bh * Nq * D, k + bh * Nk * D, v + bh * Nk * D,
       kvalid ? kvalid + (size_t)b * Nk : nullptr, nullptr, o + bh * Nq * D,
       part, ml, nullptr, (int)(gridDim.z * H) * Nq, (int)bh * Nq, Nq, Nk,
@@ -74,13 +77,13 @@ __global__ void __launch_bounds__(lg::tc::THREADS, Shape<D, E>::kLaunchBlocks)
 // direction. Direction 0 (messages into image 0) has M queries, N keys and
 // splits0; direction 1 the reverse. A block past its direction's grid
 // returns at once.
-template <int D, class E = float>
-__global__ void __launch_bounds__(lg::tc::THREADS, Shape<D, E>::kLaunchBlocks)
+template <int D>
+__global__ void __launch_bounds__(lg::tc::THREADS, Shape<D>::kBlocksPerSM)
     flash_cross_pair_kernel(
-        const E* __restrict__ qk0, const E* __restrict__ qk1,
-        const E* __restrict__ v0, const E* __restrict__ v1,
+        const float* __restrict__ qk0, const float* __restrict__ qk1,
+        const float* __restrict__ v0, const float* __restrict__ v1,
         const bool* __restrict__ valid0, const bool* __restrict__ valid1,
-        E* __restrict__ m0, E* __restrict__ m1,
+        float* __restrict__ m0, float* __restrict__ m1,
         float* __restrict__ part0, float* __restrict__ ml0,
         float* __restrict__ part1, float* __restrict__ ml1, int H, int M,
         int N, int splits0, int splits1, float scale) {
@@ -91,13 +94,66 @@ __global__ void __launch_bounds__(lg::tc::THREADS, Shape<D, E>::kLaunchBlocks)
   if ((int)blockIdx.x >= lg::tc::cdiv(nq, lg::tc::BQ) * splits) return;
   const size_t bh = (size_t)b * H + h;
   const bool* kvalid = dir1 ? valid0 : valid1;
-  lg::tc::attend_block<lg::tc::kExact, D, E>(
+  lg::tc::attend_block<lg::tc::kExact, D>(
       (dir1 ? qk1 : qk0) + bh * nq * D, (dir1 ? qk0 : qk1) + bh * nk * D,
       (dir1 ? v0 : v1) + bh * nk * D, kvalid ? kvalid + (size_t)b * nk : nullptr,
       nullptr, (dir1 ? m1 : m0) + bh * nq * D, dir1 ? part1 : part0,
       dir1 ? ml1 : ml0, nullptr, (int)(gridDim.z >> 1) * H * nq, (int)bh * nq,
       nq, nk, blockIdx.x / splits, blockIdx.x % splits, splits, scale, 0.f,
       true);
+}
+
+// --- bf16 (attn_wgmma.cuh) --------------------------------------------------
+
+// Grid (cdiv(Nq, 128) splits, H, B); kmap, vmap: k and v as (B H, Nk, D).
+template <bool SHIFT, int D>
+__global__ void __launch_bounds__(WalkShape<D>::THREADS, 1)
+    flash_sdpa_wg_kernel(const __grid_constant__ CUtensorMap kmap,
+                         const __grid_constant__ CUtensorMap vmap,
+                         const bf16* __restrict__ q,
+                         const bool* __restrict__ kvalid, bf16* __restrict__ o,
+                         float* __restrict__ part, float* __restrict__ ml,
+                         int H, int Nq, int Nk, int splits, float scale,
+                         float shift2) {
+  const int b = blockIdx.z, h = blockIdx.y;
+  const int bh = b * H + h;
+  lg::wg::attend_wg<SHIFT ? lg::tc::kShift : lg::tc::kExact, D>(
+      &kmap, &vmap, bh, q + (size_t)bh * Nq * D,
+      kvalid ? kvalid + (size_t)b * Nk : nullptr, nullptr,
+      o + (size_t)bh * Nq * D, part, ml, nullptr, (int)(gridDim.z * H) * Nq,
+      bh * Nq, Nq, Nk, blockIdx.x / splits, blockIdx.x % splits, splits,
+      scale, shift2, true);
+}
+
+// Grid (max over directions of cdiv(nq, 128) splits, H, 2 B), as the fp32
+// pair; k0map, v0map: qk0 and v0 as (B H, M, D); k1map, v1map: qk1, v1.
+template <int D>
+__global__ void __launch_bounds__(WalkShape<D>::THREADS, 1)
+    flash_cross_pair_wg_kernel(
+        const __grid_constant__ CUtensorMap k0map,
+        const __grid_constant__ CUtensorMap k1map,
+        const __grid_constant__ CUtensorMap v0map,
+        const __grid_constant__ CUtensorMap v1map,
+        const bf16* __restrict__ qk0, const bf16* __restrict__ qk1,
+        const bool* __restrict__ valid0, const bool* __restrict__ valid1,
+        bf16* __restrict__ m0, bf16* __restrict__ m1,
+        float* __restrict__ part0, float* __restrict__ ml0,
+        float* __restrict__ part1, float* __restrict__ ml1, int H, int M,
+        int N, int splits0, int splits1, float scale) {
+  const int b = blockIdx.z >> 1, h = blockIdx.y;
+  const bool dir1 = blockIdx.z & 1;  // messages into image 1
+  const int nq = dir1 ? N : M, nk = dir1 ? M : N;
+  const int splits = dir1 ? splits1 : splits0;
+  if ((int)blockIdx.x >= lg::tc::cdiv(nq, WalkShape<D>::BQ) * splits) return;
+  const int bh = b * H + h;
+  const bool* kvalid = dir1 ? valid0 : valid1;
+  lg::wg::attend_wg<lg::tc::kExact, D>(
+      dir1 ? &k0map : &k1map, dir1 ? &v0map : &v1map, bh,
+      (dir1 ? qk1 : qk0) + (size_t)bh * nq * D,
+      kvalid ? kvalid + (size_t)b * nk : nullptr, nullptr,
+      (dir1 ? m1 : m0) + (size_t)bh * nq * D, dir1 ? part1 : part0,
+      dir1 ? ml1 : ml0, nullptr, (int)(gridDim.z >> 1) * H * nq, bh * nq, nq,
+      nk, blockIdx.x / splits, blockIdx.x % splits, splits, scale, 0.f, true);
 }
 
 template <typename Kernel>
@@ -117,30 +173,63 @@ cudaError_t merge(const float* part, const float* ml, E* o, int rows,
   return cudaGetLastError();
 }
 
-template <bool SHIFT, int D, class E = float>
-cudaError_t launch(const E* q, const E* k, const E* v,
-                   const bool* kvalid, E* o, float* part, float* ml,
+template <bool SHIFT, int D>
+cudaError_t launch(const float* q, const float* k, const float* v,
+                   const bool* kvalid, float* o, float* part, float* ml,
                    int B, int H, int Nq, int Nk, int splits, float scale,
                    float shift2, cudaStream_t stream) {
-  constexpr size_t smem = Shape<D, E>::kBytes;
-  cudaError_t err = allow_smem(flash_sdpa_kernel<SHIFT, D, E>, smem);
+  constexpr size_t smem = Shape<D>::kBytes;
+  cudaError_t err = allow_smem(flash_sdpa_kernel<SHIFT, D>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(lg::tc::cdiv(Nq, lg::tc::BQ) * splits, H, B);
-  flash_sdpa_kernel<SHIFT, D, E><<<grid, lg::tc::THREADS, smem, stream>>>(q, k, v, kvalid, o, part, ml, H, Nq, Nk, splits, scale, shift2);
+  flash_sdpa_kernel<SHIFT, D><<<grid, lg::tc::THREADS, smem, stream>>>(q, k, v, kvalid, o, part, ml, H, Nq, Nk, splits, scale, shift2);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return merge<SHIFT>(part, ml, o, B * H * Nq, D, splits, stream);
 }
 
-// Keys of a tile and blocks an SM holds of the walk at head_dim D in E.
-template <int D, class E = float>
-cudaError_t walk_shape(int* key_tile, int* blocks_per_sm) {
-  constexpr size_t smem = Shape<D, E>::kBytes;
-  cudaError_t err = allow_smem(flash_sdpa_kernel<false, D, E>, smem);
+template <bool SHIFT, int D>
+cudaError_t launch(const bf16* q, const bf16* k, const bf16* v,
+                   const bool* kvalid, bf16* o, float* part, float* ml,
+                   int B, int H, int Nq, int Nk, int splits, float scale,
+                   float shift2, cudaStream_t stream) {
+  using S = WalkShape<D>;
+  CUtensorMap kmap, vmap;
+  cudaError_t err = lg::wg::walk_map(&kmap, k, B * H, Nk, D);
+  if (err == cudaSuccess) err = lg::wg::walk_map(&vmap, v, B * H, Nk, D);
+  if (err == cudaSuccess)
+    err = lg::wg::allow_walk_smem<D>(flash_sdpa_wg_kernel<SHIFT, D>);
   if (err != cudaSuccess) return err;
-  *key_tile = Shape<D, E>::BK;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_per_sm, flash_sdpa_kernel<false, D, E>, lg::tc::THREADS, smem);
+  const dim3 grid(lg::tc::cdiv(Nq, S::BQ) * splits, H, B);
+  flash_sdpa_wg_kernel<SHIFT, D><<<grid, S::THREADS, S::kBytes, stream>>>(kmap, vmap, q, kvalid, o, part, ml, H, Nq, Nk, splits, scale, shift2);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return merge<SHIFT>(part, ml, o, B * H * Nq, D, splits, stream);
+}
+
+// Keys of a tile, blocks an SM holds and query rows of a block of the walk
+// at head_dim D in E.
+template <int D, class E>
+cudaError_t walk_shape(int* key_tile, int* blocks_per_sm, int* query_rows) {
+  cudaError_t err;
+  if constexpr (std::is_same_v<E, bf16>) {
+    using S = WalkShape<D>;
+    err = lg::wg::allow_walk_smem<D>(flash_sdpa_wg_kernel<false, D>);
+    if (err != cudaSuccess) return err;
+    *key_tile = S::BK;
+    *query_rows = S::BQ;
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks_per_sm, flash_sdpa_wg_kernel<false, D>, S::THREADS,
+        S::kBytes);
+  } else {
+    constexpr size_t smem = Shape<D>::kBytes;
+    err = allow_smem(flash_sdpa_kernel<false, D>, smem);
+    if (err != cudaSuccess) return err;
+    *key_tile = Shape<D>::BK;
+    *query_rows = lg::tc::BQ;
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks_per_sm, flash_sdpa_kernel<false, D>, lg::tc::THREADS, smem);
+  }
 }
 
 template <bool SHIFT, class E>
@@ -149,28 +238,55 @@ cudaError_t launch_d(int d, const E* q, const E* k, const E* v,
                      int B, int H, int Nq, int Nk, int splits, float scale,
                      float shift2, cudaStream_t stream) {
   if (d == 64)
-    return launch<SHIFT, 64, E>(q, k, v, kvalid, o, part, ml, B, H, Nq, Nk,
-                                splits, scale, shift2, stream);
+    return launch<SHIFT, 64>(q, k, v, kvalid, o, part, ml, B, H, Nq, Nk,
+                             splits, scale, shift2, stream);
   if (d == 128)
-    return launch<SHIFT, 128, E>(q, k, v, kvalid, o, part, ml, B, H, Nq, Nk,
-                                 splits, scale, shift2, stream);
+    return launch<SHIFT, 128>(q, k, v, kvalid, o, part, ml, B, H, Nq, Nk,
+                              splits, scale, shift2, stream);
   return cudaErrorInvalidValue;
 }
 
-template <int D, class E = float>
-cudaError_t launch_pair(const E* qk0, const E* qk1, const E* v0,
-                        const E* v1, const bool* valid0,
-                        const bool* valid1, E* m0, E* m1,
+template <int D>
+cudaError_t launch_pair(const float* qk0, const float* qk1, const float* v0,
+                        const float* v1, const bool* valid0,
+                        const bool* valid1, float* m0, float* m1,
                         float* part0, float* ml0, float* part1, float* ml1,
                         int B, int H, int M, int N, int splits0, int splits1,
                         float scale, cudaStream_t stream) {
-  constexpr size_t smem = Shape<D, E>::kBytes;
-  cudaError_t err = allow_smem(flash_cross_pair_kernel<D, E>, smem);
+  constexpr size_t smem = Shape<D>::kBytes;
+  cudaError_t err = allow_smem(flash_cross_pair_kernel<D>, smem);
   if (err != cudaSuccess) return err;
   const int x0 = lg::tc::cdiv(M, lg::tc::BQ) * splits0;
   const int x1 = lg::tc::cdiv(N, lg::tc::BQ) * splits1;
   const dim3 grid(x0 > x1 ? x0 : x1, H, 2 * B);
-  flash_cross_pair_kernel<D, E><<<grid, lg::tc::THREADS, smem, stream>>>(qk0, qk1, v0, v1, valid0, valid1, m0, m1, part0, ml0, part1, ml1, H, M, N, splits0, splits1, scale);
+  flash_cross_pair_kernel<D><<<grid, lg::tc::THREADS, smem, stream>>>(qk0, qk1, v0, v1, valid0, valid1, m0, m1, part0, ml0, part1, ml1, H, M, N, splits0, splits1, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  err = merge<false>(part0, ml0, m0, B * H * M, D, splits0, stream);
+  if (err != cudaSuccess) return err;
+  return merge<false>(part1, ml1, m1, B * H * N, D, splits1, stream);
+}
+
+template <int D>
+cudaError_t launch_pair(const bf16* qk0, const bf16* qk1, const bf16* v0,
+                        const bf16* v1, const bool* valid0,
+                        const bool* valid1, bf16* m0, bf16* m1, float* part0,
+                        float* ml0, float* part1, float* ml1, int B, int H,
+                        int M, int N, int splits0, int splits1, float scale,
+                        cudaStream_t stream) {
+  using S = WalkShape<D>;
+  CUtensorMap k0map, k1map, v0map, v1map;
+  cudaError_t err = lg::wg::walk_map(&k0map, qk0, B * H, M, D);
+  if (err == cudaSuccess) err = lg::wg::walk_map(&k1map, qk1, B * H, N, D);
+  if (err == cudaSuccess) err = lg::wg::walk_map(&v0map, v0, B * H, M, D);
+  if (err == cudaSuccess) err = lg::wg::walk_map(&v1map, v1, B * H, N, D);
+  if (err == cudaSuccess)
+    err = lg::wg::allow_walk_smem<D>(flash_cross_pair_wg_kernel<D>);
+  if (err != cudaSuccess) return err;
+  const int x0 = lg::tc::cdiv(M, S::BQ) * splits0;
+  const int x1 = lg::tc::cdiv(N, S::BQ) * splits1;
+  const dim3 grid(x0 > x1 ? x0 : x1, H, 2 * B);
+  flash_cross_pair_wg_kernel<D><<<grid, S::THREADS, S::kBytes, stream>>>(k0map, k1map, v0map, v1map, qk0, qk1, valid0, valid1, m0, m1, part0, ml0, part1, ml1, H, M, N, splits0, splits1, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   err = merge<false>(part0, ml0, m0, B * H * M, D, splits0, stream);
@@ -196,20 +312,20 @@ cudaError_t pair(const E* qk0, const E* qk1, const E* v0, const E* v1,
                  int H, int M, int N, int d, int splits0, int splits1,
                  float scale, cudaStream_t stream) {
   if (d == 64)
-    return launch_pair<64, E>(qk0, qk1, v0, v1, valid0, valid1, m0, m1, part0,
-                              ml0, part1, ml1, B, H, M, N, splits0, splits1,
-                              scale, stream);
+    return launch_pair<64>(qk0, qk1, v0, v1, valid0, valid1, m0, m1, part0,
+                           ml0, part1, ml1, B, H, M, N, splits0, splits1,
+                           scale, stream);
   if (d == 128)
-    return launch_pair<128, E>(qk0, qk1, v0, v1, valid0, valid1, m0, m1,
-                               part0, ml0, part1, ml1, B, H, M, N, splits0,
-                               splits1, scale, stream);
+    return launch_pair<128>(qk0, qk1, v0, v1, valid0, valid1, m0, m1, part0,
+                            ml0, part1, ml1, B, H, M, N, splits0, splits1,
+                            scale, stream);
   return cudaErrorInvalidValue;
 }
 
 template <class E>
-cudaError_t shape(int d, int* key_tile, int* blocks_per_sm) {
-  if (d == 64) return walk_shape<64, E>(key_tile, blocks_per_sm);
-  if (d == 128) return walk_shape<128, E>(key_tile, blocks_per_sm);
+cudaError_t shape(int d, int* key_tile, int* blocks_per_sm, int* query_rows) {
+  if (d == 64) return walk_shape<64, E>(key_tile, blocks_per_sm, query_rows);
+  if (d == 128) return walk_shape<128, E>(key_tile, blocks_per_sm, query_rows);
   return cudaErrorInvalidValue;
 }
 
@@ -248,18 +364,20 @@ extern "C" cudaError_t lg_flash_cross_pair(
                      stream);
 }
 
-// The walk's key tile and the blocks an SM holds of it at head_dim d (64
-// or 128), for the wrapper's split plan. The stream is not used.
+// The walk's key tile, the blocks an SM holds of it and the query rows of
+// a block at head_dim d (64 or 128), for the wrapper's split plan. The
+// stream is not used.
 extern "C" cudaError_t lg_attention_shape(int d, int* key_tile,
-                                          int* blocks_per_sm,
+                                          int* blocks_per_sm, int* query_rows,
                                           cudaStream_t stream) {
   (void)stream;
-  return shape<float>(d, key_tile, blocks_per_sm);
+  return shape<float>(d, key_tile, blocks_per_sm, query_rows);
 }
 
 // The bf16 forms (mp) of the three entry points above: q, k, v, o (qk, v,
 // m) bf16, d 64 or 128; part and ml fp32 scratch as above; scale the
-// query scale rounded to bf16.
+// query scale rounded to bf16. k and v (qk and v) are read by TMA: their
+// addresses must be 16-byte aligned (cudaErrorInvalidValue otherwise).
 extern "C" cudaError_t lg_flash_sdpa_bf16(const bf16* q, const bf16* k,
                                           const bf16* v, const bool* kvalid,
                                           bf16* o, float* part, float* ml,
@@ -283,7 +401,8 @@ extern "C" cudaError_t lg_flash_cross_pair_bf16(
 
 extern "C" cudaError_t lg_attention_shape_bf16(int d, int* key_tile,
                                                int* blocks_per_sm,
+                                               int* query_rows,
                                                cudaStream_t stream) {
   (void)stream;
-  return shape<bf16>(d, key_tile, blocks_per_sm);
+  return shape<bf16>(d, key_tile, blocks_per_sm, query_rows);
 }

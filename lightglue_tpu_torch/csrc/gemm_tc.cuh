@@ -10,19 +10,12 @@
 // step), rows padded to 40 elements so that the fragment reads fall on
 // distinct banks. Each warp owns WM x WN outputs as mma.sync tiles.
 //
-// Two element types, a template parameter of the operands:
-// - fp32 (EA = EB = float): m16n8k8 tf32 tiles; each 8-deep k-step takes its
-//   channels in the order 0 2 4 6 1 3 5 7 in both operands (as attn_tc.cuh
-//   does), so a fragment is one 8-byte read (a float2 of row g, channels 2t
-//   and 2t + 1). Operands are split into big and small tf32 parts as they
-//   are read, and every product is the 3xTF32 sum of tc.cuh.
-// - bf16 (EB = bf16, the mp form): m16n8k16 bf16 tiles, one pass a product,
-//   fp32 accumulators; a fragment register is one 4-byte read of two
-//   adjacent channels (rows of 40 bf16 are 20 words: rows g = 0..7 start on
-//   banks 0, 20, 8, 28, 16, 4, 24, 12, each read 4 words wide). The A tile
-//   may stay fp32 (EA = float: lin2 reads h in fp32 and applies LayerNorm
-//   and GELU to it in place); its fragments are then rounded to bf16 as
-//   they are read, where the TPU kernel casts its hidden before lin2.
+// The products are m16n8k8 tf32 tiles; each 8-deep k-step takes its
+// channels in the order 0 2 4 6 1 3 5 7 in both operands (as attn_tc.cuh
+// does), so a fragment is one 8-byte read (a float2 of row g, channels 2t
+// and 2t + 1). Operands are split into big and small tf32 parts as they are
+// read, and every product is the 3xTF32 sum of tc.cuh. The bf16 product
+// (mp) is gemm_wgmma.cuh's.
 //
 // Two compile-time hooks: the A source (the prologue) says where row r's
 // channels k .. k + 31 lie and may rewrite each landed A tile in place
@@ -50,18 +43,10 @@ struct Tile {
   static constexpr int WARPS_N = BN / WN;
   static constexpr int THREADS = 32 * (BM / WM) * WARPS_N;
   static constexpr int MT = WM / 16, NT = WN / 8;  // mma tiles of a warp
-  static constexpr int kStage = (BM + BN) * LDS;   // floats of one fp32 stage
-  // bytes of one stage of A (EA) and B (EB) tiles
-  template <class EA, class EB>
-  __host__ __device__ static constexpr size_t stage_bytes() {
-    return BM * LDS * sizeof(EA) + BN * LDS * sizeof(EB);
-  }
+  static constexpr int kStage = (BM + BN) * LDS;   // floats of one stage
   // the ring, then 2 BM floats for the A source (lin2's row statistics)
-  template <class EA, class EB>
-  __host__ __device__ static constexpr size_t bytes() {
-    return STAGES * stage_bytes<EA, EB>() + 2 * BM * sizeof(float);
-  }
-  static constexpr size_t kBytes = bytes<float, float>();
+  static constexpr size_t kBytes =
+      (STAGES * kStage + 2 * BM) * sizeof(float);
   static_assert(BM * (BK / 8) % THREADS == 0 && BN * (BK / 8) % THREADS == 0,
                 "each thread copies whole 16-byte chunks");
   static_assert(NT % 2 == 0, "a LayerNorm partial is two 8-wide tiles");
@@ -90,7 +75,8 @@ cudaError_t with_tile(int tile, F&& f) {
 }
 
 // The A source's hooks for a source that rewrites nothing; Elem: the A
-// operand's element type in memory (an A source of bf16 rows says so).
+// operand's element type in memory (blocks.cu's bf16 sources say so, for
+// gemm_wgmma.cuh).
 struct NoTransform {
   using Elem = float;
   static constexpr bool kTransform = false;
@@ -103,12 +89,11 @@ struct NoTransform {
 // acc += A[m0 .., :] B[n0 .., :]^T for this block's BM x BN tile; rows at
 // or past R read as 0. A source `a`: a.at(row) -> a cursor for row < R,
 // a.src(cursor, k0) -> the address of the row's channels k0 .. k0 + 31
-// (contiguous, of type ASrc::Elem); kTransform, begin and transform as
-// NoTransform. w (C, K) row-major, of element type EB (float: 3xTF32; bf16:
-// bf16 products, A rounded to bf16 where it is fp32); with kBoundB its rows
-// at or past C read as 0 (else the tile's BN rows must exist); K a multiple
-// of 32; dynamic shared memory T::bytes<ASrc::Elem, EB>().
-// kStepSums: each 8-deep (bf16: 16-deep) step's products go into a zeroed
+// (contiguous floats); kTransform, begin and transform as NoTransform. w
+// (C, K) row-major; with kBoundB its rows at or past C read as 0 (else the
+// tile's BN rows must exist); K a multiple of 32; dynamic shared memory
+// T::kBytes.
+// kStepSums: each 8-deep step's products go into a zeroed
 // register tile that an fp32 add then puts into acc. The tensor core's own
 // adds truncate the products aligned to the accumulator, so over a deep K at
 // large |C| its errors add up with one sign (B2 at scores up to 160, K 256,
@@ -118,35 +103,27 @@ struct NoTransform {
 // in-place sums: over K 256 and 512 their outputs are of order 1-10, and
 // every launch stays within 1.2e-5 of its plain version (chip_smoke.py,
 // phase 2c), so the step sums would cost time there and buy nothing.
-template <class T, class ASrc, bool kBoundB = false, bool kStepSums = false,
-          class EB = float>
+template <class T, class ASrc, bool kBoundB = false, bool kStepSums = false>
 __device__ __forceinline__ void mainloop(const ASrc& a,
-                                         const EB* __restrict__ w, int K,
+                                         const float* __restrict__ w, int K,
                                          int R, int m0, int n0,
                                          float (&acc)[T::MT][T::NT][4],
                                          int C = 0) {
-  using EA = typename ASrc::Elem;
-  constexpr bool kBf16 = std::is_same_v<EB, tc::bf16>;
-  static_assert(kBf16 || std::is_same_v<EA, float>,
+  static_assert(std::is_same_v<typename ASrc::Elem, float>,
                 "3xTF32 takes fp32 operands");
-  extern __shared__ __align__(16) unsigned char lg_smem_bytes[];
-  // 16-byte chunks of a 32-element row segment, and their elements
-  constexpr int CHA = BK * sizeof(EA) / 16, EPA = 16 / sizeof(EA);
-  constexpr int CHB = BK * sizeof(EB) / 16, EPB = 16 / sizeof(EB);
-  constexpr int AC = T::BM * CHA / T::THREADS, BC = T::BN * CHB / T::THREADS;
-  static_assert(AC * T::THREADS == T::BM * CHA && BC * T::THREADS == T::BN * CHB,
+  extern __shared__ __align__(16) float lg_smem[];
+  // 16-byte chunks of a 32-float row segment
+  constexpr int CH = BK / 4;
+  constexpr int AC = T::BM * CH / T::THREADS, BC = T::BN * CH / T::THREADS;
+  static_assert(AC * T::THREADS == T::BM * CH && BC * T::THREADS == T::BN * CH,
                 "each thread copies whole 16-byte chunks");
-  constexpr size_t kStageBytes = T::template stage_bytes<EA, EB>();
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int wm = (warp / T::WARPS_N) * T::WM, wn = (warp % T::WARPS_N) * T::WN;
-  float* extra = reinterpret_cast<float*>(lg_smem_bytes + STAGES * kStageBytes);
-  auto a_tile = [&](int stage) {
-    return reinterpret_cast<EA*>(lg_smem_bytes + stage * kStageBytes);
-  };
+  float* extra = lg_smem + STAGES * T::kStage;
+  auto a_tile = [&](int stage) { return lg_smem + stage * T::kStage; };
   auto b_tile = [&](int stage) {
-    return reinterpret_cast<EB*>(lg_smem_bytes + stage * kStageBytes +
-                                 T::BM * LDS * sizeof(EA));
+    return lg_smem + stage * T::kStage + T::BM * LDS;
   };
 
   // the thread's chunks: (row, column) in the tile, fixed over k
@@ -154,30 +131,30 @@ __device__ __forceinline__ void mainloop(const ASrc& a,
   bool ok[AC];
 #pragma unroll
   for (int i = 0; i < AC; ++i) {
-    const int row = m0 + (tid + i * T::THREADS) / CHA;
+    const int row = m0 + (tid + i * T::THREADS) / CH;
     ok[i] = row < R;
     cur[i] = a.at(ok[i] ? row : m0);  // m0 < R: a valid address
   }
-  const EB* wrow[BC];
+  const float* wrow[BC];
   bool okb[BC];
 #pragma unroll
   for (int i = 0; i < BC; ++i) {
-    const int idx = tid + i * T::THREADS, c = n0 + idx / CHB;
+    const int idx = tid + i * T::THREADS, c = n0 + idx / CH;
     okb[i] = !kBoundB || c < C;
-    wrow[i] = w + (size_t)(okb[i] ? c : n0) * K + EPB * (idx % CHB);
+    wrow[i] = w + (size_t)(okb[i] ? c : n0) * K + 4 * (idx % CH);
   }
   auto load = [&](int stage, int k0) {
-    EA* As = a_tile(stage);
-    EB* Bs = b_tile(stage);
+    float* As = a_tile(stage);
+    float* Bs = b_tile(stage);
 #pragma unroll
     for (int i = 0; i < AC; ++i) {
-      const int idx = tid + i * T::THREADS, c = EPA * (idx % CHA);
-      tc::cp_async16(As + (idx / CHA) * LDS + c, a.src(cur[i], k0) + c, ok[i]);
+      const int idx = tid + i * T::THREADS, c = 4 * (idx % CH);
+      tc::cp_async16(As + (idx / CH) * LDS + c, a.src(cur[i], k0) + c, ok[i]);
     }
 #pragma unroll
     for (int i = 0; i < BC; ++i) {
       const int idx = tid + i * T::THREADS;
-      tc::cp_async16(Bs + (idx / CHB) * LDS + EPB * (idx % CHB), wrow[i] + k0,
+      tc::cp_async16(Bs + (idx / CH) * LDS + 4 * (idx % CH), wrow[i] + k0,
                      okb[i]);
     }
     tc::cp_async_commit();
@@ -199,85 +176,44 @@ __device__ __forceinline__ void mainloop(const ASrc& a,
     const int next = kt + STAGES - 1;
     if (next < steps) load(next % STAGES, next * BK);
     else tc::cp_async_commit();
-    EA* As = a_tile(kt % STAGES);
-    const EB* Bs = b_tile(kt % STAGES);
+    float* As = a_tile(kt % STAGES);
+    const float* Bs = b_tile(kt % STAGES);
     if constexpr (ASrc::kTransform) {
       a.template transform<T>(As, extra, kt * BK);
       __syncthreads();
     }
-    if constexpr (kBf16) {
 #pragma unroll
-      for (int ks = 0; ks < BK / 16; ++ks) {
-        // A fragments of the 16-deep step: (g, c), (g + 8, c), (g, c + 8),
-        // (g + 8, c + 8), c = 16 ks + 2t, two channels a register
-        uint32_t af[T::MT][4];
+    for (int ks = 0; ks < BK / 8; ++ks) {
+      // A fragments: a0 (g, 2t), a1 (g + 8, 2t), a2 (g, 2t + 1), a3 (g + 8,
+      // 2t + 1) of the 8-deep step, split as they are read
+      uint32_t ab[T::MT][4], as[T::MT][4];
 #pragma unroll
-        for (int mt = 0; mt < T::MT; ++mt) {
-          const EA* ap = As + (wm + 16 * mt + g) * LDS + 16 * ks + 2 * t;
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const EA* p = ap + (i & 1) * 8 * LDS + (i >> 1) * 8;
-            if constexpr (std::is_same_v<EA, float>) {
-              const float2 f = *reinterpret_cast<const float2*>(p);
-              af[mt][i] = tc::pack_bf16(f.x, f.y);
-            } else {
-              af[mt][i] = *reinterpret_cast<const uint32_t*>(p);
-            }
-          }
-        }
-#pragma unroll
-        for (int nt = 0; nt < T::NT; ++nt) {
-          // B fragment: (channels c, c + 1 of output g), (c + 8, c + 9)
-          const EB* bp = Bs + (wn + 8 * nt + g) * LDS + 16 * ks + 2 * t;
-          const uint32_t bf[2] = {*reinterpret_cast<const uint32_t*>(bp),
-                                  *reinterpret_cast<const uint32_t*>(bp + 8)};
-#pragma unroll
-          for (int mt = 0; mt < T::MT; ++mt) {
-            if constexpr (kStepSums) {
-              float d[4] = {0.f, 0.f, 0.f, 0.f};
-              tc::mma_bf16(d, af[mt], bf);
-#pragma unroll
-              for (int i = 0; i < 4; ++i) acc[mt][nt][i] += d[i];
-            } else {
-              tc::mma_bf16(acc[mt][nt], af[mt], bf);
-            }
-          }
-        }
+      for (int mt = 0; mt < T::MT; ++mt) {
+        const float* ap = As + (wm + 16 * mt + g) * LDS + 8 * ks + 2 * t;
+        const float2 lo = *reinterpret_cast<const float2*>(ap);
+        const float2 hi = *reinterpret_cast<const float2*>(ap + 8 * LDS);
+        tc::split_tf32(lo.x, ab[mt][0], as[mt][0]);
+        tc::split_tf32(hi.x, ab[mt][1], as[mt][1]);
+        tc::split_tf32(lo.y, ab[mt][2], as[mt][2]);
+        tc::split_tf32(hi.y, ab[mt][3], as[mt][3]);
       }
-    } else {
 #pragma unroll
-      for (int ks = 0; ks < BK / 8; ++ks) {
-        // A fragments: a0 (g, 2t), a1 (g + 8, 2t), a2 (g, 2t + 1), a3 (g + 8,
-        // 2t + 1) of the 8-deep step, split as they are read
-        uint32_t ab[T::MT][4], as[T::MT][4];
+      for (int nt = 0; nt < T::NT; ++nt) {
+        // B fragment: b0 (channel 2t, output g), b1 (2t + 1, g)
+        const float2 bv = *reinterpret_cast<const float2*>(
+            Bs + (wn + 8 * nt + g) * LDS + 8 * ks + 2 * t);
+        uint32_t bb[2], bs[2];
+        tc::split_tf32(bv.x, bb[0], bs[0]);
+        tc::split_tf32(bv.y, bb[1], bs[1]);
 #pragma unroll
         for (int mt = 0; mt < T::MT; ++mt) {
-          const float* ap = As + (wm + 16 * mt + g) * LDS + 8 * ks + 2 * t;
-          const float2 lo = *reinterpret_cast<const float2*>(ap);
-          const float2 hi = *reinterpret_cast<const float2*>(ap + 8 * LDS);
-          tc::split_tf32(lo.x, ab[mt][0], as[mt][0]);
-          tc::split_tf32(hi.x, ab[mt][1], as[mt][1]);
-          tc::split_tf32(lo.y, ab[mt][2], as[mt][2]);
-          tc::split_tf32(hi.y, ab[mt][3], as[mt][3]);
-        }
+          if constexpr (kStepSums) {
+            float d[4] = {0.f, 0.f, 0.f, 0.f};
+            tc::mma3(d, ab[mt], as[mt], bb, bs);
 #pragma unroll
-        for (int nt = 0; nt < T::NT; ++nt) {
-          // B fragment: b0 (channel 2t, output g), b1 (2t + 1, g)
-          const float2 bv = *reinterpret_cast<const float2*>(
-              Bs + (wn + 8 * nt + g) * LDS + 8 * ks + 2 * t);
-          uint32_t bb[2], bs[2];
-          tc::split_tf32(bv.x, bb[0], bs[0]);
-          tc::split_tf32(bv.y, bb[1], bs[1]);
-#pragma unroll
-          for (int mt = 0; mt < T::MT; ++mt) {
-            if constexpr (kStepSums) {
-              float d[4] = {0.f, 0.f, 0.f, 0.f};
-              tc::mma3(d, ab[mt], as[mt], bb, bs);
-#pragma unroll
-              for (int i = 0; i < 4; ++i) acc[mt][nt][i] += d[i];
-            } else {
-              tc::mma3(acc[mt][nt], ab[mt], as[mt], bb, bs);
-            }
+            for (int i = 0; i < 4; ++i) acc[mt][nt][i] += d[i];
+          } else {
+            tc::mma3(acc[mt][nt], ab[mt], as[mt], bb, bs);
           }
         }
       }
@@ -291,11 +227,10 @@ __device__ __forceinline__ void mainloop(const ASrc& a,
 // and columns 8 nt + 2t (0, 2) and 8 nt + 2t + 1 (1, 3) of the warp's
 // outputs. Grid (C / BN, cdiv(R, BM)): the column tiles of a row tile run
 // next to each other, so its A rows are read from memory once. kStepSums
-// as mainloop's (scripts/tile_study.py builds the tail with it); EB the
-// weights' element type, as mainloop's.
-template <class T, bool kStepSums = false, class ASrc, class Epi, class EB>
+// as mainloop's (scripts/tile_study.py builds the tail with it).
+template <class T, bool kStepSums = false, class ASrc, class Epi>
 __device__ __forceinline__ void product(const ASrc& a,
-                                        const EB* __restrict__ w, int K,
+                                        const float* __restrict__ w, int K,
                                         int R, const Epi& epi) {
   float acc[T::MT][T::NT][4];
 #pragma unroll
@@ -304,7 +239,7 @@ __device__ __forceinline__ void product(const ASrc& a,
     for (int nt = 0; nt < T::NT; ++nt)
       acc[mt][nt][0] = acc[mt][nt][1] = acc[mt][nt][2] = acc[mt][nt][3] = 0.f;
   const int m0 = blockIdx.y * T::BM, n0 = blockIdx.x * T::BN;
-  mainloop<T, ASrc, false, kStepSums, EB>(a, w, K, R, m0, n0, acc);
+  mainloop<T, ASrc, false, kStepSums>(a, w, K, R, m0, n0, acc);
   const int warp = threadIdx.x >> 5;
   epi.template store<T>(acc, m0 + (warp / T::WARPS_N) * T::WM,
                         n0 + (warp % T::WARPS_N) * T::WN, R);

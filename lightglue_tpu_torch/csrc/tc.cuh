@@ -1,9 +1,10 @@
 // The tensor-core primitives that the attention walk (attn_tc.cuh), the
 // tile product (gemm_tc.cuh) and the 3x3 convolution (conv_tc.cuh) share:
 // the 3xTF32 operand split, one m16n8k8 tf32 mma.sync, the three-product
-// sum, 16- and 4-byte cp.async; and the bf16 form's (mp): two fp32 values
-// packed to a bf16x2 with round to nearest even, one m16n8k16 bf16 mma.sync
-// with an fp32 accumulator, and ldmatrix (x4, transposed).
+// sum, 16- and 4-byte cp.async; and the bf16 forms' (mp): two fp32 values
+// packed to a bf16x2 with round to nearest even, and one m16n8k16 bf16
+// mma.sync with an fp32 accumulator (the extractors' convolutions; the
+// matcher's bf16 walk and tile product are on wgmma, wgmma.cuh).
 //
 // 3xTF32: each fp32 operand x is split into big = tf32(x) and small =
 // tf32(x - big) (split_tf32), and a product sums small*big + big*small +
@@ -90,18 +91,6 @@ __device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// Four 8 x 8 bf16 matrices from shared memory, transposed: lane l gives the
-// address of row l % 8 of matrix l / 8 (16 bytes, 16-byte aligned); r[i]
-// receives matrix i's elements (2t, g) and (2t + 1, g), the B fragment of a
-// row-major (k, n) tile
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t r[4], const void* p) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(p);
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(s));
 }
 
 // 16 bytes global -> shared, or 16 zero bytes when !valid

@@ -20,7 +20,8 @@ and 16 columns (count, mean, M2 about that mean), merged in column order by
 Chan's formula. Centred partials, not sums and sums of squares: a trained
 layer's LN input can have |mean| >> std, where those cancel.
 
-``tile_plan`` picks each launch's tile from its shape and the card's SMs;
+``tile_plan`` picks each launch's tile from its shape and the card's SMs
+(``bf16_plan`` the bf16 form's tile and persistent grid);
 the weights come K-major from the ops' ``prepare`` (``woT``, ``w1T``,
 ``w2T``: one row per output channel; B4's from ``ffn_weights``). The ops
 check the weights once a call (``check_block_weights``, B4
@@ -52,6 +53,25 @@ from .flash import HEAD_DIMS, aligned16
 DIMS = (128, 256)  # the descriptor widths the block and FFN launches take
 # Tiles (rows, channels) of csrc/gemm_tc.cuh (Tile0-3), largest first
 TILES = ((64, 128), (64, 64), (32, 64), (32, 32))
+# The bf16 form's tiles (rows, channels), of csrc/gemm_wgmma.cuh (Tile0-6);
+# the consumer warpgroups that share each tile's k-steps (KS); the blocks
+# an SM each tile's kernel holds: a persistent grid of at most that many
+# blocks an SM walks them (bf16_plan)
+TILES_BF16 = ((128, 256), (128, 128), (128, 64), (64, 128), (64, 64),
+              (64, 128), (64, 64))
+SPLIT_BF16 = (1, 1, 1, 1, 1, 2, 2)
+BLOCKS_BF16 = (1, 1, 1, 2, 2, 1, 1)
+# Each bf16 launch's tiles in the order bf16_plan tries them (H100,
+# scripts/gemm_study.py, every tile at B 1, 4 and 16): the projection (its
+# epilogue gathers the rotary tables) takes the 128-row tiles while they
+# fill the card; out_proj and lin1 the 64-row tiles, two blocks an SM (one
+# block's epilogue beside the other's products); lin2, whose k-steps each
+# wait for the LayerNorm and GELU of the landed h, 128 x 256 (each hidden
+# value formed once) while it fills the card, else the 64-row tiles whose
+# two consumers split the k-steps.
+ORDERS_BF16 = {"project": (0, 1, 2, 3, 4), "out_proj": (3, 4),
+               "lin1": (3, 4), "lin2": (0, 5, 6)}
+BF16_FILL = 0.9
 LN_PART = 16  # columns of one LayerNorm partial (gemm_tc.cuh::PART)
 LN_EPS = 1e-5
 
@@ -71,14 +91,41 @@ def tile_plan(rows: int, cols: int, sms: int) -> int:
     return len(TILES) - 1
 
 
+@functools.lru_cache(maxsize=1024)
+def bf16_plan(rows: int, cols: int, sms: int, launch: str
+              ) -> Tuple[int, int]:
+    """(index into TILES_BF16, blocks of the persistent grid) for the bf16
+    ``launch`` (a key of ORDERS_BF16) of ``rows`` x ``cols`` outputs on a
+    card of ``sms`` SMs: the first tile of the launch's order whose tiles
+    give BF16_FILL of the blocks the SMs hold (BLOCKS_BF16 an SM) one each,
+    else the last; a tile whose channels do not divide ``cols`` (256 at D
+    128) is passed over. The grid is the tiles, at most the blocks the SMs
+    hold."""
+    order = ORDERS_BF16[launch]
+    fits = [i for i in order if cols % TILES_BF16[i][1] == 0]
+    if not fits:
+        narrow = min(TILES_BF16[i][1] for i in order)
+        raise ValueError(f"{cols} channels are not a multiple of {narrow}")
+    count = lambda i: -(-rows // TILES_BF16[i][0]) * (  # noqa: E731
+        cols // TILES_BF16[i][1])
+    tile = next((i for i in fits
+                 if count(i) >= BF16_FILL * BLOCKS_BF16[i] * sms), fits[-1])
+    return tile, min(count(tile), BLOCKS_BF16[tile] * sms)
+
+
 @functools.lru_cache(maxsize=None)
 def sms(index: int) -> int:
     """SMs of CUDA device ``index``."""
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _tile(dev: torch.device, rows: int, cols: int) -> int:
-    return tile_plan(rows, cols, sms(dev.index))
+def _tile(dev: torch.device, rows: int, cols: int, dtype: torch.dtype,
+          launch: str) -> tuple:
+    """The tile arguments of ``launch`` (a key of ORDERS_BF16): (tile,) for
+    the fp32 form, (tile, grid) for the bf16 one."""
+    if dtype == torch.bfloat16:
+        return bf16_plan(rows, cols, sms(dev.index), launch)
+    return (tile_plan(rows, cols, sms(dev.index)),)
 
 
 def merge_heads(t: torch.Tensor) -> torch.Tensor:
@@ -179,7 +226,7 @@ def launch_project(dev: torch.device, w: dict, xs: Sequence[torch.Tensor],
     _build.launch(_build.typed("lg_project_heads", dt), dev, x0, x1, w["w_in"],
                   w["b_in"], cos, sin, o0, o1, b, n0, n1, groups, h, hd,
                   0 if cos is None else 2,
-                  _tile(dev, b * (n0 + n1), groups * d))
+                  *_tile(dev, b * (n0 + n1), groups * d, dt, "project"))
     return outs
 
 
@@ -211,7 +258,7 @@ def _out_proj(dev, w, ctxs):
     msg = torch.empty(b * (n0 + n1), d, device=dev, dtype=dt)
     _build.launch(_build.typed("lg_tail_out_proj", dt), dev, c0, c1, w["woT"],
                   w["bo"], msg, b, n0, n1, h, hd,
-                  _tile(dev, msg.shape[0], d))
+                  *_tile(dev, msg.shape[0], d, dt, "out_proj"))
     return msg
 
 
@@ -276,7 +323,7 @@ def _lin1(dev, w, xs, msgs):
     stats = torch.empty(rows, 2 * d // LN_PART, 2, device=dev)
     _build.launch(_build.typed("lg_tail_lin1", wtype(w)), dev, x0, x1, m0, m1,
                   w["w1T"], w["b1"], h, stats, b, n0, n1, d,
-                  _tile(dev, rows, 2 * d))
+                  *_tile(dev, rows, 2 * d, wtype(w), "lin1"))
     return h, stats
 
 
@@ -312,7 +359,7 @@ def _lin2(dev, w, h, stats, xs):
     o0, o1, _, _ = _segment_args(outs)
     _build.launch(_build.typed("lg_tail_lin2", wtype(w)), dev, aligned16(h),
                   stats, w["gamma"], w["beta"], w["w2T"], w["b2"], x0, x1, o0,
-                  o1, b, n0, n1, d, _tile(dev, rows, d))
+                  o1, b, n0, n1, d, *_tile(dev, rows, d, wtype(w), "lin2"))
     return outs
 
 

@@ -30,7 +30,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import List, Optional, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -41,7 +41,6 @@ HEAD_DIMS = (64, 128)  # head_dims of the attention kernels (K1, B1', B5),
 # fp32 and bf16
 LOG2E = 1.4426950408889634  # exp(x) == exp2(x * LOG2E)
 SHIFT_CLAMP = 100.0  # largest exp2 argument of the constant-shift softmax
-QUERY_TILE = 64  # query rows of a block of the walk (csrc/attn_tc.cuh)
 MAX_SPLITS = 8  # key splits of one query tile
 # Work of an SM running two blocks of the walk against one alone: 1.18 at
 # head_dim 128 and 1.19-1.24 at 64 (scripts/attn_split.py, H100 SXM: the
@@ -240,28 +239,46 @@ def split_plan(walks: Tuple[Tuple[int, int], ...], sms: int,
     return tuple(min(best, t) for _, t in walks)
 
 
+class WalkShape(NamedTuple):
+    """The walk's own tile and occupancy on a card, and the card's SMs:
+    64 query rows and 64 or 32 keys a block for the fp32 walk
+    (csrc/attn_tc.cuh), 128 and 64 for the bf16 one (csrc/attn_wgmma.cuh)."""
+    key_tile: int
+    per_sm: int  # blocks an SM holds at once
+    sms: int
+    query_rows: int
+
+
 @functools.lru_cache(maxsize=None)
 def walk_shape(index: int, d: int, dtype: torch.dtype = torch.float32
-               ) -> Tuple[int, int, int]:
-    """(keys of a tile, blocks an SM holds, SMs) of the walk in ``dtype``
-    (fp32, or its bf16 form) at head_dim ``d`` on CUDA device ``index``:
-    the kernel's own tile and occupancy, and the card's SMs."""
-    key_tile, per_sm = ctypes.c_int(), ctypes.c_int()
+               ) -> WalkShape:
+    """The walk's shape in ``dtype`` (fp32, or its bf16 form) at head_dim
+    ``d`` on CUDA device ``index``, as the kernel reports it."""
+    key_tile, per_sm, rows = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
     dev = torch.device("cuda", index)
     _build.launch(_build.typed("lg_attention_shape", dtype), dev, d,
-                  ctypes.byref(key_tile), ctypes.byref(per_sm))
+                  ctypes.byref(key_tile), ctypes.byref(per_sm),
+                  ctypes.byref(rows))
     sms = torch.cuda.get_device_properties(index).multi_processor_count
-    return key_tile.value, per_sm.value, sms
+    return WalkShape(key_tile.value, per_sm.value, sms, rows.value)
+
+
+def walk_grid(bh: int, nq: int, nk: int, shape: WalkShape
+              ) -> Tuple[int, int]:
+    """(blocks, key tiles) of one walk over ``bh`` (batch, head) pairs of
+    ``nq`` queries and ``nk`` keys: a block takes ``shape.query_rows``
+    queries, and walks the keys in tiles of ``shape.key_tile``."""
+    return bh * -(-nq // shape.query_rows), -(-nk // shape.key_tile)
 
 
 def planned_splits(walks) -> Tuple[int, ...]:
     """``split_plan`` for the walks of one launch (each (q, k, ...) on one
-    CUDA device), from the card's own key tile, occupancy and SMs."""
+    CUDA device), from the card's own walk shape."""
     q = walks[0][0]
-    key_tile, per_sm, sms = walk_shape(q.device.index, q.shape[-1], q.dtype)
+    shape = walk_shape(q.device.index, q.shape[-1], q.dtype)
     return split_plan(tuple(
-        (q.shape[0] * q.shape[1] * -(-w[0].shape[2] // QUERY_TILE),
-         -(-w[1].shape[2] // key_tile)) for w in walks), sms, per_sm)
+        walk_grid(q.shape[0] * q.shape[1], w[0].shape[2], w[1].shape[2],
+                  shape) for w in walks), shape.sms, shape.per_sm)
 
 
 def mask_arg(valid: Optional[torch.Tensor], shape: Tuple[int, int],
@@ -280,8 +297,19 @@ def mask_arg(valid: Optional[torch.Tensor], shape: Tuple[int, int],
 
 def aligned16(t: torch.Tensor) -> torch.Tensor:
     """t, or a copy of it when its data is not 16-byte aligned (the walk
-    and the tile product copy rows 16 bytes at a time)."""
+    and the tile product copy rows 16 bytes at a time, TMA whole tiles)."""
     return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def check_tma(name: str, t: torch.Tensor) -> None:
+    """Raise unless TMA can read ``t`` as the bf16 kernels' tensor maps
+    do: a contiguous bf16 tensor whose address and rows (its last
+    dimension's bytes) are multiples of 16 bytes."""
+    if t.dtype != torch.bfloat16 or not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous bf16 for TMA")
+    if t.data_ptr() % 16 or (t.shape[-1] * t.element_size()) % 16:
+        raise ValueError(f"{name} is not 16-byte aligned (address "
+                         f"{t.data_ptr():#x}, rows of {t.shape[-1]})")
 
 
 def launch_attention(dev: torch.device, walks, scale: float,
@@ -296,9 +324,15 @@ def launch_attention(dev: torch.device, walks, scale: float,
     bf16 form; their scratch stays fp32."""
     b, h, _, d = walks[0][0].shape
     dt = walks[0][0].dtype
-    key_tile = walk_shape(walks[0][0].device.index, d, dt)[0]
+    key_tile = walk_shape(walks[0][0].device.index, d, dt).key_tile
     if splits is None:
         splits = planned_splits(walks)
+    walks = [(aligned16(q), aligned16(k), aligned16(v), valid, o)
+             for q, k, v, valid, o in walks]
+    if dt == torch.bfloat16:
+        for i, (q, k, v, _, o) in enumerate(walks):
+            for name, t in (("q", q), ("k", k), ("v", v)):
+                check_tma(f"{name}{i}", t)
     scratch = []
     for (q, k, *_), s in zip(walks, splits):
         split_ranges(k.shape[2], s, key_tile)  # raises unless 1 <= s <= T
@@ -308,13 +342,12 @@ def launch_attention(dev: torch.device, walks, scale: float,
                     else [None, None])
     if len(walks) == 1:
         q, k, v, valid, o = walks[0]
-        _build.launch(_build.typed("lg_flash_sdpa", dt), dev, q,
-                      aligned16(k), aligned16(v), valid, o, *scratch, b, h,
+        _build.launch(_build.typed("lg_flash_sdpa", dt), dev, q, k, v,
+                      valid, o, *scratch, b, h,
                       q.shape[2], k.shape[2], d, int(shift2 is not None),
                       splits[0], float(scale), float(shift2 or 0.0))
     else:
         (qk0, qk1, v1, valid1, m0), (_, _, v0, valid0, m1) = walks
-        qk0, qk1, v0, v1 = map(aligned16, (qk0, qk1, v0, v1))
         _build.launch(_build.typed("lg_flash_cross_pair", dt), dev, qk0, qk1, v0, v1, valid0,
                       valid1, m0, m1, *scratch, b, h, qk0.shape[2],
                       qk1.shape[2], d, *splits, float(scale))

@@ -107,14 +107,13 @@ def cross_splits(dev: torch.device, b: int, h: int, m: int, n: int,
     occupancy on ``dev`` (its bf16 form's for a bf16 ``dtype``): the exact
     modes' row and column launches are planned each alone, the shift
     mode's one launch over both directions together."""
-    key_tile, per_sm, sms = flash.walk_shape(dev.index, HEAD_DIM, dtype)
-    tiles = lambda k: -(-k // key_tile)  # noqa: E731
-    walks = ((b * h * -(-m // flash.QUERY_TILE), tiles(n)),
-             (b * h * -(-n // flash.QUERY_TILE), tiles(m)))
+    shape = flash.walk_shape(dev.index, HEAD_DIM, dtype)
+    walks = (flash.walk_grid(b * h, m, n, shape),
+             flash.walk_grid(b * h, n, m, shape))
     if mode == SHIFT:
-        return flash.split_plan(walks, sms, per_sm)
-    return (flash.split_plan(walks[:1], sms, per_sm)[0],
-            flash.split_plan(walks[1:], sms, per_sm)[0])
+        return flash.split_plan(walks, shape.sms, shape.per_sm)
+    return (flash.split_plan(walks[:1], shape.sms, shape.per_sm)[0],
+            flash.split_plan(walks[1:], shape.sms, shape.per_sm)[0])
 
 
 def launch_cross(qk0, qk1, v0, v1, valid0, valid1, mode: int, scale: float,
@@ -148,7 +147,7 @@ def launch_cross(qk0, qk1, v0, v1, valid0, valid1, mode: int, scale: float,
     valid1 = flash.mask_arg(valid1, (b, n), dev)
     if splits is None:
         splits = cross_splits(dev, b, h, m, n, mode, dt)
-    key_tile = flash.walk_shape(dev.index, d, dt)[0]
+    key_tile = flash.walk_shape(dev.index, d, dt).key_tile
     scratch = []
     for nq, nk, s in ((m, n, splits[0]), (n, m, splits[1])):
         flash.split_ranges(nk, s, key_tile)  # raises unless 1 <= s <= T
@@ -158,6 +157,9 @@ def launch_cross(qk0, qk1, v0, v1, valid0, valid1, mode: int, scale: float,
                     else [None, None])
     rmax = None if mode == SHIFT else torch.empty(b * h * m, device=dev)
     qk0, qk1, v0, v1 = map(flash.aligned16, (qk0, qk1, v0, v1))
+    if dt == torch.bfloat16:
+        for name, t in (("qk0", qk0), ("qk1", qk1), ("v0", v0), ("v1", v1)):
+            flash.check_tma(name, t)
     m0 = torch.empty_like(qk0)
     m1 = torch.empty_like(qk1)
     _build.launch(_build.typed("lg_fused_cross", dt), dev, qk0, qk1, v0, v1, valid0, valid1, m0, m1, *scratch, rmax, b, h,
