@@ -9,8 +9,9 @@ Phases, any failure raising (non-zero exit, no result line):
      library's own fp32 scoping of its convs;
   1. build: nvcc compiles csrc/*.cu into _build/, one process per source
      (timed), each kernel's registers and spills (a spilling tensor-core
-     kernel of B5, B6, K2, B2, B7, B8 or B10, the bf16 walk and tile
-     product on wgmma among them, or a spilling B9, B11 or B12, fails the
+     kernel of B5, B6, K2, B2, B7, B8 or B10, the bf16 walk, tile
+     product and conv on wgmma among them, or a spilling B9, B11 or B12,
+     fails the
      run, as does a setmaxnreg that ptxas ignores; the score head's line
      names its tile);
   2. each kernel against its plain PyTorch version at the main paths'
@@ -151,9 +152,12 @@ Phases, any failure raising (non-zero exit, no result line):
      adaptive; the extractors' bf16 forms likewise (B7, B8, B10 at B 2;
      B11, B12 at B 1, 2 and 8, their bound the fp32 form's), SuperPoint
      and ALIKED ms per image at mp and fp32 (B 1, B 8) and
-     make_end_to_end pairs/s at mp and fp32 (B 8), in turns; f. the
-     extractors at mp: the bf16 forms of B7 and B8 (and B8's conv2a launch)
-     at (2, ., 768, 1024) and small ragged shapes, B8 on inputs 1 and 8
+     make_end_to_end pairs/s at mp and fp32 (B 8), in turns, and cuDNN's
+     bf16 conv on conv1b's and conv2a's shapes as a yardstick; f. the
+     extractors at mp: the bf16 forms of B7 (csrc/conv_wgmma.cuh) at B 2,
+     1 and 8 (768 x 1024) and at widths that leave the last 128-column
+     strip part full, and B8 (and B8's conv2a launch) on each of those maps
+     NHWC as B7 wrote it and contiguous NCHW, at B 2 also on inputs 1 and 8
      elements off a 16-byte boundary, B10 at aliked-n16 and t16, B11 and
      B12 at B 1, 2 and 8, each against its bf16 plain version under both
      bf16 bounds at all but 1e-4 of the outputs and equal at all but 1e-2
@@ -204,8 +208,9 @@ the card's name and power limit come before the last line,
 Phase P (``--profile``, after phases 0 and 1): torch.profiler over the
 matcher at 1024 keypoints (planted pairs, trained weights; B 1 and B 16,
 fixed and adaptive, default and composed blocks, and the default with two
-heads of 128), over SuperPoint at B 1 and B 8, match_pair at 2048
-keypoints (fixed) and images -> SuperPoint -> LightGlue fixed at B 8, over
+heads of 128), over SuperPoint at B 1 and B 8 (fp32 and mp), match_pair
+at 2048 keypoints (fixed) and images -> SuperPoint -> LightGlue fixed at
+B 8 (fp32 and mp), over
 ALIKED at B 1 and B 8 and over images -> ALIKED -> LightGlue fixed at B 8,
 each at the default configuration and with fused_score_head (B11), over
 BatchMatcher (CUDA graphs) fixed and adaptive at B 1 and B 16 (fp32, and
@@ -305,9 +310,9 @@ KERNELS = {
     "fused_cross_block_bf16": ("lightglue_tpu_torch/csrc/blocks.cu",
                                "lightglue_tpu/ops/flash_cross_block.py:94"),
     # the extractors' bf16 forms (mp)
-    "fused_stem_bf16": ("lightglue_tpu_torch/csrc/stem.cu",
+    "fused_stem_bf16": ("lightglue_tpu_torch/csrc/conv_wgmma.cuh",
                         "lightglue_tpu/ops/stem.py:77"),
-    "fused_block2_bf16": ("lightglue_tpu_torch/csrc/stem2.cu",
+    "fused_block2_bf16": ("lightglue_tpu_torch/csrc/conv_wgmma.cuh",
                           "lightglue_tpu/ops/stem2.py:46"),
     "fused_aliked_stem_bf16": ("lightglue_tpu_torch/csrc/aliked_stem.cu",
                                "lightglue_tpu/ops/aliked_stem.py:56"),
@@ -576,7 +581,8 @@ def build_phase():
     name, spills = "?", ""
     tc = ("_tc_kernel", "cross_rows", "cross_cols", "cross_shift",
           "assign_tile", "flash_sdpa_kernel", "flash_cross_pair_kernel",
-          "conv_tc_kernel", "nms_kernel", "score_head_kernel", "_wg_kernel")
+          "conv_tc_kernel", "nms_kernel", "score_head_kernel", "_wg_kernel",
+          "conv_wg_kernel")
     for line in log.splitlines():
         if "setmaxnreg" in line and "ignored" in line:
             raise AssertionError(f"ptxas: {line.strip()}")
@@ -584,6 +590,12 @@ def build_phase():
             name = re.sub(r"IN2lg4gemm4TileILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E",
                           r"<\1x\2 / \3x\4>", kernel_name(line.split("'")[1]))
             name = re.sub(r"IN2lg5wgemm4TileILi(\d+)EEE", r"<128x\1>", name)
+            # B7's and B8's bf16 forms: source (image, map), epilogue
+            name = re.sub(r"conv_wg_kernelILi(\d)ELi(\d)E+",
+                          lambda m: "conv_wg_kernel<{}, {}>".format(
+                              ("image", "map")[int(m.group(1))],
+                              ("pool NHWC", "NHWC", "pool NCHW")[int(m.group(2))]),
+                          name)
             name = re.sub(r"INS0_4TileILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)"
                           r"EEELb(\d)ELb(\d)E",
                           r"<\1x\2, NQ \3, \4 stages, image \5, pool \6>", name)
@@ -3219,17 +3231,19 @@ def profile_phase(params):
                                    lambda: matcher(data))
                 print(f"    (stop {out['stop']})")
 
-    phase("P profile: SuperPoint at 768 x 1024 (2048 keypoints) and images "
-          "-> SuperPoint -> LightGlue at B 8 (fixed, 1024 keypoints)")
+    phase("P profile: SuperPoint at 768 x 1024 (2048 keypoints), fp32 and "
+          "mp, and images -> SuperPoint -> LightGlue at B 8 (fixed, 1024 "
+          "keypoints), fp32 and mp")
     sp_params = superpoint_params()
     rng = np.random.default_rng(31)
     pool = [image_pair(rng, H, W) for _ in range(8)]
     im0, im1 = (torch.from_numpy(np.stack([p[i] for p in pool]))[..., None].cuda()
                 for i in (0, 1))
     for bsz in (1, 8):
-        profile_call(f"SuperPoint B {bsz}", lambda: sp.forward(
-            sp_params, SuperPointConfig(), im0[:bsz]), calls=3, warmup=2,
-            top=10)
+        for label, mp in (("", False), (" at mp", True)):
+            profile_call(f"SuperPoint B {bsz}{label}", lambda: sp.forward(
+                sp_params, SuperPointConfig(mp=mp), im0[:bsz]), calls=3,
+                warmup=2, top=10)
     # match_pair at the extractor's default 2048 keypoints, fixed: B5 and
     # the composed cross block (K2's walks, B4 over both images)
     ext = SuperPoint(params=sp_params, device="cuda")
@@ -3247,6 +3261,14 @@ def profile_phase(params):
                          width_confidence=-1.0))
     profile_call("make_end_to_end fixed B 8, 1024 keypoints",
                  lambda: run(im0, im1, sizes, sizes), calls=3, warmup=2, top=10)
+    # images to matches at mp: SuperPoint(mp=True) into the mp matcher
+    mp_lg = LightGlue("superpoint", params=params, device="cuda", mp=True)
+    run_mp = end_to_end.make_end_to_end(
+        sp.forward, sp_params, SuperPointConfig(max_num_keypoints=1024, mp=True),
+        mp_lg.params, mp_lg.conf.replace(**FIXED))
+    profile_call("make_end_to_end fixed B 8, 1024 keypoints, at mp",
+                 lambda: run_mp(im0, im1, sizes, sizes), calls=3, warmup=2,
+                 top=10)
 
     phase("P profile: ALIKED at 768 x 1024 (default configuration, 2048 "
           "keypoints) and images -> ALIKED -> LightGlue('aliked') at B 8")
@@ -3951,9 +3973,12 @@ def twice(label, fn):
 
 def mp_extract_kernel_phase(sp_params, ap, ax):
     """Phase 5f, kernels: each bf16 form against its bf16 plain version
-    (flip_check), each launch twice equal to the bit: B7 and B8 (and B8's
-    conv2a launch) at (2, ., 768, 1024) and at a small ragged shape, B8 on
-    inputs 1 and 8 elements off a 16-byte boundary, B10 at aliked-n16 and
+    (flip_check), each launch twice equal to the bit: B7 at B 2, 1 and 8
+    (768 x 1024) and at widths that leave the last 128-column strip part
+    full (36 x 76, 2 x 40 x 200), its map NHWC; B8 (and B8's conv2a launch)
+    on each of those maps as B7 wrote it (NHWC) and as the plain version's
+    contiguous NCHW, and at B 2 on NCHW inputs 1 and 8 elements off a
+    16-byte boundary; B10 at aliked-n16 and
     t16 (B 2 and small), B11 and B12 at B 1, 2 and 8 on the ALIKED images'
     branch parts. Probes: B7 with one of conv1b's taps zeroed, and rounded
     only at its output, must break the check. Returns (errors, the B 2
@@ -3967,28 +3992,41 @@ def mp_extract_kernel_phase(sp_params, ap, ax):
     g = torch.Generator(device="cuda").manual_seed(68)
     p1 = {"conv1a": sp_params["conv1a"], "conv1b": sp_params["conv1b"]}
     p2 = {"conv2a": sp_params["conv2a"], "conv2b": sp_params["conv2b"]}
-    for x in (img, torch.rand(1, 1, 36, 76, generator=g, device="cuda")):
+    # B 2, 1 and 8 at 768 x 1024, and widths that leave the last 128-column
+    # strip part full (76: one strip of 76, 200: 128 + 72)
+    rng8 = np.random.default_rng(69)
+    eight = torch.from_numpy(np.stack([image_pair(rng8, H, W)[0] for _ in range(6)])
+                             ).cuda()[:, None]
+    eight = torch.cat([img, eight])
+    for x in (img, eight[:1].contiguous(), eight,
+              torch.rand(1, 1, 36, 76, generator=g, device="cuda"),
+              torch.rand(2, 1, 40, 200, generator=g, device="cuda")):
         shape = tuple(x.shape)
         got = twice("fused_stem_bf16", lambda: stem.fused_stem(p1, x, mp=True))
         ref = stem.fused_stem_plain(p1, x, mp=True)
         flip_check(errs, "fused_stem_bf16", f"fused_stem_bf16 {shape}", got, ref)
-        y = ref
-        for off in (0, 1, 8):  # elements off a 16-byte boundary
-            if off:
-                buf = torch.empty(y.numel() + off, device="cuda", dtype=BF16)
+        if not got.is_contiguous(memory_format=torch.channels_last):
+            raise AssertionError("fused_stem_bf16: its map is not NHWC")
+        # B8 on B7's own NHWC map (no copy) and on the contiguous NCHW plain
+        # one (one copy), and at B 2 on NCHW inputs 1 and 8 elements off a
+        # 16-byte boundary
+        inputs = [("NHWC", got), ("NCHW", ref)]
+        if shape[0] == 2 and shape[2] == H:
+            for off in (1, 8):
+                buf = torch.empty(ref.numel() + off, device="cuda", dtype=BF16)
                 y = buf[off:].view_as(ref)
                 y.copy_(ref)
-            tag = f"{tuple(y.shape)}" + (f", {off} elements off 16 bytes" if off else "")
+                inputs.append((f"NCHW, {off} elements off 16 bytes", y))
+        for tag, y in inputs:
             for name, kern, plain, p in (
                     ("fused_block2_bf16", stem2.fused_block2,
                      stem2.fused_block2_plain, p2),
                     ("fused_block2_bf16", stem2.conv3x3_relu,
                      stem2.conv3x3_relu_plain, p2["conv2a"])):
                 label = name if kern is stem2.fused_block2 else "its conv2a launch"
-                got = twice(label, lambda: kern(p, y))
-                flip_check(errs, name, f"{label} {tag}", got, plain(p, y))
-            if shape[2] != H:
-                break
+                out = twice(label, lambda: kern(p, y))
+                flip_check(errs, name, f"{label} {tuple(y.shape)} {tag}", out,
+                           plain(p, y))
     # probes: what the check reads for a kernel that drops one of conv1b's
     # taps, or rounds only at its output
     cut = {"conv1a": p1["conv1a"], "conv1b": {
@@ -4034,7 +4072,8 @@ def mp_extract_kernel_phase(sp_params, ap, ax):
             flip_check(errs, name, f"{name} ({b}, 8, {H}, {W})", got, plain(),
                        torch.float32)
     torch.cuda.synchronize()
-    return errs, {"img": img, "stem_out": stem.fused_stem_plain(p1, img, mp=True),
+    # B8's rows read B7's own map, NHWC, as the main path hands it on
+    return errs, {"img": img, "stem_out": stem.fused_stem(p1, img, mp=True),
                   "rgb": rgbs[:2], "parts8": ax["parts8"]}
 
 
@@ -4180,7 +4219,7 @@ def mp_extract_rows(mx5, sp_params, ap):
     p1 = {"conv1a": sp_params["conv1a"], "conv1b": sp_params["conv1b"]}
     p2 = {"conv2a": sp_params["conv2a"], "conv2b": sp_params["conv2b"]}
     stem_p = {"block1": ap["block1"], "conv1": ap["conv1"]}
-    x2f, rgbf = x2.float(), rgbs.float()
+    x2f, rgbf = x2.float().contiguous(), rgbs.float()
     sh = ap["score_head"]
     n = 2 * H * W
     fb = kernel_bounds()
@@ -4247,6 +4286,21 @@ def mp_extract_timing_phase(mx5, mparams, sp_params, ap):
               f"{kd:.4f}/{kd2:.4f}, {fd:.4f}/{fd2:.4f}); bound "
               f"{max(t_ops, t_bytes):.4f} ms ({'operations' if t_ops >= t_bytes else 'bytes'}"
               f"; operations {t_ops:.4f}, bytes {t_bytes:.4f})", flush=True)
+    # a yardstick the port never calls: cuDNN's bf16 3x3 conv (channels_last)
+    # on conv1b's and conv2a's shapes at B 2, the same products without the
+    # rounding before the bias (so not the function B7 or B8 computes)
+    for label, shape, w in (
+            ("conv1b", (2, 64, H, W), sp_params["conv1b"]["w"]),
+            ("conv2a", (2, 64, H // 2, W // 2), sp_params["conv2a"]["w"])):
+        xa = torch.rand(shape, device="cuda").to(BF16).contiguous(
+            memory_format=torch.channels_last)
+        wa = w.to(BF16).contiguous(memory_format=torch.channels_last)
+        dev = attn_split.graph_ms(
+            lambda: torch.nn.functional.conv2d(xa, wa, padding=1), calls=10)
+        print(f"  cuDNN bf16 conv2d (channels_last) on {label}'s shape "
+              f"{shape}: device {dev:.4f} ms (a yardstick, not the same "
+              "function)", flush=True)
+        del xa
 
     phase("5e end to end at mp: SuperPoint and ALIKED ms per image, "
           "make_end_to_end pairs/s, mp against fp32 (in turns)")

@@ -57,16 +57,17 @@ SIGNATURES = {
     "lg_gather_rows": [_P] * 3 + [_I] * 3 + [_P],
 }
 # The bf16 forms (mp) take the arguments of their fp32 entry points; the
-# block launches' take one more, the persistent grid after the tile.
+# block launches' and the convolutions' take one more, the persistent grid
+# last.
 SIGNATURES.update({
     f"{name}_bf16": SIGNATURES[name] for name in (
         "lg_flash_sdpa", "lg_flash_cross_pair", "lg_attention_shape",
-        "lg_fused_cross", "lg_fused_stem", "lg_conv3x3", "lg_aliked_stem",
-        "lg_score_head", "lg_score_head_lazy")})
+        "lg_fused_cross", "lg_aliked_stem", "lg_score_head",
+        "lg_score_head_lazy")})
 SIGNATURES.update({
     f"{name}_bf16": SIGNATURES[name][:-1] + [_I, _P] for name in (
         "lg_project_heads", "lg_tail_out_proj", "lg_tail_lin1",
-        "lg_tail_lin2")})
+        "lg_tail_lin2", "lg_fused_stem", "lg_conv3x3")})
 
 # Op wrapper -> launches since the last reset.
 KERNELS = (

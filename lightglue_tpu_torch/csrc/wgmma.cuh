@@ -1,5 +1,6 @@
 // Hopper's asynchronous primitives that the bf16 attention walk
-// (attn_wgmma.cuh) and the bf16 tile product (gemm_wgmma.cuh) share: the
+// (attn_wgmma.cuh), the bf16 tile product (gemm_wgmma.cuh) and the bf16
+// 3x3 convolution (conv_wgmma.cuh) share: the
 // warpgroup product wgmma with fp32 accumulators, its shared-memory matrix
 // descriptors for 128-byte swizzled tiles, mbarriers, TMA tile loads from
 // tensor maps (and the host side that encodes the maps), named
@@ -106,6 +107,30 @@ __device__ __forceinline__ void tma_load2(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// The box at (c0, c1, c2, c3) of a 4-d tensor map (one thread issues it).
+__device__ __forceinline__ void tma_load4(void* dst, const CUtensorMap* map,
+                                          uint64_t* bar, int c0, int c1,
+                                          int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// `bytes` (a multiple of 16) copied as they lie from device memory into
+// shared memory, completing on `bar` (one thread issues it; both addresses
+// 16-byte aligned). No tensor map.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
 __device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(
                    reinterpret_cast<uint64_t>(map))
@@ -136,7 +161,10 @@ __device__ __forceinline__ void regs_inc() {
 // --- wgmma ------------------------------------------------------------------
 
 // A shared-memory matrix descriptor of a 128-byte swizzled tile at p (lbo,
-// sbo in bytes).
+// sbo in bytes). The swizzle is read from the address bits: a matrix that
+// starts r x 128 bytes past the 1024-byte pattern's boundary takes the
+// pattern's rows from r on with base offset 0 (the conv's taps, measured:
+// scripts/conv_wgmma_study.py).
 __device__ __forceinline__ uint64_t desc_sw128(const void* p, uint32_t lbo,
                                                uint32_t sbo) {
   return (uint64_t)((smem_addr(p) & 0x3ffff) >> 4) |
@@ -367,7 +395,7 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// The tensor map of a bf16 tensor of `rank` (2 or 3) dimensions, innermost
+// The tensor map of a bf16 tensor of `rank` (2 to 4) dimensions, innermost
 // first (dims; strides of dimensions 1.. in bytes), read in 128-byte
 // swizzled boxes of `box` (box[0] 64: one panel row), zeros past the ends.
 // Encoded at each launch (host work only; a CUDA graph captures the map by
@@ -376,13 +404,13 @@ inline EncodeTiled encode_tiled() {
 inline cudaError_t bf16_map(CUtensorMap* map, const void* base, int rank,
                             const uint64_t* dims, const uint64_t* strides,
                             const uint32_t* box) {
-  if (rank < 2 || rank > 3 || reinterpret_cast<uintptr_t>(base) % 16)
+  if (rank < 2 || rank > 4 || reinterpret_cast<uintptr_t>(base) % 16)
     return cudaErrorInvalidValue;
   for (int i = 0; i + 1 < rank; ++i)
     if (strides[i] % 16) return cudaErrorInvalidValue;
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
-  const cuuint32_t ones[3] = {1, 1, 1};
+  const cuuint32_t ones[4] = {1, 1, 1, 1};
   const CUresult r = encode(
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank,
       const_cast<void*>(base), reinterpret_cast<const cuuint64_t*>(dims),

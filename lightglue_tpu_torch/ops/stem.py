@@ -7,14 +7,16 @@ Counterpart of lightglue_tpu/ops/stem.py::fused_stem_pallas
 (B, 64, H/2, W/2). On a CUDA tensor ``fused_stem`` launches ``csrc/stem.cu``
 or raises; on a CPU tensor it runs ``fused_stem_plain``.
 
-The 64 -> 64 convolutions of B7 and B8 (``csrc/conv_tc.cuh``) read their
-weights as ``prepare_conv`` lays them out, built once per weight tensor and
-type (``prepared_conv``).
+The 64 -> 64 convolutions of B7 and B8 (``csrc/conv_tc.cuh`` in fp32,
+``csrc/conv_wgmma.cuh`` in bf16) read their weights as ``prepare_conv`` lays
+them out, built once per weight tensor and type (``prepared_conv``).
 
 ``mp=True`` is the bf16 form (the TPU kernel at mp): the fp32 image in, a
 bf16 map out, rounded where ``_stem_kernel`` rounds (lightglue_tpu/ops/
 stem.py:99-158); ``fused_stem_plain(..., mp=True)`` is fp32 convolutions on
-the rounded operands with the rounding at those points.
+the rounded operands with the rounding at those points. On a CUDA tensor the
+bf16 form's map is NHWC in memory (``torch.channels_last``: the same shape
+and values), as block 2's bf16 form reads it.
 """
 
 from __future__ import annotations
@@ -23,6 +25,8 @@ import torch
 from torch.utils.weak import WeakIdKeyDictionary
 
 from .. import _build, nn
+from . import conv_plan
+from .block_tc import sms
 
 _LOW13 = -0x2000  # int32 0xffffe000: the bits a tensor core reads of a tf32
 _PREPARED = WeakIdKeyDictionary()
@@ -72,13 +76,18 @@ def prepare_conv(w: torch.Tensor,
     float4s {big ci 8k + t, big 8k + t + 4, small 8k + t, small 8k + t + 4},
     t = 0 .. 3: lane t's B fragment of an mma k-step.
 
-    ``dtype`` bf16: the bf16 form's (9, 64, 64), no split: each 16-deep
-    chunk ci 16k .. 16k + 15 as 8 bf16 pairs, pair 2t + h the channels
-    (16k + 2t + 8h, + 1): lane t's m16n8k16 B fragment in 8 bytes."""
+    ``dtype`` bf16: ``csrc/conv_wgmma.cuh``'s (9, 64, 64), no split: per
+    tap (dy, dx) a 64 x 64 slab, output channel co a 128-byte row of its 64
+    input channels (K-major), the 16-byte chunk c (channels 8c .. 8c + 7)
+    at chunk c ^ (co % 8): the 128-byte swizzle that wgmma's descriptors
+    read, so that the kernel copies the 73.7 KB into shared memory as they
+    lie (no tensor map)."""
     if dtype == torch.bfloat16:
-        wt = w.permute(2, 3, 0, 1).reshape(9, 64, 4, 2, 4, 2)  # (k, h, t, j)
-        return wt.permute(0, 1, 2, 4, 3, 5).reshape(9, 64, 64).to(
-            torch.bfloat16).contiguous()
+        wt = w.permute(2, 3, 0, 1).reshape(9, 64, 8, 8)  # [tap][co][c][ci % 8]
+        at = torch.arange(8)[None, :] ^ (torch.arange(64) % 8)[:, None]
+        out = torch.empty_like(wt)
+        out[:, torch.arange(64)[:, None], at] = wt
+        return out.reshape(9, 64, 64).to(torch.bfloat16).contiguous()
     wt = w.permute(2, 3, 0, 1).reshape(9, 64, 8, 2, 4).contiguous()
     big, small = split_tf32(wt)  # [tap][co][k][ci 8k + 4h + t]: (k, h, t)
     parts = torch.stack([big, small], 3)  # (9, 64, k, bs, h, t)
@@ -114,8 +123,9 @@ def check_conv(p: nn.Params, cin: int, name: str) -> None:
 
 def fused_stem(params: nn.Params, image: torch.Tensor,
                mp: bool = False) -> torch.Tensor:
-    """B7 on CUDA tensors (its bf16 form when ``mp``: a bf16 map out), the
-    plain version on CPU tensors. The image is fp32 in both forms."""
+    """B7 on CUDA tensors (its bf16 form when ``mp``: a bf16 map out, NHWC
+    in memory), the plain version on CPU tensors. The image is fp32 in both
+    forms."""
     if image.device.type == "cpu":
         return fused_stem_plain(params, image, mp)
     a, b = params["conv1a"], params["conv1b"]
@@ -126,8 +136,15 @@ def fused_stem(params: nn.Params, image: torch.Tensor,
     check_conv(b, 64, "conv1b")
     dt = torch.bfloat16 if mp else torch.float32
     n, _, h, w = image.shape
-    out = torch.empty(n, 64, h // 2, w // 2, device=dev, dtype=dt)
-    _build.launch(_build.typed("lg_fused_stem", dt), dev, image, a["w"],
-                  a["b"], prepared_conv(b["w"], dt), b["b"], out, n, h, w)
+    if mp:
+        out = torch.empty(n, 64, h // 2, w // 2, device=dev, dtype=dt,
+                          memory_format=torch.channels_last)
+        _build.launch("lg_fused_stem_bf16", dev, image, a["w"], a["b"],
+                      prepared_conv(b["w"], dt), b["b"], out, n, h, w,
+                      conv_plan.plan(n, h, w, sms(dev.index)).grid)
+    else:
+        out = torch.empty(n, 64, h // 2, w // 2, device=dev, dtype=dt)
+        _build.launch("lg_fused_stem", dev, image, a["w"], a["b"],
+                      prepared_conv(b["w"], dt), b["b"], out, n, h, w)
     _build.count(_build.typed("fused_stem", dt))
     return out

@@ -10,13 +10,18 @@ persistent grid (``block_tc.bf16_plan``'s blocks an SM) and at the tile
 that ``bf16_plan`` picks, as device ms from CUDA-graph replays, beside
 ``torch.addmm`` in bf16 on B5's shapes, with the card's name and power
 limit; the committed form's outputs are checked against the plain versions
-first::
+first. ``--addmm`` prints only the yardsticks: ``torch.addmm`` in bf16 on
+B5's launches (B 1, 4, 16) and on B6's (both images' rows, B 1 and 16),
+and the bf16 bound of B6's projection and of its tail (chip_smoke.py's
+``block_bounds`` with bf16 activations and weights: FLOPs / 989 TFLOP/s,
+bytes / 3.35 TB/s)::
 
-    python -m lightglue_tpu_torch.scripts.gemm_study
+    python -m lightglue_tpu_torch.scripts.gemm_study [--addmm]
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import shutil
 import subprocess
@@ -113,7 +118,24 @@ def forced(tile):
     return plan
 
 
+def b6_bounds(b: int) -> dict:
+    """(FLOPs, bytes) of B6's projection and tail at B b in bf16:
+    chip_smoke.py's block_bounds with 2 bytes an activation and a weight
+    (M 1024 / N 768, D 256)."""
+    f, n, m1, d = 2, 1024, 768, 256
+    r6 = b * (n + m1)
+    ffn_w = (2 * d * 2 * d + 2 * d * d + 3 * 2 * d + d) * f
+    tail_w = (d * d + d) * f + ffn_w
+    tail_flops = 2 * d * d + 2 * (2 * d * 2 * d + 2 * d * d)
+    return {"projection": (2 * r6 * d * 2 * d,
+                           (r6 * d + d * 2 * d + 2 * d + 2 * r6 * d) * f),
+            "tail": (r6 * tail_flops, 3 * r6 * d * f + tail_w)}
+
+
 def main() -> None:
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--addmm", action="store_true")
+    addmm_only = parser.parse_args().addmm
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
@@ -127,16 +149,26 @@ def main() -> None:
     cases = {f"B5 B {b}": launches(w5, b, 1024, 0, g) for b in (1, 4, 16)}
     cases.update({f"B6 B {b}": launches(w6, b, 1024, 768, g)
                   for b in (1, 16)})
-    for b in (1, 4, 16):
-        a = r(b * 1024, 256).to(BF)
-        lib_rows = {
-            "projection": (a, r(768, 256).to(BF)),
-            "out_proj": (a, r(256, 256).to(BF)),
-            "lin1": (r(b * 1024, 512).to(BF), r(512, 512).to(BF)),
-            "lin2": (r(b * 1024, 512).to(BF), r(256, 512).to(BF))}
-        print(f"  addmm bf16, B5 B {b}: " + "; ".join(
-            f"{k} {graph_ms(lambda a=a_, w=w_: torch.addmm(w[:, 0], a, w.t())):.4f}"
-            for k, (a_, w_) in lib_rows.items()), flush=True)
+    for block, rows_of, proj, batches in (
+            ("B5", lambda b: b * 1024, 768, (1, 4, 16)),
+            ("B6", lambda b: b * (1024 + 768), 512, (1, 16))):
+        for b in batches:
+            n = rows_of(b)
+            a = r(n, 256).to(BF)
+            lib_rows = {
+                "projection": (a, r(proj, 256).to(BF)),
+                "out_proj": (a, r(256, 256).to(BF)),
+                "lin1": (r(n, 512).to(BF), r(512, 512).to(BF)),
+                "lin2": (r(n, 512).to(BF), r(256, 512).to(BF))}
+            print(f"  addmm bf16, {block} B {b}: " + "; ".join(
+                f"{k} {graph_ms(lambda a=a_, w=w_: torch.addmm(w[:, 0], a, w.t())):.4f}"
+                for k, (a_, w_) in lib_rows.items()), flush=True)
+    for b in (1, 16):
+        print(f"  bf16 bound, B6 B {b}: " + "; ".join(
+            f"{k} {max(fl / 989e12, by / 3.35e12) * 1e3:.4f} ms"
+            for k, (fl, by) in b6_bounds(b).items()), flush=True)
+    if addmm_only:
+        return
     orig = block_tc._tile
     with tempfile.TemporaryDirectory() as tmp:
         libs = build_variants(Path(tmp))

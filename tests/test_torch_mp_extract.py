@@ -277,19 +277,18 @@ def test_score_head_cplane_bf16_plain_vs_pallas(shape):
 
 
 def test_bf16_weight_layouts_and_caches():
-    """prepare_conv's bf16 layout is the m16n8k16 B fragment's (pair 2t + h
-    of a 16-deep chunk: channels 16 k + 2t + 8h, + 1); the caches keep one
-    entry per type (B7, B8, B10) or per mp (B11, B12)."""
+    """prepare_conv's bf16 layout is csrc/conv_wgmma.cuh's 128-byte swizzle
+    (output channel co's 16-byte chunk c, input channels 8c .. 8c + 7, at
+    chunk c ^ (co % 8) of its row); the caches keep one entry per type (B7,
+    B8, B10) or per mp (B11, B12)."""
     _, tp = _sp_params()
     w = tp["conv2a"]["w"]
     got = stem.prepare_conv(w, BF).float()  # (9, 64, 64)
     wt = w.permute(2, 3, 0, 1).reshape(9, 64, 64).to(BF).float()
-    for k in range(4):
-        for t in range(4):
-            for h in range(2):
-                for j in range(2):
-                    e = 16 * k + 2 * (2 * t + h) + j
-                    assert torch.equal(got[:, :, e], wt[:, :, 16 * k + 2 * t + 8 * h + j])
+    for co in range(64):
+        for c in range(8):
+            e = 8 * (c ^ (co % 8))
+            assert torch.equal(got[:, co, e:e + 8], wt[:, co, 8 * c:8 * c + 8])
     assert stem.prepared_conv(w, BF) is stem.prepared_conv(w, BF)
     assert stem.prepared_conv(w) is not stem.prepared_conv(w, BF)
     assert stem.prepared_conv(w).dtype == torch.float32
