@@ -314,7 +314,7 @@ KERNELS = {
                         "lightglue_tpu/ops/stem.py:77"),
     "fused_block2_bf16": ("lightglue_tpu_torch/csrc/conv_wgmma.cuh",
                           "lightglue_tpu/ops/stem2.py:46"),
-    "fused_aliked_stem_bf16": ("lightglue_tpu_torch/csrc/aliked_stem.cu",
+    "fused_aliked_stem_bf16": ("lightglue_tpu_torch/csrc/aliked_wgmma.cuh",
                                "lightglue_tpu/ops/aliked_stem.py:56"),
     "score_head_lazy_bf16": ("lightglue_tpu_torch/csrc/score_head.cu",
                              "lightglue_tpu/ops/score_head.py:161"),
@@ -582,7 +582,7 @@ def build_phase():
     tc = ("_tc_kernel", "cross_rows", "cross_cols", "cross_shift",
           "assign_tile", "flash_sdpa_kernel", "flash_cross_pair_kernel",
           "conv_tc_kernel", "nms_kernel", "score_head_kernel", "_wg_kernel",
-          "conv_wg_kernel")
+          "conv_wg_kernel", "aliked_wg_kernel")
     for line in log.splitlines():
         if "setmaxnreg" in line and "ignored" in line:
             raise AssertionError(f"ptxas: {line.strip()}")
@@ -595,6 +595,9 @@ def build_phase():
                           lambda m: "conv_wg_kernel<{}, {}>".format(
                               ("image", "map")[int(m.group(1))],
                               ("pool NHWC", "NHWC", "pool NCHW")[int(m.group(2))]),
+                          name)
+            # B10's bf16 form: its width C1
+            name = re.sub(r"aliked_wg_kernelILi(\d+)E+", r"aliked_wg_kernel<C1 \1>",
                           name)
             name = re.sub(r"INS0_4TileILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)"
                           r"EEELb(\d)ELb(\d)E",
@@ -3979,9 +3982,11 @@ def mp_extract_kernel_phase(sp_params, ap, ax):
     on each of those maps as B7 wrote it (NHWC) and as the plain version's
     contiguous NCHW, and at B 2 on NCHW inputs 1 and 8 elements off a
     16-byte boundary; B10 at aliked-n16 and
-    t16 (B 2 and small), B11 and B12 at B 1, 2 and 8 on the ALIKED images'
-    branch parts. Probes: B7 with one of conv1b's taps zeroed, and rounded
-    only at its output, must break the check. Returns (errors, the B 2
+    t16 at B 2, 1 and 8 (768 x 1024) and at widths that leave the last strip
+    part full (34 x 70, which TMA reads through a padded copy, and 2 x 40 x
+    200), B11 and B12 at B 1, 2 and 8 on the ALIKED images' branch parts.
+    Probes: B7 with one of conv1b's taps zeroed, and rounded only at its
+    output, must break the check. Returns (errors, the B 2
     inputs for timing)."""
     phase("5f the extractors' bf16 kernels (mp) against their bf16 plain "
           "versions")
@@ -4046,10 +4051,15 @@ def mp_extract_kernel_phase(sp_params, ap, ax):
     rgbs = torch.from_numpy(np.stack([rgb(image_pair(rng, H, W)[0])
                                       for _ in range(2)])).cuda()
     rgbs = rgbs.permute(0, 3, 1, 2).contiguous().to(BF16)
+    rgb8 = torch.from_numpy(np.stack([rgb(image_pair(rng8, H, W)[0])
+                                      for _ in range(6)])).cuda()
+    rgb8 = torch.cat([rgbs, rgb8.permute(0, 3, 1, 2).to(BF16)]).contiguous()
     t16 = aliked_params("aliked-t16")
+    small = (torch.rand(1, 3, 34, 70, generator=g, device="cuda").to(BF16),
+             torch.rand(2, 3, 40, 200, generator=g, device="cuda").to(BF16))
     for name, p in (("aliked-n16", ap), ("aliked-t16", t16)):
         sp_ = {"block1": p["block1"], "conv1": p["conv1"]}
-        for x in (rgbs, torch.rand(1, 3, 34, 70, generator=g, device="cuda").to(BF16)):
+        for x in (rgbs, rgb8[:1].contiguous(), rgb8, *small):
             got = twice("fused_aliked_stem_bf16",
                         lambda: aliked_stem.fused_aliked_stem_kernel(sp_, x))
             ref = aliked_stem.fused_aliked_stem_plain(sp_, x)

@@ -58,12 +58,16 @@ SIGNATURES = {
 }
 # The bf16 forms (mp) take the arguments of their fp32 entry points; the
 # block launches' and the convolutions' take one more, the persistent grid
-# last.
+# last; B10's its image's tensor map (encoded by its own entry point) and
+# the prepared weights, then the shape and the grid.
 SIGNATURES.update({
     f"{name}_bf16": SIGNATURES[name] for name in (
         "lg_flash_sdpa", "lg_flash_cross_pair", "lg_attention_shape",
-        "lg_fused_cross", "lg_aliked_stem", "lg_score_head",
-        "lg_score_head_lazy")})
+        "lg_fused_cross", "lg_score_head", "lg_score_head_lazy")})
+SIGNATURES.update({
+    "lg_aliked_stem_bf16_map": [_P] * 2 + [_I] * 3 + [_P],
+    "lg_aliked_stem_bf16": [_P] * 4 + [_I] * 6 + [_P],
+})
 SIGNATURES.update({
     f"{name}_bf16": SIGNATURES[name][:-1] + [_I, _P] for name in (
         "lg_project_heads", "lg_tail_out_proj", "lg_tail_lin1",

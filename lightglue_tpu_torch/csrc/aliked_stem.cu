@@ -56,28 +56,13 @@
 //
 // The bf16 form (lg_aliked_stem_bf16; the TPU kernel at mp=True,
 // lightglue_tpu/ops/aliked_stem.py:75-141): a bf16 image in, y1 and x1p
-// bf16 out, rounded where _aliked_stem_kernel rounds. Bound on an H100: at
-// C1 16 the bytes, 6 B in and 72 B out a pixel, 0.0368 ms at B 2 and 768 x
-// 1024 (the 10.2 GFLOP take 0.0103 ms at 989 TFLOP/s). Its design
-// (aliked_stem_bf16_kernel below):
-//  - conv1 stays on the CUDA cores in fp32 on the bf16 operands (the image
-//    and conv1's own weights: bn1's scale is not folded, the TPU kernel
-//    rounds the sum before it scales): BN as round(round(round(sum) x s1)
-//    + b1) with s1, b1 rounded to bf16, SELU in fp32, stored bf16;
-//  - the staged tile holds a pixel's C1 channels as C1 / 2 bf16 pairs,
-//    words (2w, 2w + 1); at C1 16 word w sits at slot (w + 4 (col / 4 mod
-//    2)) mod 8 so that the quarter warps' reads take distinct banks;
-//  - conv2 on m16n8k16 bf16 tiles: at C1 16 one tap a k-step (words t and
-//    t + 4 of a pixel); at C1 8 (aliked-t16) two taps a k-step (k 0-7 tap
-//    2s, k 8-15 tap 2s + 1, word t of each pixel), the ninth tap alone
-//    with its upper half zero: 5 k-steps where padding each tap to 16
-//    would take 9;
-//  - BN + SELU on the accumulators as conv1's, x1 fp32; the 2x2 average
-//    as (round(upper) + lower) x 0.5, then the column pair's sum x 0.5,
-//    stored bf16; the 1x1 branch's A fragment is round(x1) straight from
-//    the accumulators (m16n8k16's C and A fragments hold the same
-//    channels, so no permutation; at C1 8 the upper half of k is zero),
-//    y1 = SELU(round(sum)) stored bf16.
+// bf16 out, rounded where _aliked_stem_kernel rounds, is a kernel of its
+// own designed for Hopper, aliked_wgmma.cuh: persistent blocks walking
+// strips, conv1, conv2 and the 1x1 on wgmma, the weights resident, image
+// rows by TMA.
+#include <cstring>
+
+#include "aliked_wgmma.cuh"
 #include "tc.cuh"
 
 namespace {
@@ -430,276 +415,6 @@ __global__ void __launch_bounds__(T::THREADS, T::THREADS > kBlocksPerSM * 256
   }
 }
 
-// --- the bf16 form ------------------------------------------------------
-
-// The bf16 form's shared memory, in 32-bit words, for tile T's geometry.
-template <class T>
-struct Bf16Geo {
-  static constexpr int C1 = T::C1;
-  static constexpr int PXW = C1 / 2;               // words a pixel
-  static constexpr int STEPS = C1 == 16 ? 9 : 5;   // conv2's k-steps
-  static constexpr int NT2 = C1 / 8;               // conv2's n8 tiles
-  static constexpr int kA = T::AR * T::AC * PXW > T::WARPS * T::kStage
-                                ? T::AR * T::AC * PXW : T::WARPS * T::kStage;
-  static constexpr int kW2 = STEPS * NT2 * 64;     // [step][nt][lane] uint2
-  static constexpr int kWY = T::NTY * 64;          // [n][lane] uint2
-  static constexpr int kK1 = 31 * C1;  // conv1 [ci dy dx][co], s1, b1, s2, b2
-  static constexpr size_t bytes() {
-    return (size_t)(kA + T::kI + kW2 + kWY + kK1) * sizeof(float);
-  }
-};
-
-// the slot of word w (channels 2w, 2w + 1) of a pixel at staged column col
-template <int C1>
-__host__ __device__ __forceinline__ int bslot(int w, int col) {
-  if constexpr (C1 == 16) return (w + 4 * ((col >> 2) & 1)) & 7;
-  else return w;
-}
-
-// round(round(round(acc) x s) + b) (s, b bf16 values), then SELU: the TPU
-// kernel's bn_selu at mp
-__device__ __forceinline__ float bn_selu_bf16(float acc, float s, float b) {
-  return selu(tc::round_bf16(tc::round_bf16(tc::round_bf16(acc) * s) + b));
-}
-
-template <class T>
-__global__ void __launch_bounds__(T::THREADS, T::THREADS > kBlocksPerSM * 256
-                                                  ? 1 : kBlocksPerSM * 256 / T::THREADS)
-    aliked_stem_bf16_kernel(const tc::bf16* __restrict__ img,  // (B, 3, H, W)
-                            const float* __restrict__ k1,      // conv1, s1, b1, s2, b2
-                            const uint2* __restrict__ w2,      // [step][nt][lane]
-                            const uint2* __restrict__ wy,      // [n][lane]
-                            tc::bf16* __restrict__ y1,         // (B, H, W, CY)
-                            tc::bf16* __restrict__ xp,         // (B, C1, H/2, W/2)
-                            int H, int W) {
-  using G = Bf16Geo<T>;
-  constexpr int C1 = T::C1, CY = T::CY, NT2 = G::NT2, PXW = G::PXW;
-  extern __shared__ __align__(16) float lg_smem[];
-  uint32_t* A = reinterpret_cast<uint32_t*>(lg_smem);  // [AR][AC] pixels of PXW words
-  float* I = lg_smem + G::kA;                          // [3][IR][IC]
-  float* W2 = I + T::kI;
-  float* WY = W2 + G::kW2;
-  float* K1 = WY + G::kWY;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int b = blockIdx.z, y0 = blockIdx.y * T::TH, x0 = blockIdx.x * T::TW;
-
-  // conv1's weights and BNs, conv2's and the 1x1's B fragments by cp.async
-  // (one group), the image tile by plain loads meanwhile (2-byte elements)
-  for (int i = tid; i < G::kK1 / 4; i += T::THREADS)
-    tc::cp_async16(K1 + 4 * i, k1 + 4 * i, true);
-  for (int i = tid; i < (G::kW2 + G::kWY) / 4; i += T::THREADS)
-    tc::cp_async16(W2 + 4 * i,
-                   i < G::kW2 / 4 ? reinterpret_cast<const float*>(w2) + 4 * i
-                                  : reinterpret_cast<const float*>(wy) + (4 * i - G::kW2),
-                   true);
-  tc::cp_async_commit();
-  const tc::bf16* im = img + (size_t)b * 3 * H * W;
-  for (int i = tid; i < T::kI; i += T::THREADS) {
-    const int c = i / (T::IR * T::IC), r = i / T::IC % T::IR, cc = i % T::IC;
-    const int gy = y0 - 2 + r, gx = x0 - 2 + cc;
-    I[i] = gy >= 0 && gy < H && gx >= 0 && gx < W
-               ? __bfloat162float(im[((size_t)c * H + gy) * W + gx]) : 0.f;
-  }
-  tc::cp_async_wait<0>();
-  __syncthreads();
-
-  // conv1 + BN + SELU at staged rows r0 .. r0 + VP - 1 of column cc, bf16
-  const float* s1 = K1 + 27 * C1;
-  const float* b1 = s1 + C1;
-  for (int i = tid; i < T::AR / T::VP * T::AC; i += T::THREADS) {
-    const int r0 = i / T::AC * T::VP, cc = i % T::AC;
-    float acc[T::VP][C1];
-#pragma unroll
-    for (int v = 0; v < T::VP; ++v)
-#pragma unroll
-      for (int co = 0; co < C1; ++co) acc[v][co] = 0.f;
-#pragma unroll
-    for (int k = 0; k < 27; ++k) {  // k = (ci, dy, dx)
-      const int ci = k / 9, dy = k / 3 % 3, dx = k % 3;
-      float w[C1];
-#pragma unroll
-      for (int q = 0; q < C1 / 4; ++q) {
-        const float4 w4 = reinterpret_cast<const float4*>(K1 + k * C1)[q];
-        w[4 * q] = w4.x, w[4 * q + 1] = w4.y, w[4 * q + 2] = w4.z, w[4 * q + 3] = w4.w;
-      }
-#pragma unroll
-      for (int v = 0; v < T::VP; ++v) {
-        const float x = I[(ci * T::IR + r0 + v + dy) * T::IC + cc + dx];
-#pragma unroll
-        for (int co = 0; co < C1; ++co) acc[v][co] = fmaf(w[co], x, acc[v][co]);
-      }
-    }
-    const int gx = x0 - 1 + cc;
-#pragma unroll
-    for (int v = 0; v < T::VP; ++v) {
-      const int r = r0 + v, gy = y0 - 1 + r;
-      const bool in = gy >= 0 && gy < H && gx >= 0 && gx < W;
-      uint32_t* px = A + (r * T::AC + cc) * PXW;
-#pragma unroll
-      for (int wd = 0; wd < PXW; ++wd) {
-        const int c = 2 * wd;
-        px[bslot<C1>(wd, cc)] =
-            in ? tc::pack_bf16(bn_selu_bf16(acc[v][c], s1[c], b1[c]),
-                               bn_selu_bf16(acc[v][c + 1], s1[c + 1], b1[c + 1]))
-               : 0u;
-      }
-    }
-  }
-  __syncthreads();
-
-  // this warp's m16 tiles: i = MT warp + m, the 2 x 8 patches at tile rows
-  // 2 rp .., cols 8 (cb0 + m) ..; lane (g, t) reads staged column
-  // 8 (cb0 + m) + g + dx
-  const int rp = T::MT * warp / T::MTW, cb0 = T::MT * warp % T::MTW;
-  float acc[T::MT][NT2][4];
-#pragma unroll
-  for (int m = 0; m < T::MT; ++m)
-#pragma unroll
-    for (int nt = 0; nt < NT2; ++nt)
-      acc[m][nt][0] = acc[m][nt][1] = acc[m][nt][2] = acc[m][nt][3] = 0.f;
-  const uint2* W2u = reinterpret_cast<const uint2*>(W2);
-  // word wd of the pixel at tile row 2 rp + row, column 8 (cb0 + m) + g + dx
-  auto word = [&](int m, int row, int dx, int wd) {
-    const int col = 8 * (cb0 + m) + g + dx;
-    return A[((2 * rp + row) * T::AC + col) * PXW + bslot<C1>(wd, col)];
-  };
-#pragma unroll 1
-  for (int st = 0; st < G::STEPS; ++st) {
-    uint2 bq[NT2];
-#pragma unroll
-    for (int nt = 0; nt < NT2; ++nt) bq[nt] = W2u[(st * NT2 + nt) * 32 + lane];
-#pragma unroll
-    for (int m = 0; m < T::MT; ++m) {
-      uint32_t a[4];
-      if constexpr (C1 == 16) {  // tap st: channels 2t.. (a0, a1), 2t + 8.. (a2, a3)
-        const int dy = st / 3, dx = st % 3;
-        a[0] = word(m, dy, dx, t), a[1] = word(m, dy + 1, dx, t);
-        a[2] = word(m, dy, dx, t + 4), a[3] = word(m, dy + 1, dx, t + 4);
-      } else {  // taps 2 st (a0, a1) and 2 st + 1 (a2, a3): channels 2t..
-        const int ta = 2 * st, tb = 2 * st + 1;
-        a[0] = word(m, ta / 3, ta % 3, t), a[1] = word(m, ta / 3 + 1, ta % 3, t);
-        if (tb < 9) {
-          a[2] = word(m, tb / 3, tb % 3, t), a[3] = word(m, tb / 3 + 1, tb % 3, t);
-        } else {
-          a[2] = a[3] = 0u;
-        }
-      }
-#pragma unroll
-      for (int nt = 0; nt < NT2; ++nt) {
-        const uint32_t bb[2] = {bq[nt].x, bq[nt].y};
-        tc::mma_bf16(acc[m][nt], a, bb);
-      }
-    }
-  }
-  __syncthreads();  // every read of A is done: the epilogue stages there
-
-  float* Ys = lg_smem + warp * T::kStage;  // [16 pixels][YS]
-  float* Ps = Ys + 16 * T::YS;             // [C1][PS]: the strip's pooled row
-  float s2[NT2][2], b2[NT2][2];
-#pragma unroll
-  for (int nt = 0; nt < NT2; ++nt)
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      s2[nt][e] = K1[29 * C1 + 8 * nt + 2 * t + e];
-      b2[nt][e] = K1[30 * C1 + 8 * nt + 2 * t + e];
-    }
-  const uint2* WYu = reinterpret_cast<const uint2*>(WY);
-  const int gy0 = y0 + 2 * rp;
-#pragma unroll
-  for (int m = 0; m < T::MT; ++m) {
-    // acc[m][nt][j]: channel 8 nt + 2t + (j & 1) at the upper pixel (j <
-    // 2) and the lower one (j >= 2)
-    float x[NT2][4];
-#pragma unroll
-    for (int nt = 0; nt < NT2; ++nt)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        x[nt][j] = bn_selu_bf16(acc[m][nt][j], s2[nt][j & 1], b2[nt][j & 1]);
-    // the 2x2 average as the TPU kernel forms it: (round(upper) + lower)
-    // x 0.5, then the column pair's sum x 0.5
-#pragma unroll
-    for (int nt = 0; nt < NT2; ++nt)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        float v = (tc::round_bf16(x[nt][e]) + x[nt][e + 2]) * 0.5f;
-        v = (v + __shfl_xor_sync(0xffffffffu, v, 4)) * 0.5f;
-        if ((g & 1) == 0) Ps[(8 * nt + 2 * t + e) * T::PS + 4 * m + (g >> 1)] = v;
-      }
-    // y1 = SELU(round(wy . round(x1))): the accumulators as A fragments
-    uint32_t a[4];
-    a[0] = tc::pack_bf16(x[0][0], x[0][1]), a[1] = tc::pack_bf16(x[0][2], x[0][3]);
-    if constexpr (NT2 == 2) {
-      a[2] = tc::pack_bf16(x[1][0], x[1][1]), a[3] = tc::pack_bf16(x[1][2], x[1][3]);
-    } else {
-      a[2] = a[3] = 0u;
-    }
-#pragma unroll
-    for (int n = 0; n < T::NTY; ++n) {
-      float ya[4] = {0.f, 0.f, 0.f, 0.f};
-      const uint2 wq = WYu[n * 32 + lane];
-      const uint32_t bb[2] = {wq.x, wq.y};
-      tc::mma_bf16(ya, a, bb);
-      const int c = 8 * n + 2 * t;
-      *reinterpret_cast<float2*>(Ys + g * T::YS + c) = make_float2(
-          selu(tc::round_bf16(ya[0])), selu(tc::round_bf16(ya[1])));
-      *reinterpret_cast<float2*>(Ys + (8 + g) * T::YS + c) = make_float2(
-          selu(tc::round_bf16(ya[2])), selu(tc::round_bf16(ya[3])));
-    }
-    __syncwarp();
-    // two rows of 8 whole pixels, CY / 8 pieces of 8 bf16 each
-    const int gx0 = x0 + 8 * (cb0 + m);
-    for (int e = lane; e < 16 * (CY / 8); e += 32) {
-      const int px = e / (CY / 8), q = e % (CY / 8);
-      const int gy = gy0 + (px >> 3), gx = gx0 + (px & 7);
-      if (gy < H && gx < W) {
-        const float* v = Ys + px * T::YS + 8 * q;
-        *reinterpret_cast<uint4*>(y1 + (((size_t)b * H + gy) * W + gx) * CY + 8 * q) =
-            make_uint4(tc::pack_bf16(v[0], v[1]), tc::pack_bf16(v[2], v[3]),
-                       tc::pack_bf16(v[4], v[5]), tc::pack_bf16(v[6], v[7]));
-      }
-    }
-    __syncwarp();
-  }
-  // the strip's pooled row: C1 rows of 4 MT values
-  const int Ho = H / 2, Wo = W / 2, oy = gy0 / 2, ox0 = (x0 + 8 * cb0) / 2;
-  if (oy < Ho) {
-    if ((Wo & 3) == 0) {
-      for (int e = lane; e < C1 * T::MT; e += 32) {
-        const int c = e / T::MT, q = e % T::MT, ox = ox0 + 4 * q;
-        if (ox < Wo) {
-          const float* v = Ps + c * T::PS + 4 * q;
-          *reinterpret_cast<uint2*>(xp + (((size_t)b * C1 + c) * Ho + oy) * Wo + ox) =
-              make_uint2(tc::pack_bf16(v[0], v[1]), tc::pack_bf16(v[2], v[3]));
-        }
-      }
-    } else {
-      for (int e = lane; e < C1 * 4 * T::MT; e += 32) {
-        const int c = e / (4 * T::MT), j = e % (4 * T::MT), ox = ox0 + j;
-        if (ox < Wo)
-          xp[(((size_t)b * C1 + c) * Ho + oy) * Wo + ox] =
-              __float2bfloat16_rn(Ps[c * T::PS + j]);
-      }
-    }
-  }
-}
-
-template <class T>
-cudaError_t launch_bf16(const tc::bf16* img, const float* k1, const void* w2,
-                        const void* wy, tc::bf16* y1, tc::bf16* xp, int B,
-                        int H, int W, cudaStream_t stream) {
-  auto* kern = aliked_stem_bf16_kernel<T>;
-  const size_t smem = Bf16Geo<T>::bytes();
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((W + T::TW - 1) / T::TW, (H + T::TH - 1) / T::TH, B);
-  kern<<<grid, T::THREADS, smem, stream>>>(
-      img, k1, reinterpret_cast<const uint2*>(w2),
-      reinterpret_cast<const uint2*>(wy), y1, xp, H, W);
-  return cudaGetLastError();
-}
-
 template <class T>
 cudaError_t launch(const float* img, const float* k1, const float* w2,
                    const float* wy, float* y1, float* xp, int B, int H, int W,
@@ -733,20 +448,32 @@ extern "C" cudaError_t lg_aliked_stem(const float* img, const float* k1,
   return cudaErrorInvalidValue;
 }
 
-// The bf16 form: img (B, 3, H, W) bf16; k1 ops/aliked_stem.py::prepare's
-// mp layout: conv1's weights rounded to bf16 [ci dy dx][co] (27 C1), then
-// bn1's and bn2's folded scales and biases rounded to bf16 (s1, b1, s2, b2,
-// C1 each), as fp32 values; w2, wy its bf16 B fragments; y1 (B, H, W, CY)
-// and xp (B, C1, H/2, W/2) bf16.
-extern "C" cudaError_t lg_aliked_stem_bf16(const lg::tc::bf16* img,
-                                           const float* k1, const void* w2,
-                                           const void* wy, lg::tc::bf16* y1,
-                                           lg::tc::bf16* xp, int B, int H,
-                                           int W, int C1, int CY,
-                                           cudaStream_t stream) {
+// The bf16 form's tensor map of img (B, 3, H, Wp) bf16, Wp a multiple of 8
+// and img 16-byte aligned, into the 128 bytes at map (aliked_wgmma.cuh's
+// image_map); the stream is not used.
+extern "C" cudaError_t lg_aliked_stem_bf16_map(void* map,
+                                               const lg::tc::bf16* img, int B,
+                                               int H, int Wp, cudaStream_t) {
+  CUtensorMap m;
+  const cudaError_t err = lg::awg::image_map(&m, img, B, H, Wp);
+  if (err == cudaSuccess) memcpy(map, &m, sizeof m);
+  return err;
+}
+
+// The bf16 form: map lg_aliked_stem_bf16_map's of the image (B, 3, H, W)
+// (its width padded to Wp); wts ops/aliked_stem.py::prepare_bf16's blob; y1
+// (B, H, W, CY) and xp (B, C1, H/2, W/2) bf16; grid ops/conv_plan.py's
+// persistent blocks (aliked_wgmma.cuh's PER_SM an SM).
+extern "C" cudaError_t lg_aliked_stem_bf16(const void* map,
+                                           const lg::tc::bf16* wts,
+                                           lg::tc::bf16* y1, lg::tc::bf16* xp,
+                                           int B, int H, int W, int C1, int CY,
+                                           int grid, cudaStream_t stream) {
+  CUtensorMap m;
+  memcpy(&m, map, sizeof m);
   if (C1 == 16 && CY == 32)
-    return launch_bf16<TileN16>(img, k1, w2, wy, y1, xp, B, H, W, stream);
+    return lg::awg::launch<16>(m, wts, y1, xp, B, H, W, grid, stream);
   if (C1 == 8 && CY == 16)
-    return launch_bf16<TileT16>(img, k1, w2, wy, y1, xp, B, H, W, stream);
+    return lg::awg::launch<8>(m, wts, y1, xp, B, H, W, grid, stream);
   return cudaErrorInvalidValue;
 }

@@ -1,6 +1,7 @@
 // Hopper's asynchronous primitives that the bf16 attention walk
-// (attn_wgmma.cuh), the bf16 tile product (gemm_wgmma.cuh) and the bf16
-// 3x3 convolution (conv_wgmma.cuh) share: the
+// (attn_wgmma.cuh), the bf16 tile product (gemm_wgmma.cuh), the bf16
+// 3x3 convolution (conv_wgmma.cuh) and ALIKED's bf16 block 1
+// (aliked_wgmma.cuh) share: the
 // warpgroup product wgmma with fp32 accumulators, its shared-memory matrix
 // descriptors for 128-byte swizzled tiles, mbarriers, TMA tile loads from
 // tensor maps (and the host side that encodes the maps), named
@@ -19,7 +20,9 @@
 //
 // The wgmma wrappers name every accumulator register (the instruction takes
 // them as one list), for N = 64, 128 and 256: mma_ssN (A and B from shared
-// memory), mma_rsN (A from registers). Accumulator layout of a thread in
+// memory), mma_rsN (A from registers); and the small-N forms of a few
+// channels a pixel, mma_ss8, mma_ss16, mma_rs16 and mma_rs32 (both
+// operands K-major). Accumulator layout of a thread in
 // warp w of the warpgroup, lane = 4 g + t: d[4 j + 2 h + e] is row 16 w + g
 // + 8 h, column 8 j + 2 t + e.
 #pragma once
@@ -363,6 +366,55 @@ __device__ __forceinline__ void mma_rs256(float (&d)[128],
         "n"(kTransB));
 }
 
+// The small-N forms (N 8 to 32): m64nNk16, N / 2 accumulators a thread,
+// no transposes (A and B K-major).
+__device__ __forceinline__ void mma_ss8(float (&d)[4], uint64_t da,
+                                        uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, %4, %5, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+__device__ __forceinline__ void mma_ss16(float (&d)[8], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+__device__ __forceinline__ void mma_rs16(float (&d)[8],
+                                         const uint32_t (&a)[4], uint64_t db,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+__device__ __forceinline__ void mma_rs32(float (&d)[16],
+                                         const uint32_t (&a)[4], uint64_t db,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15},"
+      " {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
 // --- host: tensor maps ------------------------------------------------------
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
@@ -397,13 +449,16 @@ inline EncodeTiled encode_tiled() {
 
 // The tensor map of a bf16 tensor of `rank` (2 to 4) dimensions, innermost
 // first (dims; strides of dimensions 1.. in bytes), read in 128-byte
-// swizzled boxes of `box` (box[0] 64: one panel row), zeros past the ends.
+// swizzled boxes of `box` (box[0] 64: one panel row), or with `swizzle`
+// CU_TENSOR_MAP_SWIZZLE_NONE in boxes as they lie (box[0] x 2 bytes a
+// multiple of 16), zeros past the ends.
 // Encoded at each launch (host work only; a CUDA graph captures the map by
 // value with the launch). Returns cudaErrorInvalidValue where TMA cannot
 // address the tensor (its address or a stride not a multiple of 16 bytes).
 inline cudaError_t bf16_map(CUtensorMap* map, const void* base, int rank,
                             const uint64_t* dims, const uint64_t* strides,
-                            const uint32_t* box) {
+                            const uint32_t* box,
+                            CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   if (rank < 2 || rank > 4 || reinterpret_cast<uintptr_t>(base) % 16)
     return cudaErrorInvalidValue;
   for (int i = 0; i + 1 < rank; ++i)
@@ -416,7 +471,7 @@ inline cudaError_t bf16_map(CUtensorMap* map, const void* base, int rank,
       const_cast<void*>(base), reinterpret_cast<const cuuint64_t*>(dims),
       reinterpret_cast<const cuuint64_t*>(strides),
       reinterpret_cast<const cuuint32_t*>(box), ones,
-      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
       CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }

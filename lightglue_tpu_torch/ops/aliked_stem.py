@@ -14,22 +14,28 @@ score head's 1x1 partial, a product over its channels.
 
 A bf16 image (mp) takes the bf16 form: y1 and x1p bf16, rounded where
 ``_aliked_stem_kernel`` rounds at mp (lightglue_tpu/ops/aliked_stem.py:
-75-141); its plain version is fp32 convolutions of the rounded operands
-with the rounding at those points. ``composed_stem`` is the composition the
-kernel replaces, in the image's type (XLA's at mp).
+75-141), on a CUDA tensor ``csrc/aliked_wgmma.cuh`` (persistent blocks
+walking strips as ``conv_plan`` cuts them, image rows by TMA through a
+tensor map cached with the prepared weights); its plain version is fp32
+convolutions of the rounded operands with the rounding at those points.
+``composed_stem`` is the composition the kernel replaces, in the image's
+type (XLA's at mp).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 from torch.utils.weak import WeakIdKeyDictionary
 
 from .. import _build, nn
+from . import conv_plan
+from .block_tc import sms
 from .stem import split_tf32
 
 WIDTHS = ((8, 16), (16, 32))  # (C1, CY): aliked-t16, the other models
+PER_SM = 3  # the bf16 form's persistent blocks an SM (csrc/aliked_wgmma.cuh)
 _PREPARED = WeakIdKeyDictionary()
 
 
@@ -102,40 +108,98 @@ def fused_aliked_stem(
     return fused_aliked_stem_kernel(params, image)
 
 
-def prepare_bf16(params: nn.Params) -> Tuple[torch.Tensor, torch.Tensor,
-                                             torch.Tensor]:
-    """The bf16 form's weights, as ``csrc/aliked_stem.cu``'s
-    ``aliked_stem_bf16_kernel`` reads them:
+class Bf16Layout(NamedTuple):
+    """Byte offsets of ``prepare_bf16``'s blob (``csrc/aliked_wgmma.cuh``'s
+    ``Geo``): conv1, conv2, the 1x1, the BN vectors; its size."""
+    w1: int
+    w2: int
+    wy: int
+    bn: int
+    size: int
 
-    - ``k1`` (fp32 values, each rounded to bf16): conv1's own weights
-      [ci dy dx][co] (27 C1; bn1's scale is applied after the sum is
-      rounded, not folded), then bn1's and bn2's folded scales and biases
-      (s1, b1, s2, b2);
-    - ``w2`` bf16 (steps, C1 / 8, 32, 4): lane (g, t)'s B fragment {b0, b1}
-      of each k-step and n8 tile nt, output channel 8 nt + g. At C1 16 a
-      step is a tap: (ci 2t, 2t + 1), (2t + 8, 2t + 9). At C1 8 step s
-      pairs taps 2s and 2s + 1 (the tenth zero): (tap 2s, ci 2t, 2t + 1),
-      (tap 2s + 1, ci 2t, 2t + 1);
-    - ``wy`` bf16 (CY / 8, 32, 4): the 1x1's, (ci 2t, 2t + 1), (2t + 8,
-      2t + 9), zero past C1."""
+
+def bf16_layout(c1: int) -> Bf16Layout:
+    """The blob's layout at C1 ``c1`` (CY 2 C1): conv1 3 dx x 2 chunks x C1
+    rows of 16 bytes, conv2 its k-steps (9 at C1 16, 6 at 8) likewise, the
+    1x1 2 chunks x CY rows, then s1, b1, s2, b2 in 128 bytes."""
+    steps = 9 if c1 == 16 else 6
+    w2 = 3 * 2 * c1 * 16
+    wy = w2 + steps * 2 * c1 * 16
+    bn = wy + 2 * 2 * c1 * 16
+    return Bf16Layout(0, w2, wy, bn, bn + 128)
+
+
+def y1_channel(cy: int) -> torch.Tensor:
+    """The output channel of each column n = 8 j + 2 t + e of the 1x1's
+    product: (CY / 4) t + 2 j + e, so that lane t of an accumulator row
+    holds CY / 4 consecutive channels of its pixel."""
+    n = torch.arange(cy)
+    return (cy // 4) * (n % 8 // 2) + 2 * (n // 8) + n % 2
+
+
+def prepare_bf16(params: nn.Params) -> torch.Tensor:
+    """The bf16 form's weights as ``csrc/aliked_wgmma.cuh`` copies them
+    into shared memory, one bf16 blob laid out as ``bf16_layout(C1)``,
+    every operand of a product K-major in 16-byte rows of 8 K values, the
+    two 8-deep chunks of a k-step one plane apart:
+
+    - conv1 [dx][chunk][co][8]: K is (ci, dy) as k = 3 ci + dy (9 values,
+      zero-padded to 16), one k-step a tap column dx;
+    - conv2 [step][chunk][co][8 ci]: at C1 16 step = tap (dy, dx), chunk
+      the input channels 8 chunk ..; at C1 8 step 2 dy + s pairs taps (dy,
+      2s) (chunk 0) and (dy, 2s + 1) (chunk 1; zero for s 1);
+    - the 1x1 [chunk][n][8 ci]: row n holds output channel ``y1_channel``
+      (n), its inputs zero past C1;
+    - bn1's and bn2's folded scales and biases, s1, b1, s2, b2, rounded
+      (bn1's scale is applied after conv1's sum is rounded, not folded)."""
     bp = params["block1"]
     c1 = bp["conv2"]["w"].shape[0]
     cy = params["conv1"]["w"].shape[0]
-    r, bf = nn.round_bf16, torch.bfloat16
-    w1 = bp["conv1"]["w"].float().permute(1, 2, 3, 0).reshape(-1)
-    k1 = r(torch.cat([w1, *nn.fold_batch_norm(bp["bn1"]),
-                      *nn.fold_batch_norm(bp["bn2"])])).contiguous()
-    wt = bp["conv2"]["w"].float().permute(2, 3, 0, 1).reshape(9, c1, c1)
-    if c1 == 16:  # (tap, nt, g, h, t, j) -> (tap, nt, g, t, h, j)
-        w2 = wt.reshape(9, 2, 8, 2, 4, 2).permute(0, 1, 2, 4, 3, 5)
-    else:  # taps padded to 10: (s, h, g, t, j) -> (s, g, t, h, j)
-        w2 = torch.cat([wt, wt.new_zeros(1, c1, c1)]).reshape(5, 2, 8, 4, 2)
-        w2 = w2.permute(0, 2, 3, 1, 4)
-    w2 = w2.reshape(-1, c1 // 8, 32, 4).to(bf).contiguous()
+    w = bp["conv1"]["w"].float()  # [co][ci][dy][dx]
+    w1 = w.new_zeros(3, c1, 16)
+    w1[..., :9] = w.permute(3, 0, 1, 2).reshape(3, c1, 9)  # [dx][co][3 ci + dy]
+    w1 = w1.reshape(3, c1, 2, 8).permute(0, 2, 1, 3)
+    taps = bp["conv2"]["w"].float().permute(2, 3, 0, 1)  # [dy][dx][co][ci]
+    if c1 == 16:
+        w2 = taps.reshape(9, c1, 2, 8).permute(0, 2, 1, 3)
+    else:  # dx padded to 4: [dy][s][chunk] = tap (dy, 2 s + chunk)
+        w2 = torch.cat([taps, taps.new_zeros(3, 1, c1, c1)], 1).reshape(6, 2, c1, c1)
     wy = params["conv1"]["w"].float()[:, :, 0, 0]
-    wy = torch.cat([wy, wy.new_zeros(cy, 16 - c1)], 1)  # K padded to 16
-    wy = wy.reshape(cy // 8, 8, 2, 4, 2).permute(0, 1, 3, 2, 4)
-    return k1, w2, wy.reshape(cy // 8, 32, 4).to(bf).contiguous()
+    wy = torch.cat([wy, wy.new_zeros(cy, 16 - c1)], 1)[y1_channel(cy)]
+    wy = wy.reshape(cy, 2, 8).permute(1, 0, 2)
+    bn = torch.cat([*nn.fold_batch_norm(bp["bn1"]), *nn.fold_batch_norm(bp["bn2"])])
+    blob = torch.cat([w1.reshape(-1), w2.reshape(-1), wy.reshape(-1), bn,
+                      bn.new_zeros(64 - 4 * c1)])
+    assert 2 * blob.numel() == bf16_layout(c1).size
+    return blob.to(torch.bfloat16).contiguous()
+
+
+class Prepared16(NamedTuple):
+    """The bf16 form's prepared state of one tree: the weights blob, and
+    the image tensor maps encoded for it (``image_map``)."""
+    weights: torch.Tensor
+    maps: Dict[Tuple[int, ...], torch.Tensor]
+
+
+MAPS = 8  # image tensor maps kept per tree (the oldest goes first)
+
+
+def image_map(prep: Prepared16, image: torch.Tensor) -> torch.Tensor:
+    """The 128-byte tensor map of a CUDA bf16 image (B, 3, H, Wp), Wp a
+    multiple of 8 and the data 16-byte aligned, from ``prep``'s cache: a
+    map holds the address and the shape only, so one encoded for an
+    earlier tensor at the same address and shape serves."""
+    b, _, h, wp = image.shape
+    key = (image.device.index, image.data_ptr(), b, h, wp)
+    got = prep.maps.get(key)
+    if got is None:
+        got = torch.empty(128, dtype=torch.uint8)
+        _build.launch("lg_aliked_stem_bf16_map", image.device, got, image,
+                      b, h, wp)
+        if len(prep.maps) >= MAPS:
+            prep.maps.pop(next(iter(prep.maps)))
+        prep.maps[key] = got
+    return got
 
 
 def prepare(params: nn.Params) -> Tuple[torch.Tensor, torch.Tensor,
@@ -176,10 +240,11 @@ def prepare(params: nn.Params) -> Tuple[torch.Tensor, torch.Tensor,
 
 
 def prepared(params: nn.Params, dtype: torch.dtype = torch.float32):
-    """``prepare(params)`` (``prepare_bf16`` for the bf16 form), built once
-    per parameter tree and type (keyed by its conv2 weight tensor, and
-    rebuilt if any other tensor it reads is another object): an edit in
-    place of a tensor is not seen, build a new tree."""
+    """``prepare(params)`` (for the bf16 form ``Prepared16`` of
+    ``prepare_bf16`` and its tensor maps), built once per parameter tree
+    and type (keyed by its conv2 weight tensor, and rebuilt if any other
+    tensor it reads is another object): an edit in place of a tensor is
+    not seen, build a new tree."""
     bp = params["block1"]
     srcs = (bp["conv1"]["w"], *bp["bn1"].values(), *bp["bn2"].values(),
             params["conv1"]["w"])
@@ -187,8 +252,8 @@ def prepared(params: nn.Params, dtype: torch.dtype = torch.float32):
     if got is None or any(a is not b for a, b in zip(got[0], srcs)):
         got = _PREPARED[bp["conv2"]["w"]] = (srcs, {})
     if dtype not in got[1]:
-        got[1][dtype] = (prepare_bf16 if dtype == torch.bfloat16
-                         else prepare)(params)
+        got[1][dtype] = (Prepared16(prepare_bf16(params), {})
+                         if dtype == torch.bfloat16 else prepare(params))
     return got[1][dtype]
 
 
@@ -196,7 +261,9 @@ def fused_aliked_stem_kernel(
     params: nn.Params, image: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """B10: one launch over CUDA tensors, H and W even; the bf16 form for a
-    bf16 image (bf16 outputs)."""
+    bf16 image (bf16 outputs; a width that is not a multiple of 8, or an
+    image off a 16-byte boundary, goes through one zero-padded copy, since
+    TMA reads rows of a multiple of 16 bytes)."""
     bp, wy = params["block1"], params["conv1"]["w"]
     c1, cy = wy.shape[1], wy.shape[0]
     if (c1, cy) not in WIDTHS:
@@ -220,11 +287,20 @@ def fused_aliked_stem_kernel(
     if _build.check_cuda(**{name: p["w"].contiguous()
                             for name, (p, _) in convs.items()}) != dev:
         raise ValueError("the weights are on another device than the image")
-    k1, w2, wyp = prepared(params, dt)
     b, _, h, w = image.shape
     y1 = torch.empty(b, h, w, cy, device=dev, dtype=dt)
     x1p = torch.empty(b, c1, h // 2, w // 2, device=dev, dtype=dt)
-    _build.launch(_build.typed("lg_aliked_stem", dt), dev, image, k1, w2,
-                  wyp, y1, x1p, b, h, w, c1, cy)
+    if dt == torch.bfloat16:
+        prep = prepared(params, dt)
+        wp = -(-w // 8) * 8
+        if wp != w or image.data_ptr() % 16:
+            image = torch.nn.functional.pad(image, (0, wp - w))
+        _build.launch("lg_aliked_stem_bf16", dev, image_map(prep, image),
+                      prep.weights, y1, x1p, b, h, w, c1, cy,
+                      conv_plan.plan(b, h, w, PER_SM * sms(dev.index)).grid)
+    else:
+        k1, w2, wyp = prepared(params, dt)
+        _build.launch("lg_aliked_stem", dev, image, k1, w2, wyp, y1, x1p, b,
+                      h, w, c1, cy)
     _build.count(_build.typed("fused_aliked_stem", dt))
     return y1, x1p

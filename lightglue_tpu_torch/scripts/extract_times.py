@@ -2,9 +2,11 @@
 every version of the port has, so that two checkouts compare on one card.
 
 For B7's and B8's bf16 forms (``stem.fused_stem(..., mp=True)``,
-``stem2.fused_block2`` on B7's bf16 output as the main path hands it on) at
-B 1, 2 and 8, 768 x 1024 (SuperPoint's conv weights times 3), each launch
-is first held against its plain version under chip_smoke.py's flip check
+``stem2.fused_block2`` on B7's bf16 output as the main path hands it on)
+and B10's (``aliked_stem.fused_aliked_stem_kernel`` on a bf16 image,
+aliked-n16, y1 and x1p each) at B 1, 2 and 8, 768 x 1024 (SuperPoint's conv
+weights times 3; ``aliked_params`` below), each launch is first held
+against its plain version under chip_smoke.py's flip check
 (within 2e-2 max(1, |plain|) and 2^-6 (|plain| + rms(plain row)) at all
 but 1e-4 of the outputs, equal at all but 1e-2), and cuDNN's bf16
 ``F.conv2d`` (channels_last) on conv1b's and conv2a's shapes is timed
@@ -24,7 +26,7 @@ launches after 3) and as device time from CUDA-graph replays, beside the
 plain version's events time, and the card's name and power limit. Run it
 with ``PYTHONPATH`` set to each root in turns, a process each (parent,
 this, this, parent); ``--only`` keeps the rows whose name holds one of the
-words given (``--only bf16``: B7's and B8's)::
+words given (``--only bf16``: B7's, B8's and B10's)::
 
     PYTHONPATH=. python lightglue_tpu_torch/scripts/extract_times.py
     PYTHONPATH=<other checkout> python lightglue_tpu_torch/scripts/extract_times.py
@@ -145,6 +147,7 @@ def main() -> None:
         ys, s2 = al._dense_branches(ap, img, fused_stem=False)
         parts8 = al._score_parts(ap["score_head"], ys, True)
     s4, s2 = s4.contiguous(), s2[:2].contiguous()
+    rgb16 = img.to(torch.bfloat16)
     img = img[:2].contiguous()
     sh = ap["score_head"]
     stem_p = {"block1": ap["block1"], "conv1": ap["conv1"]}
@@ -178,14 +181,21 @@ def main() -> None:
         rows[f"fused_block2_bf16 B {b}"] = (
             lambda y=y: stem2.fused_block2(p2, y),
             lambda y=y: stem2.fused_block2_plain(p2, y))
+        x16 = rgb16[:b].contiguous()
+        rows[f"fused_aliked_stem_bf16 B {b}"] = (
+            lambda x=x16: aliked_stem.fused_aliked_stem_kernel(stem_p, x),
+            lambda x=x16: aliked_stem.fused_aliked_stem_plain(stem_p, x))
     if args.only is not None:
         rows = {k: v for k, v in rows.items() if any(w in k for w in args.only)}
     for name, (kern, plain) in rows.items():
         got, want = kern(), plain()
         if "_bf16" in name:
-            over, differ = flips(got, want)
-            if not (over <= FLIPS and differ <= DIFFER and torch.equal(got, kern())):
-                raise AssertionError(f"{name}: over {over}, not equal {differ}")
+            again = kern()
+            for g, w, a in zip(*(t if isinstance(t, tuple) else (t,)
+                                 for t in (got, want, again))):
+                over, differ = flips(g, w)
+                if not (over <= FLIPS and differ <= DIFFER and torch.equal(g, a)):
+                    raise AssertionError(f"{name}: over {over}, not equal {differ}")
         elif name.startswith("simple_nms"):
             if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
                 raise AssertionError(f"{name} differs from its plain version")
@@ -200,7 +210,8 @@ def main() -> None:
                     raise AssertionError(f"{name}: {err} > {TOL}")
         p, k, dev = events_ms(plain), events_ms(kern), graph_ms(kern)
         at = (f"{H}x{W}" if name.startswith(("score_head", "fused_stem_bf16",
-                                             "fused_block2_bf16"))
+                                             "fused_block2_bf16",
+                                             "fused_aliked_stem_bf16"))
               else f"B 2, {H}x{W}")
         print(f"  {name} ({at}): kernel {k:.4f} ms by events, device "
               f"{dev:.4f} ms (CUDA graph); plain {p:.4f} ms", flush=True)

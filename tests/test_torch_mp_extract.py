@@ -279,8 +279,11 @@ def test_score_head_cplane_bf16_plain_vs_pallas(shape):
 def test_bf16_weight_layouts_and_caches():
     """prepare_conv's bf16 layout is csrc/conv_wgmma.cuh's 128-byte swizzle
     (output channel co's 16-byte chunk c, input channels 8c .. 8c + 7, at
-    chunk c ^ (co % 8) of its row); the caches keep one entry per type (B7,
-    B8, B10) or per mp (B11, B12)."""
+    chunk c ^ (co % 8) of its row); B10's is one bf16 blob laid out as
+    ``bf16_layout`` (csrc/aliked_wgmma.cuh: conv1 3 tap columns, conv2 9
+    k-steps at C1 16 and 6 at C1 8 (taps paired, the partner of (dy, 2)
+    zero), the 1x1 zero past C1, the four BN vectors rounded); the caches
+    keep one entry per type (B7, B8, B10) or per mp (B11, B12)."""
     _, tp = _sp_params()
     w = tp["conv2a"]["w"]
     got = stem.prepare_conv(w, BF).float()  # (9, 64, 64)
@@ -293,15 +296,17 @@ def test_bf16_weight_layouts_and_caches():
     assert stem.prepared_conv(w) is not stem.prepared_conv(w, BF)
     assert stem.prepared_conv(w).dtype == torch.float32
     _, ap = _al_params("aliked-t16")
-    k1, w2, wy = aliked_stem.prepared(ap, BF)
-    assert aliked_stem.prepared(ap, BF)[1] is w2
-    assert w2.shape == (5, 1, 32, 4) and w2.dtype == BF  # taps paired
-    assert torch.equal(w2[4, 0, :, 2:].float(), torch.zeros(32, 2))  # tap 10
-    assert wy.shape == (2, 32, 4) and torch.equal(wy[..., 2:].float(),
-                                                  torch.zeros(2, 32, 2))
-    assert torch.equal(k1, k1.to(BF).float())
+    prep = aliked_stem.prepared(ap, BF)
+    assert aliked_stem.prepared(ap, BF) is prep and prep.maps == {}
+    blob, lay = prep.weights, aliked_stem.bf16_layout(8)
+    assert blob.dtype == BF and 2 * blob.numel() == lay.size == 2944
+    w2 = blob[lay.w2 // 2:lay.wy // 2].reshape(6, 2, 8, 8)  # [step][chunk][co][ci]
+    for dy in range(3):  # taps paired: (dy, 2) with a zero partner
+        assert torch.equal(w2[2 * dy + 1, 1].float(), torch.zeros(8, 8))
+    wy = blob[lay.wy // 2:lay.bn // 2].reshape(2, 16, 8)  # [chunk][n][ci]
+    assert torch.equal(wy[1].float(), torch.zeros(16, 8))  # K padded to 16
     _, np16 = _al_params("aliked-n16")
-    assert aliked_stem.prepared(np16, BF)[1].shape == (9, 2, 32, 4)
+    assert aliked_stem.prepared(np16, BF).weights.numel() == 7296 // 2
     sh = np16["score_head"]
     a, b = score_head.prepared(sh, True), score_head.prepared(sh)
     assert score_head.prepared(sh, True) is a and a is not b
