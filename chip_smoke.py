@@ -316,9 +316,9 @@ KERNELS = {
                           "lightglue_tpu/ops/stem2.py:46"),
     "fused_aliked_stem_bf16": ("lightglue_tpu_torch/csrc/aliked_wgmma.cuh",
                                "lightglue_tpu/ops/aliked_stem.py:56"),
-    "score_head_lazy_bf16": ("lightglue_tpu_torch/csrc/score_head.cu",
+    "score_head_lazy_bf16": ("lightglue_tpu_torch/csrc/score_wgmma.cuh",
                              "lightglue_tpu/ops/score_head.py:161"),
-    "score_head_cplane_bf16": ("lightglue_tpu_torch/csrc/score_head.cu",
+    "score_head_cplane_bf16": ("lightglue_tpu_torch/csrc/score_wgmma.cuh",
                                "lightglue_tpu/ops/score_head.py:119"),
     # the matcher's bf16 forms at head_dim 128 (two heads under mp)
     "flash_sdpa_bf16_d128": ("lightglue_tpu_torch/csrc/flash_sdpa.cu",
@@ -415,6 +415,23 @@ PEAK_TF32 = 495e12
 # dense bf16 tensor cores: the bound of the bf16 (mp) rows, beside bytes at
 # 2 a bf16 element
 PEAK_BF16 = 989e12
+# the score head's FLOPs a pixel: the three 3x3 convs' products (8 -> 4, 4
+# -> 4, 4 -> 1), and B11's three 8-channel two-point lerps each way and sums
+SCORE_CONV, SCORE_LERP = 2 * 9 * (32 + 16 + 4), 3 * 8 * 7
+
+
+def ops_ms(name, flops):
+    """The least ms of a row's operations at the card's peak: fp32 rows on
+    the CUDA cores; the bf16 rows' products on the bf16 tensor cores, and
+    B11's bf16 lerps (fp32 arithmetic) on the CUDA cores."""
+    if "_bf16" not in name:
+        return flops / PEAK_FLOPS * 1e3
+    if name.startswith("score_head"):
+        per = SCORE_CONV + (SCORE_LERP if name.startswith("score_head_lazy") else 0)
+        conv = flops * SCORE_CONV / per
+        return (conv / PEAK_BF16 + (flops - conv) / PEAK_FLOPS) * 1e3
+    return flops / PEAK_BF16 * 1e3
+
 BF16 = torch.bfloat16
 # the bf16 kernels against their bf16 plain versions (phase 5): the JAX
 # package's bf16 envelope (docs/PARITY.md), elementwise, relative to
@@ -582,7 +599,7 @@ def build_phase():
     tc = ("_tc_kernel", "cross_rows", "cross_cols", "cross_shift",
           "assign_tile", "flash_sdpa_kernel", "flash_cross_pair_kernel",
           "conv_tc_kernel", "nms_kernel", "score_head_kernel", "_wg_kernel",
-          "conv_wg_kernel", "aliked_wg_kernel")
+          "conv_wg_kernel", "aliked_wg_kernel", "score_wg_kernel")
     for line in log.splitlines():
         if "setmaxnreg" in line and "ignored" in line:
             raise AssertionError(f"ptxas: {line.strip()}")
@@ -598,6 +615,9 @@ def build_phase():
                           name)
             # B10's bf16 form: its width C1
             name = re.sub(r"aliked_wg_kernelILi(\d+)E+", r"aliked_wg_kernel<C1 \1>",
+                          name)
+            # B11's (lazy 1) and B12's bf16 forms
+            name = re.sub(r"score_wg_kernelILb(\d)E+", r"score_wg_kernel<lazy \1>",
                           name)
             name = re.sub(r"INS0_4TileILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)"
                           r"EEELb(\d)ELb(\d)E",
@@ -2868,18 +2888,17 @@ def kernel_bounds():
                               + (27 * 16 + 9 * 16 * 16 + 16 * 32 + 64) * f),
         # the tail's three 3x3 convs (8 -> 4, 4 -> 4, 4 -> 1) per pixel, plus
         # for B11 three 8-channel two-point lerps in each direction and sums
-        "score_head_lazy": (img * (2 * 9 * (32 + 16 + 4) + 3 * 8 * 7),
+        "score_head_lazy": (img * (SCORE_CONV + SCORE_LERP),
                             img * (8 + 8 / 4 + 8 / 64 + 8 / 1024 + 1) * f
                             + 468 * f),
-        "score_head_cplane": (img * 2 * 9 * (32 + 16 + 4),
-                              img * (8 + 1) * f + 468 * f),
+        "score_head_cplane": (img * SCORE_CONV, img * (8 + 1) * f + 468 * f),
         # the same at B 1 and B 8
         **{f"{k} B {b}": (v[0] * b / 2, (v[1] - 468 * f) * b / 2 + 468 * f)
            for k, v in (
-               ("score_head_lazy", (img * (2 * 9 * (32 + 16 + 4) + 3 * 8 * 7),
+               ("score_head_lazy", (img * (SCORE_CONV + SCORE_LERP),
                                     img * (8 + 8 / 4 + 8 / 64 + 8 / 1024 + 1) * f
                                     + 468 * f)),
-               ("score_head_cplane", (img * 2 * 9 * (32 + 16 + 4),
+               ("score_head_cplane", (img * SCORE_CONV,
                                       img * (8 + 1) * f + 468 * f)))
            for b in (1, 8)},
         # both directions at (4, 2, M 1024 / N 768, 128): the same products
@@ -3984,10 +4003,12 @@ def mp_extract_kernel_phase(sp_params, ap, ax):
     16-byte boundary; B10 at aliked-n16 and
     t16 at B 2, 1 and 8 (768 x 1024) and at widths that leave the last strip
     part full (34 x 70, which TMA reads through a padded copy, and 2 x 40 x
-    200), B11 and B12 at B 1, 2 and 8 on the ALIKED images' branch parts.
+    200), B11 and B12 at B 1, 2 and 8 on the ALIKED images' branch parts
+    and on random parts at 40 x 70, 40 x 72, 61 x 83 (B 2) and 32 x 100 (s4
+    one row), B12 also on an s0 one element off a 16-byte boundary.
     Probes: B7 with one of conv1b's taps zeroed, and rounded only at its
-    output, must break the check. Returns (errors, the B 2
-    inputs for timing)."""
+    output, and B12 with a tap of conv 4->4 zeroed, must break the check.
+    Returns (errors, the B 2 inputs for timing)."""
     phase("5f the extractors' bf16 kernels (mp) against their bf16 plain "
           "versions")
     errs = {}
@@ -4081,6 +4102,43 @@ def mp_extract_kernel_phase(sp_params, ap, ax):
             got = twice(name, kern)
             flip_check(errs, name, f"{name} ({b}, 8, {H}, {W})", got, plain(),
                        torch.float32)
+    # ragged: widths that are not a multiple of 8 or of 4 (TMA reads a
+    # padded copy), an odd height, a branch of one row (H 32: s4 is 1 x 3),
+    # and s0 one element off a 16-byte boundary
+    for b, h, w in ((1, 40, 70), (1, 40, 72), (2, 61, 83), (1, 32, 100)):
+        parts = [torch.randn(b, 8, max(1, h // k), max(1, w // k), generator=g,
+                             device="cuda") for k in (1, 2, 8, 32)]
+        s0 = score_head.upsampled_sum(*parts)
+        inputs = [("", s0)]
+        if w == 72:
+            buf = torch.empty(s0.numel() + 1, device="cuda")
+            off = buf[1:].view_as(s0)
+            off.copy_(s0)
+            inputs.append((", s0 one element off 16 bytes", off))
+        got = twice("score_head_lazy_bf16",
+                    lambda: score_head.score_head_lazy_kernel(sh, *parts, mp=True))
+        flip_check(errs, "score_head_lazy_bf16",
+                   f"score_head_lazy_bf16 ({b}, 8, {h}, {w}), s4 {tuple(parts[3].shape[2:])}",
+                   got, score_head.score_head_lazy_plain(sh, *parts, mp=True),
+                   torch.float32)
+        for tag, x in inputs:
+            got = twice("score_head_cplane_bf16",
+                        lambda: score_head.score_head_cplane_kernel(sh, x, mp=True))
+            flip_check(errs, "score_head_cplane_bf16",
+                       f"score_head_cplane_bf16 ({b}, 8, {h}, {w}){tag}", got,
+                       score_head.score_tail_plain(sh, s0, mp=True), torch.float32)
+    # probe: what the check reads for a score head that drops one tap of
+    # conv 4->4
+    s0 = score_head.upsampled_sum(*[p[:2].contiguous() for p in ax["parts8"]])
+    cut = {**sh, "4": {"w": sh["4"]["w"].clone()}}
+    cut["4"]["w"][:, :, 1, 1] = 0
+    stats = flip_stats(score_head.score_tail_plain(cut, s0, mp=True),
+                       score_head.score_tail_plain(sh, s0, mp=True))
+    print(f"  probe, B12 with a tap dropped: outputs over either bound "
+          f"{stats[2]:.3e}, not equal {stats[3]:.3e} (flip_check fails above "
+          f"{MP_FLIPS:g} and {MP_DIFFER:g})", flush=True)
+    if not flip_faults(stats, torch.float32):
+        raise AssertionError("the bf16 check cannot see B12 with a tap dropped")
     torch.cuda.synchronize()
     # B8's rows read B7's own map, NHWC, as the main path hands it on
     return errs, {"img": img, "stem_out": stem.fused_stem(p1, img, mp=True),
@@ -4224,7 +4282,8 @@ def mp_extract_rows(mx5, sp_params, ap):
     fp32 form on the same values, (FLOPs, bytes))} at B 2, 768 x 1024 (B11
     and B12 also at B 1 and 8). The bf16 bound counts the convolutions'
     products and bf16 maps at 2 bytes (the image of B7 and the score maps
-    fp32); B11's and B12's stays the fp32 form's (FFMA work, fp32 maps)."""
+    fp32); B11's and B12's bytes are the fp32 form's (fp32 maps in and out),
+    their products on the tensor cores (``ops_ms``)."""
     img, x2, rgbs = mx5["img"], mx5["stem_out"], mx5["rgb"]
     p1 = {"conv1a": sp_params["conv1a"], "conv1b": sp_params["conv1b"]}
     p2 = {"conv2a": sp_params["conv2a"], "conv2b": sp_params["conv2b"]}
@@ -4287,8 +4346,7 @@ def mp_extract_timing_phase(mx5, mparams, sp_params, ap):
         times[name] = ((b + e) / 2, (a + g) / 2, None)
         bounds[name] = bound
         graph_times[name] = ((kd + kd2) / 2, None)
-        peak = PEAK_FLOPS if name.startswith("score_head") else PEAK_BF16
-        t_ops, t_bytes = bound[0] / peak * 1e3, bound[1] / PEAK_BYTES * 1e3
+        t_ops, t_bytes = ops_ms(name, bound[0]), bound[1] / PEAK_BYTES * 1e3
         print(f"  {name}: kernel {(b + e) / 2:.4f} ms, plain {(a + g) / 2:.4f}"
               f" ms, fp32 form {(c + d) / 2:.4f} ms (runs {b:.4f}/{e:.4f}, "
               f"{a:.4f}/{g:.4f}, {c:.4f}/{d:.4f}); device time: kernel "
@@ -5290,10 +5348,8 @@ def main():
     for name, (src, rep) in KERNELS.items():
         flops, nbytes = bounds[name]
         # fp32: the CUDA cores' peak; the bf16 forms: the bf16 tensor cores'
-        # (B11's and B12's keep FFMA fp32 work: the CUDA cores')
-        peak = (PEAK_BF16 if "_bf16" in name
-                and not name.startswith("score_head") else PEAK_FLOPS)
-        t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+        # (B11's lerps the CUDA cores')
+        t_ops, t_bytes = ops_ms(name, flops), nbytes / PEAK_BYTES * 1e3
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
             "launches": counts[name], "max_abs_err": errs[name],

@@ -58,15 +58,21 @@ SIGNATURES = {
 }
 # The bf16 forms (mp) take the arguments of their fp32 entry points; the
 # block launches' and the convolutions' take one more, the persistent grid
-# last; B10's its image's tensor map (encoded by its own entry point) and
-# the prepared weights, then the shape and the grid.
+# last; B10's, B11's and B12's a tensor map of their input (encoded by its
+# own entry point) and the prepared weights, then the shape and the grid.
 SIGNATURES.update({
     f"{name}_bf16": SIGNATURES[name] for name in (
         "lg_flash_sdpa", "lg_flash_cross_pair", "lg_attention_shape",
-        "lg_fused_cross", "lg_score_head", "lg_score_head_lazy")})
+        "lg_fused_cross")})
 SIGNATURES.update({
     "lg_aliked_stem_bf16_map": [_P] * 2 + [_I] * 3 + [_P],
     "lg_aliked_stem_bf16": [_P] * 4 + [_I] * 6 + [_P],
+    # B11's and B12's: s0's or s1's tensor map (its own entry point), then
+    # the fp32 form's arguments with the prepared blob for the weights, the
+    # persistent grid last
+    "lg_score_head_bf16_map": [_P] * 2 + [_I] * 3 + [_P],
+    "lg_score_head_bf16": [_P] * 3 + [_I] * 4 + [_P],
+    "lg_score_head_lazy_bf16": [_P] * 6 + [_I] * 10 + [_P],
 })
 SIGNATURES.update({
     f"{name}_bf16": SIGNATURES[name][:-1] + [_I, _P] for name in (

@@ -190,13 +190,14 @@ struct Geo {
   static_assert(128 * kProdRegs + 256 * kConsRegs <= THREADS * 168, "registers");
 };
 
-// The units of a launch, (image, strip, row pair) in that order; block i of
-// G walks units [first(i), first(i + 1)).
+// The units of a launch, (image, strip of `strip` columns, row pair) in that
+// order; block i of G walks units [first(i), first(i + 1)). An odd H's last
+// pair holds one row (the score head's; the convolutions take H even).
 struct Plan {
   int S, P;
   long long units;
-  __host__ __device__ Plan(int B, int H, int W)
-      : S(cdiv(W, STRIP)), P(H / 2), units((long long)B * S * P) {}
+  __host__ __device__ Plan(int B, int H, int W, int strip = STRIP)
+      : S(cdiv(W, strip)), P((H + 1) / 2), units((long long)B * S * P) {}
   __host__ __device__ long long first(int i, int G) const {
     return units * i / G;
   }

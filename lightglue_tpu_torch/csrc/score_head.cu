@@ -57,19 +57,26 @@
 //
 // The bf16 form (lg_score_head_bf16, lg_score_head_lazy_bf16; the TPU
 // kernels at mp=True, lightglue_tpu/ops/score_head.py:82-83, 135-136,
-// 224-225, 232-239) is a compile-time rounding flag (MP), no new
-// arithmetic: the caller rounds the 468 weights to bf16
-// (ops/score_head.py::prepared at mp), s0 (B11: the sum s1 + lerps) is
-// rounded to bf16 before its SELU, and every stage's input (the SELU
-// planes, stages 1 and 2) is rounded to bf16 as it is stored. Products and
-// sums stay FFMA fp32, the maps in and out fp32: its bound is the fp32
-// form's.
+// 224-225, 232-239) is a kernel of its own designed for Hopper,
+// score_wgmma.cuh: conv 8->4 and conv 4->4 on wgmma with pixels as M (conv
+// 4->1 on the CUDA cores), persistent blocks walking strips with a ring a
+// stage, the weights resident, s0's rows fed by TMA. Both take the
+// align-corners lerps (lerp_of) and the sigmoid from score_common.cuh.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <string.h>
 
+#include "score_common.cuh"
+#include "score_wgmma.cuh"
+
 namespace {
+
+using lg::score::clampi;
+using lg::score::ex2;
+using lg::score::Lerp;
+using lg::score::lerp_of;
+using lg::score::sigmoid;
 
 constexpr int NT = 256;
 constexpr int NW = 9 * (8 * 4 + 4 * 4 + 4 * 1);  // 468 weights
@@ -128,30 +135,9 @@ struct Weights {
   float w[NW];  // [conv][ci][tap][co]: (8, 9, 4), (4, 9, 4), (4, 9, 1)
 };
 
-__device__ __forceinline__ float ex2(float x) {
-#ifdef __CUDA_ARCH__
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-#else
-  return exp2f(x);
-#endif
-}
-
 __device__ __forceinline__ float selu(float x) {
   constexpr float kSA = kScale * kAlpha;
   return x > 0.f ? kScale * x : fmaf(kSA, ex2(fminf(x, 0.f) * kLog2e), -kSA);
-}
-
-// x rounded to bf16 (nearest even) when MP, else x
-template <bool MP>
-__device__ __forceinline__ float rnd(float x) {
-  if constexpr (MP) return __bfloat162float(__float2bfloat16_rn(x));
-  else return x;
-}
-
-__device__ __forceinline__ float sigmoid(float x) {
-  return __frcp_rn(1.f + ex2(-x * kLog2e));
 }
 
 __host__ __device__ __forceinline__ int cdiv(int a, int b) { return (a + b - 1) / b; }
@@ -178,31 +164,6 @@ __device__ __forceinline__ void copy_wait() {
 #ifdef __CUDA_ARCH__
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 #endif
-}
-
-// Align-corners lerp of output index g (of n) into a branch axis of size
-// nk: the rows i0, i1 and the weight of i1, as ops/sampling.py::upsample
-// computes them (a float64 linspace: g times the step, the last index
-// exactly nk - 1, and 0 when n is 1).
-struct Lerp {
-  int i0, i1;
-  float w;
-};
-
-__host__ __device__ __forceinline__ Lerp lerp_of(int g, int n, int nk) {
-  const double c = n == 1 ? 0.0
-                   : g == n - 1 ? (double)(nk - 1)
-                                : g * ((double)(nk - 1) / (double)(n - 1));
-  const double f = floor(c);
-  Lerp l;
-  l.i0 = (int)f;
-  l.i1 = l.i0 + 1 < nk - 1 ? l.i0 + 1 : nk - 1;
-  l.w = (float)(c - f);
-  return l;
-}
-
-__host__ __device__ __forceinline__ int clampi(int v, int lo, int hi) {
-  return v < lo ? lo : v > hi ? hi : v;
 }
 
 struct Branches {
@@ -261,9 +222,8 @@ __device__ __forceinline__ void conv1_channel(int ci, const float* src,
 }
 
 // SELU of a micro-tile's sums into a staged stage, 0 where the output
-// pixel (gy0 + r, gx0 + j) lies outside the image; float2 stores, rounded
-// to bf16 when MP (the next stage's input).
-template <bool MP, int R, int PITCH, int HS>
+// pixel (gy0 + r, gx0 + j) lies outside the image; float2 stores.
+template <int R, int PITCH, int HS>
 __device__ __forceinline__ void store_stage(const float (&acc)[R][2][4],
                                             float* dst, int gy0, int gx0,
                                             int H, int W) {
@@ -274,12 +234,12 @@ __device__ __forceinline__ void store_stage(const float (&acc)[R][2][4],
 #pragma unroll
     for (int co = 0; co < 4; ++co)
       *reinterpret_cast<float2*>(dst + (co * HS + r) * PITCH) = make_float2(
-          yin && x0in ? rnd<MP>(selu(acc[r][0][co])) : 0.f,
-          yin && x1in ? rnd<MP>(selu(acc[r][1][co])) : 0.f);
+          yin && x0in ? selu(acc[r][0][co]) : 0.f,
+          yin && x1in ? selu(acc[r][1][co]) : 0.f);
   }
 }
 
-template <bool LAZY, bool MP, class T>
+template <bool LAZY, class T>
 __global__ void __launch_bounds__(NT, kBlocksSM)
     score_head_kernel(const float* __restrict__ s0,  // (B, 8, H, W): s0 or s1
                       const Branches br, const __grid_constant__ Weights wt,
@@ -433,7 +393,7 @@ __global__ void __launch_bounds__(NT, kBlocksSM)
             v += fmaf(wx[k], c - a, a);
           }
         }
-        P[r * T::PW + pc] = ok ? rnd<MP>(selu(rnd<MP>(v))) : 0.f;
+        P[r * T::PW + pc] = ok ? selu(v) : 0.f;
       }
     }
     __syncthreads();
@@ -446,7 +406,7 @@ __global__ void __launch_bounds__(NT, kBlocksSM)
   // tables, windows and row lerps (the channel loop's last barrier)
   float* S1 = RB;
   if (t < T::N1)
-    store_stage<MP, T::R1, T::W1, T::H1>(acc, S1 + band1 * T::R1 * T::W1 + 2 * mc1,
+    store_stage<T::R1, T::W1, T::H1>(acc, S1 + band1 * T::R1 * T::W1 + 2 * mc1,
                                      y0 - 2 + band1 * T::R1, x0 - 2 + 2 * mc1, H, W);
   __syncthreads();
 
@@ -466,7 +426,7 @@ __global__ void __launch_bounds__(NT, kBlocksSM)
     conv_in<T::R2, 4, T::W1, O2 + 1 * 36>(src + 1 * T::H1 * T::W1, wt, a2);
     conv_in<T::R2, 4, T::W1, O2 + 2 * 36>(src + 2 * T::H1 * T::W1, wt, a2);
     conv_in<T::R2, 4, T::W1, O2 + 3 * 36>(src + 3 * T::H1 * T::W1, wt, a2);
-    store_stage<MP, T::R2, T::W2, T::H2>(a2, S2 + band * T::R2 * T::W2 + 2 * mc,
+    store_stage<T::R2, T::W2, T::H2>(a2, S2 + band * T::R2 * T::W2 + 2 * mc,
                                      y0 - 1 + band * T::R2, x0 - 1 + 2 * mc, H, W);
   }
   __syncthreads();
@@ -508,14 +468,14 @@ int window_extent(int n, int nk, int tile) {
 }
 
 // Lets the kernel take `smem` bytes of dynamic shared memory.
-template <bool LAZY, bool MP = false>
+template <bool LAZY>
 cudaError_t configure(size_t smem) {
-  return cudaFuncSetAttribute(score_head_kernel<LAZY, MP, Tile>,
+  return cudaFuncSetAttribute(score_head_kernel<LAZY, Tile>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)smem);
 }
 
-template <bool LAZY, bool MP>
+template <bool LAZY>
 cudaError_t launch(const float* s0, Branches br, const float* w_host,
                    float* out, int B, int H, int W, cudaStream_t stream) {
   using T = Tile;
@@ -532,10 +492,10 @@ cudaError_t launch(const float* s0, Branches br, const float* w_host,
     region_b = need > region_b ? need : region_b;
   }
   const size_t smem = sizeof(float) * (T::A + region_b);
-  const cudaError_t err = configure<LAZY, MP>(smem);
+  const cudaError_t err = configure<LAZY>(smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(cdiv(W, T::TW), cdiv(H, T::TH), B);
-  score_head_kernel<LAZY, MP, T><<<grid, NT, smem, stream>>>(s0, br, wt, out, H, W);
+  score_head_kernel<LAZY, T><<<grid, NT, smem, stream>>>(s0, br, wt, out, H, W);
   return cudaGetLastError();
 }
 
@@ -547,15 +507,33 @@ cudaError_t launch(const float* s0, Branches br, const float* w_host,
 extern "C" cudaError_t lg_score_head(const float* s0, const float* w_host,
                                      float* out, int B, int H, int W,
                                      cudaStream_t stream) {
-  return launch<false, false>(s0, Branches{}, w_host, out, B, H, W, stream);
+  return launch<false>(s0, Branches{}, w_host, out, B, H, W, stream);
 }
 
-// The bf16 form: arguments as lg_score_head, the weights already rounded
-// to bf16 (as fp32 values).
-extern "C" cudaError_t lg_score_head_bf16(const float* s0, const float* w_host,
-                                          float* out, int B, int H, int W,
+// The bf16 form's tensor map of s (B, 8, H, Wp) fp32, Wp a multiple of 4
+// and s 16-byte aligned (s0 for B12, s1 for B11), into the 128 bytes at map
+// (score_wgmma.cuh's plane_map); the stream is not used.
+extern "C" cudaError_t lg_score_head_bf16_map(void* map, const float* s,
+                                              int B, int H, int Wp,
+                                              cudaStream_t) {
+  CUtensorMap m;
+  const cudaError_t err = lg::swg::plane_map(&m, s, B, H, Wp);
+  if (err == cudaSuccess) memcpy(map, &m, sizeof m);
+  return err;
+}
+
+// The bf16 form (score_wgmma.cuh): map lg_score_head_bf16_map's of s0 (B,
+// 8, H, W) (its width padded to Wp); wts ops/score_head.py::prepare_bf16's
+// blob; out (B, H, W) fp32; grid ops/conv_plan.py's persistent blocks
+// (score_wgmma.cuh's PER_SM an SM, strips of its STRIP).
+extern "C" cudaError_t lg_score_head_bf16(const void* map,
+                                          const lg::tc::bf16* wts, float* out,
+                                          int B, int H, int W, int grid,
                                           cudaStream_t stream) {
-  return launch<false, true>(s0, Branches{}, w_host, out, B, H, W, stream);
+  CUtensorMap m;
+  memcpy(&m, map, sizeof m);
+  return lg::swg::launch<false>(m, lg::swg::Branches{}, wts, out, B, H, W,
+                                grid, stream);
 }
 
 // s1 (B, 8, H, W); s2, s3, s4 (B, 8, hk, wk) for k = 2, 3, 4, any hk, wk
@@ -568,17 +546,21 @@ extern "C" cudaError_t lg_score_head_lazy(const float* s1, const float* s2,
                                           int h3, int w3, int h4, int w4,
                                           cudaStream_t stream) {
   const Branches br{{s2, s3, s4}, {h2, h3, h4}, {w2, w3, w4}, {}, {}};
-  return launch<true, false>(s1, br, w_host, out, B, H, W, stream);
+  return launch<true>(s1, br, w_host, out, B, H, W, stream);
 }
 
-// The bf16 form: arguments as lg_score_head_lazy, the weights already
-// rounded to bf16 (as fp32 values).
+// The bf16 form (score_wgmma.cuh): map lg_score_head_bf16_map's of s1 (B,
+// 8, H, W); s2, s3, s4 (B, 8, hk, wk) fp32, any hk, wk >= 1 (wider
+// branches take more shared memory); wts, out and grid as
+// lg_score_head_bf16.
 extern "C" cudaError_t lg_score_head_lazy_bf16(
-    const float* s1, const float* s2, const float* s3, const float* s4,
-    const float* w_host, float* out, int B, int H, int W, int h2, int w2,
-    int h3, int w3, int h4, int w4, cudaStream_t stream) {
-  const Branches br{{s2, s3, s4}, {h2, h3, h4}, {w2, w3, w4}, {}, {}};
-  return launch<true, true>(s1, br, w_host, out, B, H, W, stream);
+    const void* map, const float* s2, const float* s3, const float* s4,
+    const lg::tc::bf16* wts, float* out, int B, int H, int W, int h2, int w2,
+    int h3, int w3, int h4, int w4, int grid, cudaStream_t stream) {
+  CUtensorMap m;
+  memcpy(&m, map, sizeof m);
+  const lg::swg::Branches br{{s2, s3, s4}, {h2, h3, h4}, {w2, w3, w4}};
+  return lg::swg::launch<true>(m, br, wts, out, B, H, W, grid, stream);
 }
 
 // Blocks an SM of B12 (lazy 0) or of B11 (lazy 1) at the shared memory of
@@ -589,7 +571,7 @@ extern "C" cudaError_t lg_score_head_blocks(int lazy, int* blocks,
   cudaError_t err = lazy ? configure<true>(smem) : configure<false>(smem);
   if (err != cudaSuccess) return err;
   return lazy ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                    blocks, score_head_kernel<true, false, Tile>, NT, smem)
+                    blocks, score_head_kernel<true, Tile>, NT, smem)
               : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                    blocks, score_head_kernel<false, false, Tile>, NT, smem);
+                    blocks, score_head_kernel<false, Tile>, NT, smem);
 }

@@ -1,7 +1,7 @@
 // Hopper's asynchronous primitives that the bf16 attention walk
 // (attn_wgmma.cuh), the bf16 tile product (gemm_wgmma.cuh), the bf16
-// 3x3 convolution (conv_wgmma.cuh) and ALIKED's bf16 block 1
-// (aliked_wgmma.cuh) share: the
+// 3x3 convolution (conv_wgmma.cuh), ALIKED's bf16 block 1
+// (aliked_wgmma.cuh) and its bf16 score head (score_wgmma.cuh) share: the
 // warpgroup product wgmma with fp32 accumulators, its shared-memory matrix
 // descriptors for 128-byte swizzled tiles, mbarriers, TMA tile loads from
 // tensor maps (and the host side that encodes the maps), named
@@ -447,18 +447,20 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// The tensor map of a bf16 tensor of `rank` (2 to 4) dimensions, innermost
-// first (dims; strides of dimensions 1.. in bytes), read in 128-byte
-// swizzled boxes of `box` (box[0] 64: one panel row), or with `swizzle`
-// CU_TENSOR_MAP_SWIZZLE_NONE in boxes as they lie (box[0] x 2 bytes a
-// multiple of 16), zeros past the ends.
+// The tensor map of a bf16 tensor (`type` another element type: the score
+// head's fp32 maps) of `rank` (2 to 4) dimensions, innermost first (dims;
+// strides of dimensions 1.. in bytes), read in 128-byte swizzled boxes of
+// `box` (box[0] 64: one panel row), or with `swizzle`
+// CU_TENSOR_MAP_SWIZZLE_NONE in boxes as they lie (box[0] times the element
+// size a multiple of 16 bytes), zeros past the ends.
 // Encoded at each launch (host work only; a CUDA graph captures the map by
 // value with the launch). Returns cudaErrorInvalidValue where TMA cannot
 // address the tensor (its address or a stride not a multiple of 16 bytes).
 inline cudaError_t bf16_map(CUtensorMap* map, const void* base, int rank,
                             const uint64_t* dims, const uint64_t* strides,
                             const uint32_t* box,
-                            CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
+                            CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B,
+                            CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   if (rank < 2 || rank > 4 || reinterpret_cast<uintptr_t>(base) % 16)
     return cudaErrorInvalidValue;
   for (int i = 0; i + 1 < rank; ++i)
@@ -467,7 +469,7 @@ inline cudaError_t bf16_map(CUtensorMap* map, const void* base, int rank,
   if (encode == nullptr) return cudaErrorNotSupported;
   const cuuint32_t ones[4] = {1, 1, 1, 1};
   const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank,
+      map, type, (cuuint32_t)rank,
       const_cast<void*>(base), reinterpret_cast<const cuuint64_t*>(dims),
       reinterpret_cast<const cuuint64_t*>(strides),
       reinterpret_cast<const cuuint32_t*>(box), ones,

@@ -24,7 +24,7 @@ type (XLA's at mp).
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 from torch.utils.weak import WeakIdKeyDictionary
@@ -33,6 +33,7 @@ from .. import _build, nn
 from . import conv_plan
 from .block_tc import sms
 from .stem import split_tf32
+from .tma_maps import Prepared16, padded, tensor_map
 
 WIDTHS = ((8, 16), (16, 32))  # (C1, CY): aliked-t16, the other models
 PER_SM = 3  # the bf16 form's persistent blocks an SM (csrc/aliked_wgmma.cuh)
@@ -174,34 +175,6 @@ def prepare_bf16(params: nn.Params) -> torch.Tensor:
     return blob.to(torch.bfloat16).contiguous()
 
 
-class Prepared16(NamedTuple):
-    """The bf16 form's prepared state of one tree: the weights blob, and
-    the image tensor maps encoded for it (``image_map``)."""
-    weights: torch.Tensor
-    maps: Dict[Tuple[int, ...], torch.Tensor]
-
-
-MAPS = 8  # image tensor maps kept per tree (the oldest goes first)
-
-
-def image_map(prep: Prepared16, image: torch.Tensor) -> torch.Tensor:
-    """The 128-byte tensor map of a CUDA bf16 image (B, 3, H, Wp), Wp a
-    multiple of 8 and the data 16-byte aligned, from ``prep``'s cache: a
-    map holds the address and the shape only, so one encoded for an
-    earlier tensor at the same address and shape serves."""
-    b, _, h, wp = image.shape
-    key = (image.device.index, image.data_ptr(), b, h, wp)
-    got = prep.maps.get(key)
-    if got is None:
-        got = torch.empty(128, dtype=torch.uint8)
-        _build.launch("lg_aliked_stem_bf16_map", image.device, got, image,
-                      b, h, wp)
-        if len(prep.maps) >= MAPS:
-            prep.maps.pop(next(iter(prep.maps)))
-        prep.maps[key] = got
-    return got
-
-
 def prepare(params: nn.Params) -> Tuple[torch.Tensor, torch.Tensor,
                                         torch.Tensor]:
     """B10's weights, as ``csrc/aliked_stem.cu`` reads them:
@@ -292,10 +265,9 @@ def fused_aliked_stem_kernel(
     x1p = torch.empty(b, c1, h // 2, w // 2, device=dev, dtype=dt)
     if dt == torch.bfloat16:
         prep = prepared(params, dt)
-        wp = -(-w // 8) * 8
-        if wp != w or image.data_ptr() % 16:
-            image = torch.nn.functional.pad(image, (0, wp - w))
-        _build.launch("lg_aliked_stem_bf16", dev, image_map(prep, image),
+        image = padded(image)
+        _build.launch("lg_aliked_stem_bf16", dev,
+                      tensor_map(prep, "lg_aliked_stem_bf16_map", image),
                       prep.weights, y1, x1p, b, h, w, c1, cy,
                       conv_plan.plan(b, h, w, PER_SM * sms(dev.index)).grid)
     else:

@@ -1,15 +1,18 @@
-"""The work plan of the bf16 3x3 convolution (``csrc/conv_wgmma.cuh``: B7's
-and B8's bf16 forms), as the kernel computes it from the launch's shape and
-grid.
+"""The work plan of the persistent bf16 kernels that walk strips down an
+image (``csrc/conv_wgmma.cuh``: B7's and B8's bf16 forms;
+``csrc/aliked_wgmma.cuh``: B10's; ``csrc/score_wgmma.cuh``: B11's and
+B12's), as the kernels compute it from the launch's shape and grid.
 
-A launch on B images of H x W (H, W even) is cut into units: (image, strip
-of 128 output columns, row pair), in that order. Persistent blocks, one an
-SM, each walk one contiguous run of units, ``first(i)`` to ``first(i +
-1)``: the runs differ by at most one unit. A run is one or more segments,
-each a run of row pairs down one strip of one image. A segment of n pairs
-stages 2 n + 2 input rows (its pairs' rows and a row above and below), so
-each input row of a segment is staged once and only the side columns of a
-strip repeat in the next one.
+A launch on B images of H x W is cut into units: (image, strip of 128
+output columns (the score head's 122), row pair), in that order; an odd H's
+last pair holds one row (the convolutions take H even). Persistent blocks,
+one or a few an SM, each walk one contiguous run of units, ``first(i)`` to
+``first(i + 1)``: the runs differ by at most one unit. A run is one or more
+segments, each a run of row pairs down one strip of one image. A segment of
+n pairs stages 2 n + 2 halo input rows (its pairs' rows and ``halo`` rows
+above and below: 1 for a 3x3 conv, 3 for the score head's three), so each
+input row of a segment is staged once and only the side columns of a strip
+repeat in the next one.
 """
 
 from __future__ import annotations
@@ -41,20 +44,22 @@ class Plan(NamedTuple):
             u += q1 - q0
 
 
-def plan(b: int, h: int, w: int, sms: int) -> Plan:
-    """The plan of a launch on b images of h x w (h, w even) on a card of
-    ``sms`` SMs: one block an SM, or one a unit where there are fewer
+def plan(b: int, h: int, w: int, sms: int, strip: int = STRIP) -> Plan:
+    """The plan of a launch on b images of h x w on a card of ``sms`` SMs
+    (or block slots: the SMs times the blocks an SM), strips of ``strip``
+    columns: one block a slot, or one a unit where there are fewer
     units."""
-    strips, pairs = -(-w // STRIP), h // 2
+    strips, pairs = -(-w // strip), -(-h // 2)
     units = b * strips * pairs
     return Plan(strips, pairs, units, max(1, min(sms, units)))
 
 
-def staged_rows(p: Plan, i: int) -> Iterator[Tuple[int, int, int]]:
-    """The input rows block i stages, in order: (image, strip, row), the
-    row -1 or h where a segment touches the image's edge (all zeros)."""
+def staged_rows(p: Plan, i: int, halo: int = 1) -> Iterator[Tuple[int, int, int]]:
+    """The input rows block i stages, in order: (image, strip, row), rows
+    2 q0 - halo .. 2 q1 + halo - 1 of each segment, those outside 0 .. h - 1
+    where a segment touches the image's edge (all zeros)."""
     for b, s, q0, q1 in p.segments(i):
-        for r in range(2 * q0 - 1, 2 * q1 + 1):
+        for r in range(2 * q0 - halo, 2 * q1 + halo):
             yield b, s, r
 
 

@@ -1,5 +1,6 @@
-"""B7 and B8 in bf16 and B9-B12 timed on the card through entry points that
-every version of the port has, so that two checkouts compare on one card.
+"""B7 and B8 in bf16 and B9-B12 (B11 and B12 also in bf16) timed on the card
+through entry points that every version of the port has, so that two
+checkouts compare on one card.
 
 For B7's and B8's bf16 forms (``stem.fused_stem(..., mp=True)``,
 ``stem2.fused_block2`` on B7's bf16 output as the main path hands it on)
@@ -11,7 +12,11 @@ against its plain version under chip_smoke.py's flip check
 but 1e-4 of the outputs, equal at all but 1e-2), and cuDNN's bf16
 ``F.conv2d`` (channels_last) on conv1b's and conv2a's shapes is timed
 beside them: the same products without the rounding before the bias, a
-yardstick the port never calls.
+yardstick the port never calls. B11's and B12's bf16 forms
+(``score_head_lazy_kernel`` / ``score_head_cplane_kernel`` with ``mp=True``)
+run on the same parts at B 1, 2 and 8 and are held to the same bounds at
+all but 1e-4 of the outputs and launched twice, equal to the bit (their map
+is fp32, whose last bits differ wherever the sums run in another order).
 
 For B9 (``ops.nms.simple_nms_kernel``) at r 4 on SuperPoint's score maps and
 at r 2 on ALIKED's, and for B10 (``ops.aliked_stem.fused_aliked_stem_kernel``,
@@ -26,10 +31,16 @@ launches after 3) and as device time from CUDA-graph replays, beside the
 plain version's events time, and the card's name and power limit. Run it
 with ``PYTHONPATH`` set to each root in turns, a process each (parent,
 this, this, parent); ``--only`` keeps the rows whose name holds one of the
-words given (``--only bf16``: B7's, B8's and B10's)::
+words given (``--only bf16``: the bf16 forms; ``--only score_head``: B11's
+and B12's, fp32 and bf16)::
 
     PYTHONPATH=. python lightglue_tpu_torch/scripts/extract_times.py
     PYTHONPATH=<other checkout> python lightglue_tpu_torch/scripts/extract_times.py
+
+``--e2e`` times ALIKED's whole extraction (``models.aliked.forward``, aliked-n16,
+the weights above) at mp on 8 generated 768 x 1024 images, in its default
+configuration and with ``fused_score_head`` (B11), ms an image by CUDA events
+(the mean of 5 calls after 2), in place of the kernel rows.
 """
 
 from __future__ import annotations
@@ -129,6 +140,8 @@ def aliked_params(model_name="aliked-n16", device="cuda"):
 def main() -> None:
     parser = argparse.ArgumentParser()
     parser.add_argument("--only", nargs="*", default=None)
+    parser.add_argument("--e2e", action="store_true",
+                        help="ALIKED at mp, B 8, with and without fused_score_head")
     args = parser.parse_args()
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
@@ -146,6 +159,16 @@ def main() -> None:
         s4, _ = sp.dense_forward(spp, torch.from_numpy(gray[:2]).cuda()[..., None])
         ys, s2 = al._dense_branches(ap, img, fused_stem=False)
         parts8 = al._score_parts(ap["score_head"], ys, True)
+    if args.e2e:
+        colour = torch.from_numpy(np.stack([gray, np.sqrt(gray), gray * gray], -1)
+                                  .astype(np.float32)).cuda()
+        for label, fused in (("default", False), ("fused_score_head", True)):
+            conf = ALIKEDConfig(mp=True, fused_score_head=fused)
+            with torch.inference_mode():
+                ms = events_ms(lambda: al.forward(ap, conf, colour), iters=5, warmup=2)
+            print(f"  ALIKED at mp, {label}, B 8, {H}x{W}: {ms / 8:.4f} ms an image "
+                  "(CUDA events)", flush=True)
+        return
     s4, s2 = s4.contiguous(), s2[:2].contiguous()
     rgb16 = img.to(torch.bfloat16)
     img = img[:2].contiguous()
@@ -169,6 +192,12 @@ def main() -> None:
         rows[f"score_head_cplane B {b}"] = (
             lambda s0=s0: score_head.score_head_cplane_kernel(sh, s0),
             lambda s0=s0: score_head.score_tail_plain(sh, s0))
+        rows[f"score_head_lazy_bf16 B {b}"] = (
+            lambda parts=parts: score_head.score_head_lazy_kernel(sh, *parts, mp=True),
+            lambda parts=parts: score_head.score_head_lazy_plain(sh, *parts, mp=True))
+        rows[f"score_head_cplane_bf16 B {b}"] = (
+            lambda s0=s0: score_head.score_head_cplane_kernel(sh, s0, mp=True),
+            lambda s0=s0: score_head.score_tail_plain(sh, s0, mp=True))
     p1 = {"conv1a": spp["conv1a"], "conv1b": spp["conv1b"]}
     p2 = {"conv2a": spp["conv2a"], "conv2b": spp["conv2b"]}
     imgs = torch.from_numpy(gray).cuda()[:, None]
@@ -194,7 +223,9 @@ def main() -> None:
             for g, w, a in zip(*(t if isinstance(t, tuple) else (t,)
                                  for t in (got, want, again))):
                 over, differ = flips(g, w)
-                if not (over <= FLIPS and differ <= DIFFER and torch.equal(g, a)):
+                fp32 = g.dtype == torch.float32  # B11's and B12's maps
+                if not (over <= FLIPS and (fp32 or differ <= DIFFER)
+                        and torch.equal(g, a)):
                     raise AssertionError(f"{name}: over {over}, not equal {differ}")
         elif name.startswith("simple_nms"):
             if not torch.equal(got.view(torch.int32), want.view(torch.int32)):

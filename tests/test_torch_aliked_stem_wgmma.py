@@ -47,7 +47,7 @@ from lightglue_tpu import weights as jweights
 from lightglue_tpu.models import aliked as jal
 from lightglue_tpu.ops.aliked_stem import fused_aliked_stem as jstem
 from lightglue_tpu_torch import _build, configs, nn, weights
-from lightglue_tpu_torch.ops import aliked_stem, conv_plan
+from lightglue_tpu_torch.ops import aliked_stem, conv_plan, tma_maps
 
 torch.set_num_threads(1)
 torch.backends.cudnn.allow_tf32 = False
@@ -510,7 +510,7 @@ def test_prepared_is_built_once_per_tree_with_its_map_cache(monkeypatch):
     _, tp = _al_params("aliked-n16")
     tree = {"block1": dict(tp["block1"]), "conv1": tp["conv1"]}
     got = aliked_stem.prepared(tree, BF)
-    assert isinstance(got, aliked_stem.Prepared16)
+    assert isinstance(got, tma_maps.Prepared16)
     assert aliked_stem.prepared(tree, BF) is got
     assert aliked_stem.prepared(tree) is not got
     assert torch.equal(got.weights, aliked_stem.prepare_bf16(tree))
@@ -526,15 +526,16 @@ def test_prepared_is_built_once_per_tree_with_its_map_cache(monkeypatch):
         buf.fill_(len(calls))
 
     monkeypatch.setattr(_build, "launch", encode)
-    imgs = [torch.zeros(1, 3, 8, 16, dtype=BF) for _ in range(aliked_stem.MAPS + 1)]
-    first = aliked_stem.image_map(got, imgs[0])
-    assert aliked_stem.image_map(got, imgs[0]) is first and len(calls) == 1
-    assert aliked_stem.image_map(got, imgs[0][:, :, :6]) is not first  # another shape
+    image_map = functools.partial(tma_maps.tensor_map, got, "lg_aliked_stem_bf16_map")
+    imgs = [torch.zeros(1, 3, 8, 16, dtype=BF) for _ in range(tma_maps.MAPS + 1)]
+    first = image_map(imgs[0])
+    assert image_map(imgs[0]) is first and len(calls) == 1
+    assert image_map(imgs[0][:, :, :6]) is not first  # another shape
     for x in imgs[1:]:
-        aliked_stem.image_map(got, x)
-    assert len(got.maps) == aliked_stem.MAPS
+        image_map(x)
+    assert len(got.maps) == tma_maps.MAPS
     n = len(calls)
-    aliked_stem.image_map(got, imgs[-1])
+    image_map(imgs[-1])
     assert len(calls) == n  # kept
-    aliked_stem.image_map(got, imgs[0])
+    image_map(imgs[0])
     assert len(calls) == n + 1  # dropped as the oldest, encoded again

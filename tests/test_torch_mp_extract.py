@@ -310,7 +310,10 @@ def test_bf16_weight_layouts_and_caches():
     sh = np16["score_head"]
     a, b = score_head.prepared(sh, True), score_head.prepared(sh)
     assert score_head.prepared(sh, True) is a and a is not b
-    assert torch.equal(a, b.to(BF).float()) and not torch.equal(a, b)
+    # the bf16 form's blob (csrc/score_wgmma.cuh) beside the fp32 host array
+    assert isinstance(a, score_head.Prepared16) and a.maps == {}
+    assert torch.equal(a.weights, score_head.prepare_bf16(sh))
+    assert a.weights.dtype == BF and b.dtype == torch.float32
 
 
 # --- whole extraction against the JAX package at mp --------------------------
