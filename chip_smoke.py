@@ -86,6 +86,24 @@ Phases, any failure raising (non-zero exit, no result line):
         preset built from the trained matcher on a planted pair of 128-d
         descriptors, where it has matches to find, held against the CPU
         port (matches, prune, stop and matching scores);
+     g. images to matches through DISK and SIFT (768 x 1024 generated
+        pairs): match_pair(DISK, LightGlue("disk")) at 2048 keypoints (B5,
+        K2 + B4, B2) and make_end_to_end B 4 at 1024 (B5, B6, B2), in fp32
+        and at mp (the bf16 forms), DISK at its published widths with
+        seeded random weights, one pair against the CPU port (fp32:
+        keypoints, descriptors, matches; mp: phase 5f's rule) and every
+        keypoint the two do not share a near-tie (scripts/keypoint_margins.
+        py), then the "disk" preset built from the trained matcher on a
+        planted pair; SIFTDevice -> LightGlue("sift", trained weights)
+        through match_pair at 4096 keypoints (K1 + B4, K2 + B4, B2),
+        make_end_to_end B 2 and match_sequence (window 1) at 1024 (B5, B6,
+        B2), precision against each pair's homography, one pair against the
+        CPU port (its pyramid, then its slots paired by position over
+        scale and orientation, each one side lacks printed with its margins
+        to the top-k's cut and the contrast threshold);
+        SIFT(backend="opencv") through match_pair (4096 slots), its matches
+        against the CPU port's matcher on the same features; each path's launch counts read on their own, none of
+        the other extractors' kernels launched;
      d. the row-gather study, lightglue_tpu_torch.scripts.micro_gather2,
         at its shapes (S1 against tbl[idx], index_select and the one-hot
         product);
@@ -127,6 +145,10 @@ Phases, any failure raising (non-zero exit, no result line):
      (graphs) against pipeline.LightGlue (eager) at 1024 keypoints, fixed
      and adaptive, B 1 and B 16, in turns, and match_sequence against
      make_end_to_end once per pair on 8 frames, windows 1 and 4 (phase 4d);
+     K2's rows (B3, B3s, B6's attention) beside two SDPA calls, one a
+     direction, as B1''s; DISK (B 1, B 8, fp32 and mp) and SIFTDevice (B 1)
+     ms per image, make_end_to_end DISK B 8 and SIFTDevice B 2 pairs/s and
+     match_pair ms a pair with SIFTDevice and opencv SIFT (phase 4e);
   5. the matcher's bf16 path (mp=True): a. each bf16 kernel (B5, B6 at B 1,
      4 and 16, 1024 keypoints; B4 at (4, 1024, 256) and over both images at
      B 16; B1 / B1s at (4, 4, 4096, 64), (1, 4, 4096, 64) and (4, 4, 1024,
@@ -150,8 +172,9 @@ Phases, any failure raising (non-zero exit, no result line):
      TFLOP/s, bytes at 2 a bf16 element / 3.35 TB/s), and BatchMatcher at
      mp (exact and shift 12) against fp32 at B 1 and B 16, fixed and
      adaptive; the extractors' bf16 forms likewise (B7, B8, B10 at B 2;
-     B11, B12 at B 1, 2 and 8, their bound the fp32 form's), SuperPoint
-     and ALIKED ms per image at mp and fp32 (B 1, B 8) and
+     B11, B12 at B 1, 2 and 8, their bound the fp32 form's), K2's bf16 rows
+     and B6's attention in bf16 (B 1, 4, 16) beside two SDPA calls in bf16,
+     SuperPoint and ALIKED ms per image at mp and fp32 (B 1, B 8) and
      make_end_to_end pairs/s at mp and fp32 (B 8), in turns, and cuDNN's
      bf16 conv on conv1b's and conv2a's shapes as a yardstick; f. the
      extractors at mp: the bf16 forms of B7 (csrc/conv_wgmma.cuh) at B 2,
@@ -236,13 +259,15 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from lightglue_tpu_torch import (  # noqa: E402
-    ALIKED, ALIKEDConfig, BatchMatcher, LightGlue, SuperPoint,
-    SuperPointConfig, _build, lightglue_config, match_pair, match_sequence)
+    ALIKED, DISK, SIFT, ALIKEDConfig, BatchMatcher, DISKConfig, LightGlue,
+    SIFTConfig, SIFTDevice, SuperPoint, SuperPointConfig, _build,
+    lightglue_config, match_pair, match_sequence)
 from lightglue_tpu_torch import end_to_end, nn  # noqa: E402
 from lightglue_tpu_torch.models import lightglue as lg  # noqa: E402
 from lightglue_tpu_torch.parallel import batching, graphs  # noqa: E402
 from lightglue_tpu_torch import weights as weights_lib  # noqa: E402
 from lightglue_tpu_torch.models import aliked as al  # noqa: E402
+from lightglue_tpu_torch.models import disk, sift_device  # noqa: E402
 from lightglue_tpu_torch.models import superpoint as sp  # noqa: E402
 from lightglue_tpu_torch.ops import assignment_fused as af  # noqa: E402
 from lightglue_tpu_torch.ops import ffn, flash, flash_cross  # noqa: E402
@@ -253,7 +278,8 @@ from lightglue_tpu_torch.ops import gather, nms, stem, stem2  # noqa: E402
 from lightglue_tpu_torch.scripts import attn_split, extract_times  # noqa: E402
 from lightglue_tpu_torch.scripts import micro_gather2, walk_sums  # noqa: E402
 from lightglue_tpu_torch.scripts import keypoint_margins as km  # noqa: E402
-from lightglue_tpu_torch.synthetic import image_pair, planted_pairs  # noqa: E402
+from lightglue_tpu_torch.synthetic import (  # noqa: E402
+    image_pair, planted_pairs, warp_points)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WEIGHTS = os.path.join(ROOT, "weights", "synthetic_superpoint_lightglue.npz")
@@ -2204,6 +2230,503 @@ def aliked_path_phase(ap, mparams):
     return total
 
 
+# --- phase 3g: DISK and SIFT --------------------------------------------------------
+
+SIFT_WEIGHTS = os.path.join(ROOT, "weights", "synthetic_sift_lightglue.npz")
+# The matcher's kernels by keypoint count at the default configuration
+# (kernels it must launch, kernels it must not): up to 1024 B5 and B6; to
+# 2048 B5 and the composed cross block (K2 + B4); above, the composed self
+# block too (K1 + B4). B2 on every path.
+MATCHER_BY_KPTS = {
+    1024: (("fused_self_block", "fused_cross_block", "fused_filter_matches"),
+           ("fused_cross_attention", "fused_ffn_residual", "flash_sdpa")),
+    2048: (("fused_self_block", "fused_cross_attention", "fused_ffn_residual",
+            "fused_filter_matches"), ("fused_cross_block", "flash_sdpa")),
+    4096: (("flash_sdpa", "fused_cross_attention", "fused_ffn_residual",
+            "fused_filter_matches"), ("fused_self_block", "fused_cross_block")),
+}
+# every extractor kernel: DISK and SIFT launch none of them
+EXTRACTOR_KERNELS = ("fused_stem", "fused_block2", "simple_nms",
+                     "fused_aliked_stem", "score_head_lazy", "score_head_cplane")
+# DISK at mp against the CPU port at mp (phase 3g): a bf16 U-Net of nine
+# blocks whose instance norms carry a conv's one-step flips on, so the
+# keypoints in common are held at a floor (the port against the JAX
+# package at mp: 0.93 at 96 x 128, tests/test_torch_disk.py) and above the
+# share in common with the card's fp32 extraction, as phase 5f holds
+# SuperPoint and ALIKED
+MP_DISK_KPT = 0.85
+# SIFT's trained matcher on SIFT's own features of a pair related by a
+# known homography: a match is right within 3 px of the warped keypoint
+# (the CPU port: 0.985-0.986 of 68-74 matches at 768 x 1024)
+SIFT_PRECISION, SIFT_PX = 0.8, 3.0
+# SIFTDevice on the card against the CPU port: the card blurs by fp32
+# convolutions, the CPU by XLA's fused tap chain (an ulp or two apart a
+# blur, tests/test_torch_sift.py), so the pyramids are held within
+# SIFT_PYR_TOL of the plane's largest value, and a slot pairs with the
+# other side's within KPT_TOL of the keypoint's scale (OpenCV's size: an
+# octave's offsets scale with it) and SIFT_ORI_TOL rad (a point with two
+# orientation peaks is two slots at one location). Those ulps decide a few
+# orientation peaks (the 0.8 ratio) otherwise: the two blur forms on the
+# CPU at 384 x 512 share 0.998-1.000 of 1024 slots, every other slot
+# another orientation of a shared point. A point one side lacks lies
+# within SIFT_MARGIN (relative) of the top-k's cut or the contrast
+# threshold. A descriptor sample on a rounding edge moves a pixel: the
+# card's RootSIFT descriptors lie up to 1.8e-2 from the CPU port's in L2
+# (99th percentile 3.1e-3; H100, 768 x 1024), held at SIFT_DESC_TOL (unit
+# descriptors: a wrong one lies about 1 away).
+SIFT_PYR_TOL, SIFT_ORI_TOL, SIFT_SHARE, SIFT_MARGIN = 1e-5, 1e-3, 0.99, 1e-3
+SIFT_DESC_TOL = 0.05
+
+
+def matcher_kernels(n, mp=False):
+    """(must, must not) of MATCHER_BY_KPTS at n keypoints, in the bf16
+    forms under mp (B2 stays fp32; no fp32 block kernel then)."""
+    must, must_not = MATCHER_BY_KPTS[n]
+    if not mp:
+        return must, must_not + tuple(f"{k}_bf16" for k in must + must_not
+                                      if k != "fused_filter_matches")
+    bf = lambda ks: tuple(k if k == "fused_filter_matches" else f"{k}_bf16"  # noqa: E731
+                          for k in ks)
+    return bf(must), bf(must_not) + FP32_MATCHER
+
+
+def counted(label, fn, must, must_not):
+    """fn() with the launch counts set to 0 just before it and read just
+    after: each of must launched, none of must_not nor of the extractor
+    kernels (in either form). Returns (fn's result, the counts)."""
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    counts = _build.launch_counts()
+    print(f"  {label}: launch counts { {k: c for k, c in counts.items() if c} }",
+          flush=True)
+    for k in must:
+        if counts[k] < 1:
+            raise AssertionError(f"{label}: {k} was not launched")
+    for k in must_not + EXTRACTOR_KERNELS + tuple(
+            f"{k}_bf16" for k in EXTRACTOR_KERNELS if f"{k}_bf16" in counts):
+        if counts.get(k):
+            raise AssertionError(f"{label}: {k} was launched")
+    return out, counts
+
+
+def add_counts(total, counts):
+    for k, c in counts.items():
+        total[k] += c
+
+
+def disk_params(device="cuda"):
+    """DISK at its published widths with seeded random weights, the
+    stand-in for the release checkpoint (not in the repository): the
+    init's own scale, as its instance norms keep the activations at unit
+    scale and the heatmap spread (about -3.5 to 4)."""
+    return nn.params_to(disk.init_params(DISKConfig(),
+                                         torch.Generator().manual_seed(0)), device)
+
+
+def disk_margins(label, dp, conf, img):
+    """The keypoints that the card's DISK keeps and the CPU port's does
+    not, or the reverse, on one image: none clears both margins (the
+    top-k's cut, the window's runner-up) by more than 4 steps of its score
+    (bf16 steps of the heatmap; scripts/keypoint_margins.py)."""
+    maps = []
+    for dev, p in (("cuda", dp), ("cpu", nn.params_to(dp, "cpu"))):
+        x = torch.from_numpy(np.repeat(img[None, ..., None], 3, -1)).to(dev)
+        x = x.permute(0, 3, 1, 2).contiguous()
+        if conf.mp:
+            x = x.to(BF16)
+        with torch.inference_mode(), nn.fp32_convs():
+            heat = disk.heatmap(p, disk.unet_trunk(p, x), conf.desc_dim).cpu()
+        maps.append((heat, disk.detection_map(heat, conf), km.ulp(heat)))
+    m = km.unshared_margins(maps[0], maps[1], conf.max_num_keypoints,
+                            conf.detection_threshold, conf.nms_window_size // 2)
+    print(f"  {label}, card against the CPU port: {km.summary(m)}", flush=True)
+    if km.faults(m["a"]) or km.faults(m["b"]):
+        raise AssertionError(f"{label}: a keypoint differs by more than 4 steps")
+
+
+def disk_path_phase(mparams):
+    """Phase 3g, DISK: images -> DISK -> LightGlue("disk") in fp32 and at mp
+    through match_pair (2048 keypoints: B5, K2 + B4, B2) and
+    make_end_to_end (B 4, 1024: B5, B6, B2), each path's launch counts
+    read on their own; one pair against the CPU port (fp32: keypoints in
+    common >= 0.99, descriptors within 1e-3, matches, prune and stop
+    equal; mp: phase 5f's rule, floor MP_DISK_KPT) and every keypoint the
+    two do not share a near-tie; then the "disk" preset built from the
+    trained matcher on a planted pair. Returns the counts summed."""
+    rng = np.random.default_rng(81)
+    pairs = [image_pair(rng, H, W) for _ in range(4)]
+    dp = disk_params()
+    cpu_dp = nn.params_to(dp, "cpu")
+    sizes = torch.tensor([[W, H]] * 4, dtype=torch.float32, device="cuda")
+    im0, im1 = (torch.from_numpy(np.stack([p[i] for p in pairs]))[..., None]
+                .cuda() for i in (0, 1))
+    total = dict.fromkeys(KERNELS, 0)
+    fp32_out = None
+    for mp in (False, True):
+        tag = " at mp" if mp else ""
+        phase(f"3g main path: images -> DISK{tag} -> LightGlue('disk'{tag}): "
+              "match_pair at 2048 keypoints, make_end_to_end B 4 at 1024")
+        ext = DISK(params=dp, device="cuda", mp=mp)
+        matcher = LightGlue("disk", device="cuda", mp=mp)
+        outs, counts = counted(f"match_pair{tag}", lambda: [
+            match_pair(ext, matcher, a, b) for a, b, _ in pairs[:2]],
+            *matcher_kernels(2048, mp))
+        add_counts(total, counts)
+        run = end_to_end.make_end_to_end(
+            disk.forward, ext.params, ext.conf.replace(max_num_keypoints=1024),
+            matcher.params, matcher.conf)
+        e2e, counts = counted(f"make_end_to_end B 4{tag}",
+                              lambda: run(im0, im1, sizes, sizes),
+                              *matcher_kernels(1024, mp))
+        add_counts(total, counts)
+        for i, out in enumerate(outs):
+            check_pair_output(f"DISK{tag} match_pair pair {i}", *out, (W, H), (W, H))
+        for i in range(4):
+            check_pair_output(f"DISK{tag} make_end_to_end B 4, pair {i}",
+                              *e2e_feats(e2e, i), (W, H), (W, H))
+        a, b, _ = pairs[0]
+        cpu = match_pair(DISK(params=cpu_dp, device="cpu", mp=mp),
+                         LightGlue("disk", device="cpu", mp=mp), a, b)
+        gpu = outs[0]
+        if mp:
+            mp_agree("DISK", gpu, cpu, fp32_out, 0.0, MP_DISK_KPT)
+            disk_margins(f"DISK{tag}", dp, ext.conf, a)
+        else:
+            fp32_out = gpu
+            shares, derr, common = [], 0.0, []
+            for s in (0, 1):
+                c = common_keypoints(gpu[s], cpu[s])
+                common.append(c)
+                shares.append(len(c) / gpu[s]["valid"].sum())
+                derr = max(derr, float(np.abs(gpu[s]["descriptors"][c[:, 0]]
+                                              - cpu[s]["descriptors"][c[:, 1]]).max()))
+            differ = matches_differ(gpu, cpu, common)
+            print(f"  DISK against the CPU port: keypoints shared "
+                  f"{shares[0]:.6f} / {shares[1]:.6f}, descriptor max_abs_err "
+                  f"at them {derr:.3e}, {differ} shared keypoints whose match "
+                  f"or prune differs, stop {gpu[2]['stop']} vs {cpu[2]['stop']}")
+            if (min(shares) < 0.99 or derr > 1e-3 or differ
+                    or gpu[2]["stop"] != cpu[2]["stop"]):
+                raise AssertionError("DISK: the card disagrees with the CPU port")
+    # the random "disk" matcher finds no match between random-weight DISK
+    # views; the preset built from the trained layers on a planted pair
+    trained = aliked_preset_params(mparams)
+    planted_pair_check("LightGlue('disk'), trained layers", LightGlue(
+        "disk", params=trained, device="cuda"), LightGlue(
+        "disk", params=trained, device="cpu"), 128)
+    return total
+
+
+def sift_precision(f0, f1, m, hom):
+    """(matches, share within SIFT_PX of the keypoint warped by hom)."""
+    idx = np.nonzero(m["matches0"] >= 0)[0]
+    if not len(idx):
+        return 0, 0.0
+    p = warp_points(hom, f0["keypoints"][idx].astype(np.float64))
+    d = np.linalg.norm(p - f1["keypoints"][m["matches0"][idx]], axis=1)
+    return len(idx), float((d < SIFT_PX).mean())
+
+
+def sift_common(fa, fb):
+    """(i, j) pairs of valid slots of feats fa and fb within KPT_TOL of the
+    scale and SIFT_ORI_TOL rad of each other, one to one, the closest
+    first (two candidates can refine to one point: equal slots)."""
+    ia, ib = np.nonzero(fa["valid"])[0], np.nonzero(fb["valid"])[0]
+    dk = np.linalg.norm(fa["keypoints"][ia][:, None] - fb["keypoints"][ib][None],
+                        axis=-1) / np.maximum(fa["scales"][ia], 1.0)[:, None]
+    do = np.abs(fa["oris"][ia][:, None] - fb["oris"][ib][None])
+    do = np.minimum(do, 2 * np.pi - do)
+    r, c = np.nonzero((dk <= KPT_TOL) & (do <= SIFT_ORI_TOL))
+    used_a, used_b, out = set(), set(), []
+    for k in np.argsort(dk[r, c] + do[r, c], kind="stable"):
+        if r[k] not in used_a and c[k] not in used_b:
+            used_a.add(r[k])
+            used_b.add(c[k])
+            out.append((ia[r[k]], ib[c[k]]))
+    return np.array(out, np.int64).reshape(-1, 2)
+
+
+def sift_lone(f, common_idx, other, conf):
+    """The valid slots of feats f that the other side lacks: (their count,
+    how many are another orientation of a point both sides have (a slot of
+    the other side within KPT_TOL of the scale: an orientation peak or its
+    interpolation decided otherwise), and for the rest, their margins to
+    the other side's weakest kept score when it kept max_num_keypoints
+    (the top-k's cut) or to the contrast threshold, relative, the least of
+    the two)."""
+    lone = np.setdiff1d(np.nonzero(f["valid"])[0], common_idx)
+    kv = other["keypoints"][other["valid"]]
+    dk = np.linalg.norm(f["keypoints"][lone][:, None] - kv[None], axis=-1)
+    at_shared = (dk <= KPT_TOL * np.maximum(f["scales"][lone], 1.0)[:, None]
+                 ).any(1) if len(kv) else np.zeros(len(lone), bool)
+    score = f["keypoint_scores"][lone[~at_shared]]
+    m = np.abs(score - conf.detection_threshold * 255.0
+               / conf.num_scales_per_octave) / (
+                   conf.detection_threshold * 255.0 / conf.num_scales_per_octave)
+    if other["valid"].sum() == conf.max_num_keypoints:
+        cut = other["keypoint_scores"][other["valid"]].min()
+        m = np.minimum(m, np.abs(score - cut) / cut)
+    return len(lone), int(at_shared.sum()), np.sort(m)
+
+
+def sift_pyramid_err(img):
+    """The largest difference between the card's and the CPU port's
+    Gaussian layers of every octave of img, over each octave's largest
+    value."""
+    conf = SIFTConfig(backend="device")
+    t = torch.from_numpy(img)
+    g_gpu = sift_device.build_pyramid(t.cuda(), conf)[0]
+    g_cpu = sift_device.build_pyramid(t, conf)[0]
+    err = 0.0
+    for a, b in zip(g_gpu, g_cpu):
+        a, b = torch.stack(a).cpu(), torch.stack(b)
+        err = max(err, float((a - b).abs().max() / b.abs().max()))
+    return err
+
+
+def sift_agree(gpu, cpu, conf):
+    """SIFTDevice's pair on the card against the CPU port's: slots in
+    common (sift_common) >= SIFT_SHARE of the card's on each image, their
+    unit descriptors within SIFT_DESC_TOL of each other (L2; a sample on a
+    rounding edge moves a pixel), matches0 equal on
+    them >= MP_AGREE (a partner the other side lacks counts as unequal),
+    the same stop; the slots one side lacks printed (sift_lone), and a
+    point one side lacks must lie within SIFT_MARGIN of the top-k's cut or
+    the contrast threshold (the extremum, Newton and edge tests are not
+    measured: a point that one of them decides otherwise fails here)."""
+    shares, derr, common, far = [], [], [], 0
+    for s in (0, 1):
+        c = sift_common(gpu[s], cpu[s])
+        common.append(c)
+        shares.append(len(c) / gpu[s]["valid"].sum())
+        derr.append(np.linalg.norm(gpu[s]["descriptors"][c[:, 0]]
+                                   - cpu[s]["descriptors"][c[:, 1]], axis=-1))
+        for side, f, idx, other in (("card", gpu[s], c[:, 0], cpu[s]),
+                                    ("CPU", cpu[s], c[:, 1], gpu[s])):
+            n, at_shared, m = sift_lone(f, idx, other, conf)
+            far += int((m >= SIFT_MARGIN).sum())
+            print(f"  image {s}: {n} slots only on the {side}, {at_shared} of "
+                  f"them another orientation of a point both have; the "
+                  f"points only on the {side}: margins {m.tolist()}")
+    d50, d99, dmax = np.quantile(np.concatenate(derr), [0.5, 0.99, 1.0])
+    other = {int(i): int(j) for i, j in common[1]}
+    gm, cm = gpu[2]["matches0"], cpu[2]["matches0"]
+    same = [(-1 if gm[i] < 0 else other.get(int(gm[i]), -2)) == int(cm[j])
+            for i, j in common[0]]
+    same = float(np.mean(same)) if same else 1.0
+    print(f"  SIFTDevice against the CPU port: slots in common "
+          f"{shares[0]:.6f} / {shares[1]:.6f} (tol {SIFT_SHARE:g}), L2 between "
+          f"their descriptors: median {d50:.3e}, 99th percentile {d99:.3e}, "
+          f"largest {dmax:.3e} (tol {SIFT_DESC_TOL:g}); {far} points one side lacks away from the cut and the "
+          f"threshold; {int((gm >= 0).sum())} vs {int((cm >= 0).sum())} "
+          f"matches, matches0 equal on the common slots {same:.6f} (tol "
+          f"{MP_AGREE:g}), stop {gpu[2]['stop']} vs {cpu[2]['stop']}", flush=True)
+    if (min(shares) < SIFT_SHARE or dmax > SIFT_DESC_TOL or far or same < MP_AGREE
+            or gpu[2]["stop"] != cpu[2]["stop"]):
+        raise AssertionError("SIFTDevice: the card disagrees with the CPU port")
+
+
+def sift_path_phase():
+    """Phase 3g, SIFT: images -> SIFTDevice -> LightGlue("sift", trained
+    weights) through match_pair (4096 keypoints: K1 + B4, K2 + B4, B2),
+    make_end_to_end (B 2, 1024: B5, B6, B2) and match_sequence (window 1,
+    1024), and SIFT(backend="opencv") through match_pair (4096 slots),
+    each path's launch counts read on their own; precision against the
+    pair's homography; one pair of SIFTDevice against the CPU port (the
+    pyramids, then sift_agree) and the opencv pair's matches against
+    the CPU port's matcher on the same features. Returns the counts
+    summed."""
+    rng = np.random.default_rng(83)
+    pairs = [image_pair(rng, H, W) for _ in range(2)]
+    total = dict.fromkeys(KERNELS, 0)
+    matcher = LightGlue("sift", params=SIFT_WEIGHTS, device="cuda")
+    cpu_matcher = LightGlue("sift", params=SIFT_WEIGHTS, device="cpu")
+    phase("3g main path: images -> SIFTDevice -> LightGlue('sift'): match_pair "
+          "at 4096 keypoints, make_end_to_end B 2 and match_sequence at 1024")
+    ext = SIFTDevice(device="cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    outs, counts = counted("SIFTDevice match_pair", lambda: [
+        match_pair(ext, matcher, a, b) for a, b, _ in pairs],
+        *matcher_kernels(4096))
+    print(f"  two match_pair calls (first calls): {time.perf_counter() - t0:.1f}"
+          f" s; device memory above the {gib(base)} held before: peak "
+          f"{gib(torch.cuda.max_memory_allocated() - base)}", flush=True)
+    add_counts(total, counts)
+    for i, (out, (_, _, hom)) in enumerate(zip(outs, pairs)):
+        check_pair_output(f"SIFTDevice match_pair pair {i}", *out, (W, H), (W, H))
+        k, prec = sift_precision(*out, hom)
+        print(f"  SIFTDevice pair {i}: {k} matches, precision {prec:.3f} "
+              f"against the homography (within {SIFT_PX:g} px)")
+        if k < 10 or prec < SIFT_PRECISION:
+            raise AssertionError("SIFTDevice -> LightGlue('sift'): precision low")
+    conf = ext.conf.replace(max_num_keypoints=1024)
+    run = end_to_end.make_end_to_end(sift_device.forward, None, conf,
+                                     matcher.params, matcher.conf)
+    im0, im1 = (torch.from_numpy(np.stack([p[i] for p in pairs]))[..., None]
+                .cuda() for i in (0, 1))
+    sizes = torch.tensor([[W, H]] * 2, dtype=torch.float32, device="cuda")
+    e2e, counts = counted("SIFT make_end_to_end B 2",
+                          lambda: run(im0, im1, sizes, sizes),
+                          *matcher_kernels(1024))
+    add_counts(total, counts)
+    for i in range(2):
+        out = e2e_feats(e2e, i)
+        check_pair_output(f"SIFT make_end_to_end B 2, pair {i}", *out, (W, H),
+                          (W, H))
+        print(f"  pair {i}: precision {sift_precision(*out, pairs[i][2])[1]:.3f}")
+    frames = np.stack([pairs[0][0], pairs[0][1], pairs[1][0]])
+    (feats, seq), counts = counted(
+        "SIFT match_sequence window 1",
+        lambda: match_sequence(SIFTDevice(device="cuda", max_num_keypoints=1024),
+                               matcher, frames, window=1),
+        *matcher_kernels(1024))
+    add_counts(total, counts)
+    e2e0 = e2e.feats0.keypoints[0].cpu().numpy()
+    if (feats["scales"].shape != (3, 1024)
+            or not np.array_equal(feats["keypoints"][0], e2e0)
+            or not np.isfinite(seq["matching_scores0"]).all()):
+        raise AssertionError("match_sequence: its first frame's keypoints "
+                             "differ from make_end_to_end's, or scores not "
+                             "finite")
+    same = np.array_equal(seq["matches0"][0], e2e.matches.matches0[0].cpu().numpy())
+    print(f"  match_sequence: {[int((m >= 0).sum()) for m in seq['matches0']]} "
+          f"matches; frame 0's keypoints equal to make_end_to_end's, pair 0's "
+          f"matches {'equal' if same else 'not equal'} (batches of 2 and 2 "
+          "pairs, adaptive)")
+
+    a, b, _ = pairs[0]
+    t0 = time.perf_counter()
+    pyr = sift_pyramid_err(a)
+    print(f"  SIFTDevice's pyramid, card (convolutions) against the CPU port "
+          f"(fused tap chain): max_abs_err over the octave's largest value "
+          f"{pyr:.3e} (tol {SIFT_PYR_TOL:g})", flush=True)
+    if not pyr <= SIFT_PYR_TOL:
+        raise AssertionError("SIFTDevice: the card's pyramid disagrees with "
+                             "the CPU port's")
+    cpu = match_pair(SIFTDevice(device="cpu"), cpu_matcher, a, b)
+    print(f"  the CPU port's pair: {time.perf_counter() - t0:.1f} s on the host")
+    sift_agree(outs[0], cpu, ext.conf)
+
+    phase("3g main path: images -> SIFT(backend='opencv') -> LightGlue('sift'): "
+          "match_pair, 4096 slots")
+    host = SIFT(backend="opencv", device="cuda")
+    out, counts = counted("SIFT opencv match_pair",
+                          lambda: match_pair(host, matcher, a, b),
+                          *matcher_kernels(4096))
+    add_counts(total, counts)
+    check_pair_output("SIFT opencv match_pair", *out, (W, H), (W, H))
+    k, prec = sift_precision(*out, pairs[0][2])
+    ref = cpu_matcher({"image0": {k_: v[None] for k_, v in out[0].items()},
+                       "image1": {k_: v[None] for k_, v in out[1].items()}})
+    same = all(np.array_equal(out[2][f], ref[f][0]) for f in
+               ("matches0", "matches1", "prune0", "prune1"))
+    serr = float(np.abs(out[2]["matching_scores0"] - ref["matching_scores0"][0]).max())
+    print(f"  opencv: {int(out[0]['valid'].sum())} + {int(out[1]['valid'].sum())} "
+          f"keypoints, {k} matches, precision {prec:.3f}; the CPU port's "
+          f"matcher on the same features: matches, prune "
+          f"{'equal' if same else 'DIFFER'}, scores max_abs_err {serr:.3e}, "
+          f"stop {out[2]['stop']} vs {ref['stop']}", flush=True)
+    if (not same or serr > MATCH_SCORE_TOL or out[2]["stop"] != ref["stop"]
+            or k < 10 or prec < SIFT_PRECISION):
+        raise AssertionError("SIFT opencv: precision low or the card disagrees "
+                             "with the CPU port")
+    return total
+
+
+def disk_sift_timing_phase():
+    """Phase 4e: extraction ms an image (DISK B 1 and B 8 in fp32 and at
+    mp, SIFTDevice B 1; CUDA events), images to matches pairs/s
+    (make_end_to_end fixed at 1024: DISK B 8 in fp32 and at mp, SIFTDevice
+    B 2) and match_pair ms a pair (host clock; SIFTDevice and opencv at
+    4096)."""
+    phase("4e timing: DISK and SIFT extraction, images -> matches")
+    rng = np.random.default_rng(87)
+    pool = [image_pair(rng, H, W) for _ in range(8)]
+    im0 = torch.from_numpy(np.stack([p[0] for p in pool]))[..., None].cuda()
+    im1 = torch.from_numpy(np.stack([p[1] for p in pool]))[..., None].cuda()
+    sizes = torch.tensor([[W, H]] * 8, dtype=torch.float32, device="cuda")
+    dp = disk_params()
+    for mp in (False, True):
+        conf = DISKConfig(mp=mp)
+        for bsz in (1, 8):
+            ms = time_cuda(lambda: disk.forward(dp, conf, im0[:bsz]), iters=5) / bsz
+            print(f"  DISK extraction{' at mp' if mp else ''}, B {bsz}: "
+                  f"{ms:.3f} ms per {H}x{W} image (2048 keypoints)", flush=True)
+    sconf = SIFTConfig(backend="device")
+    ms = time_cuda(lambda: sift_device.forward(None, sconf, im0[:1]), iters=5,
+                   warmup=2)
+    print(f"  SIFTDevice extraction, B 1: {ms:.3f} ms per {H}x{W} image (4096 "
+          "keypoints)", flush=True)
+    # its parts: the pyramid (9 octaves, the first 1536 x 2048 x 7 layers),
+    # the first octave's candidates (a stable sort over its 4 x 1536 x 2048
+    # DoG entries, most 0) and that sort alone on as many values
+    img = im0[0, ..., 0]
+    ms_p = time_cuda(lambda: sift_device.build_pyramid(img, sconf), iters=3)
+    dog = torch.stack(sift_device.build_pyramid(img, sconf)[1][0])
+    thr = float(np.floor(0.5 * sconf.detection_threshold
+                         / sconf.num_scales_per_octave * 255.0))
+    n_cand = 4 * sconf.max_num_keypoints
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ms_c = time_cuda(lambda: sift_device.extrema_candidates(dog, n_cand, thr),
+                     iters=5)
+    peak = torch.cuda.max_memory_allocated() - base
+    g = torch.Generator(device="cuda").manual_seed(3)
+    vals = dog[1:-1].reshape(-1)
+    sparse = torch.where(torch.rand(vals.shape, generator=g, device="cuda") < 1e-3,
+                         torch.rand(vals.shape, generator=g, device="cuda"), 0.0)
+    ms_s = time_cuda(lambda: sift_device.stable_topk(sparse, n_cand), iters=5)
+    print(f"  SIFTDevice parts: pyramid {ms_p:.3f} ms; first octave's "
+          f"candidates {ms_c:.3f} ms ({vals.numel()} entries, device memory "
+          f"peak {gib(peak)} above the inputs); the stable sort alone "
+          f"{ms_s:.3f} ms", flush=True)
+
+    def rate(label, run, bsz, reps=5):
+        for _ in range(2):
+            run(im0[:bsz], im1[:bsz], sizes[:bsz], sizes[:bsz])
+        torch.cuda.synchronize()
+        ms = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            out = run(im0[:bsz], im1[:bsz], sizes[:bsz], sizes[:bsz])
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        q1, med, q3 = np.percentile(ms, [25, 50, 75])
+        print(f"  make_end_to_end {label} fixed B {bsz}, {H}x{W}, 1024 "
+              f"keypoints: {bsz * 1e3 / med:.1f} pairs/s (median {med:.2f} ms "
+              f"per call, quartiles {q1:.2f}-{q3:.2f}, {reps} calls, stop "
+              f"{out.matches.stop})", flush=True)
+
+    for mp in (False, True):
+        mconf = lightglue_config("disk", mp=mp, **FIXED)
+        rate(f"DISK{' at mp' if mp else ''}", end_to_end.make_end_to_end(
+            disk.forward, dp, DISKConfig(max_num_keypoints=1024, mp=mp),
+            LightGlue("disk", device="cuda", mp=mp).params, mconf), 8)
+    sm = LightGlue("sift", params=SIFT_WEIGHTS, device="cuda", **FIXED)
+    rate("SIFTDevice", end_to_end.make_end_to_end(
+        sift_device.forward, None, sconf.replace(max_num_keypoints=1024),
+        sm.params, sm.conf), 2, reps=3)
+    a, b = pool[0][0], pool[0][1]
+    for label, ext in (("SIFTDevice", SIFTDevice(device="cuda")),
+                       ("SIFT opencv", SIFT(backend="opencv", device="cuda"))):
+        match_pair(ext, sm, a, b)
+        ms = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            match_pair(ext, sm, a, b)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        print(f"  match_pair {label} -> LightGlue('sift') fixed, {H}x{W}, 4096 "
+              f"keypoints: median {np.median(ms):.2f} ms per pair (3 calls)",
+              flush=True)
+
+
 def serving_traffic(rng, n):
     """n planted pairs for the serving phases: image 1's keypoint count
     drawn from SERVING_KEYPOINTS, image 0's from its low end to it. Returns (pairs of
@@ -2637,11 +3160,17 @@ def timing_phase(x, bx, hx, params, params2):
         "flash_cross_pair B 1": ("2 SDPA calls", lambda: (
             sdpa(pair1[0], pair1[1], pair1[3], attn_mask=bias1[:1]),
             sdpa(pair1[1], pair1[0], pair1[2], attn_mask=bias0[:1]))),
+        # K2's function: two SDPA calls, one a direction, each with the
+        # other image's key bias
+        "fused_cross_attention": ("2 SDPA calls", cross_sdpa(x["k2"])),
+        "fused_cross_attention_shift": ("2 SDPA calls", cross_sdpa(x["k2"])),
     }
     block_pairs, block_libs = block_rows(bx)
     pairs.update(block_pairs)
     libraries.update(block_libs)
-    pairs.update(cross_rows())
+    cross_pairs, cross_libs = cross_rows()
+    pairs.update(cross_pairs)
+    libraries.update(cross_libs)
     pairs.update(ffn_rows(x["k3"]))
     times, graph_times = {}, {}
     for name, (kern, plain) in pairs.items():
@@ -2753,15 +3282,29 @@ def block_rows(bx):
     return pairs, libs
 
 
+def cross_sdpa(x, scale=None):
+    """K2's function on x = (qk0, qk1, v0, v1, valid0, valid1) as one
+    PyTorch call a direction: SDPA of image 0's queries over image 1's
+    keys (image 1's key bias) and the reverse; ``scale`` None is SDPA's
+    1 / sqrt(head_dim), B6's attention folds it into qk (1.0)."""
+    qk0, qk1, v0, v1, va0, va1 = x
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    b0, b1 = (flash.key_bias(va).to(qk0.dtype)[:, None, None, :]
+              for va in (va0, va1))
+    return lambda: (sdpa(qk0, qk1, v1, attn_mask=b1, scale=scale),
+                    sdpa(qk1, qk0, v0, attn_mask=b0, scale=scale))
+
+
 def cross_rows():
     """Phase 4's rows of K2 and B2 besides the B 4 ones under the kernel
     names: K2 exact (fused_cross_attention) at B 1 and 16, B6's attention
     (launch_cross in mode EXACT_BLOCK on qk scaled as B6 folds it) at B 1,
     4 and 16, both at (B, 4, M 1024 / N 768, 64) masked; B2 at B 1 and 16,
-    1024 x 1024, D 256, masked. Returns {row: (kernel, plain)}."""
+    1024 x 1024, D 256, masked. Returns ({row: (kernel, plain)}, {row:
+    (library name, call)}: K2's rows two SDPA calls)."""
     g = torch.Generator(device="cuda").manual_seed(23)
     rng = np.random.default_rng(24)
-    pairs = {}
+    pairs, libs = {}, {}
     for b in BLOCK_BATCHES:
         qk0, v0 = rand(g, b, 4, 1024, 64), rand(g, b, 4, 1024, 64)
         qk1, v1 = rand(g, b, 4, 768, 64), rand(g, b, 4, 768, 64)
@@ -2772,17 +3315,20 @@ def cross_rows():
             pairs[f"fused_cross_attention B {b}"] = (
                 lambda x=x: flash_cross.fused_cross_attention(*x),
                 lambda x=x: flash_cross.fused_cross_attention_plain(*x))
+            libs[f"fused_cross_attention B {b}"] = ("2 SDPA calls",
+                                                    cross_sdpa(x))
         xs = (qk0 * 64 ** -0.25, qk1 * 64 ** -0.25, v0, v1, va0, va1)
         pairs[f"B6 attention B {b}"] = (
             lambda x=xs: flash_cross.launch_cross(
                 *x, flash_cross.EXACT_BLOCK, 1.0),
             lambda x=xs: flash_cross_block.cross_block_attention_plain(*x))
+        libs[f"B6 attention B {b}"] = ("2 SDPA calls", cross_sdpa(xs, 1.0))
         if b != 4:
             x = b2_inputs(rng, g, b, 1024, 1024)[:6]
             pairs[f"fused_filter_matches B {b}"] = (
                 lambda x=x: af._filter_reductions_kernel(*x),
                 lambda x=x: af.filter_reductions_plain(*x))
-    return pairs
+    return pairs, libs
 
 
 def ffn_rows(k3):
@@ -3822,7 +4368,24 @@ def mp_rows(mx, x, bx):
                 lambda a=args, s=shift: flash_cross.fused_cross_attention(*a, shift=s),
                 lambda a=args, s=shift: flash_cross.fused_cross_attention_plain(*a, shift=s),
                 lambda a=a32, s=shift: flash_cross.fused_cross_attention(*a, shift=s),
-                None, bound)
+                ("2 SDPA bf16 calls", cross_sdpa(args)), bound)
+    # B6's attention in bf16 (launch_cross mode EXACT_BLOCK, qk scaled as
+    # B6 folds it) at B 1, 4 and 16, (B, 4, M 1024 / N 768, 64) masked
+    g = torch.Generator(device="cuda").manual_seed(29)
+    for b in BLOCK_BATCHES:
+        qk0, v0 = (rand(g, b, h, n, 64).to(BF16) for _ in range(2))
+        qk1, v1 = (rand(g, b, h, m1, 64).to(BF16) for _ in range(2))
+        va0 = torch.rand(b, n, generator=g, device="cuda") < 0.9
+        va1 = torch.rand(b, m1, generator=g, device="cuda") < 0.9
+        xs = ((qk0.float() * 64 ** -0.25).to(BF16),
+              (qk1.float() * 64 ** -0.25).to(BF16), v0, v1, va0, va1)
+        x32 = tuple(t.float() if t.is_floating_point() else t for t in xs)
+        rows[f"B6 attention bf16 B {b}"] = (
+            lambda x=xs: flash_cross.launch_cross(*x, flash_cross.EXACT_BLOCK, 1.0),
+            lambda x=xs: flash_cross_block.cross_block_attention_plain(*x),
+            lambda x=x32: flash_cross.launch_cross(*x, flash_cross.EXACT_BLOCK, 1.0),
+            ("2 SDPA bf16 calls", cross_sdpa(xs, 1.0)),
+            (6 * b * h * n * m1 * 64, 3 * b * h * (n + m1) * 64 * 2 + b * (n + m1)))
     x4, msg4, p = mx["k3"]
     x4f, msg4f = x4.float(), msg4.float()
     rows["fused_ffn_residual_bf16"] = (
@@ -5293,6 +5856,8 @@ def main():
     for path in (lambda: extraction_path_phase(params, sp_params),
                  lambda: two_head_pair_phase(params2, sp_params),
                  lambda: aliked_path_phase(al_params, params),
+                 lambda: disk_path_phase(params),
+                 sift_path_phase,
                  gather_path_phase,
                  lambda: serving_phase(params),
                  lambda: sequence_phase(params, sp_params),
@@ -5314,6 +5879,7 @@ def main():
     times.update(al_times)
     graph_times.update(al_graph)
     serving_timing_phase(params, sp_params)
+    disk_sift_timing_phase()
     mp_times, mp_bounds = mp_timing_phase(mx, x, bx, params)
     times.update(mp_times)
     e_times, e_bounds, e_graph = mp_extract_timing_phase(mx5, params, sp_params,

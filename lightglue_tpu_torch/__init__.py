@@ -1,5 +1,6 @@
-"""lightglue_tpu_torch: SuperPoint, ALIKED and the LightGlue matcher in
-PyTorch with hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
+"""lightglue_tpu_torch: SuperPoint, ALIKED, DISK, SIFT and the LightGlue
+matcher in PyTorch with hand-written CUDA kernels for NVIDIA Hopper
+(sm_90a).
 
 The JAX package ``lightglue_tpu`` is the reference; this package imports
 neither it nor JAX. Ops run their CUDA kernels on CUDA tensors (built from
@@ -8,21 +9,26 @@ on CPU tensors.
 """
 
 from .configs import (
-    FEATURES, ALIKEDConfig, LightGlueConfig, PreprocessConfig,
-    SuperPointConfig, lightglue_config)
+    FEATURES, ALIKEDConfig, DISKConfig, LightGlueConfig, PreprocessConfig,
+    SIFTConfig, SuperPointConfig, lightglue_config)
 from .pipeline import (
-    ALIKED, LightGlue, SuperPoint, compact_matches, match_pair, match_sequence,
-    rbd)
+    ALIKED, DISK, SIFT, LightGlue, SIFTDevice, SuperPoint, compact_matches,
+    match_pair, match_sequence, rbd)
 from .parallel.batching import BatchMatcher
 
 __all__ = [
     "ALIKED",
     "ALIKEDConfig",
     "BatchMatcher",
+    "DISK",
+    "DISKConfig",
     "FEATURES",
     "LightGlue",
     "LightGlueConfig",
     "PreprocessConfig",
+    "SIFT",
+    "SIFTConfig",
+    "SIFTDevice",
     "SuperPoint",
     "SuperPointConfig",
     "compact_matches",

@@ -1,5 +1,5 @@
-"""Matcher, SuperPoint, ALIKED and preprocessing configuration (counterpart
-of lightglue_tpu/configs.py:16-162, 184-213).
+"""Matcher, extractor and preprocessing configuration (counterpart of
+lightglue_tpu/configs.py:16-240).
 
 The same frozen dataclasses with the same fields, so one set of keyword
 arguments configures both packages.
@@ -174,4 +174,72 @@ class ALIKEDConfig:
     fused_stem: bool = True
 
     def replace(self, **kw) -> "ALIKEDConfig":
+        return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class DISKConfig:
+    """DISK (reference: lightglue/disk.py:8-20).
+
+    ``max_num_keypoints``, ``approx_topk`` and ``twolevel_topk`` as in
+    ``SuperPointConfig``. ``mp`` runs the U-Net in bf16; the heatmap, the
+    top-k and the descriptors' norm stay fp32.
+    """
+
+    weights: str = "depth"
+    max_num_keypoints: Optional[int] = 2048
+    desc_dim: int = 128
+    nms_window_size: int = 5
+    detection_threshold: float = 0.0
+    pad_if_not_divisible: bool = True
+    resize: int = 1024
+    approx_topk: float = 0.0
+    twolevel_topk: bool = False
+    mp: bool = False
+
+    @property
+    def nms_radius(self) -> int:
+        """The suppression radius of the window max (a window of 2 r + 1)."""
+        return self.nms_window_size // 2
+
+    def replace(self, **kw) -> "DISKConfig":
+        return dataclasses.replace(self, **kw)
+
+
+SIFT_BACKENDS = ("opencv", "device", "pycolmap", "pycolmap_cpu", "pycolmap_cuda")
+
+
+@dataclasses.dataclass(frozen=True)
+class SIFTConfig:
+    """SIFT (reference: lightglue/sift.py:80-93).
+
+    ``backend``: "opencv" (the host's cv2.SIFT, as the reference),
+    "device" (the DoG scale space on the wrapper's device,
+    ``models.sift_device``) or "pycolmap*" (needs pycolmap, which is not
+    installed). ``num_scales_per_octave`` defaults to 4: the reference passes
+    its ``num_octaves`` to OpenCV's nOctaveLayers (sift.py:132), so both
+    backends build the same pyramid.
+    """
+
+    rootsift: bool = True
+    nms_radius: int = 0
+    max_num_keypoints: int = 4096
+    backend: str = "opencv"
+    detection_threshold: float = 0.0066667
+    edge_threshold: float = 10.0
+    first_octave: int = -1
+    num_octaves: int = 4
+    num_scales_per_octave: int = 4
+    resize: int = 1024
+
+    def __post_init__(self):
+        if self.backend == "jax":
+            raise ValueError(
+                "SIFT backend 'jax' is the JAX package's name; the port's own "
+                "DoG scale space is backend='device'")
+        if self.backend not in SIFT_BACKENDS:
+            raise ValueError(f"Unknown SIFT backend: {self.backend!r} not in "
+                             f"{SIFT_BACKENDS}")
+
+    def replace(self, **kw) -> "SIFTConfig":
         return dataclasses.replace(self, **kw)

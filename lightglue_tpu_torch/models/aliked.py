@@ -153,25 +153,6 @@ def _score_parts(sh: nn.Params, ys, channels_last: bool):
     return parts
 
 
-def _tapmat_bf16(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """A 3x3 conv (no bias) of bf16 x as XLA runs the JAX package's
-    ``conv2d_tapmat`` at mp (lightglue_tpu/nn.py:158-189): each tap's
-    product over the input channels rounded to bf16, the nine shifted
-    partials summed in fp32 in tap order, rounded to bf16."""
-    cout, cin = w.shape[:2]
-    _, _, h, wd = x.shape
-    # every tap's partial at once, channels-last: [ci][tap][co] columns
-    wt = w.to(BF16).float().permute(1, 2, 3, 0).reshape(cin, 9 * cout)
-    u = nn.round_bf16(x.float().permute(0, 2, 3, 1) @ wt)  # (B, H, W, 9 cout)
-    u = torch.nn.functional.pad(u, (0, 0, 1, 1, 1, 1))
-    acc = None
-    for t in range(9):
-        dy, dx = divmod(t, 3)
-        ut = u[:, dy:dy + h, dx:dx + wd, t * cout:(t + 1) * cout]
-        acc = ut if acc is None else acc + ut
-    return acc.permute(0, 3, 1, 2).to(BF16)
-
-
 def _score_tail(sh: nn.Params, parts, fused: bool, lazy: bool, mp: bool):
     """The score map from the 1x1 parts: B11 (lazy) or B12 (dense) when
     ``fused``, else the composed tail; at mp the composed path rounds and
@@ -191,9 +172,9 @@ def _score_tail(sh: nn.Params, parts, fused: bool, lazy: bool, mp: bool):
     if fused:
         return score_head.score_head_cplane(sh, s0, mp=True)
     s = nn.selu(s0.to(BF16))
-    s = nn.selu(_tapmat_bf16(sh["2"]["w"], s))
-    s = nn.selu(_tapmat_bf16(sh["4"]["w"], s))
-    return torch.sigmoid(_tapmat_bf16(sh["6"]["w"], s).float())[:, 0]
+    s = nn.selu(nn.conv2d_tapmat(sh["2"], s))
+    s = nn.selu(nn.conv2d_tapmat(sh["4"], s))
+    return torch.sigmoid(nn.conv2d_tapmat(sh["6"], s).float())[:, 0]
 
 
 def _dense_raw(params: nn.Params, image: torch.Tensor,

@@ -35,12 +35,15 @@ LAYERS = {  # name: (in, out, kernel), reference superpoint.py:121-142
 
 
 class Features(NamedTuple):
-    """Extractor output; ``valid`` marks real keypoint slots (static k)."""
+    """Extractor output; ``valid`` marks real keypoint slots (static k).
+    ``scales`` and ``oris`` come from the SIFT family only."""
 
     keypoints: torch.Tensor  # (B, K, 2) (x, y) pixels
     keypoint_scores: torch.Tensor  # (B, K)
     descriptors: torch.Tensor  # (B, K, D)
     valid: torch.Tensor  # (B, K) bool
+    scales: Optional[torch.Tensor] = None  # (B, K)
+    oris: Optional[torch.Tensor] = None  # (B, K) radians
 
 
 def layer_shapes(conf: SuperPointConfig = SuperPointConfig()) -> dict:

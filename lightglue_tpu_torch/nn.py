@@ -1,5 +1,5 @@
 """Layer functions over nested parameter dicts (counterpart of
-lightglue_tpu/nn.py:40-124, 297-307, 332-371).
+lightglue_tpu/nn.py:40-189, 297-371).
 
 Linear weights keep the JAX package's layout, ``(in, out)``, so a layer is
 ``x @ w + b``, and the matcher's transformer layers are stacked along a
@@ -166,6 +166,92 @@ def conv2d(p: Params, x: torch.Tensor) -> torch.Tensor:
     else:
         y = F.conv2d(x.float(), w.float(), padding=pad).to(x.dtype)
     return y + p["b"].to(x.dtype)[:, None, None] if "b" in p else y
+
+
+def conv2d_tapmat(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """Stride-1 SAME conv with an odd OIHW kernel (few output channels) as
+    XLA runs the JAX package's ``conv2d_tapmat`` (lightglue_tpu/nn.py:
+    158-189): every tap's product over the input channels at once (fp32
+    sums of x's type's operands), each tap's partial rounded to x's type,
+    the k*k shifted partials summed in fp32 in tap order and rounded to x's
+    type, then the bias added in x's type. In fp32 the roundings are
+    no-ops."""
+    w = p["w"]
+    cout, cin, k = w.shape[0], w.shape[1], w.shape[-1]
+    _, _, h, wd = x.shape
+    r = k // 2
+    # every tap's partial at once, channels-last: [ci][tap][co] columns
+    wt = w.to(x.dtype).float().permute(1, 2, 3, 0).reshape(cin, k * k * cout)
+    u = (x.float().permute(0, 2, 3, 1) @ wt).to(x.dtype).float()
+    u = F.pad(u, (0, 0, r, r, r, r))
+    acc = None
+    for t in range(k * k):
+        dy, dx = divmod(t, k)
+        ut = u[:, dy:dy + h, dx:dx + wd, t * cout:(t + 1) * cout]
+        acc = ut if acc is None else acc + ut
+    y = acc.permute(0, 3, 1, 2).to(x.dtype)
+    return y + p["b"].to(x.dtype)[:, None, None] if "b" in p else y
+
+
+def prelu(alpha: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """PReLU over NCHW channels in x's type: x where x >= 0, else
+    alpha * x (alpha cast to x's type, lightglue_tpu/models/disk.py:41-43)."""
+    return torch.where(x >= 0, x, alpha.to(x.dtype)[:, None, None] * x)
+
+
+def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """InstanceNorm2d(affine=False) over NCHW: each (image, channel) plane
+    normalized with fp32 statistics (biased variance), rounded once to x's
+    type (lightglue_tpu/nn.py:324-329)."""
+    xf = x.float()
+    mean = xf.mean((2, 3), keepdim=True)
+    var = (xf - mean).square().mean((2, 3), keepdim=True)
+    return ((xf - mean) * torch.rsqrt(var + eps)).to(x.dtype)
+
+
+def _upsample2_axis(x: torch.Tensor, dim: int) -> torch.Tensor:
+    n = x.shape[dim]
+    a, b = x.narrow(dim, 0, n - 1), x.narrow(dim, 1, n - 1)  # x[i], x[i + 1]
+    if x.dtype == torch.float32:
+        # output 2i + 2 = 0.25 x[i] + 0.75 x[i + 1] rounded once (a fused
+        # multiply-add after the exact quarter product); 2i + 1 = 0.75 x[i]
+        # rounded, then plus 0.25 x[i + 1]
+        even = (0.25 * a.double() + 0.75 * b.double()).float()
+        odd = 0.75 * a + 0.25 * b
+    else:  # both sums exact in fp32, rounded once to x's type
+        af, bf = a.float(), b.float()
+        even = (0.25 * af + 0.75 * bf).to(x.dtype)
+        odd = (0.75 * af + 0.25 * bf).to(x.dtype)
+    even = torch.cat([x.narrow(dim, 0, 1), even], dim)
+    odd = torch.cat([odd, x.narrow(dim, n - 1, 1)], dim)
+    return torch.stack([even, odd], dim + 1).flatten(dim, dim + 1)
+
+
+def upsample2(x: torch.Tensor) -> torch.Tensor:
+    """x2 bilinear upsampling of the last two axes (H, W) with
+    align_corners=False, as ``jax.image.resize(..., "bilinear")`` computes
+    it with XLA on the CPU: one product with a two-tap weight matrix an
+    axis, W first, then H; the edge rows repeated (JAX renormalizes its
+    triangle there, which gives the edge pixel, as torch's clamp does).
+    XLA's dot sums a row's taps in index order with fused multiply-adds,
+    which ``_upsample2_axis`` reproduces (equal to the bit at SIFT's single
+    plane; at small multi-channel maps XLA's second product rounds its
+    first tap, about one output in eight an ulp apart). bf16 inputs: each
+    axis's fp32 lerp rounded to bf16, equal to the bit. An fp32 x on CUDA
+    takes ``F.interpolate``'s bilinear x2 (the same taps, one launch; an
+    ulp or so from the fused sums)."""
+    if x.is_cuda and x.dtype == torch.float32:
+        return upsample2_interp(x)
+    return _upsample2_axis(_upsample2_axis(x, x.dim() - 1), x.dim() - 2)
+
+
+def upsample2_interp(x: torch.Tensor) -> torch.Tensor:
+    """``upsample2`` of an fp32 x through ``F.interpolate`` (bilinear,
+    align_corners=False, its edge source index clamped to the edge)."""
+    h, w = x.shape[-2:]
+    y = F.interpolate(x.reshape(-1, 1, h, w), scale_factor=2.0,
+                      mode="bilinear", align_corners=False)
+    return y.reshape(*x.shape[:-2], 2 * h, 2 * w)
 
 
 def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

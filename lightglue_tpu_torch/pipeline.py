@@ -20,10 +20,13 @@ import torch
 from . import nn
 from . import weights as weights_lib
 from .configs import (
-    ALIKEDConfig, LightGlueConfig, PreprocessConfig, SuperPointConfig,
-    lightglue_config)
+    ALIKEDConfig, DISKConfig, LightGlueConfig, PreprocessConfig, SIFTConfig,
+    SuperPointConfig, lightglue_config)
 from .models import aliked as aliked_model
+from .models import disk as disk_model
 from .models import lightglue as lg
+from .models import sift as sift_model
+from .models import sift_device
 from .models import superpoint as sp
 from .utils import diagnostics
 from .utils.image import ImagePreprocessor, numpy_image_to_array, pad_to_multiple
@@ -80,13 +83,17 @@ def _auto_kpts_bucket(conf, h: int, w: int) -> int:
 
 
 def _numpy_feats(feats: sp.Features, kpts: torch.Tensor, sizes) -> dict:
-    return {
+    out = {
         "keypoints": kpts.cpu().numpy().astype(np.float32),
         "keypoint_scores": feats.keypoint_scores.cpu().numpy(),
         "descriptors": feats.descriptors.cpu().numpy(),
         "valid": feats.valid.cpu().numpy(),
         "image_size": np.asarray(sizes, np.float32),
     }
+    for extra in ("scales", "oris"):  # SIFT-family
+        if getattr(feats, extra) is not None:
+            out[extra] = getattr(feats, extra).cpu().numpy()
+    return out
 
 
 class Extractor:
@@ -208,6 +215,112 @@ class ALIKED(Extractor):
     _model = aliked_model
     _from_jax = staticmethod(weights_lib.aliked_from_jax_params)
     _release = "{model_name}.pth"
+
+
+class DISK(Extractor):
+    """DISK wrapper (reference disk.py:7-55); images are padded to a
+    multiple of 16."""
+
+    stride = disk_model.STRIDE
+    _conf_cls = DISKConfig
+    _model = disk_model
+    _from_jax = staticmethod(weights_lib.disk_from_jax_params)
+    _release = "{weights}-save.pth"
+
+
+class SIFTDevice(Extractor):
+    """SIFT on the wrapper's device (``models.sift_device``, the DoG scale
+    space in PyTorch) behind the Extractor surface, so that it runs in
+    ``match_pair``, ``extract_batch``, ``match_sequence`` and
+    ``end_to_end``; no parameters, no padding (stride 1)."""
+
+    stride = 1
+    _conf_cls = SIFTConfig
+    _model = sift_device
+
+    def __init__(self, conf: Optional[SIFTConfig] = None,
+                 device: Union[str, torch.device] = "cuda", **conf_overrides):
+        self.conf = (conf or SIFTConfig(backend="device")).replace(
+            **conf_overrides)
+        if self.conf.backend != "device":
+            raise ValueError(f"SIFTDevice runs backend 'device', not "
+                             f"{self.conf.backend!r}; use SIFT for the others")
+        self.preprocess_conf = PreprocessConfig(resize=self.conf.resize)
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("SIFTDevice: no CUDA device; pass device='cpu'")
+        self.params = None  # handcrafted: nothing learned
+
+
+class SIFT:
+    """SIFT (reference sift.py:79-216): OpenCV's SIFT on the host
+    (``backend="opencv"``, as the reference), RootSIFT, padded to
+    ``max_num_keypoints`` slots with ``valid``, with scales and oris; or
+    the DoG scale space on ``device`` (``backend="device"``), which is
+    ``SIFTDevice``'s extraction. ``device`` serves the "device" backend
+    only ("cuda" unless the caller asks for "cpu")."""
+
+    def __init__(self, conf: Optional[SIFTConfig] = None,
+                 device: Union[str, torch.device] = "cuda", **conf_overrides):
+        self.conf = (conf or SIFTConfig()).replace(**conf_overrides)
+        self.preprocess_conf = PreprocessConfig(resize=self.conf.resize)
+        self._on_device = (SIFTDevice(self.conf, device=device)
+                           if self.conf.backend == "device" else None)
+
+    def _detect(self, gray: np.ndarray) -> dict:
+        if self.conf.backend == "opencv":
+            return sift_model.extract_single_image_opencv(gray, self.conf)
+        pred = sift_model.extract_single_image_pycolmap(gray, self.conf)
+        if self.conf.nms_radius is not None:
+            keep = sift_model.filter_dog_point(
+                pred["keypoints"], pred["scales"], pred["oris"], gray.shape,
+                self.conf.nms_radius, scores=pred["keypoint_scores"])
+            pred = {k: v[keep] for k, v in pred.items()}
+        k = self.conf.max_num_keypoints
+        if k is not None and len(pred["keypoints"]) > k:
+            idx = np.argsort(-pred["keypoint_scores"])[:k]
+            pred = {k_: v[idx] for k_, v in pred.items()}
+        return pred
+
+    @torch.inference_mode()
+    def extract(self, image, **preprocess_overrides) -> Dict[str, np.ndarray]:
+        """image: (H, W, C) or (H, W), float [0, 1] or uint8 (RGB turned to
+        grey by the reference's weights). Returns a feats dict with a
+        leading batch dim: keypoints in ORIGINAL image pixels,
+        keypoint_scores, descriptors (RootSIFT), scales, oris, valid,
+        image_size."""
+        if self._on_device is not None:
+            return self._on_device.extract(image, **preprocess_overrides)
+        img = np.asarray(image)
+        if img.dtype == np.uint8:
+            img = (img / 255.0).astype(np.float32)
+        if img.ndim == 4:
+            img = img[0]
+        if img.ndim == 3 and img.shape[-1] == 3:
+            gray = img @ np.array(sp.RGB_TO_GRAY, np.float32)
+        elif img.ndim == 3:
+            gray = img[..., 0]
+        else:
+            gray = img
+        gray = np.asarray(gray, np.float32)
+        orig_h, orig_w = gray.shape
+        pp = ImagePreprocessor(self.preprocess_conf, **preprocess_overrides)
+        gray_r, scales_xy = pp(torch.from_numpy(gray)[..., None])
+        gray_r = gray_r[..., 0].numpy()
+        pred = self._detect(gray_r)
+        if self.conf.rootsift:
+            pred["descriptors"] = sift_model.sift_to_rootsift(pred["descriptors"])
+        pred = sift_model.pad_features(pred, self.conf.max_num_keypoints)
+        kpts = (pred["keypoints"] + 0.5) / scales_xy[None] - 0.5
+        return {
+            "keypoints": kpts[None].astype(np.float32),
+            "keypoint_scores": pred["keypoint_scores"][None],
+            "descriptors": pred["descriptors"][None],
+            "scales": pred["scales"][None],
+            "oris": pred["oris"][None],
+            "valid": pred["valid"][None],
+            "image_size": np.array([[orig_w, orig_h]], np.float32),
+        }
 
 
 class LightGlue:

@@ -11,6 +11,8 @@ the port and in the reference's state dicts (``conv1a.weight``,
 ``conv1a.bias``, ...), so they are transposed once here. ALIKED's batch
 norms keep their four running tensors (scale, bias, mean, var), and its
 aggregation weights ``(M, dim, dim)`` are the same in every layout.
+DISK: the same HWIO -> OIHW transpose, and kornia's state dicts parsed as
+the JAX package's ``convert_disk`` parses them.
 """
 
 from __future__ import annotations
@@ -90,13 +92,16 @@ def load_params(path: str, conf: Optional[LightGlueConfig] = None) -> nn.Params:
 
 
 def flatten_params(tree: nn.Params, prefix: str = "") -> Dict[str, np.ndarray]:
-    """Inverse of ``from_jax_params``: the flat ``"a/b/c"`` numpy dict."""
+    """Inverse of ``from_jax_params``: the flat ``"a/b/c"`` numpy dict (of a
+    tree of tensors or arrays)."""
     if isinstance(tree, dict):
         out = {}
         for k, v in tree.items():
             out.update(flatten_params(v, f"{prefix}{k}/"))
         return out
-    return {prefix[:-1]: tree.detach().cpu().numpy()}
+    if isinstance(tree, torch.Tensor):
+        tree = tree.detach().cpu()
+    return {prefix[:-1]: np.asarray(tree)}
 
 
 def superpoint_shapes(conf: Optional[SuperPointConfig] = None) -> Dict[str, tuple]:
@@ -257,4 +262,109 @@ def aliked_to_state_dict(
         for part in path:
             node = node[part]
         out[key] = node.detach().cpu().numpy()
+    return out
+
+
+def disk_from_jax_params(flat, conf=None) -> nn.Params:
+    """The port's DISK parameters from the JAX package's flat dict
+    (``down/1/conv/w`` HWIO, ``down/1/conv/b``, ``down/1/gate/alpha``, ...)
+    or its nested tree. Raises on any missing or unexpected key and on any
+    shape that does not fit ``conf`` (default: desc_dim 128); the first
+    block is gated where the checkpoint gates it."""
+    from .configs import DISKConfig
+    from .models.disk import KERNEL, block_channels
+
+    if any(isinstance(v, dict) for v in flat.values()):  # the nested tree
+        flat = flatten_params(flat)
+    flat = {k: np.asarray(v) for k, v in flat.items()}
+    want, tree = [], {"down": {}, "up": {}}
+    for path, i, cin, cout, gated in block_channels(conf or DISKConfig()):
+        pre = f"{path}/{i}"
+        gated = gated or f"{pre}/gate/alpha" in flat
+        entries = [(("conv", "w"), (KERNEL, KERNEL, cin, cout)),
+                   (("conv", "b"), (cout,))]
+        if gated:
+            entries.append((("gate", "alpha"), (cin,)))
+        node = tree[path].setdefault(str(i), {})
+        for leaf, shape in entries:
+            key = "/".join((pre,) + leaf)
+            want.append(key)
+            arr = flat.get(key)
+            if arr is not None and arr.shape != shape:
+                raise ValueError(f"{key}: shape {arr.shape}, expected {shape}")
+            if arr is not None:
+                if len(shape) == 4:  # HWIO -> OIHW
+                    arr = arr.transpose(3, 2, 0, 1)
+                node.setdefault(leaf[0], {})[leaf[1]] = torch.from_numpy(
+                    np.array(arr, np.float32))
+    _check_keys(flat, want)
+    return tree
+
+
+def disk_from_state_dict(sd: Dict[str, np.ndarray], conf=None) -> nn.Params:
+    """The port's DISK parameters from a kornia DISK state dict
+    (``unet.path_down.{i}`` / ``unet.path_up.{i}``), parsed as the JAX
+    package's ``convert_disk`` parses it (lightglue_tpu/weights.py:
+    308-390): within each block prefix the conv is the one 4-d
+    ``.weight`` and the PReLU gate the one 1-d tensor whose size is the
+    conv's input channels, whatever the Sequential indices. It checks the
+    channel plan (down [16, 32, 64, 64, 64], up [64, 64, 64, desc_dim + 1]
+    over the skip concatenation), refuses an ambiguous gate and any tensor
+    left over."""
+    from .configs import DISKConfig
+    from .models.disk import block_channels
+
+    sd = {k: np.asarray(v) for k, v in sd.items()}
+    consumed = set()
+    tree = {"down": {}, "up": {}}
+    for path, i, cin, cout, _ in block_channels(conf or DISKConfig()):
+        prefix = f"unet.path_{path}.{i}."
+        conv_keys = sorted(k for k in sd if k.startswith(prefix)
+                           and k.endswith(".weight") and sd[k].ndim == 4)
+        if len(conv_keys) != 1:
+            raise ValueError(f"{prefix}: expected exactly 1 conv weight, got "
+                             f"{conv_keys}")
+        ck = conv_keys[0][: -len(".weight")]
+        w = sd[ck + ".weight"]  # OIHW
+        if (w.shape[1], w.shape[0]) != (cin, cout):
+            raise ValueError(f"{ck}: conv (in,out)=({w.shape[1]},{w.shape[0]}) "
+                             f"!= expected ({cin},{cout})")
+        conv = {"w": torch.from_numpy(np.array(w, np.float32))}
+        consumed.add(ck + ".weight")
+        if ck + ".bias" in sd:
+            conv["b"] = torch.from_numpy(np.array(sd[ck + ".bias"], np.float32))
+            consumed.add(ck + ".bias")
+        p = {"conv": conv}
+        gate_keys = sorted(k for k in sd if k.startswith(prefix)
+                           and sd[k].ndim == 1 and sd[k].shape[0] == w.shape[1]
+                           and k not in consumed)
+        if gate_keys:
+            if len(gate_keys) > 1:
+                raise ValueError(f"{prefix}: ambiguous 1-d tensors {gate_keys}"
+                                 " — cannot identify the PReLU gate")
+            p["gate"] = {"alpha": torch.from_numpy(
+                np.array(sd[gate_keys[0]], np.float32))}
+            consumed.add(gate_keys[0])
+        tree[path][str(i)] = p
+    leftover = [k for k in sd if k not in consumed
+                and not k.endswith("num_batches_tracked")]
+    if leftover:
+        raise ValueError(f"unconsumed DISK tensors: {leftover[:8]}")
+    return tree
+
+
+def disk_to_state_dict(params: nn.Params) -> Dict[str, np.ndarray]:
+    """Inverse of ``disk_from_state_dict``, in kornia's layout: a gated
+    block's PReLU at ``conv.0``, its conv at ``conv.2`` (the instance norm,
+    ``conv.1``, holds nothing); an ungated block's conv at ``conv.0``."""
+    out = {}
+    for path in ("down", "up"):
+        for i, p in params[path].items():
+            pre = f"unet.path_{path}.{i}.conv."
+            if "gate" in p:
+                out[pre + "0.weight"] = p["gate"]["alpha"].detach().cpu().numpy()
+            conv = pre + ("2" if "gate" in p else "0")
+            out[conv + ".weight"] = p["conv"]["w"].detach().cpu().numpy()
+            if "b" in p["conv"]:
+                out[conv + ".bias"] = p["conv"]["b"].detach().cpu().numpy()
     return out

@@ -114,6 +114,11 @@ def test_import_leaves_jax_out():
             "lightglue_tpu_torch.ops.block_tc, "
             "lightglue_tpu_torch.ops.flash_cross_block, "
             "lightglue_tpu_torch.models.aliked, "
+            "lightglue_tpu_torch.models.disk, "
+            "lightglue_tpu_torch.models.sift, "
+            "lightglue_tpu_torch.models.sift_device; "
+            "from lightglue_tpu_torch.pipeline import DISK, SIFT, SIFTDevice; "
+            "import lightglue_tpu_torch.weights, "
             "lightglue_tpu_torch.ops.aliked_stem, "
             "lightglue_tpu_torch.ops.score_head, "
             "lightglue_tpu_torch.ops.deform, "
