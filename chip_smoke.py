@@ -102,8 +102,17 @@ Phases, any failure raising (non-zero exit, no result line):
         scale and orientation, each one side lacks printed with its margins
         to the top-k's cut and the contrast threshold);
         SIFT(backend="opencv") through match_pair (4096 slots), its matches
-        against the CPU port's matcher on the same features; each path's launch counts read on their own, none of
-        the other extractors' kernels launched;
+        against the CPU port's matcher on the same features;
+        DoGHardNetDevice -> LightGlue("doghardnet", the trained SIFT
+        layers) through match_pair at 4096 keypoints, make_end_to_end B 2
+        and match_sequence (window 1) at 1024, HardNet with seeded stand-in
+        weights (synthetic.hardnet_params), the card's patches and
+        descriptors against the CPU port's at the card's own detections;
+        DoGHardNet (OpenCV on the host, HardNet on the card) through
+        match_pair, its features against the CPU port's DoGHardNet and its
+        matches against the CPU port's matcher on the same features; each
+        path's launch counts read on their own, none of the other
+        extractors' kernels launched;
      d. the row-gather study, lightglue_tpu_torch.scripts.micro_gather2,
         at its shapes (S1 against tbl[idx], index_select and the one-hot
         product);
@@ -146,9 +155,11 @@ Phases, any failure raising (non-zero exit, no result line):
      and adaptive, B 1 and B 16, in turns, and match_sequence against
      make_end_to_end once per pair on 8 frames, windows 1 and 4 (phase 4d);
      K2's rows (B3, B3s, B6's attention) beside two SDPA calls, one a
-     direction, as B1''s; DISK (B 1, B 8, fp32 and mp) and SIFTDevice (B 1)
-     ms per image, make_end_to_end DISK B 8 and SIFTDevice B 2 pairs/s and
-     match_pair ms a pair with SIFTDevice and opencv SIFT (phase 4e);
+     direction, as B1''s; DISK (B 1, B 8, fp32 and mp), SIFTDevice (B 1)
+     and DoGHardNetDevice (B 1, B 2; HardNet's patches and CNN apart, the
+     CNN beside its bound) ms per image, make_end_to_end DISK B 8,
+     SIFTDevice and DoGHardNetDevice B 2 pairs/s and match_pair ms a pair
+     with SIFTDevice and opencv SIFT (phase 4e);
   5. the matcher's bf16 path (mp=True): a. each bf16 kernel (B5, B6 at B 1,
      4 and 16, 1024 keypoints; B4 at (4, 1024, 256) and over both images at
      B 16; B1 / B1s at (4, 4, 4096, 64), (1, 4, 4096, 64) and (4, 4, 1024,
@@ -259,15 +270,15 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from lightglue_tpu_torch import (  # noqa: E402
-    ALIKED, DISK, SIFT, ALIKEDConfig, BatchMatcher, DISKConfig, LightGlue,
-    SIFTConfig, SIFTDevice, SuperPoint, SuperPointConfig, _build,
-    lightglue_config, match_pair, match_sequence)
+    ALIKED, DISK, SIFT, ALIKEDConfig, BatchMatcher, DISKConfig, DoGHardNet,
+    DoGHardNetDevice, LightGlue, SIFTConfig, SIFTDevice, SuperPoint,
+    SuperPointConfig, _build, lightglue_config, match_pair, match_sequence)
 from lightglue_tpu_torch import end_to_end, nn  # noqa: E402
 from lightglue_tpu_torch.models import lightglue as lg  # noqa: E402
 from lightglue_tpu_torch.parallel import batching, graphs  # noqa: E402
 from lightglue_tpu_torch import weights as weights_lib  # noqa: E402
 from lightglue_tpu_torch.models import aliked as al  # noqa: E402
-from lightglue_tpu_torch.models import disk, sift_device  # noqa: E402
+from lightglue_tpu_torch.models import disk, hardnet, sift_device  # noqa: E402
 from lightglue_tpu_torch.models import superpoint as sp  # noqa: E402
 from lightglue_tpu_torch.ops import assignment_fused as af  # noqa: E402
 from lightglue_tpu_torch.ops import ffn, flash, flash_cross  # noqa: E402
@@ -279,7 +290,7 @@ from lightglue_tpu_torch.scripts import attn_split, extract_times  # noqa: E402
 from lightglue_tpu_torch.scripts import micro_gather2, walk_sums  # noqa: E402
 from lightglue_tpu_torch.scripts import keypoint_margins as km  # noqa: E402
 from lightglue_tpu_torch.synthetic import (  # noqa: E402
-    image_pair, planted_pairs, warp_points)
+    hardnet_params, image_pair, planted_pairs, warp_points)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WEIGHTS = os.path.join(ROOT, "weights", "synthetic_superpoint_lightglue.npz")
@@ -2639,13 +2650,173 @@ def sift_path_phase():
     return total
 
 
+# DoGHardNet's HardNet on the card against the CPU port fed the card's own
+# detections (so that SIFT's near-tie slots, above, stay out): the patches
+# within HARDNET_PATCH_TOL (values in [0, 1]; the card's cos, sin and
+# products round on their own, which moves a sample by about 1e-5 px: the
+# CPU port against the JAX package 8e-6, tests/test_torch_hardnet.py), the
+# unit descriptors within HARDNET_DESC_TOL on valid slots (cuDNN's fp32
+# convolutions, TF32 off, against oneDNN's: sums in another order, over
+# the standardized patches).
+HARDNET_PATCH_TOL, HARDNET_DESC_TOL = 1e-4, 1e-3
+
+
+def hardnet_flops_bytes(n):
+    """HardNet on n patches: (FLOPs of its convolutions, bytes of the
+    patches read, the weights read and the descriptors written)."""
+    size, flops, weights = hardnet.PATCH_SIZE, 0, 0
+    for ci, co, ks, stride, pad, _ in hardnet.LAYERS:
+        size = size - ks + 1 if pad == "VALID" else size // stride
+        flops += 2 * co * ci * ks * ks * size * size
+        weights += co * ci * ks * ks + 4 * co
+    return n * flops, 4 * (n * hardnet.PATCH_SIZE ** 2 + weights
+                           + n * hardnet.DESC_DIM)
+
+
+def hardnet_agree(label, hp, image, conf):
+    """The card's patches and HardNet descriptors at the card's detections
+    of one (H, W) image against the CPU port's on the same detections."""
+    img = torch.from_numpy(image)
+    with torch.inference_mode():
+        det = sift_device.extract_batch(img.cuda()[None], conf)
+        args = (det["keypoints"], hardnet.LAF_SCALE * det["scales"],
+                det["oris"])
+        patches = hardnet.extract_laf_patches_batch(img.cuda()[None], *args)
+        cpu_patches = hardnet.extract_laf_patches_batch(
+            img[None], *(a.cpu() for a in args))
+        v = det["valid"][0].cpu()
+        desc = hardnet.describe_patches(hp, patches[0][v.cuda()]).cpu()
+        cpu_desc = hardnet.describe_patches(nn.params_to(hp, "cpu"),
+                                            cpu_patches[0][v])
+    perr = float((patches[0].cpu()[v] - cpu_patches[0][v]).abs().max())
+    derr = float((desc - cpu_desc).abs().max())
+    l2 = torch.linalg.vector_norm(desc - cpu_desc, dim=-1).numpy()
+    print(f"  {label}, card against the CPU port on the card's {int(v.sum())} "
+          f"detections: patches max_abs_err {perr:.3e} (tol "
+          f"{HARDNET_PATCH_TOL:g}), descriptors max_abs_err {derr:.3e} (tol "
+          f"{HARDNET_DESC_TOL:g}), L2 median {np.median(l2):.3e}, largest "
+          f"{l2.max():.3e}", flush=True)
+    if not (perr <= HARDNET_PATCH_TOL and derr <= HARDNET_DESC_TOL):
+        raise AssertionError(f"{label}: the card's HardNet disagrees with the "
+                             "CPU port's")
+
+
+def doghardnet_path_phase():
+    """Phase 3g, DoGHardNet: images -> DoGHardNetDevice ->
+    LightGlue("doghardnet", the trained SIFT layers, which have the
+    preset's shapes) through match_pair (4096 keypoints: K1 + B4, K2 + B4,
+    B2), make_end_to_end (B 2, 1024: B5, B6, B2) and match_sequence
+    (window 1, 1024), and DoGHardNet (OpenCV on the host, HardNet on the
+    card) through match_pair (4096 slots), each path's launch counts read
+    on their own; HardNet's seeded stand-in weights
+    (synthetic.hardnet_params); the card's HardNet against the CPU port
+    fed the card's own detections (hardnet_agree); the host path's
+    features against the CPU port's DoGHardNet (the OpenCV detections
+    equal, descriptors within HARDNET_DESC_TOL) and its matches against
+    the CPU port's matcher on the same features. Returns the counts
+    summed."""
+    rng = np.random.default_rng(89)
+    pairs = [image_pair(rng, H, W) for _ in range(2)]
+    total = dict.fromkeys(KERNELS, 0)
+    sconf = SIFTConfig(backend="device")
+    hp = hardnet_params(torch.from_numpy(np.stack([p[0] for p in pairs])).cuda(),
+                        sconf)
+    matcher = LightGlue("doghardnet", params=SIFT_WEIGHTS, device="cuda")
+    cpu_matcher = LightGlue("doghardnet", params=SIFT_WEIGHTS, device="cpu")
+    phase("3g main path: images -> DoGHardNetDevice -> LightGlue('doghardnet'): "
+          "match_pair at 4096 keypoints, make_end_to_end B 2 and "
+          "match_sequence at 1024")
+    ext = DoGHardNetDevice(params=hp, device="cuda")
+    outs, counts = counted("DoGHardNetDevice match_pair", lambda: [
+        match_pair(ext, matcher, a, b) for a, b, _ in pairs],
+        *matcher_kernels(4096))
+    add_counts(total, counts)
+    for i, (out, (_, _, hom)) in enumerate(zip(outs, pairs)):
+        check_pair_output(f"DoGHardNetDevice match_pair pair {i}", *out, (W, H),
+                          (W, H))
+        k, prec = sift_precision(*out, hom)
+        print(f"  pair {i}: {k} matches, precision {prec:.3f} against the "
+              f"homography (within {SIFT_PX:g} px; random HardNet weights, a "
+              "matcher trained on SIFT)")
+    run = end_to_end.make_end_to_end(
+        hardnet.forward, ext.params, sconf.replace(max_num_keypoints=1024),
+        matcher.params, matcher.conf)
+    im0, im1 = (torch.from_numpy(np.stack([p[i] for p in pairs]))[..., None]
+                .cuda() for i in (0, 1))
+    sizes = torch.tensor([[W, H]] * 2, dtype=torch.float32, device="cuda")
+    e2e, counts = counted("DoGHardNet make_end_to_end B 2",
+                          lambda: run(im0, im1, sizes, sizes),
+                          *matcher_kernels(1024))
+    add_counts(total, counts)
+    for i in range(2):
+        check_pair_output(f"DoGHardNet make_end_to_end B 2, pair {i}",
+                          *e2e_feats(e2e, i), (W, H), (W, H))
+    frames = np.stack([pairs[0][0], pairs[0][1], pairs[1][0]])
+    (feats, seq), counts = counted(
+        "DoGHardNet match_sequence window 1",
+        lambda: match_sequence(DoGHardNetDevice(params=hp, device="cuda",
+                                                max_num_keypoints=1024),
+                               matcher, frames, window=1),
+        *matcher_kernels(1024))
+    add_counts(total, counts)
+    derr = float(np.abs(feats["descriptors"][0]
+                        - e2e.feats0.descriptors[0].cpu().numpy()).max())
+    if (feats["scales"].shape != (3, 1024)
+            or not np.array_equal(feats["keypoints"][0],
+                                  e2e.feats0.keypoints[0].cpu().numpy())
+            or derr > HARDNET_DESC_TOL
+            or not np.isfinite(seq["matching_scores0"]).all()):
+        raise AssertionError("DoGHardNet match_sequence: frame 0's features "
+                             "differ from make_end_to_end's, or scores not "
+                             "finite")
+    same = np.array_equal(seq["matches0"][0], e2e.matches.matches0[0].cpu().numpy())
+    print(f"  match_sequence: {[int((m >= 0).sum()) for m in seq['matches0']]} "
+          f"matches; frame 0's keypoints equal to make_end_to_end's, its "
+          f"descriptors within {derr:.3e}, pair 0's matches "
+          f"{'equal' if same else 'not equal'} (batches of 3 and 2 images)")
+    a, b, _ = pairs[0]
+    hardnet_agree("DoGHardNetDevice", hp, a, sconf)
+
+    phase("3g main path: images -> DoGHardNet (OpenCV on the host, HardNet on "
+          "the card) -> LightGlue('doghardnet'): match_pair, 4096 slots")
+    host = DoGHardNet(params=hp, device="cuda")
+    out, counts = counted("DoGHardNet opencv match_pair",
+                          lambda: match_pair(host, matcher, a, b),
+                          *matcher_kernels(4096))
+    add_counts(total, counts)
+    check_pair_output("DoGHardNet opencv match_pair", *out, (W, H), (W, H))
+    cpu_f = DoGHardNet(params=nn.params_to(hp, "cpu"), device="cpu").extract(a)
+    v = cpu_f["valid"][0]
+    equal = all(np.array_equal(out[0][k], cpu_f[k][0]) for k in
+                ("keypoints", "keypoint_scores", "scales", "oris", "valid"))
+    derr = float(np.abs(out[0]["descriptors"][v] - cpu_f["descriptors"][0][v]).max())
+    ref = cpu_matcher({"image0": {k_: v_[None] for k_, v_ in out[0].items()},
+                       "image1": {k_: v_[None] for k_, v_ in out[1].items()}})
+    same = all(np.array_equal(out[2][f], ref[f][0]) for f in
+               ("matches0", "matches1", "prune0", "prune1"))
+    serr = float(np.abs(out[2]["matching_scores0"] - ref["matching_scores0"][0]).max())
+    k, prec = sift_precision(*out, pairs[0][2])
+    print(f"  DoGHardNet opencv: detections {'equal' if equal else 'DIFFER'} "
+          f"to the CPU port's, descriptors max_abs_err {derr:.3e} (tol "
+          f"{HARDNET_DESC_TOL:g}); {k} matches, precision {prec:.3f}; the CPU "
+          f"port's matcher on the same features: matches, prune "
+          f"{'equal' if same else 'DIFFER'}, scores max_abs_err {serr:.3e}, "
+          f"stop {out[2]['stop']} vs {ref['stop']}", flush=True)
+    if (not equal or derr > HARDNET_DESC_TOL or not same
+            or serr > MATCH_SCORE_TOL or out[2]["stop"] != ref["stop"]):
+        raise AssertionError("DoGHardNet opencv: the card disagrees with the "
+                             "CPU port")
+    return total
+
+
 def disk_sift_timing_phase():
     """Phase 4e: extraction ms an image (DISK B 1 and B 8 in fp32 and at
-    mp, SIFTDevice B 1; CUDA events), images to matches pairs/s
-    (make_end_to_end fixed at 1024: DISK B 8 in fp32 and at mp, SIFTDevice
-    B 2) and match_pair ms a pair (host clock; SIFTDevice and opencv at
-    4096)."""
-    phase("4e timing: DISK and SIFT extraction, images -> matches")
+    mp, SIFTDevice B 1, DoGHardNetDevice B 1 and B 2 with HardNet's patches
+    and CNN apart beside the CNN's bound; CUDA events), images to matches
+    pairs/s (make_end_to_end fixed at 1024: DISK B 8 in fp32 and at mp,
+    SIFTDevice and DoGHardNetDevice B 2) and match_pair ms a pair (host
+    clock; SIFTDevice and opencv at 4096)."""
+    phase("4e timing: DISK, SIFT and DoGHardNet extraction, images -> matches")
     rng = np.random.default_rng(87)
     pool = [image_pair(rng, H, W) for _ in range(8)]
     im0 = torch.from_numpy(np.stack([p[0] for p in pool]))[..., None].cuda()
@@ -2725,6 +2896,46 @@ def disk_sift_timing_phase():
         print(f"  match_pair {label} -> LightGlue('sift') fixed, {H}x{W}, 4096 "
               f"keypoints: median {np.median(ms):.2f} ms per pair (3 calls)",
               flush=True)
+
+    # DoGHardNetDevice: SIFTDevice's detections, then HardNet's patches and
+    # CNN, these two timed apart on one image's 4096 slots beside the CNN's
+    # bound (fp32 on the CUDA cores)
+    hp = hardnet_params(im0[:2, ..., 0], sconf)
+    for bsz in (1, 2):
+        ms = time_cuda(lambda: hardnet.forward(hp, sconf, im0[:bsz]), iters=3,
+                       warmup=1) / bsz
+        print(f"  DoGHardNetDevice extraction, B {bsz}: {ms:.3f} ms per {H}x{W} "
+              "image (4096 keypoints)", flush=True)
+    with torch.inference_mode():
+        det = sift_device.extract_batch(im0[:1, ..., 0], sconf)
+        args = (im0[:1, ..., 0], det["keypoints"],
+                hardnet.LAF_SCALE * det["scales"], det["oris"])
+        ms_p = time_cuda(lambda: hardnet.extract_laf_patches_batch(*args),
+                         iters=10)
+        patches = hardnet.extract_laf_patches_batch(*args).flatten(0, 1)
+        ms_c = time_cuda(lambda: hardnet.describe_patches(hp, patches), iters=10)
+    flops, nbytes = hardnet_flops_bytes(patches.shape[0])
+    t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    print(f"  DoGHardNetDevice parts, B 1: LAF patches {ms_p:.3f} ms, HardNet "
+          f"{ms_c:.3f} ms on {patches.shape[0]} patches ({flops / 1e12:.3f} "
+          f"TFLOP, bound {max(t_ops, t_bytes):.3f} ms by "
+          f"{'operations' if t_ops >= t_bytes else 'bytes'}: "
+          f"{flops / ms_c / 1e9:.1f} TFLOP/s achieved)", flush=True)
+    # the matcher on one pair of these features (4096 slots, fixed), the
+    # yardstick for HardNet's share
+    hm = LightGlue("doghardnet", params=SIFT_WEIGHTS, device="cuda", **FIXED)
+    with torch.inference_mode():
+        f0, f1 = (hardnet.forward(hp, sconf, im[:1]) for im in (im0, im1))
+        ms_m = time_cuda(lambda: lg.forward(
+            hm.params, hm.conf, kpts0=f0.keypoints, kpts1=f1.keypoints,
+            desc0=f0.descriptors, desc1=f1.descriptors, size0=sizes[:1],
+            size1=sizes[:1], mask0=f0.valid, mask1=f1.valid,
+            **end_to_end._scale_ori_kw(f0, f1)), iters=5, warmup=2)
+    print(f"  LightGlue('doghardnet') fixed on one pair of these features, "
+          f"4096 slots: {ms_m:.3f} ms", flush=True)
+    rate("DoGHardNetDevice", end_to_end.make_end_to_end(
+        hardnet.forward, hp, sconf.replace(max_num_keypoints=1024),
+        hm.params, hm.conf), 2, reps=3)
 
 
 def serving_traffic(rng, n):
@@ -5858,6 +6069,7 @@ def main():
                  lambda: aliked_path_phase(al_params, params),
                  lambda: disk_path_phase(params),
                  sift_path_phase,
+                 doghardnet_path_phase,
                  gather_path_phase,
                  lambda: serving_phase(params),
                  lambda: sequence_phase(params, sp_params),

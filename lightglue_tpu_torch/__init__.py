@@ -1,5 +1,5 @@
-"""lightglue_tpu_torch: SuperPoint, ALIKED, DISK, SIFT and the LightGlue
-matcher in PyTorch with hand-written CUDA kernels for NVIDIA Hopper
+"""lightglue_tpu_torch: SuperPoint, ALIKED, DISK, SIFT, DoGHardNet and the
+LightGlue matcher in PyTorch with hand-written CUDA kernels for NVIDIA Hopper
 (sm_90a).
 
 The JAX package ``lightglue_tpu`` is the reference; this package imports
@@ -12,8 +12,8 @@ from .configs import (
     FEATURES, ALIKEDConfig, DISKConfig, LightGlueConfig, PreprocessConfig,
     SIFTConfig, SuperPointConfig, lightglue_config)
 from .pipeline import (
-    ALIKED, DISK, SIFT, LightGlue, SIFTDevice, SuperPoint, compact_matches,
-    match_pair, match_sequence, rbd)
+    ALIKED, DISK, SIFT, DoGHardNet, DoGHardNetDevice, LightGlue, SIFTDevice,
+    SuperPoint, compact_matches, match_pair, match_sequence, rbd)
 from .parallel.batching import BatchMatcher
 
 __all__ = [
@@ -22,6 +22,8 @@ __all__ = [
     "BatchMatcher",
     "DISK",
     "DISKConfig",
+    "DoGHardNet",
+    "DoGHardNetDevice",
     "FEATURES",
     "LightGlue",
     "LightGlueConfig",

@@ -218,7 +218,10 @@ class SIFTConfig:
     ``models.sift_device``) or "pycolmap*" (needs pycolmap, which is not
     installed). ``num_scales_per_octave`` defaults to 4: the reference passes
     its ``num_octaves`` to OpenCV's nOctaveLayers (sift.py:132), so both
-    backends build the same pyramid.
+    backends build the same pyramid. DoGHardNet takes the same config: its
+    detections are SIFT's, and ``pipeline.SIFT``'s describe hook
+    (``_describe``) replaces the SIFT descriptors by HardNet's, without
+    RootSIFT (``rootsift`` is then unused).
     """
 
     rootsift: bool = True

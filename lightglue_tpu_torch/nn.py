@@ -150,21 +150,29 @@ def round_bf16(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16).float()
 
 
-def conv2d(p: Params, x: torch.Tensor) -> torch.Tensor:
-    """Stride-1 SAME convolution, NCHW with an OIHW weight (odd kernels), in
-    x's type. A bf16 x (mp) convolves with the weight in bf16 and fp32 sums,
-    rounds to bf16, then adds the bias in bf16, as lightglue_tpu/nn.py:
-    112-123 (XLA) does: cuDNN's bf16 convolution on the card; on the CPU
-    an fp32 convolution of the bf16 operands, rounded (PyTorch's CPU bf16
-    convolution is slow)."""
-    pad = p["w"].shape[-1] // 2
+def conv2d(p: Params, x: torch.Tensor, stride: int = 1,
+           padding="SAME") -> torch.Tensor:
+    """Convolution, NCHW with an OIHW weight, in x's type (lightglue_tpu/
+    nn.py:97-124). ``padding``: "SAME" (stride 1, odd kernels: k // 2 on
+    every side), "VALID" (none) or an int on every side. A bf16 x (mp)
+    convolves with the weight in bf16 and fp32 sums, rounds to bf16, then
+    adds the bias in bf16, as XLA does: cuDNN's bf16 convolution on the
+    card; on the CPU an fp32 convolution of the bf16 operands, rounded
+    (PyTorch's CPU bf16 convolution is slow)."""
+    if padding == "SAME":
+        if stride != 1:
+            raise ValueError("padding 'SAME' is stride 1 only; pass an int")
+        padding = p["w"].shape[-1] // 2
+    elif padding == "VALID":
+        padding = 0
+    kw = dict(stride=stride, padding=padding)
     if x.dtype == torch.float32:
-        return F.conv2d(x, p["w"], p.get("b"), padding=pad)
+        return F.conv2d(x, p["w"], p.get("b"), **kw)
     w = p["w"].to(x.dtype)
     if x.is_cuda:
-        y = F.conv2d(x, w, padding=pad)
+        y = F.conv2d(x, w, **kw)
     else:
-        y = F.conv2d(x.float(), w.float(), padding=pad).to(x.dtype)
+        y = F.conv2d(x.float(), w.float(), **kw).to(x.dtype)
     return y + p["b"].to(x.dtype)[:, None, None] if "b" in p else y
 
 

@@ -24,6 +24,7 @@ from .configs import (
     SuperPointConfig, lightglue_config)
 from .models import aliked as aliked_model
 from .models import disk as disk_model
+from .models import hardnet as hardnet_model
 from .models import lightglue as lg
 from .models import sift as sift_model
 from .models import sift_device
@@ -114,6 +115,7 @@ class Extractor:
     _model: object
     _from_jax: staticmethod
     _release: str  # checkpoint file name, formatted with the config's fields
+    _loader = None  # weights' state-dict loader; None: <class>_from_state_dict
 
     def __init__(
         self,
@@ -132,7 +134,8 @@ class Extractor:
                 f"pretrained=True: the release {name} weights "
                 f"({self._release.format(**vars(self.conf))}) are not in this "
                 "repository and nothing is downloaded; convert a state dict "
-                f"with weights.{name.lower()}_from_state_dict and pass params=.")
+                f"with weights.{self._loader or name.lower() + '_from_state_dict'}"
+                " and pass params=.")
         if params is None:
             params = self._model.init_params(
                 self.conf, torch.Generator().manual_seed(seed))
@@ -252,13 +255,50 @@ class SIFTDevice(Extractor):
         self.params = None  # handcrafted: nothing learned
 
 
+class DoGHardNetDevice(Extractor):
+    """DoGHardNet on the wrapper's device (``models.hardnet``: SIFTDevice's
+    detections, HardNet on their LAF patches) behind the Extractor surface,
+    so that it runs in ``match_pair``, ``extract_batch``,
+    ``match_sequence`` and ``end_to_end``; no padding (stride 1).
+    ``params``: the port's HardNet tree, a JAX flat npz path, or None
+    (random weights from ``seed``); kornia's state dicts convert through
+    ``weights.hardnet_from_state_dict``."""
+
+    stride = 1
+    _conf_cls = SIFTConfig
+    _model = hardnet_model
+    _from_jax = staticmethod(weights_lib.hardnet_from_jax_params)
+    _release = "checkpoint_liberty_with_aug.pth"
+    _loader = "hardnet_from_state_dict"
+
+    def __init__(self, params: Union[None, str, nn.Params] = None, seed: int = 0,
+                 conf: Optional[SIFTConfig] = None, pretrained: bool = False,
+                 device: Union[str, torch.device] = "cuda", **conf_overrides):
+        conf = (conf or SIFTConfig(backend="device")).replace(**conf_overrides)
+        if conf.backend != "device":
+            raise ValueError(f"DoGHardNetDevice runs backend 'device', not "
+                             f"{conf.backend!r}; use DoGHardNet for the others")
+        if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("DoGHardNetDevice: no CUDA device; pass "
+                               "device='cpu'")
+        super().__init__(params, conf, seed, pretrained, device)
+
+
 class SIFT:
     """SIFT (reference sift.py:79-216): OpenCV's SIFT on the host
     (``backend="opencv"``, as the reference), RootSIFT, padded to
     ``max_num_keypoints`` slots with ``valid``, with scales and oris; or
     the DoG scale space on ``device`` (``backend="device"``), which is
     ``SIFTDevice``'s extraction. ``device`` serves the "device" backend
-    only ("cuda" unless the caller asks for "cpu")."""
+    only ("cuda" unless the caller asks for "cpu").
+
+    ``_describe(gray, pred)`` is the describe hook: it takes the resized
+    grey image and the host detections, before RootSIFT
+    (``_apply_rootsift``), the padding and the keypoints' rescale, and
+    returns them with their descriptors. SIFT keeps OpenCV's; DoGHardNet
+    overrides it with HardNet's."""
+
+    _apply_rootsift = True
 
     def __init__(self, conf: Optional[SIFTConfig] = None,
                  device: Union[str, torch.device] = "cuda", **conf_overrides):
@@ -307,8 +347,8 @@ class SIFT:
         pp = ImagePreprocessor(self.preprocess_conf, **preprocess_overrides)
         gray_r, scales_xy = pp(torch.from_numpy(gray)[..., None])
         gray_r = gray_r[..., 0].numpy()
-        pred = self._detect(gray_r)
-        if self.conf.rootsift:
+        pred = self._describe(gray_r, self._detect(gray_r))
+        if self.conf.rootsift and self._apply_rootsift:
             pred["descriptors"] = sift_model.sift_to_rootsift(pred["descriptors"])
         pred = sift_model.pad_features(pred, self.conf.max_num_keypoints)
         kpts = (pred["keypoints"] + 0.5) / scales_xy[None] - 0.5
@@ -322,11 +362,52 @@ class SIFT:
             "image_size": np.array([[orig_w, orig_h]], np.float32),
         }
 
+    def _describe(self, gray: np.ndarray, pred: dict) -> dict:
+        return pred  # OpenCV has described them
+
+
+class DoGHardNet(SIFT):
+    """SIFT keypoints with HardNet descriptors on 32 x 32 LAF patches
+    (reference dog_hardnet.py:8-41), no RootSIFT: OpenCV's detection on the
+    host (``backend="opencv"``), then HardNet's patches and CNN on
+    ``device`` ("cuda" unless the caller asks for "cpu"); with
+    ``backend="device"`` it is ``DoGHardNetDevice``'s extraction. ``params``,
+    ``seed`` and ``pretrained`` as ``DoGHardNetDevice``'s."""
+
+    _apply_rootsift = False
+
+    def __init__(self, params: Union[None, str, nn.Params] = None, seed: int = 0,
+                 conf: Optional[SIFTConfig] = None, pretrained: bool = False,
+                 device: Union[str, torch.device] = "cuda", **conf_overrides):
+        self.conf = (conf or SIFTConfig()).replace(**conf_overrides)
+        self.preprocess_conf = PreprocessConfig(resize=self.conf.resize)
+        self._hardnet = DoGHardNetDevice(
+            params, seed, self.conf.replace(backend="device"), pretrained, device)
+        self._on_device = self._hardnet if self.conf.backend == "device" else None
+
+    def _describe(self, gray: np.ndarray, pred: dict) -> dict:
+        if len(pred["keypoints"]) == 0:
+            pred["descriptors"] = np.zeros((0, hardnet_model.DESC_DIM), np.float32)
+            return pred
+        dev = self._hardnet.device
+        t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+        patches = hardnet_model.extract_laf_patches(
+            t(gray), t(pred["keypoints"]),
+            t(hardnet_model.LAF_SCALE * pred["scales"]), t(pred["oris"]))
+        pred["descriptors"] = hardnet_model.describe_patches(
+            self._hardnet.params, patches).cpu().numpy()
+        return pred
+
 
 class LightGlue:
     """Matcher wrapper: parameters on one device ("cuda" unless the caller
     asks for "cpu"), optional static padding buckets, host-side compaction
-    of the matches."""
+    of the matches.
+
+    ``params``: the port's tree, the path of a JAX flat npz, a reference
+    state dict (flat, ``transformers.0.self_attn.Wqkv.weight``, ...;
+    through ``weights.from_state_dict``), or None (random weights from
+    ``seed``). ``pretrained=True`` raises: nothing is downloaded."""
 
     def __init__(
         self,
@@ -334,14 +415,23 @@ class LightGlue:
         params: Union[None, str, nn.Params] = None,
         conf: Optional[LightGlueConfig] = None,
         seed: int = 0,
+        pretrained: bool = False,
         device: Union[str, torch.device] = "cuda",
         **conf_overrides,
     ):
         self.conf = conf or lightglue_config(features, **conf_overrides)
+        if params is None and pretrained:
+            raise FileNotFoundError(
+                f"pretrained=True: the release matcher weights "
+                f"({self.conf.weights}) are not in this repository and nothing "
+                "is downloaded; convert the reference state dict with "
+                "weights.from_state_dict and pass params=.")
         if params is None:
             params = lg.init_params(self.conf, torch.Generator().manual_seed(seed))
         elif isinstance(params, str):
             params = weights_lib.load_params(params, self.conf)
+        elif any("." in k for k in params):  # a reference state dict
+            params = weights_lib.from_state_dict(params, self.conf)
         self.device = torch.device(device)
         self.params = nn.params_to(params, self.device)
         lg.prepared_blocks(self.params, self.conf)  # B5/B6 weights, once

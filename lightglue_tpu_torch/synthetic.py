@@ -10,6 +10,9 @@ that only geometry can reject.
 
 ``image_pair``: a procedural grayscale texture and its warp under a known
 homography, with bilinear sampling, for the extractor (no OpenCV needed).
+
+``hardnet_params``: seeded random HardNet weights whose batch norms hold
+the statistics of real patches, the stand-in for the release weights.
 """
 
 from __future__ import annotations
@@ -161,3 +164,35 @@ def image_pair(
     src = warp_points(np.linalg.inv(hom), np.stack([x.ravel(), y.ravel()], 1))
     img1 = _bilinear(img0.astype(np.float64), src[:, 0], src[:, 1])
     return img0, img1.reshape(h, w).astype(np.float32), hom
+
+
+def hardnet_params(images, conf, seed: int = 0):
+    """Seeded random HardNet weights (``models.hardnet.init_params``) whose
+    batch norms hold, conv by conv, the per-channel mean and (biased)
+    variance of that conv's output on the LAF patches at the SIFT
+    detections (``conf``, a SIFTConfig) of ``images`` (B, H, W) grey, on
+    their device: the stand-in for the release weights, which are not in
+    the repository. With the init's identity batch norms the descriptors
+    nearly coincide (ReLU outputs are positive, so the 8x8 conv's common
+    part swamps the rest: cosines about 0.7 apart on average, and the
+    trained matcher finds nothing); with these they spread (about 0)."""
+    import torch
+
+    from . import nn
+    from .models import hardnet, sift_device
+
+    p = hardnet.init_params(conf, torch.Generator().manual_seed(seed))
+    p = nn.params_to(p, images.device)
+    with torch.inference_mode():
+        det = sift_device.extract_batch(images, conf)
+        x = hardnet.extract_laf_patches_batch(
+            images, det["keypoints"], hardnet.LAF_SCALE * det["scales"],
+            det["oris"])[det["valid"]]
+        x = hardnet._input_norm(x)
+        with nn.fp32_convs():
+            for i in range(len(hardnet.LAYERS)):
+                x = hardnet.conv(p, i, x)
+                p[f"bn{i}"]["mean"] = x.mean((0, 2, 3))
+                p[f"bn{i}"]["var"] = x.var((0, 2, 3), unbiased=False)
+                x = hardnet.norm(p, i, x)
+    return {k: {n: t.clone() for n, t in v.items()} for k, v in p.items()}

@@ -1,11 +1,14 @@
 """Parameters from the JAX package's flat checkpoints and from reference
-state dicts (counterpart of lightglue_tpu/weights.py:45-50, 133-181).
+state dicts (counterpart of lightglue_tpu/weights.py:45-50, 74-305).
 
 A checkpoint is a flat ``"a/b/c" -> array`` dict, as
 ``lightglue_tpu.weights.flatten_tree`` writes it and the npz files hold.
 Matcher: linear weights ``(in, out)``, transformer layers stacked on axis 0;
 the port keeps that layout, so conversion is a key-for-key copy into float32
-tensors with every key and shape checked against the configuration.
+tensors with every key and shape checked against the configuration. The
+reference's state dict (``transformers.{i}.self_attn.Wqkv.weight``, ...)
+converts through ``from_state_dict``, which transposes and stacks it.
+HardNet: kornia's ``features.{i}`` dicts through ``hardnet_from_state_dict``.
 SuperPoint and ALIKED: conv weights are HWIO in the JAX package and OIHW in
 the port and in the reference's state dicts (``conv1a.weight``,
 ``conv1a.bias``, ...), so they are transposed once here. ALIKED's batch
@@ -367,4 +370,190 @@ def disk_to_state_dict(params: nn.Params) -> Dict[str, np.ndarray]:
             out[conv + ".weight"] = p["conv"]["w"].detach().cpu().numpy()
             if "b" in p["conv"]:
                 out[conv + ".bias"] = p["conv"]["b"].detach().cpu().numpy()
+    return out
+
+
+# --- the matcher's reference state dict (lightglue_tpu/weights.py:74-130) ----
+
+# the reference's module names under a tree path, and its parameter names
+_REF_MODULES = {"lin1": "0", "ln": "1", "lin2": "3", "token": "token.0"}
+_REF_LEAVES = {"w": "weight", "b": "bias", "scale": "weight", "bias": "bias"}
+# the per-layer module lists: their tree paths stack the layers on axis 0
+_LAYERED = ("transformers", "log_assignment", "token_confidence")
+
+
+def _ref_key(key: str, layer: Optional[int]) -> str:
+    """The reference's state-dict key of tree key ``key`` (at ``layer``)."""
+    top, *mid, leaf = key.split("/")
+    parts = [top] + ([str(layer)] if top in _LAYERED else [])
+    parts += [_REF_MODULES.get(m, m) for m in mid] + [_REF_LEAVES[leaf]]
+    return ".".join(parts)
+
+
+def upgrade_legacy_keys(sd: Dict[str, np.ndarray],
+                        n_layers: int) -> Dict[str, np.ndarray]:
+    """Old checkpoints name the blocks ``self_attn.{i}`` / ``cross_attn.{i}``
+    (reference migration, lightglue.py:427-434): renamed to
+    ``transformers.{i}.self_attn`` / ``.cross_attn``, as the JAX package's
+    ``upgrade_legacy_keys`` does."""
+    out = dict(sd)
+    for i in range(n_layers):
+        for old, new in ((f"self_attn.{i}", f"transformers.{i}.self_attn"),
+                         (f"cross_attn.{i}", f"transformers.{i}.cross_attn")):
+            out = {k.replace(old, new): v for k, v in out.items()}
+    return out
+
+
+def from_state_dict(sd: Dict[str, np.ndarray],
+                    conf: Optional[LightGlueConfig] = None) -> nn.Params:
+    """The port's matcher tree from a reference LightGlue state dict
+    (``transformers.{i}.self_attn.Wqkv.weight``, ...; legacy names
+    upgraded first): linear weights transposed to (in, out), each module
+    list stacked on a leading layer axis, as the JAX package's
+    ``convert_lightglue`` builds it. The ``confidence_thresholds`` buffer
+    is ignored (as ``convert_lightglue`` ignores it: the thresholds are
+    computed from ``conf``). Every key of ``conf``'s matcher is required,
+    every shape checked, and any other key refused: ``input_proj`` exists
+    only where input_dim != descriptor_dim (not in the superpoint preset)."""
+    conf = conf or LightGlueConfig()
+    sd = upgrade_legacy_keys({k: v for k, v in sd.items()
+                              if k != "confidence_thresholds"}, conf.n_layers)
+    flat, used = {}, set()
+    for key, shape in expected_shapes(conf).items():
+        layered = key.split("/")[0] in _LAYERED
+        arrs = []
+        for i in range(shape[0]) if layered else [None]:
+            ref = _ref_key(key, i)
+            if ref not in sd:
+                raise KeyError(f"state dict lacks {ref} (for {key})")
+            a = _numpy(sd[ref])
+            arrs.append(a.T if key.endswith("/w") else a)
+            used.add(ref)
+        flat[key] = np.stack(arrs) if layered else arrs[0]
+    extra = sorted(set(sd) - used)
+    if extra:
+        raise KeyError(f"unexpected state-dict keys: {extra[:8]}")
+    return from_jax_params(flat, conf)
+
+
+def _numpy(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu()
+    return np.asarray(x)
+
+
+def to_state_dict(params: nn.Params,
+                  conf: Optional[LightGlueConfig] = None) -> Dict[str, np.ndarray]:
+    """Inverse of ``from_state_dict``: the reference's keys and layouts
+    (without ``confidence_thresholds``)."""
+    conf = conf or LightGlueConfig()
+    flat = flatten_params(params)
+    out = {}
+    for key in expected_shapes(conf):
+        layered = key.split("/")[0] in _LAYERED
+        for i, a in enumerate(flat[key]) if layered else [(None, flat[key])]:
+            out[_ref_key(key, i)] = np.ascontiguousarray(
+                a.T if key.endswith("/w") else a)
+    return out
+
+
+# --- HardNet (lightglue_tpu/weights.py:237-305) -------------------------------
+
+_BN_LEAVES = (("scale", "weight"), ("bias", "bias"), ("mean", "running_mean"),
+              ("var", "running_var"))
+
+
+def _hardnet_tree(get_w, get_bn) -> nn.Params:
+    """Every conv from ``get_w(n)`` (OIHW) and batch norm from
+    ``get_bn(n)`` (dict of the four leaves), shapes checked."""
+    from .models.hardnet import LAYERS
+
+    tree = {}
+    for n, (ci, co, ks, *_) in enumerate(LAYERS):
+        w = np.asarray(get_w(n))
+        if w.shape != (co, ci, ks, ks):
+            raise ValueError(f"conv{n}: weight {w.shape}, expected "
+                             f"{(co, ci, ks, ks)}")
+        bn = {k: np.asarray(v) for k, v in get_bn(n).items()}
+        if any(a.shape != (co,) for a in bn.values()):
+            raise ValueError(f"bn{n}: shapes {[a.shape for a in bn.values()]}, "
+                             f"expected ({co},)")
+        tree[f"conv{n}"] = {"w": torch.from_numpy(np.array(w, np.float32))}
+        tree[f"bn{n}"] = {k: torch.from_numpy(np.array(a, np.float32))
+                          for k, a in bn.items()}
+    return tree
+
+
+def hardnet_from_jax_params(flat, conf=None) -> nn.Params:
+    """The port's HardNet parameters from the JAX package's flat dict
+    (``conv0/w`` HWIO, ``bn0/scale``, ...) or its nested tree; ``conf`` is
+    unused. Raises on any missing or unexpected key and on any shape that
+    does not fit the architecture."""
+    if any(isinstance(v, dict) for v in flat.values()):  # the nested tree
+        flat = flatten_params(flat)
+    flat = {k: np.asarray(v) for k, v in flat.items()}
+    _check_keys(flat, [f"conv{n}/w" for n in range(7)]
+                + [f"bn{n}/{leaf}" for n in range(7) for leaf, _ in _BN_LEAVES])
+    return _hardnet_tree(
+        lambda n: flat[f"conv{n}/w"].transpose(3, 2, 0, 1),
+        lambda n: {leaf: flat[f"bn{n}/{leaf}"] for leaf, _ in _BN_LEAVES})
+
+
+def hardnet_from_state_dict(sd: Dict[str, np.ndarray]) -> nn.Params:
+    """The port's HardNet parameters from a kornia HardNet state dict
+    (``features.{i}.*``, reference dog_hardnet.py:13), parsed as the JAX
+    package's ``convert_hardnet``: the convs (a 4-d ``.weight``) and batch
+    norms (a ``.running_mean``) are found from the keys, not from fixed
+    Sequential indices; a batch norm without affine parameters (kornia's)
+    takes scale 1 and bias 0. The checks of ``convert_hardnet``'s strict
+    mode always run: exactly 7 convs and 7 batch norms, each after its
+    conv, every shape as the architecture's, and no tensor left over but
+    ``num_batches_tracked``."""
+    sd = {k: _numpy(v) for k, v in sd.items()}
+    idxs = sorted({int(k.split(".")[1]) for k in sd if k.startswith("features.")})
+    convs = [i for i in idxs if f"features.{i}.weight" in sd
+             and sd[f"features.{i}.weight"].ndim == 4]
+    bns = [i for i in idxs if f"features.{i}.running_mean" in sd]
+    if len(convs) != 7 or len(bns) != 7:
+        raise ValueError(f"HardNet layout mismatch: found {len(convs)} convs / "
+                         f"{len(bns)} BNs at features.{convs}/{bns}, expected 7+7")
+    if any(bi <= ci for ci, bi in zip(convs, bns)):
+        raise ValueError(f"a batch norm precedes its conv: {convs} / {bns}")
+    consumed = set()
+
+    def bn(n):
+        pre = f"features.{bns[n]}."
+        dim = sd[pre + "running_mean"].shape[0]
+        out = {"scale": sd.get(pre + "weight", np.ones(dim, np.float32)),
+               "bias": sd.get(pre + "bias", np.zeros(dim, np.float32)),
+               "mean": sd[pre + "running_mean"], "var": sd[pre + "running_var"]}
+        consumed.update(pre + name for _, name in _BN_LEAVES if pre + name in sd)
+        return out
+
+    def conv(n):
+        consumed.add(f"features.{convs[n]}.weight")
+        return sd[f"features.{convs[n]}.weight"]
+
+    tree = _hardnet_tree(conv, bn)
+    leftover = [k for k in sd if k not in consumed
+                and not k.endswith("num_batches_tracked")]
+    if leftover:
+        raise ValueError(f"unconsumed HardNet tensors: {leftover[:8]}")
+    return tree
+
+
+def hardnet_to_state_dict(params: nn.Params) -> Dict[str, np.ndarray]:
+    """Inverse of ``hardnet_from_state_dict``, in kornia's layout: conv n at
+    ``features.{3n}`` and its batch norm at ``features.{3n + 1}`` (the
+    Dropout before the last conv shifts it to 19 and 20); a batch norm's
+    scale and bias only where they are not 1 and 0 (kornia's have none)."""
+    out = {}
+    for n in range(7):
+        ci = 3 * n + (1 if n == 6 else 0)
+        out[f"features.{ci}.weight"] = _numpy(params[f"conv{n}"]["w"])
+        bn = {k: _numpy(v) for k, v in params[f"bn{n}"].items()}
+        affine = not ((bn["scale"] == 1).all() and (bn["bias"] == 0).all())
+        for leaf, name in _BN_LEAVES:
+            if affine or leaf in ("mean", "var"):
+                out[f"features.{ci + 1}.{name}"] = bn[leaf]
     return out

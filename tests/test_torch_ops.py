@@ -184,3 +184,39 @@ def test_warn_once():
     assert [str(r.message) for r in rec] == ["first"]
     assert issubclass(rec[0].category, diagnostics.DegradedModeWarning)
     diagnostics.reset()
+
+
+def test_quant_matches_jax():
+    """quantize_descriptors / dequantize_descriptors against
+    lightglue_tpu/ops/quant.py: codes and scales equal, on unit rows, on
+    rows built to land on exact .5 ties (half to even, as jnp.round), an
+    all-zero row and bf16 input; the dequantized rows equal too."""
+    from lightglue_tpu.ops import quant as jquant
+    from lightglue_tpu_torch.ops import quant
+
+    rng = np.random.default_rng(9)
+    unit = _rand(rng, 3, 5, 128)
+    unit /= np.linalg.norm(unit, axis=-1, keepdims=True)
+    # amax 127 gives scale 1: x / 1 lands on k + 0.5 exactly
+    ties = np.tile(np.array([127.0, 0.5, 1.5, 2.5, -0.5, -1.5, -2.5, 3.0],
+                            np.float32), (2, 1))
+    for x in (unit, ties, np.zeros((2, 16), np.float32)):
+        q = quant.quantize_descriptors(torch.from_numpy(x))
+        jq = jquant.quantize_descriptors(jnp.asarray(x))
+        assert q.codes.dtype == torch.int8
+        np.testing.assert_array_equal(q.codes.numpy(), np.asarray(jq.codes))
+        np.testing.assert_array_equal(q.scales.numpy(), np.asarray(jq.scales))
+        np.testing.assert_array_equal(
+            quant.dequantize_descriptors(q).numpy(),
+            np.asarray(jquant.dequantize_descriptors(jq)))
+    np.testing.assert_array_equal(
+        quant.quantize_descriptors(torch.from_numpy(ties)).codes[0, 1:7].numpy(),
+        [0, 2, 2, 0, -2, -2])
+    xb = torch.from_numpy(unit).bfloat16()
+    q = quant.quantize_descriptors(xb)
+    jq = jquant.quantize_descriptors(jnp.asarray(unit).astype(jnp.bfloat16))
+    np.testing.assert_array_equal(q.codes.numpy(), np.asarray(jq.codes))
+    np.testing.assert_array_equal(q.scales.numpy(), np.asarray(jq.scales))
+    np.testing.assert_array_equal(
+        quant.dequantize_descriptors(q, torch.bfloat16).float().numpy(),
+        np.asarray(jquant.dequantize_descriptors(jq, jnp.bfloat16)).astype(np.float32))

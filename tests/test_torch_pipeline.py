@@ -116,8 +116,11 @@ def test_import_leaves_jax_out():
             "lightglue_tpu_torch.models.aliked, "
             "lightglue_tpu_torch.models.disk, "
             "lightglue_tpu_torch.models.sift, "
-            "lightglue_tpu_torch.models.sift_device; "
-            "from lightglue_tpu_torch.pipeline import DISK, SIFT, SIFTDevice; "
+            "lightglue_tpu_torch.models.sift_device, "
+            "lightglue_tpu_torch.models.hardnet, "
+            "lightglue_tpu_torch.ops.quant; "
+            "from lightglue_tpu_torch.pipeline import DISK, SIFT, SIFTDevice, "
+            "DoGHardNet, DoGHardNetDevice; "
             "import lightglue_tpu_torch.weights, "
             "lightglue_tpu_torch.ops.aliked_stem, "
             "lightglue_tpu_torch.ops.score_head, "

@@ -1,6 +1,9 @@
 """lightglue_tpu_torch.weights: JAX checkpoints into the port's parameters,
-every key used and every shape checked."""
+every key used and every shape checked; the reference LightGlue state
+dicts (the layouts of tests/fixtures/*_lightglue.json) against the JAX
+package's convert_lightglue."""
 
+import json
 import os
 
 import jax
@@ -72,3 +75,80 @@ def test_in_repo_npz_loads_at_full_width():
             np.testing.assert_array_equal(flat[k], f[k].astype(np.float32))
     assert params["transformers"]["self_attn"]["Wqkv"]["w"].shape == (9, 256, 768)
     assert params["transformers"]["self_attn"]["Wqkv"]["w"].dtype == torch.float32
+
+
+# --- the reference state dict (lightglue_tpu/weights.py:74-130) ---------------
+
+FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures")
+
+
+def _reference_dict(features, seed=0):
+    """A seeded state dict with the keys and shapes of the reference
+    LightGlue(features) (tests/fixtures/<features>_lightglue.json)."""
+    with open(os.path.join(FIXTURES, f"{features}_lightglue.json")) as f:
+        keys = json.load(f)["keys"]
+    rng = np.random.default_rng(seed)
+    return {k: rng.standard_normal(s).astype(np.float32) for k, s in keys.items()}
+
+
+@pytest.mark.parametrize("features", ["superpoint", "aliked", "disk", "sift",
+                                      "doghardnet"])
+def test_from_state_dict_equals_convert_lightglue(features):
+    """Each reference layout through JAX convert_lightglue + flatten_tree
+    and through the port's from_state_dict: the same keys, equal to the
+    bit (confidence_thresholds ignored by both); to_state_dict gives the
+    dict back without it."""
+    sd = _reference_dict(features)
+    jconf = jconfigs.lightglue_config(features)
+    want = jweights.flatten_tree(jweights.convert_lightglue(sd, jconf))
+    conf = configs.lightglue_config(features)
+    got = weights.flatten_params(weights.from_state_dict(sd, conf))
+    assert set(got) == set(want)
+    for k, v in want.items():
+        np.testing.assert_array_equal(got[k], np.asarray(v), err_msg=k)
+    back = weights.to_state_dict(weights.from_state_dict(sd, conf), conf)
+    assert set(back) == set(sd) - {"confidence_thresholds"}
+    for k, v in back.items():
+        np.testing.assert_array_equal(v, sd[k], err_msg=k)
+
+
+def test_legacy_keys_and_state_dict_params():
+    """Legacy ``self_attn.{i}`` / ``cross_attn.{i}`` names renamed as JAX
+    upgrade_legacy_keys renames them, and converted to the same tree as the
+    current names; torch tensors accepted; a state dict passed to
+    pipeline.LightGlue as params converts through from_state_dict; missing
+    and unexpected keys raise."""
+    from lightglue_tpu_torch import LightGlue
+
+    conf = configs.lightglue_config("sift")
+    sd = _reference_dict("sift", seed=1)
+    legacy = {}
+    for k, v in sd.items():
+        for block in ("self_attn", "cross_attn"):
+            pre = "transformers."
+            if k.startswith(pre) and f".{block}." in k:
+                i = k[len(pre):].split(".")[0]
+                k = k.replace(f"transformers.{i}.{block}", f"{block}.{i}")
+        legacy[k] = v
+    assert legacy.keys() != sd.keys()
+    mine = weights.upgrade_legacy_keys(legacy, conf.n_layers)
+    theirs = jweights.upgrade_legacy_keys(legacy, conf.n_layers)
+    assert list(mine) == list(theirs) and set(mine) == set(sd)
+    assert all(mine[k] is theirs[k] for k in mine)
+    want = weights.flatten_params(weights.from_state_dict(sd, conf))
+    for src in (legacy, {k: torch.from_numpy(v) for k, v in sd.items()}):
+        got = weights.flatten_params(weights.from_state_dict(src, conf))
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    m = LightGlue("sift", params=sd, device="cpu")
+    got = weights.flatten_params(m.params)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    missing = dict(sd)
+    missing.pop("input_proj.weight")
+    with pytest.raises(KeyError, match="input_proj.weight"):
+        weights.from_state_dict(missing, conf)
+    with pytest.raises(KeyError, match="unexpected"):
+        weights.from_state_dict({**sd, "extra.weight": np.zeros(1)}, conf)
+    with pytest.raises(KeyError, match="unexpected"):  # no input_proj at 256
+        weights.from_state_dict(sd, configs.lightglue_config("superpoint"))
