@@ -134,6 +134,22 @@ Phases, any failure raising (non-zero exit, no result line):
         pair alone (keypoints, valid and matches equal to the bit;
         descriptors and matching scores within their tolerances), and the
         first three frames through the CPU port;
+     h. training and the host runtime (run after the mp and two-stage
+        paths): one training step (train.matcher_loss, backward,
+        OptaxAdamW) on the card against the CPU port at the superpoint
+        preset's full width, B 2, m 256, one batch drawn on the CPU and one
+        initial tree (the loss within 1e-4 relative, each leaf's gradient
+        within 1e-3 of its largest |grad|); train.train_synthetic on the
+        card, B 16, m 512, 200 steps (ms a step by CUDA events from step
+        20, its FLOPs and bound, the loss at each logged step beside the
+        JAX trainer's curve, peak memory; the last loss under half the
+        first); the trained tree through LightGlue(params=tree) at the
+        default configuration on a planted pair at 1024 keypoints, fixed
+        and adaptive (B5, B6, B2 launched; held against the CPU port as in
+        a.; the adaptive call exits before the last layer; these launches
+        stay out of the kernels line); the C++ host runtime (native.py)
+        built and each entry point equal to its numpy form on e.'s
+        traffic;
   4. timing with CUDA events and host clocks: each kernel beside its plain
      version (and the one PyTorch call that computes the same function,
      where there is one), K1 and B5 at head_dim 128 too, the attention
@@ -248,10 +264,12 @@ B 8 (fp32 and mp), over
 ALIKED at B 1 and B 8 and over images -> ALIKED -> LightGlue fixed at B 8,
 each at the default configuration and with fused_score_head (B11), over
 BatchMatcher (CUDA graphs) fixed and adaptive at B 1 and B 16 (fp32, and
-at mp exact and with shift 12), and over match_sequence (8 frames, windows
-1 and 4) beside make_end_to_end once per pair: wall and device ms per
-call, the device's busy share, device ops per call and the largest device
-items.
+at mp exact and with shift 12), over match_sequence (8 frames, windows
+1 and 4) beside make_end_to_end once per pair, and over a training step
+(superpoint preset, B 16, m 512): wall ms per call (timed without the
+profiler, whose host tracing slows the host; the wall under it beside),
+device ms per call, the device's busy share (device over that wall),
+device ops per call and the largest device items.
 """
 
 from __future__ import annotations
@@ -260,6 +278,7 @@ import gc
 import json
 import os
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -273,13 +292,14 @@ from lightglue_tpu_torch import (  # noqa: E402
     ALIKED, DISK, SIFT, ALIKEDConfig, BatchMatcher, DISKConfig, DoGHardNet,
     DoGHardNetDevice, LightGlue, SIFTConfig, SIFTDevice, SuperPoint,
     SuperPointConfig, _build, lightglue_config, match_pair, match_sequence)
-from lightglue_tpu_torch import end_to_end, nn  # noqa: E402
+from lightglue_tpu_torch import end_to_end, native, nn, train  # noqa: E402
 from lightglue_tpu_torch.models import lightglue as lg  # noqa: E402
 from lightglue_tpu_torch.parallel import batching, graphs  # noqa: E402
 from lightglue_tpu_torch import weights as weights_lib  # noqa: E402
 from lightglue_tpu_torch.models import aliked as al  # noqa: E402
 from lightglue_tpu_torch.models import disk, hardnet, sift_device  # noqa: E402
 from lightglue_tpu_torch.models import superpoint as sp  # noqa: E402
+from lightglue_tpu_torch.ops import assignment as asg  # noqa: E402
 from lightglue_tpu_torch.ops import assignment_fused as af  # noqa: E402
 from lightglue_tpu_torch.ops import ffn, flash, flash_cross  # noqa: E402
 from lightglue_tpu_torch.ops import block_tc  # noqa: E402
@@ -289,6 +309,7 @@ from lightglue_tpu_torch.ops import gather, nms, stem, stem2  # noqa: E402
 from lightglue_tpu_torch.scripts import attn_split, extract_times  # noqa: E402
 from lightglue_tpu_torch.scripts import micro_gather2, walk_sums  # noqa: E402
 from lightglue_tpu_torch.scripts import keypoint_margins as km  # noqa: E402
+from lightglue_tpu_torch.scripts import train_synthetic as train_script  # noqa: E402
 from lightglue_tpu_torch.synthetic import (  # noqa: E402
     hardnet_params, image_pair, planted_pairs, warp_points)
 
@@ -2969,12 +2990,15 @@ def gib(nbytes):
     return f"{nbytes / 2 ** 30:.2f} GiB"
 
 
-def serving_phase(params):
+def serving_phase(params, traffic):
     """Phase 3e: BatchMatcher on CUDA graphs, fixed and adaptive. Returns
-    the launch counts of the traffic (graph replays)."""
+    the launch counts of the traffic (graph replays); ``traffic`` receives
+    the pairs ("pairs") and each padded batch's (matches0, scores0)
+    ("outputs") for phase 3h."""
     buckets = tuple(b for b, _, _ in SERVING_BUCKETS)
     total = dict.fromkeys(KERNELS, 0)
     pairs, gts = serving_traffic(np.random.default_rng(41), SERVING_PAIRS)
+    traffic.update(pairs=pairs, outputs=[])
     by_bucket = {b: [i for i, (f0, f1) in enumerate(pairs) if batching.next_bucket(
         max(f0["keypoints"].shape[0], f1["keypoints"].shape[0]), buckets) == b]
                  for b in buckets}
@@ -3001,6 +3025,7 @@ def serving_phase(params):
         # every replay equal to the bit to the eager forward on the card
         for chunk, f0, f1 in bm.padded_batches(pairs):
             got, ref = bm.match_batch(f0, f1), eager_forward(bm, f0, f1)
+            traffic["outputs"].append((got.matches0, got.matching_scores0))
             differ = [f for f in graphs.OUTPUTS
                       if not np.array_equal(getattr(got, f), getattr(ref, f))]
             b, k = f0["keypoints"].shape[:2]
@@ -3122,6 +3147,220 @@ def serving_memory_phase(params):
         del bm, out
         gc.collect()
         torch.cuda.empty_cache()
+
+
+# --- phase 3h: training and the host runtime -----------------------------------
+
+TRAIN_CONF = dict(flash=False, mp=False, depth_confidence=-1.0,
+                  width_confidence=-1.0, compaction_bucket=0)
+TRAIN_STEPS, TRAIN_LOG_EVERY = 200, 20
+# the card's fp32 sums against the CPU's: the loss within 1e-4 relative,
+# each leaf's gradient within 1e-3 of that leaf's largest |grad|
+TRAIN_LOSS_TOL, TRAIN_GRAD_TOL = 1e-4, 1e-3
+TRAIN_HISTORY = os.path.join(ROOT, "benchmarks", "train_synthetic_history.json")
+
+
+def train_step_phase():
+    """One training step (matcher_loss, backward, the optax chain) on the
+    card against the CPU port: the superpoint preset at full width (9
+    layers, d 256), B 2, m 256, one batch drawn on the CPU (the CPU's and
+    the card's generators draw different streams) and one initial tree."""
+    phase("3h training: one step on the card against the CPU port (matcher_loss, "
+          "backward, OptaxAdamW), superpoint preset, 9 layers, B 2, m 256")
+    conf = lightglue_config("superpoint").replace(**TRAIN_CONF)
+    init = lg.init_params(conf, torch.Generator().manual_seed(5))
+    batch = train.synthetic_batch(torch.Generator().manual_seed(6), 2, 256)
+    res = {}
+    for dev in ("cpu", "cuda"):
+        params = nn.map_params(init, lambda t: t.to(dev, copy=True))
+        opt = train.make_optimizer(params, 2e-4, 1500)
+        with train.fp32_math():
+            loss, aux = train.matcher_loss(params, conf, batch.to(dev))
+            loss.backward()
+        # copied before the step, which clips the gradients in place
+        grads = {k: v.copy() for k, v in weights_lib.flatten_params(
+            nn.map_params(params, lambda t: t.grad)).items()}
+        norm = float(opt.step())
+        res[dev] = (float(loss.detach()),
+                    {k: float(v.detach()) for k, v in aux.items()}, grads, norm)
+    (l_cpu, a_cpu, g_cpu, n_cpu), (l_gpu, a_gpu, g_gpu, n_gpu) = (
+        res["cpu"], res["cuda"])
+    rel = abs(l_gpu - l_cpu) / abs(l_cpu)
+    errs = {k: float(np.abs(g_gpu[k] - g_cpu[k]).max() / np.abs(g_cpu[k]).max())
+            for k in g_cpu}
+    worst = max(errs, key=errs.get)
+    print(f"  loss {l_gpu:.7f} (card) vs {l_cpu:.7f} (CPU): relative {rel:.3e} "
+          f"(tol {TRAIN_LOSS_TOL:g}); nll {a_gpu['nll']:.7f} vs {a_cpu['nll']:.7f}, "
+          f"confidence_bce {a_gpu['confidence_bce']:.7f} vs "
+          f"{a_cpu['confidence_bce']:.7f}; gradient norm {n_gpu:.6f} vs {n_cpu:.6f}")
+    print(f"  gradients, {len(errs)} leaves: largest error {errs[worst]:.3e} of "
+          f"its leaf's largest |grad| ({worst}; tol {TRAIN_GRAD_TOL:g}), median "
+          f"{statistics.median(errs.values()):.3e}", flush=True)
+    if not (rel <= TRAIN_LOSS_TOL and errs[worst] <= TRAIN_GRAD_TOL):
+        raise AssertionError("training step: the card disagrees with the CPU port")
+
+
+def train_run_phase():
+    """train_synthetic on the card at full width: the superpoint preset, 9
+    layers, B 16, m 512, TRAIN_STEPS steps. Returns the trained tree."""
+    phase(f"3h training: train_synthetic on the card, superpoint preset, 9 layers, "
+          f"B 16, m 512, {TRAIN_STEPS} steps (fp32, TF32 off)")
+    conf = lightglue_config("superpoint")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    step_ms = []
+    t0 = time.perf_counter()
+    tree, tconf, hist = train.train_synthetic(
+        conf, steps=TRAIN_STEPS, batch=16, m=512, log_every=TRAIN_LOG_EVERY,
+        verbose=False, device="cuda", step_ms=step_ms)
+    wall = time.perf_counter() - t0
+    flops = train_script.step_flops(tconf, 16, 512)
+    ms = statistics.median(step_ms[20:])
+    print(f"  {TRAIN_STEPS} steps in {wall:.1f} s; {ms:.3f} ms a step (median of "
+          f"steps 20-{TRAIN_STEPS - 1}, CUDA events; min {min(step_ms[20:]):.3f}, "
+          f"max {max(step_ms[20:]):.3f}); {flops / 1e12:.4f} TFLOP a step "
+          f"(step_flops): {flops / ms / 1e9:.1f} TFLOP/s, bound "
+          f"{flops / PEAK_FLOPS * 1e3:.3f} ms at the fp32 peak; peak device memory "
+          f"{gib(torch.cuda.max_memory_allocated() - base)} above the "
+          f"{gib(base)} held before", flush=True)
+    with open(TRAIN_HISTORY) as f:
+        ref = {h["step"]: h for h in json.load(f)["history"]}
+    for h in hist:
+        r = ref.get(h["step"])
+        print(f"  step {h['step']:4d}: loss {h['loss']:.4f} (nll {h['nll']:.4f}, "
+              f"confidence_bce {h['confidence_bce']:.4f})"
+              + ("" if r is None else
+                 f"; the JAX trainer's curve {r['loss']:.4f} (another random "
+                 f"stream and its 2500-step schedule: context, not a gate)"))
+    if not hist[-1]["loss"] < 0.5 * hist[0]["loss"]:
+        raise AssertionError(f"training: loss {hist[0]['loss']} -> "
+                             f"{hist[-1]['loss']}, not halved")
+    return tree
+
+
+def trained_serving_phase(tree):
+    """The tree train_synthetic returned, served through LightGlue(params=)
+    at the default configuration on a planted pair at 1024 keypoints, fixed
+    and adaptive: B5, B6 and B2 launched, and held against the CPU port on
+    the same tree as phase 3a holds its pairs; the adaptive call exits
+    before the last layer. Its launch counts stay out of the kernels
+    line."""
+    pr = planted_pairs(np.random.default_rng(29), 1, 1024)
+    data = {"image0": feats(pr, 0), "image1": feats(pr, 1)}
+    for mode, c in (("fixed", FIXED), ("adaptive", {})):
+        phase(f"3h main path: the trained tree through LightGlue(params=tree), "
+              f"default configuration, {mode}, a planted pair at 1024 keypoints")
+        gpu = LightGlue("superpoint", params=tree, device="cuda", **c)
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        got = gpu(data)
+        torch.cuda.synchronize()
+        counts = _build.launch_counts()
+        print(f"  launch counts: { {k: n for k, n in counts.items() if n} }")
+        for kname in ("fused_self_block", "fused_cross_block",
+                      "fused_filter_matches"):
+            if counts[kname] < 1:
+                raise AssertionError(f"{kname} was not launched")
+        ref = LightGlue("superpoint", params=tree, device="cpu", **c)(data)
+        k, prec = precision(got, pr["gt_matches0"])
+        agree = float((ref["matches0"] == got["matches0"]).mean())
+        pruned = sum(int((ref[f] != got[f]).sum()) for f in ("prune0", "prune1"))
+        gap = score_gap(got, ref)
+        print(f"  stop {got['stop']} vs {ref['stop']} on the CPU port, {k} matches, "
+              f"precision {prec:.3f} against the planted truth; matches0 agreement "
+              f"{agree:.6f}, {pruned} points whose prune differs, score diff "
+              f"{gap:.2e} (tol {MATCH_SCORE_TOL:g})", flush=True)
+        if (agree < 0.999 or got["stop"] != ref["stop"] or pruned
+                or gap > MATCH_SCORE_TOL):
+            raise AssertionError(f"trained tree, {mode}: the card disagrees "
+                                 "with the CPU port")
+        if mode == "adaptive" and got["stop"] >= gpu.conf.n_layers:
+            raise AssertionError(f"trained tree, adaptive: stop {got['stop']}, "
+                                 "no early exit")
+
+
+def host_runtime_phase(params, traffic):
+    """The C++ host runtime (native.py): built and loaded, each entry point
+    equal to its numpy form on phase 3e's traffic: compact_matches on every
+    padded batch's outputs, pack_ragged on the pairs' descriptors, and
+    filter_matches_host on the trained matcher's last log assignment of the
+    first pair (on the card, the plain ops)."""
+    phase("3h the C++ host runtime (native.py) against its numpy forms on "
+          "phase 3e's traffic")
+    t0 = time.perf_counter()
+    path = native.build()
+    native.library()
+    print(f"  {path.relative_to(ROOT)} built and loaded in "
+          f"{time.perf_counter() - t0:.2f} s")
+    n = 0
+    for m0, ms0 in traffic["outputs"]:
+        got, want = native.compact_matches(m0, ms0), native.compact_matches_numpy(m0, ms0)
+        for g, w in zip(got[0] + got[1], want[0] + want[1]):
+            if g.dtype != w.dtype or not np.array_equal(g, w):
+                raise AssertionError("compact_matches differs from its numpy form")
+        n += sum(len(p) for p in got[0])
+    m0, ms0 = max(traffic["outputs"], key=lambda o: o[0].size)
+    t_lib = host_ms(lambda: native.compact_matches(m0, ms0), 50)[1]
+    t_np = host_ms(lambda: native.compact_matches_numpy(m0, ms0), 50)[1]
+    print(f"  compact_matches: {len(traffic['outputs'])} batches, {n} matches, "
+          f"equal to numpy; at {m0.shape} {t_lib:.4f} ms against numpy's "
+          f"{t_np:.4f} (host clock)")
+    arrays = [f0["descriptors"] for f0, _ in traffic["pairs"]]
+    for k in (1024, 2048):
+        got, want = native.pack_ragged(arrays, k), native.pack_ragged_numpy(arrays, k)
+        if not all(np.array_equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError("pack_ragged differs from its numpy form")
+    print(f"  pack_ragged: {len(arrays)} descriptor arrays at K 1024 and 2048, "
+          "equal to numpy")
+    f0, f1 = traffic["pairs"][0]
+    conf = lightglue_config("superpoint").replace(**TRAIN_CONF)
+    dev = {k: torch.from_numpy(np.asarray(v, np.float32))[None].cuda()
+           for k, v in (("k0", f0["keypoints"]), ("k1", f1["keypoints"]),
+                        ("d0", f0["descriptors"]), ("d1", f1["descriptors"]),
+                        ("s0", f0["image_size"]), ("s1", f1["image_size"]))}
+    cuda_params = nn.params_to(params, torch.device("cuda"))
+    with torch.no_grad():
+        all0, all1 = train.forward_all_layers(cuda_params, conf, train.SyntheticBatch(
+            dev["k0"], dev["k1"], dev["d0"], dev["d1"], dev["s0"], dev["s1"], None))
+        la = nn.index_params(cuda_params["log_assignment"], conf.n_layers - 1)
+        scores = asg.match_assignment(la, all0[-1], all1[-1])[0]
+        m0_dev = asg.filter_matches(scores, conf.filter_threshold)[0]
+    inner = scores[0, :-1, :-1].cpu().numpy()
+    got = native.filter_matches_host(inner, conf.filter_threshold)
+    want = native.filter_matches_host_numpy(inner, conf.filter_threshold)
+    serr = float(np.abs(got[1] - want[1]).max())
+    if not np.array_equal(got[0], want[0]) or serr > 1e-6:
+        raise AssertionError("filter_matches_host differs from its numpy form")
+    agree = float((got[0] == m0_dev[0].cpu().numpy()).mean())
+    print(f"  filter_matches_host on {inner.shape}: matches0 equal to numpy "
+          f"({int((got[0] >= 0).sum())} matches), scores within {serr:.1e}; "
+          f"agreement with the device's filter_matches {agree:.6f}", flush=True)
+
+
+def training_phase(params, traffic):
+    """Phase 3h."""
+    train_step_phase()
+    tree = train_run_phase()
+    trained_serving_phase(tree)
+    host_runtime_phase(params, traffic)
+    del tree
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def train_profile_phase():
+    """Where a training step's time goes: the superpoint preset, 9 layers,
+    B 16, m 512, from the seeded initial tree."""
+    phase("P profile: a training step, superpoint preset, 9 layers, B 16, "
+          "m 512 (torch.profiler; fp32, TF32 off)")
+    conf = lightglue_config("superpoint").replace(**TRAIN_CONF)
+    params = nn.map_params(lg.init_params(conf, torch.Generator().manual_seed(0)),
+                           lambda t: t.cuda())
+    opt = train.make_optimizer(params, 2e-4, TRAIN_STEPS)
+    step = train.make_train_step(conf, opt, 16, 512,
+                                 torch.Generator("cuda").manual_seed(1))
+    profile_call("a training step, B 16, m 512", step, calls=3, top=10)
 
 
 def sequence_frames(rng):
@@ -3963,18 +4202,26 @@ def serving_timing_phase(params, sp_params):
 def profile_call(label, fn, calls=5, warmup=3, top=6):
     """torch.profiler over ``calls`` calls of fn after ``warmup``: wall and
     device ms per call, busy share, device ops per call, largest items.
-    Returns fn's last output."""
+    The wall is timed over ``calls`` calls without the profiler, whose
+    tracing of host activity slows the host (the wall under it is printed
+    beside), and the busy share is device time over that wall. Returns
+    fn's last output."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / calls
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(calls):
             out = fn()
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3 / calls
+        traced = (time.perf_counter() - t0) * 1e3 / calls
     by_name, n_ops = {}, 0
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
@@ -3982,9 +4229,9 @@ def profile_call(label, fn, calls=5, warmup=3, top=6):
             by_name[e.name] = by_name.get(e.name, 0.0) + \
                 e.time_range.elapsed_us() / 1e3 / calls
     dev = sum(by_name.values())
-    print(f"  {label}: wall {wall:.2f} ms/call, device {dev:.2f} ms/call, "
-          f"busy {100 * dev / wall:.1f} %, {n_ops / calls:.0f} device "
-          "ops/call", flush=True)
+    print(f"  {label}: wall {wall:.2f} ms/call ({traced:.2f} under the profiler), "
+          f"device {dev:.2f} ms/call, busy {100 * dev / wall:.1f} %, "
+          f"{n_ops / calls:.0f} device ops/call", flush=True)
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
         print(f"    {ms:8.3f} ms  {name[:90]}")
     return out
@@ -6035,6 +6282,7 @@ def main():
         profile_phase(params)
         serving_profile_phase(params, superpoint_params())
         mp_profile_phase(params)
+        train_profile_phase()
         return
     if sys.argv[1:]:
         raise SystemExit(f"unknown arguments {sys.argv[1:]}; see the docstring")
@@ -6064,6 +6312,7 @@ def main():
     for name, err in edge_phase().items():
         errs[name] = max(errs[name], err)
     counts = main_path_phase(params, params2)
+    traffic = {}
     for path in (lambda: extraction_path_phase(params, sp_params),
                  lambda: two_head_pair_phase(params2, sp_params),
                  lambda: aliked_path_phase(al_params, params),
@@ -6071,7 +6320,7 @@ def main():
                  sift_path_phase,
                  doghardnet_path_phase,
                  gather_path_phase,
-                 lambda: serving_phase(params),
+                 lambda: serving_phase(params, traffic),
                  lambda: sequence_phase(params, sp_params),
                  lambda: mp_matcher_phase(params),
                  lambda: mp_serving_phase(params),
@@ -6081,6 +6330,7 @@ def main():
                  lambda: twostage_path_phase(params, sp_params)):
         for k, c in path().items():
             counts[k] += c
+    training_phase(params, traffic)
     margin_phase(sp_params, al_params)
     serving_memory_phase(params)
     times, graph_times = timing_phase(x, bx, hx, params, params2)

@@ -20,7 +20,9 @@ def _masked_log_softmax(
     xf = x.float()
     if mask is not None:
         xf = torch.where(mask, xf, torch.full_like(xf, MASK_VALUE))
-    shifted = xf - xf.amax(dim, keepdim=True)
+    # the max only shifts: no gradient through it, as the JAX package's
+    # stop_gradient (the values are the same either way)
+    shifted = xf - xf.amax(dim, keepdim=True).detach()
     return shifted - torch.log(torch.exp(shifted).sum(dim, keepdim=True))
 
 

@@ -3,7 +3,8 @@ lightglue_tpu/parallel/batching.py).
 
 Pairs are padded on the host to a common keypoint bucket (the reference's
 static lengths, lightglue.py:46-55, 437-454), stacked on a batch axis and
-matched in one call; results are compacted back per pair in input order. On
+matched in one call; results are compacted back per pair in input order
+(``pipeline.compact_matches``: the C++ host runtime, ``native.py``). On
 one card the JAX mesh is a plain batched call (``parallel/mesh.py`` is not
 ported). On a CUDA device that call replays CUDA graphs captured once per
 (bucket, batch, input signature) (``parallel/graphs.py``), the counterpart

@@ -5,7 +5,8 @@
 return a feats dict of numpy arrays;
 ``LightGlue(...)`` is called on ``{"image0": feats0, "image1": feats1}``
 with numpy or torch feature arrays and returns numpy outputs plus the ragged
-``matches``/``scores`` lists, built on the host in numpy; ``match_pair``
+``matches``/``scores`` lists, built on the host by the C++ runtime
+(``native.py``); ``match_pair``
 does both for two images, ``match_sequence`` extracts a sequence once and
 matches its windowed pairs in one batched call.
 """
@@ -17,7 +18,7 @@ from typing import Dict, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from . import nn
+from . import native, nn
 from . import weights as weights_lib
 from .configs import (
     ALIKEDConfig, DISKConfig, LightGlueConfig, PreprocessConfig, SIFTConfig,
@@ -46,15 +47,9 @@ def compact_matches(
 ) -> Tuple[List[np.ndarray], List[np.ndarray]]:
     """(B, M) static-shape outputs -> per batch entry ((K, 2) int32 index
     pairs, (K,) scores) (reference builds these on device,
-    lightglue.py:593-602)."""
-    matches0 = np.asarray(matches0, np.int32)
-    mscores0 = np.asarray(mscores0, np.float32)
-    out_m, out_s = [], []
-    for row, scores in zip(matches0, mscores0):
-        idx = np.nonzero(row > -1)[0]
-        out_m.append(np.stack([idx, row[idx]], -1).astype(np.int32))
-        out_s.append(scores[idx])
-    return out_m, out_s
+    lightglue.py:593-602), by the C++ host runtime (``native.py``; its
+    numpy form ``native.compact_matches_numpy``)."""
+    return native.compact_matches(matches0, mscores0)
 
 
 _AUTO_KPTS_CAP = 16384

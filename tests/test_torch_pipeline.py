@@ -139,7 +139,10 @@ def test_import_leaves_jax_out():
             "lightglue_tpu_torch.scripts.score_study, "
             "lightglue_tpu_torch.parallel.batching, "
             "lightglue_tpu_torch.parallel.graphs, "
-            "lightglue_tpu_torch.synthetic; "
+            "lightglue_tpu_torch.synthetic, "
+            "lightglue_tpu_torch.train, lightglue_tpu_torch.native, "
+            "lightglue_tpu_torch.scripts.train_synthetic, "
+            "lightglue_tpu_torch.scripts.serve_checkpoint; "
             "bad = [m for m, mod in sys.modules.items() if mod is not None "
             "and m.split('.')[0] in ('jax', 'lightglue_tpu')]; "
             "assert not bad, bad")
