@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py             # the smoke run below
     python3 chip_smoke.py --profile   # only the profiles (phase P)
+    python3 chip_smoke.py --mesh      # only the data-parallel mesh (3i)
 
 Phases, any failure raising (non-zero exit, no result line):
   0. device: the card's name and power limit, versions; the TF32 flags
@@ -150,6 +151,23 @@ Phases, any failure raising (non-zero exit, no result line):
         stay out of the kernels line); the C++ host runtime (native.py)
         built and each entry point equal to its numpy form on e.'s
         traffic;
+     i. the data-parallel mesh (parallel/mesh.py; run after 5h's path):
+        BatchMatcher at the JAX headline (trained weights, adaptive, mp,
+        shift 12, 1024 keypoints) on B 16 planted pairs and 13 ragged
+        requests over a mesh of every visible card, of two slots on card 0
+        and a (2, 1) hosts x cards mesh, each against the one-slot
+        BatchMatcher (matches0 agreement 0.999 and the same stop; the
+        one-slot mesh's scores within 1e-4, a larger mesh's within 6.4e-2
+        and their 99.9th percentile within 3.2e-2, and for both the B 16
+        and the ragged chunk each slot's rows to the bit against the
+        one-slot runner at the slot's batch on them alone, at least one
+        slot a chunk), every slot launching B5, B6 (bf16) and B2; a training
+        backward and three steps at 3h's size over two slots on card 0
+        against one slot (3h's tolerances); make_windowed_sequence_
+        end_to_end (SuperPoint, the trained matcher adaptive) on 8 frames
+        at window 2 over two slots against one slot, every slot launching
+        B7-B9, B5, B6 and B2; each slot's launches and the host ms of one
+        slot and two slots, in turns;
   4. timing with CUDA events and host clocks: each kernel beside its plain
      version (and the one PyTorch call that computes the same function,
      where there is one), K1 and B5 at head_dim 128 too, the attention
@@ -295,6 +313,7 @@ from lightglue_tpu_torch import (  # noqa: E402
 from lightglue_tpu_torch import end_to_end, native, nn, train  # noqa: E402
 from lightglue_tpu_torch.models import lightglue as lg  # noqa: E402
 from lightglue_tpu_torch.parallel import batching, graphs  # noqa: E402
+from lightglue_tpu_torch.parallel.mesh import make_mesh  # noqa: E402
 from lightglue_tpu_torch import weights as weights_lib  # noqa: E402
 from lightglue_tpu_torch.models import aliked as al  # noqa: E402
 from lightglue_tpu_torch.models import disk, hardnet, sift_device  # noqa: E402
@@ -3363,6 +3382,347 @@ def train_profile_phase():
     profile_call("a training step, B 16, m 512", step, calls=3, top=10)
 
 
+# --- phase 3i: the data-parallel mesh -------------------------------------------
+
+# The JAX bench's headline (bench.py:658-660) with the trained weights:
+# adaptive, mp, shift 12, 1024 keypoints, B 16; and 13 ragged requests (the
+# JAX dry run's count, __graft_entry__.py:226-239) of 900-1024 keypoints
+MESH_CONF = dict(mp=True, **SHIFTED)
+MESH_KPTS, MESH_BATCH, MESH_RAGGED = 1024, 16, 13
+# the kernels every slot's graphs launch at the headline (B5, B6 in bf16,
+# B2), and every slot of the windowed pipeline (B7-B9, then B5, B6, B2)
+MESH_KERNELS = ("fused_self_block_bf16", "fused_cross_block_bf16",
+                "fused_filter_matches")
+MESH_PIPELINE_KERNELS = SEQUENCE_KERNELS
+MESH_TRAIN_STEPS, MESH_REPS = 3, 10
+# A slot runs its block of the batch at a smaller batch, where tile_plan,
+# bf16_plan and the walk's split plan may pick other tiles and splits (sums
+# in another order): each mesh run is held against the one-slot run of the
+# same call by matches0's agreement share (phase 3e's) and the same stop.
+# Its matching scores are held within MATCH_SCORE_TOL in fp32 and on one
+# slot. At mp each bf16 rounding of another tile plan moves them (an H100
+# 80GB HBM3 at 700 W, the headline at B 8 a slot against B 16, where the
+# matches agree: up to 3.17e-2 (B 16) and 2.67e-2 (the 13 ragged
+# requests), 99.9th percentile 1.26e-2 and 1.57e-2, median 0; phase 5c
+# gates no mp score either): there they are held within twice the largest
+# reading and the 99.9th percentile within twice its largest, and each
+# slot's rows are held to the bit against the one-slot runner at the
+# slot's batch on the same rows, which picks the same plans
+MESH_AGREE = 0.999
+MESH_MP_SCORE_TOL, MESH_MP_SCORE_P999_TOL = 6.4e-2, 3.2e-2
+
+
+def mesh_meshes():
+    """(label, mesh): every visible card, two slots on card 0, and a (2, 1)
+    hosts x cards mesh (two cards where there are, else card 0 twice)."""
+    cards = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+    return (("every visible card", make_mesh()),
+            ("two slots on card 0", make_mesh(devices=["cuda:0"] * 2)),
+            ("(2, 1) hosts x cards", make_mesh(
+                devices=(cards * 2)[:2], axis_names=("dcn", "data"),
+                shape=(2, 1))))
+
+
+def slot_launches(runner):
+    """Each slot's launch counts of a batched runner (one slot: its own)."""
+    counts = runner.launches
+    return counts if isinstance(counts, list) else [counts]
+
+
+def mesh_agree(label, got, want, tol, p999_tol=None):
+    """BatchMatcher results of a mesh against the one-slot run's, pair by
+    pair: matches0's agreement share, the stops, the largest score gap
+    where matches0 agree (held within ``tol``) and its 99.9th percentile
+    (held within ``p999_tol``; None: printed)."""
+    same = [g["matches0"] == w["matches0"] for g, w in zip(got, want)]
+    agree = float(np.concatenate(same).mean())
+    stops = sorted({(g["stop"], w["stop"]) for g, w in zip(got, want)})
+    gaps = np.concatenate([np.abs(g["matching_scores0"] - w["matching_scores0"])[e]
+                           for g, w, e in zip(got, want, same)])
+    p999 = float(np.percentile(gaps, 99.9))
+    print(f"  {label} against one slot: matches0 agreement {agree:.6f}, "
+          f"stops (mesh, one slot) {stops}, score diff where matches0 agree "
+          f"{gaps.max():.2e} (tol {tol:g}; 99.9th percentile {p999:.2e}, tol "
+          f"{'none' if p999_tol is None else f'{p999_tol:g}'})", flush=True)
+    if (agree < MESH_AGREE or any(a != b for a, b in stops)
+            or gaps.max() > tol or (p999_tol is not None and p999 > p999_tol)):
+        raise AssertionError(f"{label}: the mesh run disagrees with one slot")
+
+
+def mesh_slot_rows(label, conf, params, mesh, batch, got):
+    """Each slot's rows of a mesh run of ``batch`` (the chunk as the mesh
+    ran it, dummy pairs included; ``got``: the results of its first
+    len(got) pairs) against the one-slot runner at the slot's batch on
+    those rows alone (the same kernels and plans), to the bit where that
+    run's own stop is the pooled one. Raises if no slot could be
+    compared."""
+    per = len(batch) // mesh.size
+    solo = BatchMatcher(conf, params, buckets=(MESH_KPTS,), max_batch=per)
+    compared = 0
+    for k in range(mesh.size):
+        rows = range(k * per, (k + 1) * per)
+        ref = solo.match_pairs([batch[i] for i in rows])
+        if ref[0]["stop"] != got[0]["stop"]:
+            print(f"  {label}, slot {k}: its rows alone stop at {ref[0]['stop']}, "
+                  f"the pooled batch at {got[0]['stop']}: not compared")
+            continue
+        mine = [(i, r) for i, r in zip(rows, ref) if i < len(got)]
+        differ = sorted({f for i, r in mine for f in r
+                         if not np.array_equal(got[i][f], r[f])})
+        print(f"  {label}, slot {k}: rows {rows.start}-{rows.stop - 1} "
+              f"({len(mine)} requests) {'equal to the bit to' if not differ else 'DIFFER from'} "
+              f"the one-slot runner at B {per} on them alone {differ or ''}")
+        if differ:
+            raise AssertionError(f"{label} slot {k}: its rows differ in {differ}")
+        compared += 1
+    del solo
+    if not compared:
+        raise AssertionError(f"{label}: no slot's rows stop alone where the "
+                             "pooled batch stops: nothing compared")
+
+
+def mesh_serving_phase(params, smi):
+    """Phase 3i's serving part: BatchMatcher at the headline over each mesh
+    of mesh_meshes, against the one-slot BatchMatcher on the same B 16
+    planted pairs and 13 ragged requests; each slot's launches of B5, B6
+    and B2; host ms of a B 16 call on one slot and on two slots of card 0,
+    in turns. Returns the launch counts of the mesh runs."""
+    total = dict.fromkeys(KERNELS, 0)
+    conf = lightglue_config("superpoint", **MESH_CONF)
+    rng = np.random.default_rng(47)
+    pr = planted_pairs(rng, MESH_BATCH, MESH_KPTS)
+    pairs = [tuple({"keypoints": pr[f"keypoints{s}"][i],
+                    "descriptors": pr[f"descriptors{s}"][i],
+                    "image_size": pr["image_size"][i]} for s in (0, 1))
+             for i in range(MESH_BATCH)]
+    ragged = []
+    for _ in range(MESH_RAGGED):
+        k1 = int(rng.integers(900, MESH_KPTS + 1))
+        r = planted_pairs(rng, 1, int(rng.integers(900, k1 + 1)), k1)
+        ragged.append(tuple({"keypoints": r[f"keypoints{s}"][0],
+                             "descriptors": r[f"descriptors{s}"][0],
+                             "image_size": r["image_size"][0]} for s in (0, 1)))
+    one = BatchMatcher(conf, params, buckets=(MESH_KPTS,), max_batch=MESH_BATCH)
+    want = {"b16": one.match_pairs(pairs), "ragged": one.match_pairs(ragged)}
+    k, prec = precision({"matches0": np.stack([r["matches0"] for r in want["b16"]])},
+                        pr["gt_matches0"])
+    print(f"  one slot (no mesh): B {MESH_BATCH} stop {want['b16'][0]['stop']}, "
+          f"{k} matches, precision {prec:.3f}; {MESH_RAGGED} ragged requests "
+          f"stop {want['ragged'][0]['stop']}", flush=True)
+    matchers = {}
+    for label, mesh in mesh_meshes():
+        phase(f"3i main path: BatchMatcher over a mesh ({label}: "
+              f"{[str(d) for d in mesh.slots]}, shape {mesh.shape}), trained "
+              f"weights, adaptive, mp, shift 12, {MESH_KPTS} keypoints, B "
+              f"{MESH_BATCH} and {MESH_RAGGED} ragged requests")
+        bm = BatchMatcher(conf, params, buckets=(MESH_KPTS,),
+                          max_batch=MESH_BATCH, mesh=mesh)
+        bm.match_pairs(pairs)  # the first sight captures every slot's graphs
+        for counts in slot_launches(bm._matcher):
+            counts.clear()
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        got = {"b16": bm.match_pairs(pairs), "ragged": bm.match_pairs(ragged)}
+        torch.cuda.synchronize()
+        counts = _build.launch_counts()
+        for kname, c in counts.items():
+            total[kname] += c
+        per_slot = slot_launches(bm._matcher)
+        for i, c in enumerate(per_slot):
+            print(f"  slot {i} ({mesh.slots[i]}): launches "
+                  f"{ {k_: v for k_, v in sorted(c.items()) if v} }")
+            for kname in MESH_KERNELS:
+                if not c.get(kname):
+                    raise AssertionError(f"{label} slot {i}: {kname} not launched")
+        print(f"  batches rounded to {bm._round_batch(MESH_RAGGED, MESH_BATCH)} "
+              f"for {MESH_RAGGED} requests ({mesh.size} slots), the dummies "
+              "copies of the first request")
+        rounded = bm._round_batch(MESH_RAGGED, MESH_BATCH)
+        batches = {"b16": pairs,
+                   "ragged": ragged + [ragged[0]] * (rounded - MESH_RAGGED)}
+        for part in ("b16", "ragged"):
+            if mesh.size == 1:
+                mesh_agree(f"{label}, {part}", got[part], want[part],
+                           MATCH_SCORE_TOL)
+                continue
+            mesh_agree(f"{label}, {part}", got[part], want[part],
+                       MESH_MP_SCORE_TOL, MESH_MP_SCORE_P999_TOL)
+            mesh_slot_rows(f"{label}, {part}", conf, params, mesh,
+                           batches[part], got[part])
+        matchers[label] = bm
+    phase(f"3i timing: BatchMatcher B {MESH_BATCH} at the headline, one slot "
+          f"against two slots on card 0 (host clock, {MESH_REPS} calls a turn, "
+          f"in turns); {smi}")
+    runs = {"one slot": one, "two slots": matchers["two slots on card 0"]}
+    ms = {k: [] for k in runs}
+    for label in ("one slot", "two slots", "two slots", "one slot"):
+        ms[label].append(float(np.median(serving_ms(runs[label], pairs,
+                                                    MESH_REPS)[0])))
+    for label, v in ms.items():
+        print(f"  BatchMatcher {label}: {v[0]:.3f} / {v[1]:.3f} ms a call of "
+              f"{MESH_BATCH} pairs ({MESH_BATCH / min(v) * 1e3:.1f} pairs/s at "
+              f"the faster turn)", flush=True)
+    del one, matchers, runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
+
+
+def mesh_train_phase(smi):
+    """Phase 3i's training part: phase 3h's size (superpoint preset, 9 layers,
+    B 16, m 512, fp32) over two slots on card 0 against one slot: the
+    loss and every leaf's gradient of one backward (phase 3h's
+    tolerances), then MESH_TRAIN_STEPS steps, their losses and ms a step,
+    in turns."""
+    phase(f"3i main path: a training step over two slots on card 0, superpoint "
+          f"preset, 9 layers, B 16, m 512, fp32 (TF32 off), against one slot")
+    conf = lightglue_config("superpoint").replace(**TRAIN_CONF)
+    init = lg.init_params(conf, torch.Generator().manual_seed(7))
+    gen = torch.Generator("cuda").manual_seed(8)
+    batches = [train.synthetic_batch(gen, 16, 512)
+               for _ in range(MESH_TRAIN_STEPS + 1)]
+    mesh = make_mesh(devices=["cuda:0"] * 2)
+    home = torch.device("cuda", 0)
+    res = {}
+    for label, m in (("one slot", None), ("two slots", mesh)):
+        params = nn.map_params(init, lambda t: t.to(home, copy=True)
+                               .requires_grad_(True))
+        with train.fp32_math():
+            if m is None:
+                loss, _ = train.matcher_loss(params, conf, batches[0])
+                loss.backward()
+            else:
+                loss = train.mesh_backward({home: params}, conf, batches[0],
+                                           m)["loss"]
+        res[label] = (float(loss.detach()), weights_lib.flatten_params(
+            nn.map_params(params, lambda t: t.grad)))
+    (l1, g1), (l2, g2) = res["one slot"], res["two slots"]
+    rel = abs(l2 - l1) / abs(l1)
+    errs = {k: float(np.abs(g2[k] - g1[k]).max() / np.abs(g1[k]).max()) for k in g1}
+    worst = max(errs, key=errs.get)
+    print(f"  loss {l2:.7f} (two slots) vs {l1:.7f} (one slot): relative "
+          f"{rel:.3e} (tol {TRAIN_LOSS_TOL:g}); gradients, {len(errs)} leaves: "
+          f"largest error {errs[worst]:.3e} of its leaf's largest |grad| "
+          f"({worst}; tol {TRAIN_GRAD_TOL:g})", flush=True)
+    if not (rel <= TRAIN_LOSS_TOL and errs[worst] <= TRAIN_GRAD_TOL):
+        raise AssertionError("the two-slot training step disagrees with one slot")
+    losses, ms = {}, {"one slot": [], "two slots": []}
+    for label in ("one slot", "two slots", "two slots", "one slot"):
+        params = nn.map_params(init, lambda t: t.to(home, copy=True))
+        step = train.make_feed_train_step(
+            conf, train.make_optimizer(params, 2e-4, 1500),
+            None if label == "one slot" else mesh)
+        out, times = [], []
+        for b in batches[1:]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out.append(float(step(b)["loss"]))
+            times.append((time.perf_counter() - t0) * 1e3)
+        losses[label] = out
+        ms[label].append(float(np.median(times[1:])))
+    gaps = [abs(a - b) / abs(b) for a, b in zip(losses["two slots"],
+                                               losses["one slot"])]
+    print(f"  {MESH_TRAIN_STEPS} steps: losses {losses['two slots']} (two slots) "
+          f"vs {losses['one slot']}: largest relative gap {max(gaps):.3e}; ms a "
+          f"step (host clock, median of steps 2-{MESH_TRAIN_STEPS}, in turns): "
+          f"one slot {ms['one slot'][0]:.3f} / {ms['one slot'][1]:.3f}, two "
+          f"slots {ms['two slots'][0]:.3f} / {ms['two slots'][1]:.3f}; {smi}",
+          flush=True)
+    if max(gaps) > TRAIN_LOSS_TOL:
+        raise AssertionError("the two-slot steps' losses disagree with one slot")
+
+
+def mesh_pipeline_phase(mparams, sp_params, smi):
+    """Phase 3i's pipeline part: make_windowed_sequence_end_to_end
+    (SuperPoint at its published widths, 1024 keypoints, the trained
+    matcher, adaptive, fp32) on SEQUENCE_FRAMES generated frames at window
+    2 (13 pairs) over two slots on card 0, each slot extracting its 4
+    frames and matching its 7 or 6 pairs, against the one-slot program:
+    keypoints, descriptors and matches as phase 3f holds match_sequence
+    against make_end_to_end, the same stop, and each slot's launches of
+    B7-B9, B5, B6 and B2. Returns the launch counts of the mesh run."""
+    phase(f"3i main path: make_windowed_sequence_end_to_end over two slots on "
+          f"card 0, SuperPoint -> LightGlue (trained, adaptive), "
+          f"{SEQUENCE_FRAMES} generated {H}x{W} frames, 1024 keypoints, window 2")
+    frames = sequence_frames(np.random.default_rng(43))
+    imgs = torch.from_numpy(frames)[..., None].cuda()
+    sizes = torch.tensor([[W, H]] * SEQUENCE_FRAMES, dtype=torch.float32,
+                         device="cuda")
+    conf = lightglue_config("superpoint")
+    sconf = SuperPointConfig(max_num_keypoints=1024)
+    mcuda = nn.params_to(mparams, "cuda")
+    mesh = make_mesh(devices=["cuda:0"] * 2)
+    runs = {m: end_to_end.make_windowed_sequence_end_to_end(
+        sp.forward, sp_params, sconf, mcuda, conf, window=2, mesh=m)
+        for m in (None, mesh)}
+    ref = runs[None](imgs, sizes)
+    runs[mesh](imgs, sizes)  # warm
+    for counts in runs[mesh].launches:
+        counts.clear()
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    got = runs[mesh](imgs, sizes)
+    torch.cuda.synchronize()
+    total = _build.launch_counts()
+    for i, c in enumerate(runs[mesh].launches):
+        print(f"  slot {i} ({mesh.slots[i]}): launches "
+              f"{ {k: v for k, v in sorted(c.items()) if v} }")
+        for kname in MESH_PIPELINE_KERNELS:
+            if not c.get(kname):
+                raise AssertionError(f"pipeline slot {i}: {kname} not launched")
+    feats = lambda e, side, i: {  # noqa: E731
+        k: getattr(getattr(e, side), k)[i].cpu().numpy()
+        for k in ("keypoints", "descriptors", "valid")}
+    i0, i1 = end_to_end.sequence_window_pairs(SEQUENCE_FRAMES, 2)
+    shared, derr, serr, differ, total_pts = 1.0, 0.0, 0.0, 0, 0
+    for p in range(len(i0)):
+        common = [common_keypoints(feats(got, s, p), feats(ref, s, p))
+                  for s in ("feats0", "feats1")]
+        shared = min([shared] + [len(cm) / feats(got, s, p)["valid"].sum()
+                                 for s, cm in zip(("feats0", "feats1"), common)])
+        derr = max([derr] + [float(np.abs(feats(got, s, p)["descriptors"][cm[:, 0]]
+                                          - feats(ref, s, p)["descriptors"][cm[:, 1]]).max())
+                             for s, cm in zip(("feats0", "feats1"), common)])
+        gm = got.matches.matches0[p].cpu().numpy()
+        rm = ref.matches.matches0[p].cpu().numpy()
+        gs = got.matches.matching_scores0[p].cpu().numpy()
+        rs = ref.matches.matching_scores0[p].cpu().numpy()
+        other = {int(i): int(j) for i, j in common[1]}
+        for i, j in common[0]:
+            total_pts += 1
+            differ += (-1 if gm[i] < 0 else other.get(int(gm[i]), -2)) != int(rm[j])
+            if gm[i] >= 0 and rm[j] >= 0:
+                serr = max(serr, abs(float(gs[i] - rs[j])))
+    agree = 1 - differ / max(total_pts, 1)
+    print(f"  {len(i0)} pairs against the one-slot program: keypoints shared "
+          f"{shared:.6f}, descriptor max_abs_err at shared keypoints {derr:.3e}, "
+          f"matches0 agreement {agree:.6f} over {total_pts} shared keypoints, "
+          f"matching scores max_abs_err {serr:.3e}, stop {got.matches.stop} vs "
+          f"{ref.matches.stop}", flush=True)
+    if (shared < 0.99 or derr > 1e-3 or agree < MESH_AGREE
+            or serr > MATCH_SCORE_TOL or got.matches.stop != ref.matches.stop):
+        raise AssertionError("the sharded pipeline disagrees with one slot")
+    ms = {"one slot": [], "two slots": []}
+    for label in ("one slot", "two slots", "two slots", "one slot"):
+        run = runs[None if label == "one slot" else mesh]
+        ms[label].append(float(host_ms(lambda: run(imgs, sizes), 5)[1]))
+    print(f"  ms a call of {SEQUENCE_FRAMES} frames (host clock, median of 5, "
+          f"in turns): one slot {ms['one slot'][0]:.3f} / {ms['one slot'][1]:.3f}, "
+          f"two slots {ms['two slots'][0]:.3f} / {ms['two slots'][1]:.3f}; {smi}",
+          flush=True)
+    return total
+
+
+def mesh_phase(params, sp_params, smi):
+    """Phase 3i: the data-parallel mesh (parallel/mesh.py) on every path it
+    shards. Returns the launch counts of its mesh runs."""
+    total = mesh_serving_phase(params, smi)
+    mesh_train_phase(smi)
+    for k, c in mesh_pipeline_phase(params, sp_params, smi).items():
+        total[k] += c
+    return total
+
+
 def sequence_frames(rng):
     """SEQUENCE_FRAMES generated H x W frames: textures and their warps."""
     return np.stack([img for _ in range(SEQUENCE_FRAMES // 2)
@@ -6278,6 +6638,9 @@ def main():
     smi = device_phase()
     build_phase()
     params = weights_lib.load_params(WEIGHTS)
+    if sys.argv[1:] == ["--mesh"]:
+        mesh_phase(params, superpoint_params(), smi)
+        return
     if sys.argv[1:] == ["--profile"]:
         profile_phase(params)
         serving_profile_phase(params, superpoint_params())
@@ -6327,7 +6690,8 @@ def main():
                  lambda: mp_extraction_phase(sp_params),
                  lambda: mp_extract_path_phase(params, sp_params, al_params),
                  lambda: mp_head128_path_phase(params2, sp_params),
-                 lambda: twostage_path_phase(params, sp_params)):
+                 lambda: twostage_path_phase(params, sp_params),
+                 lambda: mesh_phase(params, sp_params, smi)):
         for k, c in path().items():
             counts[k] += c
     training_phase(params, traffic)

@@ -10,11 +10,13 @@ point returns a ``cudaError_t``, and ``launch`` raises if it is not 0.
 Each op wrapper counts its launches here (``count``), so a caller can show
 that a run went through the kernels. A CUDA graph replays its kernels
 without the wrappers: ``parallel/graphs.py`` records the counts a capture
-made and adds them at each replay (``add_launches``).
+made and adds them at each replay (``add_launches``). ``tally`` gives a
+mesh slot its own share of the counts.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -128,6 +130,22 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for k in _launches:
         _launches[k] = 0
+
+
+@contextlib.contextmanager
+def tally(into: Optional[Dict[str, int]]):
+    """Add the launches counted inside the block to ``into`` too (one slot's
+    share of a mesh run); None: nothing."""
+    if into is None:
+        yield
+        return
+    before = dict(_launches)
+    try:
+        yield
+    finally:
+        for op, n in _launches.items():
+            if n != before[op]:
+                into[op] = into.get(op, 0) + n - before[op]
 
 
 def _nvcc() -> str:

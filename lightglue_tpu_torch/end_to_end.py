@@ -7,18 +7,30 @@ preprocessed image's frame, and the matcher normalizes keypoints by the
 true (unpadded) size of that image. The sequence forms extract each image
 once and match its consecutive or windowed pairs in one batched matcher
 call. They run eagerly.
+
+With a ``mesh`` (``parallel/mesh.py``; the JAX programs run under ``with
+mesh:`` on sharded inputs) each slot extracts its own block of the images
+(contiguous, the larger blocks first where they do not divide) on its
+device's copy of the parameters; the pairs are split over the slots the
+same way, each pair's features copied to the slot that matches it (the
+windowed pairing crosses block boundaries, where the JAX program inserts
+its collectives), and the adaptive stop pools over every slot
+(``models.lightglue.forward_slots``). The outputs come back in input
+order on the first slot's device; ``run.launches`` holds each slot's
+kernel launches.
 """
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
+from typing import Callable, List, NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from . import nn
+from . import _build, nn
 from .models import lightglue as lg
 from .models.superpoint import Features
+from .parallel import mesh as mesh_lib
 
 
 class E2EOutput(NamedTuple):
@@ -33,6 +45,7 @@ def make_end_to_end(
     extractor_conf,
     matcher_params: nn.Params,
     matcher_conf,
+    mesh: Optional[mesh_lib.Mesh] = None,
 ):
     """Build ``run(image0, image1, size0, size1) -> E2EOutput``.
 
@@ -41,22 +54,21 @@ def make_end_to_end(
     ``models.aliked.forward``) with its parameters and config. Images:
     (B, H, W, C) float [0, 1] tensors on the parameters' device, padded to
     the extractor's stride; ``size0``, ``size1``: (B, 2) true (w, h)
-    extents before padding."""
+    extents before padding. ``mesh``: each slot extracts and matches its
+    block of the pairs (module docstring; default: one slot on the
+    matcher parameters' device)."""
+    slots = _MeshSlots(mesh, extractor_forward, extractor_params,
+                       extractor_conf, matcher_params, matcher_conf)
 
     @torch.inference_mode()
     def run(image0, image1, size0, size1) -> E2EOutput:
-        f0 = extractor_forward(extractor_params, extractor_conf, image0, size0)
-        f1 = extractor_forward(extractor_params, extractor_conf, image1, size1)
-        out = lg.forward(
-            matcher_params, matcher_conf,
-            kpts0=f0.keypoints, kpts1=f1.keypoints,
-            desc0=f0.descriptors, desc1=f1.descriptors,
-            size0=size0, size1=size1,
-            mask0=f0.valid, mask1=f1.valid,
-            **_scale_ori_kw(f0, f1),
-        )
-        return E2EOutput(f0, f1, out)
+        bounds = slots.bounds(image0.shape[0])
+        f0 = slots.extract(image0, size0, bounds)
+        f1 = slots.extract(image1, size1, bounds)
+        return slots.match(f0, f1, slots.split(size0, bounds),
+                           slots.split(size1, bounds))
 
+    run.launches = slots.launches
     return run
 
 
@@ -82,27 +94,16 @@ def make_sequence_end_to_end(
     extractor_conf,
     matcher_params: nn.Params,
     matcher_conf,
+    mesh: Optional[mesh_lib.Mesh] = None,
 ):
     """Extract-once / match-consecutive pipeline: ``run(images (B, H, W,
     C), sizes (B, 2)) -> E2EOutput`` for the B-1 consecutive pairs
     (i, i+1), each image extracted once (the hloc pattern: features
-    extracted once per image, then matched across pairs)."""
-
-    @torch.inference_mode()
-    def run(images, sizes) -> E2EOutput:
-        f = extractor_forward(extractor_params, extractor_conf, images, sizes)
-        sl0, sl1 = _select(f, slice(None, -1)), _select(f, slice(1, None))
-        out = lg.forward(
-            matcher_params, matcher_conf,
-            kpts0=sl0.keypoints, kpts1=sl1.keypoints,
-            desc0=sl0.descriptors, desc1=sl1.descriptors,
-            size0=sizes[:-1], size1=sizes[1:],
-            mask0=sl0.valid, mask1=sl1.valid,
-            **_scale_ori_kw(sl0, sl1),
-        )
-        return E2EOutput(sl0, sl1, out)
-
-    return run
+    extracted once per image, then matched across pairs):
+    ``make_windowed_sequence_end_to_end`` at window 1."""
+    return make_windowed_sequence_end_to_end(
+        extractor_forward, extractor_params, extractor_conf, matcher_params,
+        matcher_conf, window=1, mesh=mesh)
 
 
 def sequence_window_pairs(n_images: int, window: int):
@@ -124,26 +125,90 @@ def make_windowed_sequence_end_to_end(
     matcher_params: nn.Params,
     matcher_conf,
     window: int = 4,
+    mesh: Optional[mesh_lib.Mesh] = None,
 ):
     """Extract-once / match-windowed pipeline: ``run(images (B, H, W, C),
     sizes (B, 2)) -> E2EOutput`` matching every pair (i, i+w) for w =
     1..window in one batched matcher call, each image extracted once.
-    Window 1 is ``make_sequence_end_to_end``."""
+    Window 1 is ``make_sequence_end_to_end``. ``mesh``: each slot extracts
+    its block of the images and matches its block of the pairs (module
+    docstring; default: one slot on the matcher parameters' device)."""
+    slots = _MeshSlots(mesh, extractor_forward, extractor_params,
+                       extractor_conf, matcher_params, matcher_conf)
 
     @torch.inference_mode()
     def run(images, sizes) -> E2EOutput:
-        f = extractor_forward(extractor_params, extractor_conf, images, sizes)
-        i0, i1 = (torch.from_numpy(i).to(images.device, torch.long)
-                  for i in sequence_window_pairs(images.shape[0], window))
-        sl0, sl1 = _select(f, i0), _select(f, i1)
-        out = lg.forward(
-            matcher_params, matcher_conf,
-            kpts0=sl0.keypoints, kpts1=sl1.keypoints,
-            desc0=sl0.descriptors, desc1=sl1.descriptors,
-            size0=sizes[i0], size1=sizes[i1],
-            mask0=sl0.valid, mask1=sl1.valid,
-            **_scale_ori_kw(sl0, sl1),
-        )
-        return E2EOutput(sl0, sl1, out)
+        n = images.shape[0]
+        parts = slots.extract(images, sizes, slots.bounds(n))
+        # every image's features on each device of the mesh
+        f = {dev: mesh_lib.gather(parts, dev) for dev in slots.mesh.distinct}
+        i0, i1 = sequence_window_pairs(n, window)
+        pairs = slots.bounds(len(i0))
+        take = [(dev, torch.from_numpy(i0[a:b]).to(dev, torch.long),
+                 torch.from_numpy(i1[a:b]).to(dev, torch.long))
+                for (a, b), dev in zip(pairs, slots.mesh.slots)]
+        return slots.match(
+            [_select(f[d], j0) for d, j0, _ in take],
+            [_select(f[d], j1) for d, _, j1 in take],
+            [sizes.to(d)[j0] for d, j0, _ in take],
+            [sizes.to(d)[j1] for d, _, j1 in take])
 
+    run.launches = slots.launches
     return run
+
+
+class _MeshSlots:
+    """The pipelines' slots: each distinct device's copy of both models'
+    parameters, and each slot's launch counts. No mesh: one slot on the
+    matcher parameters' device, which uses the parameters as they are."""
+
+    def __init__(self, mesh, extractor_forward, extractor_params,
+                 extractor_conf, matcher_params, matcher_conf):
+        self.mesh = (mesh_lib.params_mesh(matcher_params) if mesh is None
+                     else mesh)
+        self.forward, self.conf = extractor_forward, extractor_conf
+        self.matcher_conf = matcher_conf
+        self.ex = mesh_lib.replicate(self.mesh, extractor_params)
+        self.mt = mesh_lib.replicate(self.mesh, matcher_params)
+        self.launches: List[dict] = [{} for _ in self.mesh.slots]
+
+    def bounds(self, n: int):
+        """Each slot's [start, stop) block of ``n`` rows (uneven allowed;
+        a slot may get none)."""
+        return mesh_lib.row_bounds(n, self.mesh.size, even=False)
+
+    def split(self, x: torch.Tensor, bounds) -> list:
+        """Each slot's rows of ``x`` on its device."""
+        return [x[a:b].to(dev) for (a, b), dev in zip(bounds, self.mesh.slots)]
+
+    def extract(self, images, sizes, bounds) -> List[Features]:
+        """The extractor on each slot's block of ``images``, on its device,
+        for the slots that have rows (``bounds`` puts empty blocks last)."""
+        parts = []
+        for k, ((a, b), dev) in enumerate(zip(bounds, self.mesh.slots)):
+            if a < b:
+                with _build.tally(self.launches[k]):
+                    parts.append(self.forward(self.ex[dev], self.conf,
+                                              images[a:b].to(dev),
+                                              sizes[a:b].to(dev)))
+        return parts
+
+    def match(self, f0: List[Features], f1: List[Features], size0: list,
+              size1: list) -> E2EOutput:
+        """The matcher over the slots whose blocks hold pairs (block k of
+        ``f0``, ``f1``, ``size0``, ``size1`` on slot k; empty blocks last),
+        the stop pooled; the outputs gathered on the first slot's
+        device."""
+        used = [k for k, f in enumerate(f0) if f.keypoints.shape[0]]
+        devs = [self.mesh.slots[k] for k in used]
+        kws = [dict(kpts0=f0[k].keypoints, kpts1=f1[k].keypoints,
+                    desc0=f0[k].descriptors, desc1=f1[k].descriptors,
+                    size0=size0[k], size1=size1[k],
+                    mask0=f0[k].valid, mask1=f1[k].valid,
+                    **_scale_ori_kw(f0[k], f1[k])) for k in used]
+        outs = lg.forward_slots([self.mt[d] for d in devs], self.matcher_conf,
+                                kws, tallies=[self.launches[k] for k in used])
+        home = self.mesh.slots[0]
+        return E2EOutput(mesh_lib.gather([f0[k] for k in used], home),
+                         mesh_lib.gather([f1[k] for k in used], home),
+                         mesh_lib.gather(outs, home))

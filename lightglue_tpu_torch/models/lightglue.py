@@ -42,7 +42,7 @@ import numpy as np
 import torch
 from torch.utils.weak import WeakIdKeyDictionary
 
-from .. import nn
+from .. import _build, nn
 from ..configs import LightGlueConfig
 from ..utils import diagnostics
 from ..ops import assignment as asg
@@ -411,30 +411,91 @@ def forward_adaptive(params, conf: LightGlueConfig, kpts0, kpts1, desc0,
     """Depth early exit (reference break, lightglue.py:547-549) and width
     pruning as mask updates (reference index_select, lightglue.py:551-566).
     The stop decision pools over the batch, as the reference's does;
-    pruning masks are per image. The loop reads its stop flag on the host
+    pruning masks are per image. The loop reads its stop counts on the host
     once per layer; ``parallel/graphs.py`` captures the same steps
     (``adaptive_start``, ``adaptive_layer``, ``adaptive_finish``) one CUDA
     graph each."""
-    state = adaptive_start(params, conf, kpts0, kpts1, desc0, desc1, size0,
-                           size1, mask0, mask1, scales0, oris0, scales1,
-                           oris1)
-    i, _, state = _adaptive_loop(params, conf, 0, False, state,
-                                 conf.n_layers)
-    return adaptive_finish(params, conf, i, state)
+    return _adaptive_slots(_Slots([params]), conf, [dict(
+        kpts0=kpts0, kpts1=kpts1, desc0=desc0, desc1=desc1, size0=size0,
+        size1=size1, mask0=mask0, mask1=mask1, scales0=scales0, oris0=oris0,
+        scales1=scales1, oris1=oris1)])[0]
 
 
-def _adaptive_loop(params, conf: LightGlueConfig, i: int, stop: bool,
-                   s: "AdaptiveState", i_max: int):
+def pooled_stop(conf: LightGlueConfig, counts) -> bool:
+    """The reference's stop test (lightglue.py:645-656) over the whole
+    batch: ``counts`` holds each slot's (unconfident points, valid points),
+    as ``adaptive_layer`` returns them, in host numbers; the share of
+    confident (or pruned or padded) points above ``depth_confidence``,
+    in float32 as the single-device test computes it on the device."""
+    unconf = np.float32(sum(float(c[0]) for c in counts))
+    points = np.float32(sum(float(c[1]) for c in counts))
+    with np.errstate(divide="ignore", invalid="ignore"):
+        ratio = np.float32(1.0) - unconf / points
+    return bool(ratio > np.float32(conf.depth_confidence))
+
+
+class _Slots:
+    """The slots of a forward: each one's parameters (on its device) and
+    the dict its kernel launches are added to (``_build.tally``; None: not
+    kept)."""
+
+    def __init__(self, trees, tallies=None):
+        self.trees = trees
+        self.tallies = tallies or [None] * len(trees)
+
+    def map(self, fn, *per_slot) -> list:
+        """[fn(slot k's parameters, each list's item k) for each slot]."""
+        out = []
+        for k, tree in enumerate(self.trees):
+            with _build.tally(self.tallies[k]):
+                out.append(fn(tree, *(a[k] for a in per_slot)))
+        return out
+
+
+def _adaptive_loop(slots: _Slots, conf: LightGlueConfig, i: int, stop: bool,
+                   states: list, i_max: int):
     """The layers i .. i_max - 1 of the reference's loop with break and
-    pruning (JAX ``_adaptive_loop``), the stop flag read on the host once
-    per layer. Returns (the next layer, whether the loop stopped early,
-    the state)."""
-    fused = _block_weights(params, conf)
+    pruning (JAX ``_adaptive_loop``) on each slot's state, the stop pooled
+    over the slots from their counts, read on the host once per layer.
+    Returns (the next layer, whether the loop stopped early, the
+    states)."""
+    fused = [_block_weights(p, conf) for p in slots.trees]
     while i < i_max and not stop:
-        s, flag = adaptive_layer(params, conf, i, s, fused)
+        steps = slots.map(lambda p, s, f: adaptive_layer(p, conf, i, s, f),
+                          states, fused)
         i += 1
-        stop = flag is not None and bool(flag)  # host sync: one per layer
-    return i, stop, s
+        # host sync: one a slot a layer
+        stop = steps[0][2] is not None and pooled_stop(
+            conf, [c.tolist() for _, _, c in steps])
+        states = [held if stop else on for on, held, _ in steps]
+    return i, stop, states
+
+
+def _adaptive_slots(slots: _Slots, conf: LightGlueConfig, kws: list) -> list:
+    """``forward_adaptive`` over slots (``forward_slots``)."""
+    states = slots.map(lambda p, kw: adaptive_start(p, conf, **kw), kws)
+    i, _, states = _adaptive_loop(slots, conf, 0, False, states, conf.n_layers)
+    return slots.map(lambda p, s: adaptive_finish(p, conf, i, s), states)
+
+
+def forward_slots(trees, conf: LightGlueConfig, kws: list,
+                  tallies=None) -> list:
+    """``forward`` over slots: ``kws[k]`` (``forward``'s keyword arguments,
+    a block of the batch's rows) through ``trees[k]`` (those parameters on
+    that block's device), with the adaptive stop pooled over every slot
+    (``pooled_stop``), as the JAX forward pools it over a sharded batch.
+    Returns each slot's ``MatchOutput``; all share ``stop``. One slot is
+    ``forward``. ``tallies``: a dict a slot that its launches are added
+    to."""
+    slots = _Slots(trees, tallies)
+    m, n = kws[0]["kpts0"].shape[1], kws[0]["kpts1"].shape[1]
+    if twostage(conf, m, n):
+        _check_compaction_config(conf, m)
+        return _twostage_slots(slots, conf, conf.compaction_prefix,
+                               conf.compaction_bucket, kws)
+    if conf.depth_confidence > 0 or conf.width_confidence > 0:
+        return _adaptive_slots(slots, conf, kws)
+    return slots.map(lambda p, kw: forward_fixed(p, conf, **kw), kws)
 
 
 class AdaptiveState(NamedTuple):
@@ -482,34 +543,40 @@ def adaptive_layer(params, conf: LightGlueConfig, i: int, s: AdaptiveState,
                    fused):
     """Layer ``i`` of the reference's loop with break and pruning
     (lightglue.py:538-566); ``fused``: ``_block_weights(params, conf)``.
-    Returns (state after it, the stop flag as a device bool, or None after
-    the last layer, which has no confidence head)."""
+    The stop is decided outside, over every slot of the batch
+    (``pooled_stop``), so the layer prunes as if the loop goes on and
+    returns (the state after it, pruned; the state an exit after it reads:
+    the layer's descriptors with the masks and survival depths from before
+    it, which is what a stop leaves, as pruning does not run when the
+    batch stops; this slot's stop counts, (unconfident points, valid
+    points) as a float32 device pair, or None where no stop is read: after
+    the last layer, which has no confidence head, or with the depth
+    confidence off)."""
     tree = compute_params(params, conf)
     d0, d1 = transformer_layer(
         nn.index_params(tree["transformers"], i), s.desc0, s.desc1, s.enc0,
         s.enc1, conf, s.act0, s.act1, fused[i])
-    s = s._replace(desc0=d0, desc1=d1)
+    held = s._replace(desc0=d0, desc1=d1)
     if i == conf.n_layers - 1:
-        return s, None
+        return held, held, None
     do_early_stop = conf.depth_confidence > 0
     th = float(confidence_thresholds(conf.n_layers)[i])
-    stop = torch.zeros((), dtype=torch.bool, device=d0.device)
-    conf0 = conf1 = None
+    counts = conf0 = conf1 = None
     if do_early_stop:
         tok = nn.index_params(tree["token_confidence"], i)
         conf0, conf1 = token_confidence(tok, d0, d1)
-        # fraction of confident (or pruned/padded) points above
-        # depth_confidence (reference: lightglue.py:645-656)
+        # unconfident active points (reference: lightglue.py:645-656)
         unconf = (s.act0 & (conf0 < th)).sum() + (s.act1 & (conf1 < th)).sum()
-        stop = (1.0 - unconf.float() / s.num_points) > conf.depth_confidence
+        counts = torch.stack([unconf.float(), s.num_points])
+    on = held
     if conf.width_confidence > 0:
         la = nn.index_params(params["log_assignment"], i)
-        act0, prune0 = _prune(la, conf, d0, s.act0, s.prune0, conf0, stop, th,
+        act0, prune0 = _prune(la, conf, d0, s.act0, s.prune0, conf0, th,
                               do_early_stop)
-        act1, prune1 = _prune(la, conf, d1, s.act1, s.prune1, conf1, stop, th,
+        act1, prune1 = _prune(la, conf, d1, s.act1, s.prune1, conf1, th,
                               do_early_stop)
-        s = s._replace(act0=act0, act1=act1, prune0=prune0, prune1=prune1)
-    return s, stop
+        on = held._replace(act0=act0, act1=act1, prune0=prune0, prune1=prune1)
+    return on, held, counts
 
 
 def adaptive_finish(params, conf: LightGlueConfig, layers: int,
@@ -526,11 +593,11 @@ def adaptive_finish(params, conf: LightGlueConfig, layers: int,
     return MatchOutput(m0, m1, ms0, ms1, layers, prune0, prune1)
 
 
-def _prune(la, conf, desc, act, prune, confidences, stop, th, do_early_stop):
+def _prune(la, conf, desc, act, prune, confidences, th, do_early_stop):
     """Keep high-matchability or low-confidence points (reference:
     lightglue.py:636-643), in images with more than pruning_min_kpts active
     points (lightglue.py:551, 559)."""
-    ran = (~stop & (act.sum(1) > conf.pruning_min_kpts))[:, None]
+    ran = (act.sum(1) > conf.pruning_min_kpts)[:, None]
     keep = asg.get_matchability(la, desc) > (1.0 - conf.width_confidence)
     if do_early_stop:
         keep = keep | (confidences <= th)
@@ -549,15 +616,7 @@ def twostage(conf: LightGlueConfig, m: int, n: int) -> bool:
 def forward(params, conf: LightGlueConfig, **kw) -> MatchOutput:
     """Two-stage compaction (``twostage``), else adaptive when either
     confidence is on, else fixed."""
-    m, n = kw["kpts0"].shape[1], kw["kpts1"].shape[1]
-    if twostage(conf, m, n):
-        _check_compaction_config(conf, m)
-        return forward_adaptive_twostage(
-            params, conf, conf.compaction_prefix, conf.compaction_bucket,
-            **kw)
-    if conf.depth_confidence > 0 or conf.width_confidence > 0:
-        return forward_adaptive(params, conf, **kw)
-    return forward_fixed(params, conf, **kw)
+    return forward_slots([params], conf, [kw])[0]
 
 
 # ---------------------------------------------------------------------------
@@ -622,8 +681,9 @@ def forward_prefix(params, conf: LightGlueConfig, n_prefix: int, kpts0,
     state = adaptive_start(params, conf, kpts0, kpts1, desc0, desc1, size0,
                            size1, mask0, mask1, scales0, oris0, scales1,
                            oris1)
-    return PrefixState(*_adaptive_loop(params, conf, 0, False, state,
-                                       n_prefix))
+    i, stop, (state,) = _adaptive_loop(_Slots([params]), conf, 0, False,
+                                       [state], n_prefix)
+    return PrefixState(i, stop, state)
 
 
 def forward_suffix(params, conf: LightGlueConfig,
@@ -631,8 +691,8 @@ def forward_suffix(params, conf: LightGlueConfig,
     """The adaptive loop from a (compacted) ``PrefixState`` to its end and
     the assignment (JAX lightglue.py:727-748). ``st.state``'s rotary
     tables are its keypoints' (``compact`` recomputes them)."""
-    i, _, s = _adaptive_loop(params, conf, st.i, st.stop, st.state,
-                             conf.n_layers)
+    i, _, (s,) = _adaptive_loop(_Slots([params]), conf, st.i, st.stop,
+                                [st.state], conf.n_layers)
     return adaptive_finish(params, conf, i, s)
 
 
@@ -704,13 +764,26 @@ def forward_adaptive_twostage(params, conf: LightGlueConfig, n_prefix: int,
     assignment at that size (``forward_suffix``), the outputs scattered
     back to the original numbering (``scatter_back``). ``parallel/graphs.py``
     captures the same steps."""
-    m, n = kpts0.shape[1], kpts1.shape[1]
+    return _twostage_slots(_Slots([params]), conf, n_prefix, bucket, [dict(
+        kpts0=kpts0, kpts1=kpts1, desc0=desc0, desc1=desc1, size0=size0,
+        size1=size1, mask0=mask0, mask1=mask1, scales0=scales0, oris0=oris0,
+        scales1=scales1, oris1=oris1)])[0]
+
+
+def _twostage_slots(slots: _Slots, conf: LightGlueConfig, n_prefix: int,
+                    bucket: int, kws: list) -> list:
+    """``forward_adaptive_twostage`` over slots (``forward_slots``): each
+    slot compacts its own rows; the stop pools over every slot."""
+    m, n = kws[0]["kpts0"].shape[1], kws[0]["kpts1"].shape[1]
     if not (bucket <= m and bucket <= n and 1 <= n_prefix <= conf.n_layers):
         raise ValueError(f"bucket {bucket} and prefix {n_prefix} for M {m}, "
                          f"N {n} and {conf.n_layers} layers")
-    st = forward_prefix(params, conf, n_prefix, kpts0, kpts1, desc0, desc1,
-                        size0, size1, mask0, mask1, scales0, oris0, scales1,
-                        oris1)
-    small, ind0, ind1 = compact(params, conf, st.state, n_prefix, bucket)
-    out = forward_suffix(params, conf, st._replace(state=small))
-    return scatter_back(out, st.state.prune0, st.state.prune1, ind0, ind1)
+    states = slots.map(lambda p, kw: adaptive_start(p, conf, **kw), kws)
+    i, stop, full = _adaptive_loop(slots, conf, 0, False, states, n_prefix)
+    small = slots.map(lambda p, s: compact(p, conf, s, n_prefix, bucket), full)
+    i, _, states = _adaptive_loop(slots, conf, i, stop, [c[0] for c in small],
+                                  conf.n_layers)
+    return slots.map(
+        lambda p, s, f, c: scatter_back(adaptive_finish(p, conf, i, s),
+                                        f.prune0, f.prune1, *c[1:]),
+        states, full, small)

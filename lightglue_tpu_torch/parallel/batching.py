@@ -1,15 +1,17 @@
-"""Batched, bucketed matching on one device (counterpart of
+"""Batched, bucketed and data-parallel matching (counterpart of
 lightglue_tpu/parallel/batching.py).
 
 Pairs are padded on the host to a common keypoint bucket (the reference's
 static lengths, lightglue.py:46-55, 437-454), stacked on a batch axis and
 matched in one call; results are compacted back per pair in input order
-(``pipeline.compact_matches``: the C++ host runtime, ``native.py``). On
-one card the JAX mesh is a plain batched call (``parallel/mesh.py`` is not
-ported). On a CUDA device that call replays CUDA graphs captured once per
-(bucket, batch, input signature) (``parallel/graphs.py``), the counterpart
-of the JAX package's one compiled program per shape; on the CPU it runs
-``models.lightglue.forward`` eagerly.
+(``pipeline.compact_matches``: the C++ host runtime, ``native.py``). On a
+CUDA device that call replays CUDA graphs captured once per (bucket, batch,
+input signature) (``parallel/graphs.py``), the counterpart of the JAX
+package's one compiled program per shape; on the CPU it runs
+``models.lightglue.forward`` eagerly. With a ``mesh`` (``parallel/mesh.py``,
+the JAX package's ``mesh=``) the batch's rows shard over the mesh's slots
+in equal blocks, the parameters are copied to each device, and the adaptive
+stop pools over every slot, as the JAX program's global sum pools it.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from ..configs import LightGlueConfig
 from ..models import lightglue as lg
 from ..pipeline import compact_matches
 from . import graphs
+from . import mesh as mesh_lib
 
 DEFAULT_BUCKETS = (256, 512, 768, 1024, 1280, 1536, 2048, 4096)
 
@@ -137,46 +140,124 @@ def batch_inputs(conf: LightGlueConfig, feats0: Dict[str, np.ndarray],
     return kw
 
 
+def _shard(sig: graphs.Signature, slots: int) -> graphs.Signature:
+    """One slot's share of ``sig`` (equal blocks; raises if uneven)."""
+    mesh_lib.row_bounds(sig.batch, slots)
+    return sig._replace(batch=sig.batch // slots)
+
+
+def _fills(inputs: Dict[str, Optional[np.ndarray]], slots: int) -> List[graphs.Fill]:
+    """Fills that copy each slot's block of ``inputs``' rows."""
+    bounds = mesh_lib.row_bounds(graphs.signature_of(inputs).batch, slots)
+    return [graphs.copy_inputs({k: None if v is None else v[a:b]
+                                for k, v in inputs.items()}) for a, b in bounds]
+
+
 class EagerMatcher:
     """Padded batches -> ``models.lightglue.MatchOutput`` of numpy arrays
-    through ``models.lightglue.forward``, eagerly (the CPU's runner)."""
+    through ``models.lightglue.forward_slots``, eagerly (the CPU's runner):
+    the batch's rows split over ``devices`` (one slot: ``forward``), slot k
+    on ``trees[k]``, the adaptive stop pooled over every slot. ``launches``
+    holds each slot's kernel launches."""
 
-    def __init__(self, conf: LightGlueConfig, params: nn.Params,
-                 device: torch.device):
-        self.conf, self.params, self.device = conf, params, device
+    def __init__(self, conf: LightGlueConfig, trees: List[nn.Params],
+                 devices: List[torch.device]):
+        self.conf, self.trees, self.devices = conf, trees, devices
+        self.launches: List[Dict[str, int]] = [{} for _ in devices]
 
     def warm(self, sig: graphs.Signature) -> None:
         """Run ``sig`` once on seeded inputs."""
         self(graphs.example_inputs(sig, self.conf.input_dim))
 
     def __call__(self, inputs: Dict[str, Optional[np.ndarray]]) -> lg.MatchOutput:
-        return self.run(graphs.signature_of(inputs), graphs.copy_inputs(inputs))
+        return self.run(graphs.signature_of(inputs),
+                        _fills(inputs, len(self.devices)))
 
     @torch.inference_mode()
-    def run(self, sig: graphs.Signature, fill: graphs.Fill) -> lg.MatchOutput:
-        """The forward on the inputs ``fill`` writes into numpy arrays of
-        ``sig``'s shapes."""
-        arrays = graphs.host_arrays(sig, self.conf.input_dim)
-        fill(arrays)
-        out = lg.forward(self.params, self.conf, **{
-            k: torch.from_numpy(v).to(self.device) for k, v in arrays.items()})
-        return lg.MatchOutput(*(
+    def run(self, sig: graphs.Signature,
+            fills: List[graphs.Fill]) -> lg.MatchOutput:
+        """The forward on a batch of signature ``sig`` whose rows of slot k
+        ``fills[k]`` writes (``mesh.row_bounds``' equal blocks)."""
+        shard = _shard(sig, len(self.devices))
+        kws = []
+        for fill, dev in zip(fills, self.devices):
+            arrays = graphs.host_arrays(shard, self.conf.input_dim)
+            fill(arrays)
+            kws.append({k: torch.from_numpy(v).to(dev)
+                        for k, v in arrays.items()})
+        outs = lg.forward_slots(self.trees, self.conf, kws,
+                                tallies=self.launches)
+        return mesh_lib.gather([lg.MatchOutput(*(
             f if isinstance(f, int) else f.cpu().numpy() for f in out))
+            for out in outs])
+
+
+class MeshGraphMatcher:
+    """Padded batches over the CUDA slots of a mesh, each slot a
+    ``graphs.GraphMatcher`` on its own device, stream and pool with its
+    copy of the parameters, the stop pooled over the slots
+    (``graphs.run_slots``). ``launches`` holds each slot's kernel
+    launches."""
+
+    def __init__(self, conf: LightGlueConfig, trees: List[nn.Params],
+                 devices: List[torch.device]):
+        self.conf = conf
+        self.slots = [graphs.GraphMatcher(conf, t, d)
+                      for t, d in zip(trees, devices)]
+
+    @property
+    def launches(self) -> List[Dict[str, int]]:
+        return [slot.launches for slot in self.slots]
+
+    def warm(self, sig: graphs.Signature) -> None:
+        """Capture every slot's graph set of its share of ``sig``."""
+        for slot in self.slots:
+            slot.warm(_shard(sig, len(self.slots)))
+
+    def __call__(self, inputs: Dict[str, Optional[np.ndarray]]) -> lg.MatchOutput:
+        return self.run(graphs.signature_of(inputs),
+                        _fills(inputs, len(self.slots)))
+
+    def run(self, sig: graphs.Signature,
+            fills: List[graphs.Fill]) -> lg.MatchOutput:
+        """Replay on every slot, slot k on the rows ``fills[k]`` writes into
+        its pinned staging arrays."""
+        return mesh_lib.gather(graphs.run_slots(
+            self.slots, _shard(sig, len(self.slots)), fills))
 
 
 def make_batched_matcher(conf: LightGlueConfig, params: nn.Params,
-                         device: Union[str, torch.device] = "cuda"):
+                         device: Union[str, torch.device] = "cuda",
+                         mesh: Optional[mesh_lib.Mesh] = None):
     """A runner of padded batches on ``device`` (``params`` must lie
     there): ``runner(batch_inputs(...)) -> MatchOutput`` of numpy arrays,
-    ``runner.run(signature, fill)`` on the inputs ``fill`` writes into its
-    input arrays, ``runner.warm(signature)``. On a CUDA device it captures one CUDA graph
+    ``runner.run(signature, fills)`` on the inputs that its fills write
+    into its input arrays (one fill a slot, each its block of the rows),
+    ``runner.warm(signature)``. On a CUDA device it captures one CUDA graph
     set per input signature on its first sight and replays it
     (``graphs.GraphMatcher``), keeping ``params``, whose addresses the
-    graphs hold; on the CPU it runs the forward eagerly."""
-    device = torch.device(device)
-    if device.type == "cuda":
-        return graphs.GraphMatcher(conf, params, device)
-    return EagerMatcher(conf, params, device)
+    graphs hold; on the CPU it runs the forward eagerly.
+
+    With a ``mesh`` of more than one slot (``parallel/mesh.py``; ``device``
+    is not read), the batch's rows shard over the slots in equal blocks,
+    the parameters are copied to each device (``mesh.replicate``) and the
+    adaptive stop pools over every slot: CUDA graphs on every slot of an
+    all-CUDA mesh, the eager forward on an all-CPU one. A one-slot mesh is
+    the runner on its device."""
+    if mesh is not None and mesh.size == 1:
+        device, mesh = mesh.slots[0], None
+    if mesh is None:
+        device = torch.device(device)
+        if device.type == "cuda":
+            return graphs.GraphMatcher(conf, params, device)
+        return EagerMatcher(conf, [params], [device])
+    kinds = {d.type for d in mesh.slots}
+    if len(kinds) > 1:
+        raise ValueError(f"a mesh of CPU and CUDA slots: {mesh}")
+    replicas = mesh_lib.replicate(mesh, params)
+    trees = [replicas[dev] for dev in mesh.slots]
+    runner = MeshGraphMatcher if kinds == {"cuda"} else EagerMatcher
+    return runner(conf, trees, list(mesh.slots))
 
 
 class _Tree:
@@ -194,8 +275,9 @@ class _Tree:
 
 
 @functools.lru_cache(maxsize=8)
-def _shared_matcher(conf: LightGlueConfig, tree: _Tree, device: torch.device):
-    return make_batched_matcher(conf, tree.tree, device)
+def _shared_matcher(conf: LightGlueConfig, tree: _Tree, device: torch.device,
+                    mesh: Optional[mesh_lib.Mesh]):
+    return make_batched_matcher(conf, tree.tree, device, mesh)
 
 
 def match_feature_batch(
@@ -204,11 +286,14 @@ def match_feature_batch(
     feats0: Dict[str, np.ndarray],
     feats1: Dict[str, np.ndarray],
     device: Union[str, torch.device] = "cuda",
+    mesh: Optional[mesh_lib.Mesh] = None,
 ) -> lg.MatchOutput:
     """Match two stacked+padded feature batches (from
-    ``pad_features_to_bucket``). The runner is cached per (conf, parameter
-    tree, device) for the 8 most recent."""
-    matcher = _shared_matcher(conf, _Tree(params), torch.device(device))
+    ``pad_features_to_bucket``), on ``device`` or sharded over the slots
+    of ``mesh`` (``make_batched_matcher``; the batch must divide over
+    them). The runner is cached per (conf, parameter tree, device, mesh)
+    for the 8 most recent."""
+    matcher = _shared_matcher(conf, _Tree(params), torch.device(device), mesh)
     return matcher(batch_inputs(conf, feats0, feats1))
 
 
@@ -224,6 +309,12 @@ class BatchMatcher:
     is one CUDA graph set, captured on its first use or by ``warmup``, and
     every graph of the matcher shares one memory pool; ``device="cpu"``
     runs the forward eagerly.
+
+    With a ``mesh`` (``parallel/mesh.py``; ``device`` is not read) each
+    batch shards over its slots (``make_batched_matcher``): batches are
+    rounded up to a multiple of the slot count, the dummy pairs count in
+    the pooled adaptive stop, as in the JAX package; ``params`` is the
+    first slot's copy.
     """
 
     def __init__(
@@ -233,13 +324,18 @@ class BatchMatcher:
         buckets: Sequence[int] = DEFAULT_BUCKETS,
         max_batch: int = 16,
         device: Union[str, torch.device] = "cuda",
+        mesh: Optional[mesh_lib.Mesh] = None,
     ):
+        if mesh is not None and mesh.size == 1:  # the runner on its device
+            device, mesh = mesh.slots[0], None
         self.conf = conf
-        self.device = torch.device(device)
+        self.mesh = mesh
+        self.device = torch.device(device) if mesh is None else mesh.slots[0]
         self.params = nn.params_to(params, self.device)
         self.buckets = tuple(buckets)
         self.max_batch = max_batch
-        self._matcher = make_batched_matcher(conf, self.params, self.device)
+        self._matcher = make_batched_matcher(conf, self.params, self.device,
+                                             mesh)
 
     def warmup(self, batches: Optional[Sequence[int]] = None) -> int:
         """Build every (bucket, batch) program this matcher can dispatch,
@@ -268,6 +364,10 @@ class BatchMatcher:
         b = 1
         while b < n and b < max_batch:
             b *= 2
+        if self.mesh is not None:
+            # equal blocks a slot: round up (dummy pairs fill the slack)
+            nd = self.mesh.size
+            b = ((b + nd - 1) // nd) * nd
         return b
 
     def _chunks(self, pairs):
@@ -307,11 +407,12 @@ class BatchMatcher:
         results = [None] * len(pairs)
         for bucket, chunk, sel in self._chunks(pairs):
             # each chunk written straight into the runner's input arrays (on
-            # the card its pinned staging buffer)
-            out = self._matcher.run(
-                graphs.Signature(len(sel), bucket, bucket, _with_size(sel),
-                                 self.conf.add_scale_ori),
-                pack_pairs(sel))
+            # the card its pinned staging buffers), a block of rows a slot
+            sig = graphs.Signature(len(sel), bucket, bucket, _with_size(sel),
+                                   self.conf.add_scale_ori)
+            out = self._matcher.run(sig, [
+                pack_pairs(sel[a:b]) for a, b in mesh_lib.row_bounds(
+                    len(sel), 1 if self.mesh is None else self.mesh.size)])
             cm, cs = compact_matches(out.matches0, out.matching_scores0)
             for j, i in enumerate(chunk):
                 n0 = pairs[i][0]["keypoints"].shape[0]

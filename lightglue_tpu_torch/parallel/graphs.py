@@ -12,19 +12,26 @@ launches a few graphs instead of the eager matcher's 250-310 kernels.
 - **Adaptive forward:** JAX runs its loop as one ``lax.while_loop``.
   PyTorch's graph API has no conditional nodes, so the loop is cut into
   segments: one graph per layer (segment 0 also holds ``adaptive_start``;
-  each ``adaptive_layer``: the layer, token confidence, stop and pruning),
-  with the stop flag read on the host from a pinned scalar between
-  segments, as the eager loop reads it, and one graph of
-  ``adaptive_finish`` per layer the loop may exit after (each reads its own
-  ``log_assignment`` layer). The stop decision pools over the whole batch,
-  dummy pairs included, as the JAX loop's does.
+  each ``adaptive_layer``: the layer, token confidence, the stop counts and
+  pruning as if the loop goes on), with the counts read on the host from a
+  pinned pair between segments, as the eager loop reads them, and one
+  graph of ``adaptive_finish`` per layer the loop may exit after (each
+  reads its own ``log_assignment`` layer and the masks from before its
+  layer's pruning). The stop decision pools over the whole batch, dummy
+  pairs included, as the JAX loop's does.
+- **Slots** (``run_slots``; a mesh's, ``batching.MeshGraphMatcher``): each
+  ``GraphMatcher`` has its own device, stream, pool and pinned counts.
+  Every slot replays layer i, the host reads every slot's counts and pools
+  them (``models.lightglue.pooled_stop``), then every slot replays the
+  next layer or the exit. One slot is the runner alone.
 - **Two-stage compaction** (``models.lightglue.twostage`` true for the
   signature): the prefix layers' graphs at the full bucket; one graph of
-  ``compact`` after the last prefix layer, replayed before its stop flag
-  is read (the JAX path compacts even when the prefix stopped); the suffix
-  layers' and their exit graphs at the compaction bucket, each exit with
-  ``scatter_back`` to the original numbering. An exit after an earlier
-  prefix layer holds its own compaction of that layer's state.
+  ``compact`` after the last prefix layer, replayed before its stop counts
+  are read; the suffix layers' and their exit graphs at the compaction
+  bucket, each exit with ``scatter_back`` to the original numbering. An
+  exit after a prefix layer holds its own compaction of that layer's
+  state before pruning (the JAX path compacts even when the prefix
+  stopped).
 - **Static buffers:** a signature's inputs are packed in one pinned host
   buffer and one device buffer (``Staging``): numpy arrays are copied into
   the pinned one and sent in one copy. The outputs come back the same way,
@@ -48,7 +55,7 @@ forward. Graphs live in their process; nothing persists across processes.
 from __future__ import annotations
 
 import functools
-from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -194,20 +201,23 @@ class Captured(NamedTuple):
 class GraphSet(NamedTuple):
     """The graphs of one signature. Fixed: ``segments`` holds the whole
     forward. Adaptive: ``segments[i]`` runs layer i (segment 0 from the
-    inputs) into ``states[i]``, ``stops[i]`` is its stop flag (None where
-    no layer reads one), ``exits[i]`` the assignment after i + 1 layers;
-    the last graph of a call writes ``outputs``. Two-stage: ``prefix``
-    layers at full size, then ``compaction`` (one graph) into
-    ``compacted`` (the state and the original indices); 0 and empty
-    otherwise. ``states``, ``stops`` and ``compacted`` are tensors of the
-    pool that later graphs read: they stay referenced here, or a later
-    capture would reuse their memory."""
+    inputs) into ``states[i]`` (pruned, for the next layer) and ``held[i]``
+    (the masks from before the layer, for an exit after it), ``stops[i]``
+    is its stop counts (None where no layer reads one), ``exits[i]`` the
+    assignment after i + 1 layers; the last graph of a call writes
+    ``outputs``. Two-stage: ``prefix`` layers at full size, then
+    ``compaction`` (one graph) into ``compacted`` (the state and the
+    original indices); 0 and empty otherwise. ``states``, ``held``,
+    ``stops`` and ``compacted`` are tensors of the pool that later graphs
+    read: they stay referenced here, or a later capture would reuse their
+    memory."""
 
     inputs: Staging
     outputs: Staging
     segments: List[Captured]
     exits: List[Captured]
     states: List[lg.AdaptiveState]
+    held: List[lg.AdaptiveState]
     stops: List[Optional[torch.Tensor]]
     prefix: int
     compaction: List[Captured]
@@ -216,7 +226,10 @@ class GraphSet(NamedTuple):
 
 class GraphMatcher:
     """Padded batches -> ``models.lightglue.MatchOutput`` of numpy arrays,
-    on one CUDA device, through one graph set per input signature."""
+    on one CUDA device, through one graph set per input signature. Its
+    graphs replay on its own stream; ``launches`` sums the kernel launches
+    its replays added. ``run_slots`` drives several of them as the slots of
+    a mesh."""
 
     def __init__(self, conf: LightGlueConfig, params: nn.Params,
                  device: torch.device):
@@ -224,11 +237,13 @@ class GraphMatcher:
         self.device = torch.device(device)
         self.adaptive = conf.depth_confidence > 0 or conf.width_confidence > 0
         self.sets: Dict[Signature, GraphSet] = {}
+        self.launches: Dict[str, int] = {}
         with torch.cuda.device(self.device):
             self.pool = torch.cuda.graph_pool_handle()
             self.stream = torch.cuda.Stream(self.device)
-            self._stop = torch.zeros(conf.n_layers, dtype=torch.bool,
-                                     pin_memory=self.device.type == "cuda")
+            # each layer's (unconfident, valid) stop counts
+            self._counts = torch.zeros((conf.n_layers, 2), dtype=torch.float32,
+                                       pin_memory=self.device.type == "cuda")
 
     def warm(self, sig: Signature) -> None:
         """Capture ``sig``'s graph set unless it is captured already."""
@@ -239,42 +254,58 @@ class GraphMatcher:
     def __call__(self, inputs: Dict[str, Optional[np.ndarray]]) -> lg.MatchOutput:
         """``inputs``: numpy arrays under ``models.lightglue.forward``'s
         keyword names (a mask not given: all valid)."""
-        return self.run(signature_of(inputs), copy_inputs(inputs))
+        return self.run(signature_of(inputs), [copy_inputs(inputs)])
 
-    def run(self, sig: Signature, fill: Fill) -> lg.MatchOutput:
+    def run(self, sig: Signature, fills: Sequence[Fill]) -> lg.MatchOutput:
         """Replay ``sig``'s graph set (captured on first sight) on the
-        inputs ``fill`` writes straight into its pinned staging arrays."""
+        inputs that ``fills``' one fill (the runners' one fill a slot)
+        writes straight into its pinned staging arrays."""
+        (fill,) = fills
+        return run_slots([self], sig, [fill])[0]
+
+    def _begin(self, sig: Signature, fill: Fill) -> GraphSet:
+        """``sig``'s graph set with ``fill``'s inputs sent to the device."""
         with torch.cuda.device(self.device):
             gs = self.sets.get(sig) or self._capture(sig)
-            fill(gs.inputs.host_np)
-            gs.inputs.to_device()
-            layers = self._replay(gs)
+            with torch.cuda.stream(self.stream):
+                fill(gs.inputs.host_np)
+                gs.inputs.to_device()
+        return gs
+
+    def _replay(self, graph: Captured) -> None:
+        graph.replay()
+        for k, n in graph.counts.items():
+            self.launches[k] = self.launches.get(k, 0) + n
+
+    def _segment(self, gs: GraphSet, i: int) -> None:
+        """Replay layer i (and the compaction after the prefix's last
+        layer), then queue the copy of its stop counts to the host."""
+        with torch.cuda.device(self.device), torch.cuda.stream(self.stream):
+            self._replay(gs.segments[i])
+            if i + 1 == gs.prefix:
+                self._replay(gs.compaction[0])
+            if gs.stops[i] is not None:
+                self._counts[i].copy_(gs.stops[i], non_blocking=True)
+
+    def _read_counts(self, i: int) -> List[float]:
+        """Layer i's stop counts, once the stream has passed them."""
+        with torch.cuda.device(self.device), torch.cuda.stream(self.stream):
+            torch.cuda.current_stream(self.device).synchronize()
+        return self._counts[i].tolist()
+
+    def _finish(self, gs: GraphSet, graph: Captured) -> None:
+        """Replay the graph that writes the outputs, queue their copy."""
+        with torch.cuda.device(self.device), torch.cuda.stream(self.stream):
+            self._replay(graph)
             gs.outputs.to_host()
+
+    def _collect(self, gs: GraphSet, layers: int) -> lg.MatchOutput:
+        with torch.cuda.device(self.device), torch.cuda.stream(self.stream):
             torch.cuda.current_stream(self.device).synchronize()
         out = {f: a.copy() for f, a in gs.outputs.host_np.items()}
         return lg.MatchOutput(out["matches0"], out["matches1"],
                               out["matching_scores0"], out["matching_scores1"],
                               layers, out["prune0"], out["prune1"])
-
-    def _replay(self, gs: GraphSet) -> int:
-        """Replay ``gs`` on the current stream; returns the layers run."""
-        if not self.adaptive:
-            gs.segments[0].replay()
-            return self.conf.n_layers
-        for i, seg in enumerate(gs.segments):
-            seg.replay()
-            if i + 1 == gs.prefix:
-                gs.compaction[0].replay()
-            if gs.stops[i] is not None and self._read_stop(gs.stops[i], i):
-                break
-        gs.exits[i].replay()
-        return i + 1
-
-    def _read_stop(self, stop: torch.Tensor, i: int) -> bool:
-        """The device flag of segment i through a pinned host scalar."""
-        self._stop[i].copy_(stop, non_blocking=True)
-        torch.cuda.current_stream(self.device).synchronize()
-        return bool(self._stop[i])
 
     def _kwargs(self, tensors: Dict[str, torch.Tensor]) -> dict:
         return {name: tensors.get(name) for name in (
@@ -321,7 +352,7 @@ class GraphMatcher:
 
         prefix = (conf.compaction_prefix if lg.twostage(conf, sig.m, sig.n)
                   else 0)
-        gs = GraphSet(staged, outputs, [], [], [], [], prefix, [], [])
+        gs = GraphSet(staged, outputs, [], [], [], [], [], prefix, [], [])
         if not self.adaptive:
             gs.segments.append(run(
                 lambda: write(lg.forward_fixed(params, conf, **kw)))[0])
@@ -341,20 +372,47 @@ class GraphMatcher:
             def segment(i=i, prev=state):
                 s = lg.adaptive_start(params, conf, **kw) if i == 0 else prev
                 return lg.adaptive_layer(params, conf, i, s, fused)
-            seg, (state, stop) = run(segment)
+            seg, (state, held, counts) = run(segment)
             gs.segments.append(seg)
             gs.states.append(state)
-            gs.stops.append(stop if conf.depth_confidence > 0 else None)
-            if i + 1 < prefix:  # a stop in the prefix compacts, then exits
-                def exit_(i=i, s=state):
+            gs.held.append(held)
+            gs.stops.append(counts)
+            if i + 1 <= prefix:  # a stop in the prefix compacts, then exits
+                def exit_(i=i, s=held):
                     small, *idx = compact(s)
                     finish(i, small, s, idx)
-            else:
                 if i + 1 == prefix:
                     graph, (small, *ind) = run(lambda s=state: compact(s))
                     gs.compaction.append(graph)
                     gs.compacted.append((small, *ind))
                     full, state = state, small
-                exit_ = functools.partial(finish, i, state, full, ind)
+            else:
+                exit_ = functools.partial(finish, i, held, full, ind)
             gs.exits.append(run(exit_)[0])
         return gs
+
+
+def run_slots(slots: Sequence[GraphMatcher], sig: Signature,
+              fills: Sequence[Fill]) -> List[lg.MatchOutput]:
+    """Replay ``sig``'s graph set on every slot (the batch's rows of slot k
+    written by ``fills[k]``), each on its own device and stream. Adaptive:
+    every slot replays layer i, then the host reads each slot's stop counts
+    and pools them over the slots (``models.lightglue.pooled_stop``), and
+    every slot replays the next layer or the exit, as the JAX loop pools its
+    stop over a sharded batch. Returns each slot's outputs."""
+    sets = [slot._begin(sig, fill) for slot, fill in zip(slots, fills)]
+    first = slots[0]
+    if not first.adaptive:
+        i = first.conf.n_layers - 1
+        graphs = [gs.segments[0] for gs in sets]
+    else:
+        for i in range(first.conf.n_layers):
+            for slot, gs in zip(slots, sets):
+                slot._segment(gs, i)
+            if sets[0].stops[i] is not None and lg.pooled_stop(
+                    first.conf, [slot._read_counts(i) for slot in slots]):
+                break
+        graphs = [gs.exits[i] for gs in sets]
+    for slot, gs, graph in zip(slots, sets, graphs):
+        slot._finish(gs, graph)
+    return [slot._collect(gs, i + 1) for slot, gs in zip(slots, sets)]

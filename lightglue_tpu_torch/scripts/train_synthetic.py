@@ -2,9 +2,12 @@
 (counterpart of scripts/train_synthetic.py, with its flags).
 
     python lightglue_tpu_torch/scripts/train_synthetic.py --steps 2500 \\
-        --batch 16 --m 512
+        --batch 16 --m 512 [--devices N]
 
-runs ``lightglue_tpu_torch.train.train_synthetic`` on the card and writes,
+runs ``lightglue_tpu_torch.train.train_synthetic`` on the card (with
+``--devices N``, data-parallel over a mesh of the first N cards,
+``parallel/mesh.py``: each card's rows of the batch, the gradients summed
+on card 0) and writes,
 into ``train_out/`` unless ``--out`` says otherwise (never into
 ``weights/`` or ``benchmarks/``, which hold the JAX trainer's checkpoints
 and curves):
@@ -37,6 +40,7 @@ import torch  # noqa: E402
 from lightglue_tpu_torch import train as T  # noqa: E402
 from lightglue_tpu_torch import weights as W  # noqa: E402
 from lightglue_tpu_torch.configs import lightglue_config  # noqa: E402
+from lightglue_tpu_torch.parallel.mesh import make_mesh  # noqa: E402
 
 OUT_DIR = ROOT / "train_out"
 
@@ -92,6 +96,9 @@ def main(argv=None):
     ap.add_argument("--m", type=int, default=512)
     ap.add_argument("--lr", type=float, default=2e-4)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--devices", type=int, default=1,
+                    help="cards the batch shards over (a mesh of the "
+                         "first N; the batch must divide over them)")
     ap.add_argument("--features", default="superpoint",
                     help="matcher feature preset (sets input_dim / "
                          "add_scale_ori; configs.FEATURES)")
@@ -107,13 +114,14 @@ def main(argv=None):
                              "write elsewhere")
 
     conf = lightglue_config(args.features)
+    mesh = make_mesh(args.devices) if args.devices > 1 else None
     who = card()
     print(f"device cuda ({who}), torch {torch.__version__}", flush=True)
     step_ms: list = []
     t0 = time.perf_counter()
     params, train_conf, hist = T.train_synthetic(
         conf, steps=args.steps, batch=args.batch, m=args.m, lr=args.lr,
-        seed=args.seed, step_ms=step_ms)
+        seed=args.seed, step_ms=step_ms, mesh=mesh)
     wall = time.perf_counter() - t0
     flops = step_flops(train_conf, args.batch, args.m)
     ms = statistics.median(step_ms[20:]) if len(step_ms) > 20 else None
@@ -126,7 +134,7 @@ def main(argv=None):
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     save(out, params, train_conf, hist, features=args.features,
          steps=args.steps, batch=args.batch, m=args.m, lr=args.lr,
-         seed=args.seed, card=who, wall_s=wall, ms_per_step_median=ms,
+         seed=args.seed, devices=args.devices, card=who, wall_s=wall, ms_per_step_median=ms,
          flops_per_step=flops)
 
 

@@ -20,7 +20,9 @@ warmup-cosine schedule evaluated at the update's own count from 0.
     params, conf, history = train_synthetic(steps=1500, device="cuda")
 
 ``scripts/train_synthetic.py`` saves the result as a flat npz that
-``weights.load_params`` reads.
+``weights.load_params`` reads. ``make_feed_train_step(..., mesh=)`` shards
+each batch over the slots of a mesh (``parallel/mesh.py``), the loss still
+the whole batch's.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from . import nn
 from .configs import LightGlueConfig, lightglue_config
 from .models import lightglue as lg
 from .ops import assignment as asg
+from .parallel.mesh import Mesh, shard_rows
 
 # ---------------------------------------------------------------------------
 # Synthetic correspondence problems
@@ -199,47 +202,92 @@ def forward_all_layers(params: nn.Params, conf: LightGlueConfig,
     return torch.stack(all0), torch.stack(all1)
 
 
-def assignment_nll(scores: torch.Tensor,
-                   gt_matches0: torch.Tensor) -> torch.Tensor:
+class LossCounts(NamedTuple):
+    """The whole batch's denominators of ``matcher_loss``, from its ground
+    truth: matched points, unmatched points of image 0 and of image 1 (each
+    at least 1), and the points of each image (the confidence BCE's
+    means). A slot that computes its rows' numerators over these counts
+    gives its share of the whole batch's loss."""
+
+    matched: torch.Tensor
+    un0: torch.Tensor
+    un1: torch.Tensor
+    points0: int
+    points1: int
+
+    def to(self, device) -> "LossCounts":
+        return LossCounts(self.matched.to(device), self.un0.to(device),
+                          self.un1.to(device), self.points0, self.points1)
+
+
+def _unmatched1(gt_matches0: torch.Tensor, safe: torch.Tensor,
+                n: int) -> torch.Tensor:
+    """Image 1's unmatched columns: a column is unmatched iff no row maps
+    to it (a scatter-add of the matched indicator counts duplicates, where
+    a set would not)."""
+    hit = torch.zeros(gt_matches0.shape[0], n, dtype=torch.int32,
+                      device=gt_matches0.device)
+    return ~(hit.scatter_add_(1, safe, (gt_matches0 >= 0).int()) > 0)
+
+
+def _counts(matched: torch.Tensor, un1: torch.Tensor) -> LossCounts:
+    return LossCounts(matched.sum().clamp(min=1),
+                      (~matched).sum().clamp(min=1), un1.sum().clamp(min=1),
+                      matched.numel(), un1.numel())
+
+
+def loss_counts(batch: SyntheticBatch) -> LossCounts:
+    """``batch``'s ``LossCounts`` (JAX train.py:264-280's sums)."""
+    gt = batch.gt_matches0
+    n = batch.kpts1.shape[1]
+    return _counts(gt >= 0, _unmatched1(gt, gt.long().clamp(0, n - 1), n))
+
+
+def assignment_nll(scores: torch.Tensor, gt_matches0: torch.Tensor,
+                   counts: Optional[LossCounts] = None) -> torch.Tensor:
     """LightGlue's assignment loss for one layer. scores: (B, M+1, N+1) log
     assignment; gt_matches0: (B, M), -1 for unmatched. The matched pairs'
     mean NLL plus half the sum of the dustbin terms' means: unmatched rows
-    to the dustbin column, and columns no match hits to the dustbin row."""
+    to the dustbin column, and columns no match hits to the dustbin row.
+    ``counts``: the means' denominators of a larger batch that these rows
+    are a block of (default: these rows')."""
     b, mp1, np1 = scores.shape
     m, n = mp1 - 1, np1 - 1
     matched = gt_matches0 >= 0
     safe = gt_matches0.long().clamp(0, n - 1)
-    pos = torch.gather(scores[:, :m, :n], 2, safe[..., None])[..., 0]
-    pos_loss = -torch.where(matched, pos, 0.0).sum() / matched.sum().clamp(
-        min=1)
     un0 = ~matched
+    un1 = _unmatched1(gt_matches0, safe, n)
+    counts = counts or _counts(matched, un1)
+    pos = torch.gather(scores[:, :m, :n], 2, safe[..., None])[..., 0]
+    pos_loss = -torch.where(matched, pos, 0.0).sum() / counts.matched
     dust0 = scores[:, :m, -1]
-    neg0 = -torch.where(un0, dust0, 0.0).sum() / un0.sum().clamp(min=1)
-    # image 1: a column is unmatched iff no row maps to it (a scatter-add
-    # of the matched indicator counts duplicates, where a set would not)
-    hit = torch.zeros(b, n, dtype=torch.int32, device=scores.device)
-    hit = hit.scatter_add_(1, safe, matched.int()) > 0
-    un1 = ~hit
+    neg0 = -torch.where(un0, dust0, 0.0).sum() / counts.un0
     dust1 = scores[:, -1, :n]
-    neg1 = -torch.where(un1, dust1, 0.0).sum() / un1.sum().clamp(min=1)
+    neg1 = -torch.where(un1, dust1, 0.0).sum() / counts.un1
     return pos_loss + 0.5 * (neg0 + neg1)
 
 
 def matcher_loss(params: nn.Params, conf: LightGlueConfig,
-                 batch: SyntheticBatch, confidence_weight: float = 1.0
+                 batch: SyntheticBatch, confidence_weight: float = 1.0,
+                 counts: Optional[LossCounts] = None
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The mean over layers of the assignment NLL, plus the confidence
     heads' binary cross-entropy: the target of layer i's head is whether
     layer i's assignment (best column or dustbin) of a point is already the
     last layer's. The heads read detached descriptors (reference
-    lightglue.py:547). Returns (loss, {"nll", "confidence_bce"})."""
+    lightglue.py:547). Returns (loss, {"nll", "confidence_bce"}).
+
+    ``counts``: the ``loss_counts`` of a larger batch that ``batch`` is a
+    block of rows of; every term is then this block's share of that
+    batch's loss (its sums over the whole batch's counts), so that the
+    blocks' losses and gradients add up to the whole batch's."""
     all0, all1 = forward_all_layers(params, conf, batch)
     n_layers = conf.n_layers
     scores = [
         asg.match_assignment(nn.index_params(params["log_assignment"], i),
                              all0[i], all1[i])[0]
         for i in range(n_layers)]
-    nll = torch.stack([assignment_nll(s, batch.gt_matches0)
+    nll = torch.stack([assignment_nll(s, batch.gt_matches0, counts)
                        for s in scores]).mean()
 
     # the dustbin takes part in the argmax: otherwise an unmatchable
@@ -256,7 +304,11 @@ def matcher_loss(params: nn.Params, conf: LightGlueConfig,
         t1 = scores[i][:, :, :-1].argmax(1) == final1
         bce0 = -(t0 * torch.log(c0 + eps) + (~t0) * torch.log(1 - c0 + eps))
         bce1 = -(t1 * torch.log(c1 + eps) + (~t1) * torch.log(1 - c1 + eps))
-        bce_terms.append(bce0.mean() + bce1.mean())
+        if counts is None:
+            bce_terms.append(bce0.mean() + bce1.mean())
+        else:
+            bce_terms.append(bce0.sum() / counts.points0
+                             + bce1.sum() / counts.points1)
     conf_loss = (torch.stack(bce_terms).mean() if bce_terms
                  else nll.new_zeros(()))
     total = nll + confidence_weight * conf_loss
@@ -374,11 +426,24 @@ def fp32_math():
          torch.backends.cudnn.allow_tf32) = prev
 
 
-def make_feed_train_step(conf: LightGlueConfig, optimizer: OptaxAdamW):
+def make_feed_train_step(conf: LightGlueConfig, optimizer: OptaxAdamW,
+                         mesh: Optional[Mesh] = None):
     """step(data) -> {"loss", "nll", "confidence_bce"} (detached device
     scalars) on a caller's batch: the deep-supervised loss on
     ``optimizer.params``, backward, clip, update in place (JAX
-    make_feed_train_step, train.py:364)."""
+    make_feed_train_step, train.py:364).
+
+    With a ``mesh`` of several slots (``parallel/mesh.py``) the batch's rows
+    shard over the slots in equal blocks, as the JAX step's jit over
+    sharded data: each slot takes the loss of its rows over the whole
+    batch's counts (``loss_counts``) on its device's copy of the
+    parameters, so that the slots' losses and gradients add up to the whole
+    batch's; the gradients are summed into the optimizer's tensors
+    (``torch.cuda.comm.reduce_add`` across cards, plain accumulation where
+    slots share a device), the optimizer steps once, and the other copies
+    take the new values. A one-slot mesh is the step without one."""
+    if mesh is not None and mesh.size > 1:
+        return _mesh_feed_step(conf, optimizer, mesh)
 
     def step(data: SyntheticBatch) -> Dict[str, torch.Tensor]:
         with fp32_math():
@@ -392,13 +457,73 @@ def make_feed_train_step(conf: LightGlueConfig, optimizer: OptaxAdamW):
     return step
 
 
+def mesh_backward(replicas: Dict[torch.device, nn.Params],
+                  conf: LightGlueConfig, data: SyntheticBatch, mesh: Mesh
+                  ) -> Dict[str, torch.Tensor]:
+    """The whole batch's ``matcher_loss`` backward over the slots of
+    ``mesh``: slot k's rows of ``data`` on ``replicas[its device]`` (whose
+    tensors require gradients), each slot's share over the whole batch's
+    counts, so that every copy's ``.grad`` accumulates the gradients of the
+    slots on its device. Returns {"loss", "nll", "confidence_bce"}: the
+    sums of the slots' shares (the whole batch's values), detached, on the
+    first slot's device."""
+    counts = loss_counts(data)
+    total: Dict[str, torch.Tensor] = {}
+    for dev, part in zip(mesh.slots, shard_rows(mesh, data)):
+        loss, aux = matcher_loss(replicas[dev], conf, part,
+                                 counts=counts.to(dev))
+        loss.backward()
+        for k, v in {"loss": loss, **aux}.items():
+            v = v.detach().to(mesh.slots[0])
+            total[k] = v if k not in total else total[k] + v
+    return total
+
+
+def _mesh_feed_step(conf: LightGlueConfig, optimizer: OptaxAdamW,
+                    mesh: Mesh):
+    home = optimizer.leaves[0].device
+    replicas = {dev: optimizer.params if dev == home else nn.map_params(
+        optimizer.params, lambda t: t.detach().to(dev).requires_grad_(True))
+        for dev in mesh.distinct}
+    others = [leaves(replicas[dev]) for dev in replicas if dev != home]
+    cards = all(dev.type == "cuda" for dev in replicas) and home in replicas
+
+    def step(data: SyntheticBatch) -> Dict[str, torch.Tensor]:
+        with fp32_math():
+            optimizer.zero_grad()
+            for copy in others:
+                for t in copy:
+                    t.grad = None
+            aux = mesh_backward(replicas, conf, data, mesh)
+            for i, t in enumerate(optimizer.leaves):
+                grads = [g for g in [t.grad] + [c[i].grad for c in others]
+                         if g is not None]
+                if len(grads) > 1 and cards:
+                    t.grad = torch.cuda.comm.reduce_add(
+                        grads, destination=home.index)
+                elif grads:
+                    t.grad = grads[0].to(home)
+                    for g in grads[1:]:
+                        t.grad += g.to(home)
+            optimizer.step()
+            with torch.no_grad():
+                for copy in others:
+                    for t, src in zip(copy, optimizer.leaves):
+                        t.copy_(src)
+        return {k: v.to(home) for k, v in aux.items()}
+
+    return step
+
+
 def make_train_step(conf: LightGlueConfig, optimizer: OptaxAdamW,
                     batch: int = 16, m: int = 512,
-                    generator: Optional[torch.Generator] = None):
-    """step(data=None): as ``make_feed_train_step``'s, on a synthetic batch
-    of ``batch`` pairs of ``m`` points drawn from ``generator`` unless the
-    caller gives one (JAX make_train_step, train.py:341)."""
-    feed = make_feed_train_step(conf, optimizer)
+                    generator: Optional[torch.Generator] = None,
+                    mesh: Optional[Mesh] = None):
+    """step(data=None): as ``make_feed_train_step``'s (over ``mesh`` if
+    given), on a synthetic batch of ``batch`` pairs of ``m`` points drawn
+    from ``generator`` unless the caller gives one (JAX make_train_step,
+    train.py:341)."""
+    feed = make_feed_train_step(conf, optimizer, mesh)
 
     def step(data: Optional[SyntheticBatch] = None):
         if data is None:
@@ -422,6 +547,7 @@ def train_synthetic(
     verbose: bool = True,
     device="cuda",
     step_ms: Optional[list] = None,
+    mesh: Optional[Mesh] = None,
 ):
     """Train the matcher on synthetic correspondences on ``device`` (the
     card unless the caller asks for the CPU). Returns (params, the training
@@ -435,7 +561,9 @@ def train_synthetic(
     The returned tree is new and detached (``prepared_blocks`` keys its
     weights by tensor identity and does not see edits in place); a given
     ``params`` is copied, never changed. ``step_ms``: a list that receives
-    each step's milliseconds by CUDA events."""
+    each step's milliseconds by CUDA events. ``mesh``: shard each batch
+    over its slots (``make_feed_train_step``); the tree and the batches
+    stay on ``device``."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("train_synthetic runs on the card unless asked "
@@ -450,7 +578,7 @@ def train_synthetic(
         device, torch.float32, copy=True))
     optimizer = make_optimizer(params, lr, steps)
     gen = torch.Generator(device).manual_seed(seed + 1)
-    step = make_train_step(train_conf, optimizer, batch, m, gen)
+    step = make_train_step(train_conf, optimizer, batch, m, gen, mesh)
     timed = step_ms is not None and device.type == "cuda"
     events = []
     history = []

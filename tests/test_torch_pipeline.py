@@ -139,6 +139,7 @@ def test_import_leaves_jax_out():
             "lightglue_tpu_torch.scripts.score_study, "
             "lightglue_tpu_torch.parallel.batching, "
             "lightglue_tpu_torch.parallel.graphs, "
+            "lightglue_tpu_torch.parallel.mesh, "
             "lightglue_tpu_torch.synthetic, "
             "lightglue_tpu_torch.train, lightglue_tpu_torch.native, "
             "lightglue_tpu_torch.scripts.train_synthetic, "

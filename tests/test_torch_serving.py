@@ -297,6 +297,7 @@ def recorded_graphs(monkeypatch):
     monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "graph_pool_handle", lambda: None)
     monkeypatch.setattr(torch.cuda, "Stream", lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "stream", lambda s: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream", lambda *a: Stream())
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
 
