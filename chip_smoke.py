@@ -3,6 +3,7 @@
     python3 chip_smoke.py             # the smoke run below
     python3 chip_smoke.py --profile   # only the profiles (phase P)
     python3 chip_smoke.py --mesh      # only the data-parallel mesh (3i)
+    python3 chip_smoke.py --weights   # only the released-checkpoint path (3j)
 
 Phases, any failure raising (non-zero exit, no result line):
   0. device: the card's name and power limit, versions; the TF32 flags
@@ -168,6 +169,20 @@ Phases, any failure raising (non-zero exit, no result line):
         at window 2 over two slots against one slot, every slot launching
         B7-B9, B5, B6 and B2; each slot's launches and the host ms of one
         slot and two slots, in turns;
+     j. the released-checkpoint path (run after 3i): one seeded stand-in a
+        weights.REGISTRY entry (12) saved as {name}.pth in a temporary
+        cache, each resolved by weights.fetch (its download made to raise)
+        and again from the npz it cached, both equal to the bit to the
+        direct conversion (host ms of each); with that cache as the
+        default, SuperPoint(pretrained=True) + LightGlue("superpoint",
+        pretrained=True) through match_pair (768 x 1024, 2048 keypoints:
+        B7, B8, B9, B5, K2 + B4, B2), that matcher on a planted pair at
+        1024 keypoints (B5, B6, B2; precision >= 0.8), ALIKED (B10, B9) and
+        DISK (pretrained=True) on one image, each equal to the bit to the
+        same call with the directly converted params; then
+        scripts/compaction_accuracy.py's functions for one row (1024
+        keypoints, prefix 3, bucket 512, B 8, one seed) in fp32 and at mp
+        on the trained weights, the masked path's gt_precision >= 0.95;
   4. timing with CUDA events and host clocks: each kernel beside its plain
      version (and the one PyTorch call that computes the same function,
      where there is one), K1 and B5 at head_dim 128 too, the attention
@@ -299,7 +314,9 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
@@ -326,6 +343,7 @@ from lightglue_tpu_torch.ops import flash_cross_block, flash_self  # noqa: E402
 from lightglue_tpu_torch.ops import aliked_stem, deform, score_head  # noqa: E402
 from lightglue_tpu_torch.ops import gather, nms, stem, stem2  # noqa: E402
 from lightglue_tpu_torch.scripts import attn_split, extract_times  # noqa: E402
+from lightglue_tpu_torch.scripts import compaction_accuracy as ca  # noqa: E402
 from lightglue_tpu_torch.scripts import micro_gather2, walk_sums  # noqa: E402
 from lightglue_tpu_torch.scripts import keypoint_margins as km  # noqa: E402
 from lightglue_tpu_torch.scripts import train_synthetic as train_script  # noqa: E402
@@ -3723,6 +3741,186 @@ def mesh_phase(params, sp_params, smi):
     return total
 
 
+# --- phase 3j: the released-checkpoint path --------------------------------------
+
+# compaction_accuracy's row in 3j, in fp32 and at mp; the masked adaptive
+# path's gt_precision there is held at a floor (the JAX package's
+# benchmarks/compaction_accuracy.json reads 0.979 at this row)
+WEIGHTS_ROW = dict(kpts=1024, prefix=3, bucket=512, batch=8, seeds=1)
+MIN_GT_PRECISION = 0.95
+
+
+def release_stand_ins(mparams, sp_params, al_params):
+    """{registry name: checkpoint}, one seeded state dict an entry of
+    weights.REGISTRY in the release file's layout, inside the wrapper its
+    unwrap keys expect: the trained matcher as superpoint_lightglue, the
+    smoke's SuperPoint, ALIKED (each model at its widths) and DISK
+    stand-ins, seeded matchers of the other presets and a seeded HardNet."""
+    sds = {
+        "superpoint_lightglue": weights_lib.to_state_dict(mparams),
+        "superpoint_v1": weights_lib.superpoint_to_state_dict(sp_params),
+        "disk_depth": weights_lib.disk_to_state_dict(disk_params("cpu")),
+        "hardnet_liberty_aug": weights_lib.hardnet_to_state_dict(
+            hardnet.init_params(None, torch.Generator().manual_seed(5))),
+    }
+    for i, f in enumerate(("disk", "aliked", "sift", "doghardnet")):
+        conf = lightglue_config(f)
+        sds[f"{f}_lightglue"] = weights_lib.to_state_dict(
+            lg.init_params(conf, torch.Generator().manual_seed(10 + i)), conf)
+    for name in ("aliked-t16", "aliked-n16", "aliked-n16rot", "aliked-n32"):
+        p = al_params if name == "aliked-n16" else aliked_params(name, "cpu")
+        sds[name] = weights_lib.aliked_to_state_dict(
+            p, ALIKEDConfig(model_name=name))
+    out = {}
+    for name, sd in sds.items():
+        sd = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}
+        unwrap = weights_lib.REGISTRY[name].unwrap
+        out[name] = {unwrap[0]: sd} if unwrap else sd
+    return out
+
+
+def bits_equal(a, b) -> bool:
+    """Nested dicts, lists and tuples of numpy arrays and numbers equal,
+    arrays in dtype, shape and every bit."""
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(bits_equal(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(bits_equal(x, y) for x, y in zip(a, b))
+    if isinstance(a, np.ndarray):
+        return (a.dtype == b.dtype and a.shape == b.shape
+                and a.tobytes() == b.tobytes())
+    return a == b
+
+
+def fetch_phase(ckpts, cache):
+    """Each stand-in saved as {name}.pth in ``cache`` and resolved by
+    weights.fetch twice: converted and cached, then (the .pth removed) from
+    its npz, each equal to the bit to the direct conversion. Returns the
+    direct conversions."""
+    direct = {}
+    for name, ckpt in ckpts.items():
+        spec = weights_lib.REGISTRY[name]
+        torch.save(ckpt, cache / f"{name}.pth")
+        from_sd = weights_lib._CONVERTERS[spec.converter][0]
+        direct[name] = from_sd(weights_lib._unwrap_state_dict(ckpt, spec.unwrap),
+                               weights_lib._entry_conf(name))
+        want = weights_lib.flatten_params(direct[name])
+        ms = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            got = weights_lib.fetch(name)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            (cache / f"{name}.pth").unlink(missing_ok=True)
+            if not bits_equal(weights_lib.flatten_params(got), want):
+                raise AssertionError(f"fetch({name!r}) differs from the direct "
+                                     "conversion")
+        print(f"  fetch {name}: {sum(v.size for v in want.values())} parameters,"
+              f" {(cache / f'{name}.npz').stat().st_size / 1e6:.1f} MB npz; host "
+              f"ms: convert and cache {ms[0]:.1f}, from the npz {ms[1]:.1f}",
+              flush=True)
+    return direct
+
+
+def pretrained_paths(direct):
+    """SuperPoint + LightGlue("superpoint") through match_pair (2048
+    keypoints: B7, B8, B9, B5, K2 + B4, B2), the same matcher on a planted
+    pair at 1024 keypoints (B5, B6, B2; the random SuperPoint's
+    descriptors give it nothing to match), ALIKED and
+    DISK on one image, each built with pretrained=True and held to the bit
+    against the same call with the directly converted params. Returns the
+    pretrained calls' launch counts."""
+    a, b, _ = image_pair(np.random.default_rng(61), H, W)
+    pr = planted_pairs(np.random.default_rng(23), 1, 1024, desc_dim=256)
+    planted = {"image0": feats(pr, 0), "image1": feats(pr, 1)}
+    total = dict.fromkeys(KERNELS, 0)
+    # (label, kernels it must launch, the call given each wrapper's weights
+    # argument by registry name)
+    runs = (
+        ("SuperPoint + LightGlue('superpoint'): match_pair", EXTRACTION_KERNELS,
+         lambda kw: match_pair(SuperPoint(**kw("superpoint_v1")),
+                               LightGlue("superpoint", **kw("superpoint_lightglue")),
+                               a, b)),
+        ("LightGlue('superpoint'): a planted pair", MATCHER_BY_KPTS[1024][0],
+         lambda kw: LightGlue("superpoint", **kw("superpoint_lightglue"))(planted)),
+        ("ALIKED (aliked-n16): extract", ("fused_aliked_stem", "simple_nms"),
+         lambda kw: ALIKED(**kw("aliked-n16")).extract(rgb(a))),
+        ("DISK: extract", (), lambda kw: DISK(**kw("disk_depth")).extract(a)),
+    )
+    for label, must, run in runs:
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        got = run(lambda name: {"pretrained": True})
+        torch.cuda.synchronize()
+        counts = _build.launch_counts()
+        add_counts(total, counts)
+        want = run(lambda name: {"params": direct[name]})
+        print(f"  pretrained=True, {label}: launch counts "
+              f"{ {k: c for k, c in counts.items() if c} }", flush=True)
+        for k in must:
+            if counts[k] < 1:
+                raise AssertionError(f"{label}: {k} was not launched")
+        if not bits_equal(got, want):
+            raise AssertionError(f"{label}: pretrained=True differs from the "
+                                 "directly converted params")
+        if isinstance(got, tuple):
+            print(f"    {int((got[2]['matches0'] >= 0).sum())} matches, stop "
+                  f"{got[2]['stop']}; equal to the bit", flush=True)
+        elif "matches0" in got:
+            k, prec = precision(got, pr["gt_matches0"])
+            print(f"    {k} matches, precision {prec:.3f}, stop {got['stop']}; "
+                  "equal to the bit", flush=True)
+            if prec < 0.8:
+                raise AssertionError(f"{label}: precision {prec} < 0.8")
+    return total
+
+
+def compaction_phase(mparams, smi):
+    """compaction_accuracy's functions for WEIGHTS_ROW on the card, in fp32
+    and at mp (the trained matcher); the masked path's gt_precision held
+    at MIN_GT_PRECISION."""
+    r = WEIGHTS_ROW
+    batches = ca.batches([r["kpts"]], r["batch"], r["seeds"], torch.device("cuda"))
+    params = nn.params_to(mparams, "cuda")
+    for mp in (False, True):
+        tag = "mp" if mp else "fp32"
+        t0 = time.perf_counter()
+        (row,) = ca.grid(params, lightglue_config("superpoint", mp=mp), batches,
+                         [r["prefix"]], [r["bucket"]],
+                         log=lambda line: print(f"  {tag}: {line}", flush=True))
+        print(f"  {tag}: {time.perf_counter() - t0:.2f} s; {smi}", flush=True)
+        if row["exact_masked"]["gt_precision"] < MIN_GT_PRECISION:
+            raise AssertionError(f"{tag}: the masked path's gt_precision "
+                                 f"{row['exact_masked']['gt_precision']} < "
+                                 f"{MIN_GT_PRECISION}")
+
+
+def weights_phase(mparams, sp_params, al_params, smi):
+    """Phase 3j: every registry entry through weights.fetch in a temporary
+    cache (no download: _download raises), then pretrained=True on
+    SuperPoint, LightGlue, ALIKED and DISK with that cache as the default,
+    and compaction_accuracy's row. Returns the pretrained calls' counts."""
+    phase("3j the released-checkpoint path: weights.fetch for every registry "
+          "entry (a seeded stand-in a release file), pretrained=True through "
+          "the cache, compaction_accuracy's row")
+    t0 = time.perf_counter()
+    ckpts = release_stand_ins(mparams, sp_params, al_params)
+    download, cache_dir = weights_lib._download, weights_lib.default_cache_dir
+
+    def offline(url, dest, retries=2, timeout=30.0):
+        raise weights_lib.WeightsUnavailableError(f"{url}: no network here")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cache = Path(tmp)
+        weights_lib._download = offline
+        weights_lib.default_cache_dir = lambda: cache
+        try:
+            counts = pretrained_paths(fetch_phase(ckpts, cache))
+        finally:
+            weights_lib._download, weights_lib.default_cache_dir = download, cache_dir
+    compaction_phase(mparams, smi)
+    print(f"  phase 3j: {time.perf_counter() - t0:.1f} s", flush=True)
+    return counts
+
 def sequence_frames(rng):
     """SEQUENCE_FRAMES generated H x W frames: textures and their warps."""
     return np.stack([img for _ in range(SEQUENCE_FRAMES // 2)
@@ -6641,6 +6839,9 @@ def main():
     if sys.argv[1:] == ["--mesh"]:
         mesh_phase(params, superpoint_params(), smi)
         return
+    if sys.argv[1:] == ["--weights"]:
+        weights_phase(params, superpoint_params(), aliked_params(), smi)
+        return
     if sys.argv[1:] == ["--profile"]:
         profile_phase(params)
         serving_profile_phase(params, superpoint_params())
@@ -6691,7 +6892,8 @@ def main():
                  lambda: mp_extract_path_phase(params, sp_params, al_params),
                  lambda: mp_head128_path_phase(params2, sp_params),
                  lambda: twostage_path_phase(params, sp_params),
-                 lambda: mesh_phase(params, sp_params, smi)):
+                 lambda: mesh_phase(params, sp_params, smi),
+                 lambda: weights_phase(params, sp_params, al_params, smi)):
         for k, c in path().items():
             counts[k] += c
     training_phase(params, traffic)

@@ -13,7 +13,8 @@ from .configs import (
     SIFTConfig, SuperPointConfig, lightglue_config)
 from .pipeline import (
     ALIKED, DISK, SIFT, DoGHardNet, DoGHardNetDevice, LightGlue, SIFTDevice,
-    SuperPoint, compact_matches, match_pair, match_sequence, rbd)
+    SuperPoint, batch_to_device, compact_matches, map_tensor, match_pair,
+    match_sequence, rbd)
 from .parallel.batching import BatchMatcher
 
 __all__ = [
@@ -33,8 +34,10 @@ __all__ = [
     "SIFTDevice",
     "SuperPoint",
     "SuperPointConfig",
+    "batch_to_device",
     "compact_matches",
     "lightglue_config",
+    "map_tensor",
     "match_pair",
     "match_sequence",
     "rbd",

@@ -1,5 +1,5 @@
-"""User-facing API (counterpart of lightglue_tpu/pipeline.py:59-218,
-442-583; reference lightglue.py:439-479, utils.py:131-165).
+"""User-facing API (counterpart of lightglue_tpu/pipeline.py:37-218,
+442-583; reference lightglue.py:439-479, utils.py:41-69, 131-165).
 
 ``SuperPoint(...).extract(image)`` and ``ALIKED(...).extract(image)``
 return a feats dict of numpy arrays;
@@ -8,7 +8,9 @@ with numpy or torch feature arrays and returns numpy outputs plus the ragged
 ``matches``/``scores`` lists, built on the host by the C++ runtime
 (``native.py``); ``match_pair``
 does both for two images, ``match_sequence`` extracts a sequence once and
-matches its windowed pairs in one batched call.
+matches its windowed pairs in one batched call. ``pretrained=True`` on a
+wrapper resolves its release checkpoint through ``weights.fetch``;
+``map_tensor`` and ``batch_to_device`` move nested batches.
 """
 
 from __future__ import annotations
@@ -40,6 +42,30 @@ def rbd(data: dict) -> dict:
         k: v[0] if isinstance(v, (np.ndarray, torch.Tensor, list)) else v
         for k, v in data.items()
     }
+
+
+def map_tensor(input_, func):
+    """``func`` applied to every numpy array and torch tensor in nested
+    dicts, lists and tuples; strings and other leaves kept (reference:
+    utils.py:41-52; lightglue_tpu/pipeline.py:37-49)."""
+    if isinstance(input_, (str, bytes)):
+        return input_
+    if isinstance(input_, dict):
+        return {k: map_tensor(v, func) for k, v in input_.items()}
+    if isinstance(input_, (list, tuple)):
+        return type(input_)(map_tensor(v, func) for v in input_)
+    if isinstance(input_, (np.ndarray, torch.Tensor)):
+        return func(input_)
+    return input_
+
+
+def batch_to_device(batch: dict, device: Union[str, torch.device] = "cuda"
+                    ) -> dict:
+    """A (nested) batch with every numpy array and tensor as a tensor on
+    ``device`` (reference: utils.py:55-61): the card unless the caller asks
+    for the CPU; without CUDA the default raises."""
+    device = torch.device(device)
+    return map_tensor(batch, lambda t: torch.as_tensor(t).to(device))
 
 
 def compact_matches(
@@ -100,17 +126,18 @@ class Extractor:
     release checkpoint.
 
     ``params``: the port's parameter tree, or the path of a flat npz in the
-    JAX package's layout; None draws random weights from ``seed``
-    (``pretrained=True`` raises: nothing is downloaded). ``device`` is
-    "cuda" (the kernels) unless the caller asks for "cpu" (the plain
-    versions); without CUDA the default raises."""
+    JAX package's layout; None draws random weights from ``seed``, unless
+    ``pretrained=True``, which resolves the release checkpoint through
+    ``weights.fetch`` (the shared ``weights/`` cache, else a download;
+    offline it raises ``WeightsUnavailableError``). ``device`` is "cuda"
+    (the kernels) unless the caller asks for "cpu" (the plain versions);
+    without CUDA the default raises."""
 
     stride = 8  # pad input H/W to this multiple
     _conf_cls: type
     _model: object
     _from_jax: staticmethod
-    _release: str  # checkpoint file name, formatted with the config's fields
-    _loader = None  # weights' state-dict loader; None: <class>_from_state_dict
+    _weights: str  # the release's registry name, formatted with the config's fields
 
     def __init__(
         self,
@@ -123,14 +150,8 @@ class Extractor:
     ):
         self.conf = (conf or self._conf_cls()).replace(**conf_overrides)
         self.preprocess_conf = PreprocessConfig(resize=self.conf.resize)
-        name = type(self).__name__
         if params is None and pretrained:
-            raise FileNotFoundError(
-                f"pretrained=True: the release {name} weights "
-                f"({self._release.format(**vars(self.conf))}) are not in this "
-                "repository and nothing is downloaded; convert a state dict "
-                f"with weights.{self._loader or name.lower() + '_from_state_dict'}"
-                " and pass params=.")
+            params = weights_lib.fetch(self._weights.format(**vars(self.conf)))
         if params is None:
             params = self._model.init_params(
                 self.conf, torch.Generator().manual_seed(seed))
@@ -201,7 +222,7 @@ class SuperPoint(Extractor):
     _conf_cls = SuperPointConfig
     _model = sp
     _from_jax = staticmethod(weights_lib.superpoint_from_jax_params)
-    _release = "superpoint_v1.pth"
+    _weights = "superpoint_v1"
 
 
 class ALIKED(Extractor):
@@ -212,7 +233,7 @@ class ALIKED(Extractor):
     _conf_cls = ALIKEDConfig
     _model = aliked_model
     _from_jax = staticmethod(weights_lib.aliked_from_jax_params)
-    _release = "{model_name}.pth"
+    _weights = "{model_name}"
 
 
 class DISK(Extractor):
@@ -223,7 +244,7 @@ class DISK(Extractor):
     _conf_cls = DISKConfig
     _model = disk_model
     _from_jax = staticmethod(weights_lib.disk_from_jax_params)
-    _release = "{weights}-save.pth"
+    _weights = "disk_depth"
 
 
 class SIFTDevice(Extractor):
@@ -256,15 +277,15 @@ class DoGHardNetDevice(Extractor):
     so that it runs in ``match_pair``, ``extract_batch``,
     ``match_sequence`` and ``end_to_end``; no padding (stride 1).
     ``params``: the port's HardNet tree, a JAX flat npz path, or None
-    (random weights from ``seed``); kornia's state dicts convert through
-    ``weights.hardnet_from_state_dict``."""
+    (random weights from ``seed``, or with ``pretrained=True`` the release
+    "hardnet_liberty_aug" through ``weights.fetch``); kornia's state dicts
+    convert through ``weights.hardnet_from_state_dict``."""
 
     stride = 1
     _conf_cls = SIFTConfig
     _model = hardnet_model
     _from_jax = staticmethod(weights_lib.hardnet_from_jax_params)
-    _release = "checkpoint_liberty_with_aug.pth"
-    _loader = "hardnet_from_state_dict"
+    _weights = "hardnet_liberty_aug"
 
     def __init__(self, params: Union[None, str, nn.Params] = None, seed: int = 0,
                  conf: Optional[SIFTConfig] = None, pretrained: bool = False,
@@ -402,7 +423,8 @@ class LightGlue:
     ``params``: the port's tree, the path of a JAX flat npz, a reference
     state dict (flat, ``transformers.0.self_attn.Wqkv.weight``, ...;
     through ``weights.from_state_dict``), or None (random weights from
-    ``seed``). ``pretrained=True`` raises: nothing is downloaded."""
+    ``seed``, or with ``pretrained=True`` the release checkpoint
+    ``conf.weights`` through ``weights.fetch``, as ``Extractor``'s)."""
 
     def __init__(
         self,
@@ -416,11 +438,7 @@ class LightGlue:
     ):
         self.conf = conf or lightglue_config(features, **conf_overrides)
         if params is None and pretrained:
-            raise FileNotFoundError(
-                f"pretrained=True: the release matcher weights "
-                f"({self.conf.weights}) are not in this repository and nothing "
-                "is downloaded; convert the reference state dict with "
-                "weights.from_state_dict and pass params=.")
+            params = weights_lib.fetch(self.conf.weights)
         if params is None:
             params = lg.init_params(self.conf, torch.Generator().manual_seed(seed))
         elif isinstance(params, str):

@@ -1,5 +1,6 @@
-"""Parameters from the JAX package's flat checkpoints and from reference
-state dicts (counterpart of lightglue_tpu/weights.py:45-50, 74-305).
+"""Parameters from the JAX package's flat checkpoints, from reference
+state dicts and from the released checkpoints (counterpart of
+lightglue_tpu/weights.py).
 
 A checkpoint is a flat ``"a/b/c" -> array`` dict, as
 ``lightglue_tpu.weights.flatten_tree`` writes it and the npz files hold.
@@ -15,18 +16,40 @@ the port and in the reference's state dicts (``conv1a.weight``,
 norms keep their four running tensors (scale, bias, mean, var), and its
 aggregation weights ``(M, dim, dim)`` are the same in every layout.
 DISK: the same HWIO -> OIHW transpose, and kornia's state dicts parsed as
-the JAX package's ``convert_disk`` parses them.
+the JAX package's ``convert_disk`` parses them. ``to_jax_params`` writes
+any of these trees back in the JAX layout, ``save_params`` as its npz.
+
+The released checkpoints (``REGISTRY``, the JAX package's twelve entries)
+resolve through ``fetch``, as ``pretrained=True`` on every wrapper does:
+a converted ``{name}.npz`` in the cache, else a ``{name}.pth`` there
+(converted and cached as npz), else a download of the release URL. The
+cache is the repository's ``weights/``, which the JAX package's ``fetch``
+fills too; both write the JAX layout, so each reads what the other wrote.
+Offline, ``WeightsUnavailableError`` names the path to drop the file at.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import shutil
+import urllib.error
+import urllib.request
+from pathlib import Path
 from typing import Dict, Optional
 
 import numpy as np
 import torch
 
 from . import nn
-from .configs import ALIKEDConfig, LightGlueConfig, SuperPointConfig
+from .configs import (ALIKEDConfig, LightGlueConfig, SuperPointConfig,
+                      lightglue_config)
+
+
+def _tensor(a) -> torch.Tensor:
+    """A float32 tensor of its own memory, C-contiguous (a transposed
+    view's copy would keep its strides, and the kernels take only
+    contiguous weights)."""
+    return torch.from_numpy(np.array(a, np.float32, order="C"))
 
 
 def expected_shapes(conf: LightGlueConfig) -> Dict[str, tuple]:
@@ -82,7 +105,7 @@ def from_jax_params(
         *path, leaf = key.split("/")
         for part in path:
             node = node.setdefault(part, {})
-        node[leaf] = torch.from_numpy(np.array(arr, np.float32))
+        node[leaf] = _tensor(arr)
     return tree
 
 
@@ -125,8 +148,8 @@ def _superpoint_tree(get_w, get_b, conf) -> nn.Params:
         if w.shape != shape or b.shape != shape[:1]:
             raise ValueError(f"{name}: weight {w.shape} and bias {b.shape}, "
                              f"expected {shape} and {shape[:1]}")
-        tree[name] = {"w": torch.from_numpy(np.array(w, np.float32)),
-                      "b": torch.from_numpy(np.array(b, np.float32))}
+        tree[name] = {"w": _tensor(w),
+                      "b": _tensor(b)}
     return tree
 
 
@@ -225,7 +248,7 @@ def _aliked_tree(get, conf) -> nn.Params:
         node = tree
         for part in path[:-1]:
             node = node.setdefault(part, {})
-        node[path[-1]] = torch.from_numpy(np.array(arr, np.float32))
+        node[path[-1]] = _tensor(arr)
     return tree
 
 
@@ -298,8 +321,7 @@ def disk_from_jax_params(flat, conf=None) -> nn.Params:
             if arr is not None:
                 if len(shape) == 4:  # HWIO -> OIHW
                     arr = arr.transpose(3, 2, 0, 1)
-                node.setdefault(leaf[0], {})[leaf[1]] = torch.from_numpy(
-                    np.array(arr, np.float32))
+                node.setdefault(leaf[0], {})[leaf[1]] = _tensor(arr)
     _check_keys(flat, want)
     return tree
 
@@ -332,10 +354,10 @@ def disk_from_state_dict(sd: Dict[str, np.ndarray], conf=None) -> nn.Params:
         if (w.shape[1], w.shape[0]) != (cin, cout):
             raise ValueError(f"{ck}: conv (in,out)=({w.shape[1]},{w.shape[0]}) "
                              f"!= expected ({cin},{cout})")
-        conv = {"w": torch.from_numpy(np.array(w, np.float32))}
+        conv = {"w": _tensor(w)}
         consumed.add(ck + ".weight")
         if ck + ".bias" in sd:
-            conv["b"] = torch.from_numpy(np.array(sd[ck + ".bias"], np.float32))
+            conv["b"] = _tensor(sd[ck + ".bias"])
             consumed.add(ck + ".bias")
         p = {"conv": conv}
         gate_keys = sorted(k for k in sd if k.startswith(prefix)
@@ -345,8 +367,7 @@ def disk_from_state_dict(sd: Dict[str, np.ndarray], conf=None) -> nn.Params:
             if len(gate_keys) > 1:
                 raise ValueError(f"{prefix}: ambiguous 1-d tensors {gate_keys}"
                                  " — cannot identify the PReLU gate")
-            p["gate"] = {"alpha": torch.from_numpy(
-                np.array(sd[gate_keys[0]], np.float32))}
+            p["gate"] = {"alpha": _tensor(sd[gate_keys[0]])}
             consumed.add(gate_keys[0])
         tree[path][str(i)] = p
     leftover = [k for k in sd if k not in consumed
@@ -478,9 +499,8 @@ def _hardnet_tree(get_w, get_bn) -> nn.Params:
         if any(a.shape != (co,) for a in bn.values()):
             raise ValueError(f"bn{n}: shapes {[a.shape for a in bn.values()]}, "
                              f"expected ({co},)")
-        tree[f"conv{n}"] = {"w": torch.from_numpy(np.array(w, np.float32))}
-        tree[f"bn{n}"] = {k: torch.from_numpy(np.array(a, np.float32))
-                          for k, a in bn.items()}
+        tree[f"conv{n}"] = {"w": _tensor(w)}
+        tree[f"bn{n}"] = {k: _tensor(a) for k, a in bn.items()}
     return tree
 
 
@@ -499,16 +519,16 @@ def hardnet_from_jax_params(flat, conf=None) -> nn.Params:
         lambda n: {leaf: flat[f"bn{n}/{leaf}"] for leaf, _ in _BN_LEAVES})
 
 
-def hardnet_from_state_dict(sd: Dict[str, np.ndarray]) -> nn.Params:
+def hardnet_from_state_dict(sd: Dict[str, np.ndarray], conf=None) -> nn.Params:
     """The port's HardNet parameters from a kornia HardNet state dict
     (``features.{i}.*``, reference dog_hardnet.py:13), parsed as the JAX
     package's ``convert_hardnet``: the convs (a 4-d ``.weight``) and batch
     norms (a ``.running_mean``) are found from the keys, not from fixed
     Sequential indices; a batch norm without affine parameters (kornia's)
-    takes scale 1 and bias 0. The checks of ``convert_hardnet``'s strict
-    mode always run: exactly 7 convs and 7 batch norms, each after its
-    conv, every shape as the architecture's, and no tensor left over but
-    ``num_batches_tracked``."""
+    takes scale 1 and bias 0; ``conf`` is unused. The checks of
+    ``convert_hardnet``'s strict mode always run: exactly 7 convs and 7
+    batch norms, each after its conv, every shape as the architecture's,
+    and no tensor left over but ``num_batches_tracked``."""
     sd = {k: _numpy(v) for k, v in sd.items()}
     idxs = sorted({int(k.split(".")[1]) for k in sd if k.startswith("features.")})
     convs = [i for i in idxs if f"features.{i}.weight" in sd
@@ -557,3 +577,195 @@ def hardnet_to_state_dict(params: nn.Params) -> Dict[str, np.ndarray]:
             if affine or leaf in ("mean", "var"):
                 out[f"features.{ci + 1}.{name}"] = bn[leaf]
     return out
+
+
+# --- writing the JAX layout (lightglue_tpu/weights.py:148-169) ----------------
+
+
+def to_jax_params(tree: nn.Params) -> Dict[str, np.ndarray]:
+    """The flat ``"a/b/c"`` numpy dict of the JAX package's layout, as its
+    ``flatten_tree`` writes its converters' trees: the inverse of
+    ``from_jax_params`` (the matcher), ``superpoint_``, ``aliked_``,
+    ``disk_`` and ``hardnet_from_jax_params``. The port's tree paths are
+    the JAX package's, and its layouts differ only in the conv weights, 4-d
+    leaves OIHW here and HWIO there; no other leaf of these models is 4-d
+    (the matcher's stacked linears are 3-d), so that transpose is the whole
+    inverse."""
+    return {k: np.ascontiguousarray(v.transpose(2, 3, 1, 0) if v.ndim == 4 else v)
+            for k, v in flatten_params(tree).items()}
+
+
+def save_params(path, flat: Dict[str, np.ndarray]) -> None:
+    """Write a flat dict (``to_jax_params``) as the npz that both packages'
+    ``load_params`` and ``fetch`` read."""
+    np.savez(path, **flat)
+
+
+# --- the released checkpoints (lightglue_tpu/weights.py:393-566) ----------------
+#
+# The reference's versioned-URL weight loading (lightglue.py:348-349,
+# 415-434 for the matcher; superpoint.py:144-145; aliked.py:620, 692-695;
+# DISK's and HardNet's weights are kornia's in the reference, disk.py:26 /
+# dog_hardnet.py:13, and the URLs below are the upstream checkpoints those
+# kornia models load), with the JAX package's names, URLs and unwrap keys.
+
+_LIGHTGLUE_VERSION = "v0.1_arxiv"  # reference lightglue.py:348
+_LIGHTGLUE_URL = "https://github.com/cvg/LightGlue/releases/download/{}/{}.pth"
+
+
+class WeightsUnavailableError(RuntimeError):
+    """A released checkpoint is neither cached nor downloadable."""
+
+
+@dataclasses.dataclass(frozen=True)
+class WeightSpec:
+    """One released checkpoint: where it lives and how to convert it."""
+
+    url: str
+    converter: str  # a key of _CONVERTERS
+    # keys to try unwrapping a nested torch checkpoint with (the first one
+    # present wins); () = the file is the state dict
+    unwrap: tuple = ()
+    # the matcher checkpoints' feature preset (the LightGlueConfig whose
+    # layers the converter stacks)
+    features: Optional[str] = None
+
+
+REGISTRY: Dict[str, WeightSpec] = {
+    # matcher checkpoints (reference lightglue.py:351-374 presets)
+    **{
+        f"{feats}_lightglue": WeightSpec(
+            url=_LIGHTGLUE_URL.format(_LIGHTGLUE_VERSION, f"{feats}_lightglue"),
+            converter="lightglue",
+            features=feats,
+        )
+        for feats in ("superpoint", "disk", "aliked", "sift", "doghardnet")
+    },
+    # extractor checkpoints
+    "superpoint_v1": WeightSpec(
+        # reference superpoint.py:144
+        url=("https://github.com/cvg/LightGlue/releases/download/"
+             "v0.1_arxiv/superpoint_v1.pth"),
+        converter="superpoint",
+    ),
+    **{
+        name: WeightSpec(
+            # reference aliked.py:620
+            url=f"https://github.com/Shiaoming/ALIKED/raw/main/models/{name}.pth",
+            converter="aliked",
+        )
+        for name in ("aliked-t16", "aliked-n16", "aliked-n16rot", "aliked-n32")
+    },
+    "disk_depth": WeightSpec(
+        # the upstream cvg/DISK checkpoint kornia's DISK.from_pretrained
+        # ("depth") loads (reference disk.py:26)
+        url="https://github.com/cvg/DISK/raw/master/depth-save.pth",
+        converter="disk",
+        unwrap=("extractor", "state_dict", "model"),
+    ),
+    "hardnet_liberty_aug": WeightSpec(
+        # the upstream HardNet checkpoint kornia's HardNet.from_pretrained
+        # loads (reference dog_hardnet.py:13)
+        url=("https://github.com/DagnyT/hardnet/raw/master/pretrained/"
+             "train_liberty_with_aug/checkpoint_liberty_with_aug.pth"),
+        converter="hardnet",
+        unwrap=("state_dict",),
+    ),
+}
+
+# converter -> (reference state dict -> tree, the JAX package's flat dict
+# -> tree), each called with the entry's configuration (``_entry_conf``)
+_CONVERTERS = {
+    "lightglue": (from_state_dict, from_jax_params),
+    "superpoint": (superpoint_from_state_dict, superpoint_from_jax_params),
+    "aliked": (aliked_from_state_dict, aliked_from_jax_params),
+    "disk": (disk_from_state_dict, disk_from_jax_params),
+    "hardnet": (hardnet_from_state_dict, hardnet_from_jax_params),
+}
+
+
+def _entry_conf(name: str):
+    """The configuration a registry entry converts under: the matcher's
+    feature preset, ALIKED's model (the four differ in width), else the
+    model's default (None)."""
+    spec = REGISTRY[name]
+    if spec.converter == "lightglue":
+        return lightglue_config(spec.features)
+    if spec.converter == "aliked":
+        return ALIKEDConfig(model_name=name)
+    return None
+
+
+def default_cache_dir() -> Path:
+    """The repository's ``weights/``, the JAX package's cache too
+    (lightglue_tpu/weights.py:479; the reference's local fallback looks
+    there, lightglue.py:422-425)."""
+    return Path(__file__).resolve().parent.parent / "weights"
+
+
+def _unwrap_state_dict(obj, unwrap: tuple) -> Dict[str, np.ndarray]:
+    """Peel a checkpoint's wrapper dicts (the first of ``unwrap`` present),
+    a pickled module and DataParallel's ``module.`` prefixes down to
+    ``{key: ndarray}``."""
+    for key in unwrap:
+        if isinstance(obj, dict) and key in obj:
+            obj = obj[key]
+            break
+    if hasattr(obj, "state_dict"):  # a whole pickled module
+        obj = obj.state_dict()
+    if not (isinstance(obj, dict) and obj
+            and all(hasattr(v, "shape") for v in obj.values())):
+        raise WeightsUnavailableError(
+            "checkpoint structure not understood: "
+            f"{list(obj)[:6] if isinstance(obj, dict) else type(obj)}")
+    return {k.removeprefix("module."): _numpy(v) for k, v in obj.items()}
+
+
+def fetch(name: str, cache_dir=None, retries: int = 2) -> nn.Params:
+    """The port's parameter tree (float32, on the CPU) of a released
+    checkpoint, resolved as the JAX package's ``fetch`` resolves it: the
+    converted ``{cache}/{name}.npz`` (the JAX layout, whichever package
+    wrote it), else the torch ``{cache}/{name}.pth`` (converted, and cached
+    as that npz), else a download of the registry URL into that ``.pth``.
+    ``cache_dir`` defaults to ``default_cache_dir()``. Offline the download
+    raises ``WeightsUnavailableError``, naming where to put the file."""
+    if name not in REGISTRY:
+        raise KeyError(f"unknown weights {name!r}; known: {sorted(REGISTRY)}")
+    spec = REGISTRY[name]
+    from_sd, from_flat = _CONVERTERS[spec.converter]
+    conf = _entry_conf(name)
+    cache = Path(cache_dir) if cache_dir is not None else default_cache_dir()
+    cache.mkdir(parents=True, exist_ok=True)
+    npz = cache / f"{name}.npz"
+    if npz.exists():
+        with np.load(npz) as f:
+            return from_flat({k: f[k] for k in f.files}, conf)
+    pth = cache / f"{name}.pth"
+    if not pth.exists():
+        _download(spec.url, pth, retries=retries)
+    # a release file is a pickled training checkpoint, as the JAX package
+    # loads it (lightglue_tpu/weights.py:536)
+    obj = torch.load(str(pth), map_location="cpu", weights_only=False)
+    params = from_sd(_unwrap_state_dict(obj, spec.unwrap), conf)
+    save_params(npz, to_jax_params(params))
+    return params
+
+
+def _download(url: str, dest: Path, retries: int = 2, timeout: float = 30.0):
+    """``url`` into ``dest`` through ``dest.part``, renamed once whole; a
+    failed try removes the part file."""
+    tmp = dest.with_suffix(dest.suffix + ".part")
+    last = None
+    for _ in range(max(1, retries)):
+        try:
+            with urllib.request.urlopen(url, timeout=timeout) as r, \
+                    open(tmp, "wb") as f:
+                shutil.copyfileobj(r, f, 1 << 20)
+            tmp.rename(dest)
+            return
+        except (urllib.error.URLError, OSError, TimeoutError) as e:
+            last = e
+            tmp.unlink(missing_ok=True)
+    raise WeightsUnavailableError(
+        f"could not download {url}: {last!r}. If this environment is "
+        f"offline, place the file manually at {dest} and re-run.")

@@ -48,6 +48,11 @@ _jax_forward = jax.jit(jal.forward, static_argnames=("conf",))
 _jax_init = jax.jit(jal.init_params, static_argnums=1)
 
 
+def _no_network(url, timeout=None):
+    raise weights.urllib.error.URLError(f"{url}: offline")
+
+
+
 def _gained(flat):
     """Encoder and aggregation conv weights times 2, score-head conv
     weights times 3; offset convs and the descriptor head as drawn."""
@@ -252,7 +257,7 @@ def test_configs_match_jax():
 # --- the pipeline -------------------------------------------------------------------
 
 
-def test_match_pair_matches_jax(tmp_path):
+def test_match_pair_matches_jax(tmp_path, monkeypatch):
     """match_pair(ALIKED, LightGlue("aliked")) on a generated pair, seeded
     random matcher weights in both packages, exactly as the JAX pipeline."""
     flat = _flat()
@@ -282,6 +287,9 @@ def test_match_pair_matches_jax(tmp_path):
     for k in ("matches0", "matches1", "prune0", "prune1"):
         np.testing.assert_array_equal(got[k], np.asarray(want[k]), err_msg=k)
     assert got["stop"] == want["stop"]
-    with pytest.raises(FileNotFoundError, match="not in this repository"):
+    # offline: pretrained=True resolves through weights.fetch and raises
+    monkeypatch.setattr(weights, "default_cache_dir", lambda: tmp_path / "cache")
+    monkeypatch.setattr(weights.urllib.request, "urlopen", _no_network)
+    with pytest.raises(weights.WeightsUnavailableError, match="aliked-n16.pth"):
         ALIKED(pretrained=True, device="cpu")
     assert ALIKED.stride == 32

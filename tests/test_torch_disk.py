@@ -53,6 +53,11 @@ K = 256  # keypoints per image at 96 x 128
 BF = torch.bfloat16
 
 
+def _no_network(url, timeout=None):
+    raise weights.urllib.error.URLError(f"{url}: offline")
+
+
+
 def _strict(fn, *args, **static):
     """fn(*args, **static), compiled by XLA with every bf16 rounding kept."""
     f = jax.jit(functools.partial(fn, **static))
@@ -392,7 +397,7 @@ def _matchers():
     return mine, theirs
 
 
-def test_match_pair_matches_jax(tmp_path):
+def test_match_pair_matches_jax(tmp_path, monkeypatch):
     """match_pair(DISK, LightGlue("disk")) on a generated pair, seeded
     random weights in both packages: features as forward's, matches, prune
     and stop equal, matching scores within 1e-3."""
@@ -417,7 +422,10 @@ def test_match_pair_matches_jax(tmp_path):
     np.testing.assert_allclose(got["matching_scores0"],
                                np.asarray(want["matching_scores0"]), atol=1e-3)
     assert got["stop"] == want["stop"]
-    with pytest.raises(FileNotFoundError, match="not in this repository"):
+    # offline: pretrained=True resolves through weights.fetch and raises
+    monkeypatch.setattr(weights, "default_cache_dir", lambda: tmp_path / "cache")
+    monkeypatch.setattr(weights.urllib.request, "urlopen", _no_network)
+    with pytest.raises(weights.WeightsUnavailableError, match="disk_depth.pth"):
         DISK(pretrained=True, device="cpu")
     assert DISK.stride == 16
 

@@ -43,6 +43,11 @@ K = 256  # keypoints per image
 MATCHER = dict(pruning_min_kpts=32)  # small enough that pruning runs
 
 
+def _no_network(url, timeout=None):
+    raise weights.urllib.error.URLError(f"{url}: offline")
+
+
+
 @pytest.fixture(scope="module")
 def sp_flat():
     """The JAX package's init (key 0), conv weights times 3 (see
@@ -215,8 +220,11 @@ def test_make_end_to_end_matches_jax(sp_flat, pair):
     assert isinstance(got.matches, lg.MatchOutput)
 
 
-def test_pretrained_raises_and_npz_params(sp_flat, tmp_path):
-    with pytest.raises(FileNotFoundError, match="not in this repository"):
+def test_pretrained_raises_and_npz_params(sp_flat, tmp_path, monkeypatch):
+    # offline: pretrained=True resolves through weights.fetch and raises
+    monkeypatch.setattr(weights, "default_cache_dir", lambda: tmp_path / "cache")
+    monkeypatch.setattr(weights.urllib.request, "urlopen", _no_network)
+    with pytest.raises(weights.WeightsUnavailableError, match="superpoint_v1.pth"):
         SuperPoint(pretrained=True, device="cpu")
     path = str(tmp_path / "sp.npz")
     np.savez(path, **sp_flat)

@@ -56,6 +56,11 @@ DESC_TOL, PATCH_TOL = 1e-5, 5e-5
 CONF = configs.SIFTConfig(max_num_keypoints=K, backend="device")
 
 
+def _no_network(url, timeout=None):
+    raise weights.urllib.error.URLError(f"{url}: offline")
+
+
+
 @functools.lru_cache(maxsize=None)
 def _pair():
     a, b, _ = image_pair(np.random.default_rng(0), H, W)
@@ -275,9 +280,9 @@ def test_make_end_to_end_and_sequence():
                                       got.matches.matches0[i].numpy())
 
 
-def test_wrappers_need_cuda_and_refuse_downloads():
+def test_wrappers_need_cuda_and_refuse_downloads(tmp_path, monkeypatch):
     """DoGHardNetDevice and DoGHardNet default to CUDA and raise without
-    it; pretrained=True raises naming the converter; a config naming
+    it; pretrained=True offline raises naming the release file; a config naming
     another backend is refused; DoGHardNet(backend="device") is
     DoGHardNetDevice's extraction."""
     if not torch.cuda.is_available():
@@ -285,9 +290,14 @@ def test_wrappers_need_cuda_and_refuse_downloads():
             DoGHardNetDevice()
         with pytest.raises(RuntimeError, match="CUDA"):
             DoGHardNet()
-    with pytest.raises(FileNotFoundError, match="hardnet_from_state_dict"):
+    # offline: pretrained=True resolves through weights.fetch and raises
+    monkeypatch.setattr(weights, "default_cache_dir", lambda: tmp_path / "cache")
+    monkeypatch.setattr(weights.urllib.request, "urlopen", _no_network)
+    with pytest.raises(weights.WeightsUnavailableError,
+                       match="hardnet_liberty_aug.pth"):
         DoGHardNetDevice(pretrained=True, device="cpu")
-    with pytest.raises(FileNotFoundError, match="from_state_dict"):
+    with pytest.raises(weights.WeightsUnavailableError,
+                       match="doghardnet_lightglue.pth"):
         LightGlue("doghardnet", pretrained=True, device="cpu")
     with pytest.raises(ValueError, match="'device'"):
         DoGHardNetDevice(conf=configs.SIFTConfig(), device="cpu")
